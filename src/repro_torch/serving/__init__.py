@@ -1,0 +1,21 @@
+from repro_torch.serving.engine import (  # noqa: F401
+    EngineConfig,
+    NodeExecutor,
+    NodeSpec,
+    RecoveryConfig,
+    Request,
+    ServingEngine,
+    apply_block_results,
+)
+from repro_torch.serving.gdm_service import (  # noqa: F401
+    GDMService,
+    make_gdm_services,
+)
+from repro_torch.serving.kv_manager import TransferLedger, state_nbytes  # noqa: F401
+from repro_torch.serving.policy_bridge import (  # noqa: F401
+    engine_from_scenario,
+    serve_trace,
+    submit_arrivals,
+)
+from repro_torch.serving.telemetry import QuantumEvent, TelemetryLog  # noqa: F401
+from repro_torch.serving.tracing import MetricsRegistry, Tracer  # noqa: F401

@@ -1,0 +1,199 @@
+"""The real GDM chain behind the serving engine, on the card.
+
+Port of ``repro.serving.gdm_service``.  One :class:`GDMService` instance is
+one of the paper's S services: a DiT denoiser
+(:mod:`repro_torch.models.gdm`) whose chain the engine executes block by
+block across nodes.  Two contracts back the engine:
+
+* **execution** — ``run_batch(states, block_idxs)`` advances every request
+  scheduled on a node this quantum in ONE
+  :func:`repro_torch.models.gdm.run_block_batched` call over the stacked
+  latents (requests may sit at different chain depths).  ``batch_calls``
+  counts those device calls.  Batches are padded to the reference's
+  buckets, so the kernels see the same shapes the reference compiled for.
+* **quality Ω(k)** — measured from the model itself via
+  :func:`repro_torch.models.gdm.quality_per_block`, made monotone by running
+  max; or given (the Ω a reference service measured, so both sides of a
+  comparison deliver against one curve).
+
+Payloads stay numpy dicts (``{"latent", "prompt", "x0"}``), exactly as the
+reference's, so the engine, its ledger and its telemetry are unchanged.
+``SlotBatch``, ``instrument`` and the mesh argument of the reference come
+with the scheduler and fleet slices.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.gdm import (LATENT_CHANNELS, DiT, init_gdm,
+                                    make_schedule, quality_per_block,
+                                    run_block_batched)
+
+
+class GDMService:
+    """One GDM denoising-chain service for the engine.
+
+    ``seed`` draws the weights (unless ``model`` is given) and Ω's reference
+    prompts and noise (unless ``omega`` is given), on ``device`` — the card
+    by default.  ``model_cfg`` defaults to the reduced ``gdm-dit``, as in
+    the reference.
+    """
+
+    def __init__(self, seed: int = 0, *, num_blocks: int = 4,
+                 steps_per_block: int = 1,
+                 model_cfg: Optional[ModelConfig] = None, prompt_len: int = 8,
+                 ref_prompts: int = 4, device=None,
+                 model: Optional[DiT] = None,
+                 omega: Optional[np.ndarray] = None):
+        init_seed, ref_seed = (int(x) for x in
+                               np.random.SeedSequence(seed).generate_state(2))
+        if model is None:
+            self.device = resolve_device(device)
+            self.cfg = model_cfg or get_config("gdm-dit").reduced()
+            self.model = init_gdm(self.cfg, seed=init_seed, device=self.device)
+        else:
+            self.device = model.pos.device
+            if device is not None and torch.device(device) != self.device:
+                raise ValueError(f"model lives on {self.device}, not {device}")
+            if model_cfg is not None and model_cfg != model.cfg:
+                raise ValueError("model_cfg disagrees with the model's config")
+            self.cfg = model.cfg
+            self.model = model
+        self.num_blocks = num_blocks
+        self.steps_per_block = steps_per_block
+        self.prompt_len = prompt_len
+        self.schedule = make_schedule(num_blocks * steps_per_block,
+                                      device=self.device)
+        self.batch_calls = 0                       # device batch-call counter
+        # persistent per-bucket host staging buffers, pinned when the model
+        # is on the card so the copies in are asynchronous (see run_batch)
+        self._buffers: Dict[int, Tuple[Tuple[torch.Tensor, np.ndarray], ...]] = {}
+
+        if omega is not None:
+            omega = np.asarray(omega, dtype=float).copy()
+            if omega.shape != (num_blocks + 1,):
+                raise ValueError(f"omega has shape {omega.shape}, expected "
+                                 f"({num_blocks + 1},)")
+            self.omega = omega
+            return
+        # Ω(k): measured SSIM-vs-final per block (Fig. 1 protocol), forced
+        # monotone — measured curves are monotone in expectation only
+        gen = torch.Generator(device=self.device).manual_seed(ref_seed)
+        prompts = torch.randint(2, self.cfg.vocab_size,
+                                (ref_prompts, prompt_len), generator=gen,
+                                device=self.device)
+        noise = torch.randn((ref_prompts, self.cfg.latent_hw ** 2,
+                             LATENT_CHANNELS), generator=gen,
+                            device=self.device)
+        with torch.no_grad():
+            q = quality_per_block(self.model, noise, prompts,
+                                  num_blocks=num_blocks,
+                                  steps_per_block=steps_per_block)
+        q = q.cpu().numpy()
+        self.omega = np.zeros(num_blocks + 1)
+        self.omega[1:] = np.maximum.accumulate(np.clip(q, 0.0, 1.0))
+
+    # -- engine contracts -----------------------------------------------------
+
+    @staticmethod
+    def _bucket(b: int) -> int:
+        """Batch-size bucket for ``b`` live rows: pow2 up to 8, then
+        multiples of 8 — the reference's rule, so the kernels run at the
+        shapes it compiled for, with at most 7 wasted rows on big batches."""
+        assert b > 0
+        return (1 << (b - 1).bit_length()) if b <= 8 else -(-b // 8) * 8
+
+    def _staging(self, bucket: int):
+        buf = self._buffers.get(bucket)
+        if buf is None:
+            pin = self.device.type == "cuda"
+            shapes = (((bucket, self.cfg.latent_hw ** 2, LATENT_CHANNELS),
+                       torch.float32),
+                      ((bucket, self.prompt_len), torch.int32),
+                      ((bucket,), torch.int32))
+            buf = self._buffers[bucket] = tuple(
+                (t, t.numpy()) for t in (
+                    torch.zeros(shape, dtype=dtype, pin_memory=pin)
+                    for shape, dtype in shapes))
+        return buf
+
+    def init_state(self, rng: np.random.Generator) -> Dict:
+        """Fresh request payload: noise latent + prompt token ids."""
+        prompt = np.asarray(rng.integers(2, self.cfg.vocab_size,
+                                         size=(self.prompt_len,)), np.int32)
+        latent = np.asarray(
+            rng.standard_normal((self.cfg.latent_hw ** 2, LATENT_CHANNELS)),
+            np.float32)
+        return {"latent": latent, "prompt": prompt, "x0": None}
+
+    def run_batch(self, states: List[Dict],
+                  block_idxs: np.ndarray) -> Tuple[List[Dict], np.ndarray]:
+        """ONE device call for the whole (node, quantum) group.
+
+        The batch is padded to its bucket before the call; the DiT is
+        per-sample independent, so pad rows never change the live rows'
+        results, and the pad is sliced off before the states are written
+        back.  Rows are written into persistent per-bucket staging buffers
+        (zeroed once per bucket size); pad rows keep whatever latents a
+        previous call staged, with a valid block-0 index.
+        """
+        b = len(states)
+        if b == 0:
+            # empty-batch edge: a step where every sample vacated issues no
+            # device call and leaves batch_calls alone
+            return [], self.omega[np.asarray(block_idxs, dtype=int) + 1]
+        (lat_t, lat_np), (pr_t, pr_np), (idx_t, idx_np) = \
+            self._staging(self._bucket(b))
+        for i, s in enumerate(states):
+            lat_np[i] = s["latent"]
+            pr_np[i] = s["prompt"]
+        idx_np[:b] = np.asarray(block_idxs, np.int32)
+        idx_np[b:] = 0
+        dev = self.device
+        with torch.no_grad():
+            latent, x0 = run_block_batched(
+                self.model, lat_t.to(dev, non_blocking=True),
+                pr_t.to(dev, non_blocking=True),
+                self.schedule, idx_t.to(dev, non_blocking=True),
+                steps_per_block=self.steps_per_block,
+                total_steps=self.num_blocks * self.steps_per_block)
+            # fresh host arrays every call: the returned states keep views
+            # of them, and the synchronous copy back also means the staging
+            # buffers are free again when this returns
+            latent = latent.cpu().numpy()
+            x0 = x0.cpu().numpy()
+        self.batch_calls += 1
+        out = [dict(s, latent=latent[i], x0=x0[i])
+               for i, s in enumerate(states)]
+        return out, self.omega[np.asarray(block_idxs) + 1]
+
+    def block_fn(self, state: Dict, block_idx: int) -> Tuple[Dict, float]:
+        """Scalar entry point (legacy per-request path): batch of one."""
+        states, qs = self.run_batch([state], np.asarray([block_idx]))
+        return states[0], float(qs[0])
+
+
+def make_gdm_services(num_services: int, seed: int = 0, *,
+                      num_blocks: int = 4, steps_per_block: int = 1,
+                      model_cfg: Optional[ModelConfig] = None, device=None,
+                      ) -> Tuple[Dict[int, GDMService], np.ndarray]:
+    """One independent DiT per service + the stacked (S, B+1) Ω matrix.
+
+    Service s draws from the s-th child of ``np.random.SeedSequence(seed)``.
+    The Ω matrix is what the sim trains on and what the engine delivers
+    against — the single source of quality truth for the closed loop.
+    """
+    device = resolve_device(device)
+    seeds = np.random.SeedSequence(seed).generate_state(num_services)
+    services = {s: GDMService(int(seeds[s]), num_blocks=num_blocks,
+                              steps_per_block=steps_per_block,
+                              model_cfg=model_cfg, device=device)
+                for s in range(num_services)}
+    omega = np.stack([services[s].omega for s in range(num_services)])
+    return services, omega
