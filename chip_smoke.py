@@ -10,22 +10,31 @@ non-zero before the result line):
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a) and print the build time and ptxas' register report;
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (full-width gdm-dit at B in {1, 4, 8}, the reduced
-   config) and on attention's masking cases; tolerance 1e-5 (float32);
-4. time each kernel, its plain version and (for attention) PyTorch's
-   ``scaled_dot_product_attention`` at B=4, full width, beside the least
-   time the card could take;
+   main paths' shapes (full-width gdm-dit at B in {1, 4, 8}, yi-6b's heads
+   and widths, the reduced configs), on attention's masking cases and on
+   ragged decode lengths; tolerance 1e-5 (float32);
+4. time each kernel, its plain version and the PyTorch call that computes
+   the same function, where there is one, at the main paths' shapes,
+   beside the least time the card could take;
 5. one full-width ``run_block_batched`` call on the card against the same
    call on the CPU (plain versions) with the same weights;
 6. serve the ``paper-fig3`` trace with three full-width gdm-dit services
    and check that the kernels' launch counts are exactly what the served
-   block calls and the Omega measurement imply.
+   block calls and the Omega measurement imply;
+7. one yi-6b prefill and four greedy decode steps at full width (two
+   layers, full vocab) on the card against the same calls on the CPU with
+   the same weights;
+8. serve the edge launcher (``repro_torch.launch.serve``) with the LM
+   service at full yi-6b (32 layers, 24.2 GB of weights on the card) and
+   the GDM service at full gdm-dit, and check that the launch counts are
+   exactly what the launcher's own token and forward counts imply.
 
 Then it prints one JSON line describing the kernels, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -45,6 +54,10 @@ TOL = 1e-5            # kernel vs plain version, float32, same inputs
 # whole DiT step, card vs CPU: both sides sum K up to 3072 per product in a
 # different order (cuBLAS vs the CPU BLAS), through 12 layers
 STEP_TOL = 1e-4
+# LM steps, card vs CPU, relative to the largest |logit| (|kv|): products
+# sum K up to 11008 long in a different order on each side, through two
+# layers and five steps whose caches feed the next
+LM_TOL = 1e-4
 TIMED_RUNS = 25
 
 
@@ -180,6 +193,57 @@ def check_attention(gen):
     return worst
 
 
+DECODE_CASES = [
+    # (B, S, H, KH, D, lengths)
+    (1, 24, 32, 4, 128, [9]),                       # the launcher's decode
+    (1, 24, 32, 4, 128, [0]),                       # every score masked
+    (1, 24, 32, 4, 128, [24]),
+    (1, 4096, 32, 4, 128, [1]),
+    (1, 4096, 32, 4, 128, [4096]),
+    (8, 24, 32, 4, 128, [0, 1, 24, 7, 23, 30, 12, 2]),
+    (8, 4096, 32, 4, 128, [0, 1, 4096, 4095, 2049, 300, 5000, 64]),
+    (8, 4096, 8, 8, 64, [0, 1, 4096, 1000, 17, 3000, 4097, 2]),   # G=1
+    (3, 24, 4, 2, 16, [0, 1, 24]),                  # reduced yi-6b
+    (2, 24, 4, 4, 16, [5, 24]),                     # reduced qwen1.5-4b
+    (2, 777, 16, 4, 32, [777, 100]),                # G=4, D=32
+]
+
+
+def check_decode(gen):
+    import torch
+    from repro_torch.kernels import ops, ref
+    worst = 0.0
+    for (b, s, h, kh, d, lengths) in DECODE_CASES:
+        q = _randn(gen, b, h, d)
+        k = _randn(gen, b, s, kh, d)
+        v = _randn(gen, b, s, kh, d)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        err = float((ops.decode_attention(q, k, v, lens)
+                     - ref.decode_attention(q, k, v, lens)).abs().max())
+        print(f"decode_attention B={b} S={s} H={h} KH={kh} D={d} lengths="
+              f"{lengths}: max|kernel - plain| = {err:.3e}")
+        assert err <= TOL, "decode_attention disagrees with its plain version"
+        worst = max(worst, err)
+    return worst
+
+
+RMS_CASES = [(1, 4096), (8192, 4096), (1, 2560), (8192, 2560), (1000, 4096),
+             (24, 64), (7, 8192), (5, 100)]
+
+
+def check_rmsnorm(gen):
+    from repro_torch.kernels import ops, ref
+    worst = 0.0
+    for rows, d in RMS_CASES:
+        x = _randn(gen, rows, d)
+        w = 1.0 + _randn(gen, d, scale=0.1)
+        err = float((ops.rmsnorm(x, w) - ref.rmsnorm(x, w)).abs().max())
+        print(f"rmsnorm rows={rows} d={d}: max|kernel - plain| = {err:.3e}")
+        assert err <= TOL, "rmsnorm disagrees with its plain version"
+        worst = max(worst, err)
+    return worst
+
+
 # -- phase 4: times -------------------------------------------------------------
 
 def time_kernels(gen, cfg):
@@ -215,12 +279,59 @@ def time_kernels(gen, cfg):
         library_ms=device_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt)))
     for name, t in out.items():
-        lib = "n/a: no single PyTorch call computes it" \
-            if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-        print(f"{name:20s} B={b} S={s} d={d}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}), library {lib}")
+        _print_times(f"{name:20s} B={b} S={s} d={d}", t)
     return out
+
+
+def _print_times(what, t):
+    lib = "n/a: no single PyTorch call computes it" \
+        if t["library_ms"] is None else f"{t['library_ms']:.7f} ms"
+    print(f"{what}: kernel {t['ms']:.7f} ms, plain {t['plain_ms']:.7f} ms, "
+          f"bound {t['bound_ms']:.7f} ms ({t['bound_by']}), library {lib}")
+
+
+def time_decode(gen, b, s, length):
+    """decode_attention at yi-6b's heads, every row ``length`` long, against
+    ``scaled_dot_product_attention`` (GQA, boolean length mask).  The bound
+    counts the cache rows these lengths read."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    h, kh, d = 32, 4, 128
+    q = _randn(gen, b, h, d)
+    k = _randn(gen, b, s, kh, d)
+    v = _randn(gen, b, s, kh, d)
+    lens = torch.full((b,), length, dtype=torch.int32, device="cuda")
+    qt = q[:, :, None].contiguous()                       # (B, H, 1, D)
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+    mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])
+    mask = mask[:, None, None, :]                         # (B, 1, 1, S)
+    rows = b * min(length, s)
+    nbytes = 4 * (2 * b * h * d + 2 * rows * kh * d + b)
+    t_bound, by = bound_ms(nbytes, 4 * rows * h * d)
+    t = dict(
+        ms=device_ms(lambda: ops.decode_attention(q, k, v, lens)),
+        plain_ms=device_ms(lambda: ref.decode_attention(q, k, v, lens)),
+        bound_ms=t_bound, bound_by=by,
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)))
+    _print_times(f"decode_attention B={b} S={s} lengths={length} H={h} "
+                 f"KH={kh} D={d}", t)
+    return t
+
+
+def time_rmsnorm(gen, rows, d):
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    x = _randn(gen, rows, d)
+    w = 1.0 + _randn(gen, d, scale=0.1)
+    t_bound, by = bound_ms(4 * (2 * rows * d + d), 4 * rows * d)
+    t = dict(ms=device_ms(lambda: ops.rmsnorm(x, w)),
+             plain_ms=device_ms(lambda: ref.rmsnorm(x, w)),
+             bound_ms=t_bound, bound_by=by,
+             library_ms=device_ms(lambda: F.rms_norm(x, (d,), w, eps=1e-6)))
+    _print_times(f"rmsnorm rows={rows} d={d}", t)
+    return t
 
 
 def time_block_call(cfg, model):
@@ -321,11 +432,170 @@ def serve(cfg, frames_min: int = 16):
     forwards = spb * (sum(calls.values()) + num_services * num_blocks)
     expected = {"adaln_norm": cfg.num_layers * forwards,
                 "adaln_norm_epilogue": cfg.num_layers * forwards,
-                "flash_attention": cfg.num_layers * forwards}
+                "flash_attention": cfg.num_layers * forwards,
+                "decode_attention": 0, "rmsnorm": 0}
     print(f"kernel launches {launches}; expected {expected} "
           f"(L={cfg.num_layers} x {forwards} DiT forwards)")
     assert launches == expected, "the main path did not run the kernels " \
         "exactly once per DiT layer"
+    return launches
+
+
+# -- phase 7: LM steps, card vs CPU ---------------------------------------------
+
+def lm_vs_cpu(cfg, prompt_len: int = 16, steps: int = 4):
+    """One prefill and ``steps`` greedy decode steps of ``cfg`` on the card
+    and on the CPU from the same weights: the largest gaps in logits and KV
+    cache, relative to the largest |logit| and |kv|, and the token streams."""
+    import torch
+    from repro_torch.models.lm import (LM, init_lm, lm_decode_step,
+                                       lm_prefill)
+    model = init_lm(cfg, seed=11, device="cuda")
+    cpu_model = LM(cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    gen = torch.Generator().manual_seed(5)
+    prompt = torch.randint(2, cfg.vocab_size, (1, prompt_len), generator=gen,
+                           dtype=torch.int32)
+    runs = {}
+    with torch.no_grad():
+        for dev, m in (("cuda", model), ("cpu", cpu_model)):
+            logits, state = lm_prefill(m, prompt.to(dev),
+                                       max_seq=prompt_len + steps + 4)
+            outs, tokens = [logits[:, -1]], []
+            for _ in range(steps):
+                tok = outs[-1][:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+                tokens.append(int(tok[0]))
+                logits, state = lm_decode_step(m, tok, state)
+                outs.append(logits)
+            kv = state[0]["kv"]
+            runs[dev] = ([o.cpu() for o in outs], tokens,
+                         (kv.k.cpu(), kv.v.cpu()), kv.length.cpu())
+    del model, cpu_model
+    (g_out, g_tok, g_kv, g_len), (c_out, c_tok, c_kv, c_len) = \
+        runs["cuda"], runs["cpu"]
+    for o in g_out:
+        assert torch.isfinite(o).all(), "non-finite logits on the card"
+    scale = max(float(o[:, :cfg.vocab_size].abs().max()) for o in c_out)
+    gap = max(float((g[:, :cfg.vocab_size] - c[:, :cfg.vocab_size])
+                    .abs().max()) for g, c in zip(g_out, c_out))
+    kv_scale = max(float(t.abs().max()) for t in c_kv)
+    kv_gap = max(float((g - c).abs().max()) for g, c in zip(g_kv, c_kv))
+    print(f"{cfg.name}, {cfg.num_layers} layers, vocab {cfg.vocab_size}: "
+          f"prefill {prompt_len} + {steps} decode steps; max|card - cpu| "
+          f"logits {gap:.3e} (max|logit| {scale:.3f}, relative "
+          f"{gap / scale:.3e}), KV cache {kv_gap:.3e} (max|kv| "
+          f"{kv_scale:.3f}, relative {kv_gap / kv_scale:.3e}); tolerance "
+          f"{LM_TOL} relative")
+    print(f"greedy tokens: card {g_tok}, cpu {c_tok}")
+    assert gap / scale <= LM_TOL, "logits on the card disagree with the CPU"
+    assert kv_gap / kv_scale <= LM_TOL, "KV cache on the card disagrees"
+    assert g_tok == c_tok, "greedy tokens differ between card and CPU"
+    assert torch.equal(g_len, c_len)
+
+
+# -- phase 8: serve the edge launcher at full width --------------------------------
+
+def time_decode_step(lm):
+    """The two sides of one decode step (B=1): the host's time to enqueue
+    it, from an idle card (median of 5), and the card's time to run it
+    with no host in the way, as a replay of a CUDA graph of the step
+    (``device_ms``).  The graph is a measuring device only: the launcher
+    runs the step eagerly."""
+    import torch
+    from repro_torch.models.lm import init_decode_state, lm_decode_step
+    state = init_decode_state(lm.cfg, 1, 64, device="cuda")
+    tok = torch.full((1,), 7, dtype=torch.int32, device="cuda")
+    host = []
+    with torch.no_grad():
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm_decode_step(lm, tok, state)
+            host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            lm_decode_step(lm, tok, state)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            lm_decode_step(lm, tok, state)
+        dev = device_ms(graph.replay, runs=5, reps=1, sleep_cycles=2_000_000)
+    return dev, statistics.median(host[3:]) * 1e3
+
+
+def serve_launcher(lm_cfg, gdm_cfg):
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+    from repro_torch.models.gdm import init_gdm
+    from repro_torch.models.lm import init_lm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = init_lm(lm_cfg, seed=1, device="cuda")
+    dit = init_gdm(gdm_cfg, seed=2, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    weights = sum(p.numel() * p.element_size() for p in lm.parameters())
+    # a decode step reads every weight but the embedding table (one row)
+    step_bytes = weights - lm.embed.table.numel() * 4
+    counters = serve.Counters(step_events=[])
+    frames, requests = 24, 16
+    reset_launches()
+    t0 = time.perf_counter()
+    stats, engine = serve.run(gdm=dit, lm=lm, frames=frames,
+                              requests=requests, nodes=4, blocks=4,
+                              tokens_per_block=4, steps_per_block=2, seed=0,
+                              device="cuda", counters=counters)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    step_ms = statistics.median(a.elapsed_time(b)
+                                for a, b in counters.step_events)
+    peak = torch.cuda.max_memory_allocated()
+    done = {svc: [r for r in engine.completed if r.service == svc]
+            for svc in (0, 1)}
+    print(f"yi-6b: {lm_cfg.num_layers} layers, {weights / 1e9:.2f} GB of "
+          f"weights on the card; gdm-dit: {gdm_cfg.num_layers} layers; "
+          f"built in {t_build:.2f} s")
+    print(f"served {stats['completed']} / {requests} (GDM "
+          f"{len(done[0])}, LM {len(done[1])}), mean quality "
+          f"{stats['mean_quality']:.6f}, mean latency "
+          f"{stats['mean_latency_frames']:.6f} frames, objective "
+          f"{stats['objective']:.6f}, over {frames} frames")
+    print(f"LM tokens decoded {counters.lm_tokens}, DiT forwards "
+          f"{counters.dit_forwards}; wall clock {t_serve:.3f} s")
+    print(f"device ms per decode step (median of "
+          f"{len(counters.step_events)}, CUDA events): {step_ms:.4f} ms; "
+          f"weight-read bound {step_bytes / 1e9:.2f} GB / 3.35 TB/s = "
+          f"{step_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms (all weights "
+          f"{weights / PEAK_BYTES_PER_S * 1e3:.4f} ms)")
+    print(f"peak device memory {peak / 2**30:.3f} GiB")
+    assert done[0] and done[1], "the launcher completed no request of a service"
+    for req in done[1]:
+        text = req.state["text"]
+        assert len(text) == 1 + 4 * req.blocks_done
+        assert all(0 <= t < lm_cfg.vocab_size for t in text)
+    for req in done[0]:
+        assert req.state["x0"].shape == (1, gdm_cfg.latent_hw ** 2, 4)
+        assert torch.isfinite(req.state["x0"]).all(), "non-finite x0 served"
+    assert len(counters.step_events) == counters.lm_tokens
+    per_fwd = gdm_cfg.num_layers * counters.dit_forwards
+    expected = {"adaln_norm": per_fwd, "adaln_norm_epilogue": per_fwd,
+                "flash_attention": per_fwd,
+                "decode_attention": lm_cfg.num_layers * counters.lm_tokens,
+                "rmsnorm": (2 * lm_cfg.num_layers + 1) * counters.lm_tokens}
+    print(f"kernel launches {launches}; expected {expected}")
+    assert launches == expected, "the launcher did not run the kernels " \
+        "exactly as its tokens and forwards imply"
+    dev_ms, host_ms = time_decode_step(lm)
+    print(f"one decode step: {dev_ms:.4f} ms of device time (CUDA graph "
+          f"replay, median of 5); the host takes {host_ms:.4f} ms to "
+          f"enqueue it eagerly (median of 5)")
+    del lm, dit, engine
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -346,14 +616,23 @@ def main() -> int:
             print("  " + line.strip())
 
     full = get_config("gdm-dit")
+    yi = get_config("yi-6b")
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase("3. kernels vs plain versions on the card")
     errs = check_adaln(gen)
     errs["flash_attention"] = check_attention(gen)
+    errs["decode_attention"] = check_decode(gen)
+    errs["rmsnorm"] = check_rmsnorm(gen)
 
-    phase("4. times at B=4, full width (median of "
+    phase("4. times (median of "
           f"{TIMED_RUNS} device-timed samples of 10 back-to-back calls)")
     times = time_kernels(gen, full)
+    # the JSON line carries each kernel at the launcher's shapes: decode
+    # at B=1 against a full 24-row cache, rmsnorm on one decode row
+    time_decode(gen, 8, 4096, 4096)
+    times["decode_attention"] = time_decode(gen, 1, 24, 24)
+    time_rmsnorm(gen, 8192, yi.d_model)
+    times["rmsnorm"] = time_rmsnorm(gen, 1, yi.d_model)
 
     phase("5. one block call, card vs CPU")
     model = step_vs_cpu(full)
@@ -367,21 +646,31 @@ def main() -> int:
     phase("6. serve paper-fig3 with full-width gdm-dit services")
     launches = serve(full)
 
+    phase("7. yi-6b prefill + decode at full width, card vs CPU")
+    lm_vs_cpu(dataclasses.replace(yi, num_layers=2))
+
+    phase("8. serve the edge launcher: full yi-6b + full gdm-dit")
+    lm_launches = serve_launcher(yi, full)
+    # each kernel's launches come from the path that carries it: the DiT
+    # kernels from phase 6, the LM kernels from phase 8
+    launches.update(decode_attention=lm_launches["decode_attention"],
+                    rmsnorm=lm_launches["rmsnorm"])
+
     replaces = {
         "adaln_norm": "src/repro/kernels/adaln_norm.py:76",
         "adaln_norm_epilogue": "src/repro/kernels/adaln_norm.py:86",
         "flash_attention": "src/repro/kernels/flash_attention.py:100",
+        "decode_attention": "src/repro/kernels/decode_attention.py:86",
+        "rmsnorm": "src/repro/kernels/rmsnorm.py:32",
     }
-    sources = {
-        "adaln_norm": "src/repro_torch/kernels/csrc/adaln_norm.cu",
-        "adaln_norm_epilogue": "src/repro_torch/kernels/csrc/adaln_norm.cu",
-        "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
-    }
+    sources = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
+               for name in replaces}
+    sources["adaln_norm_epilogue"] = sources["adaln_norm"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": errs[name], **times[name]}
-        for name in ("adaln_norm", "adaln_norm_epilogue", "flash_attention")
+        for name in replaces
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 """Model configuration for the port.
 
-A copy of the fields of ``repro.configs.base.ModelConfig`` that the DiT
-reads, with the same defaults, derived properties and ``reduced()`` rule,
-so a config built here equals the reference's field for field.  The port is
-float32 throughout, so the reference's ``dtype`` and ``gdm_impl`` fields
-have no counterpart: the dtype is fixed, and the kernel follows the
-tensor's device.
+A copy of the fields of ``repro.configs.base.ModelConfig`` that the DiT and
+the dense LM read, with the same defaults, derived properties and
+``reduced()`` rule, so a config built here equals the reference's field for
+field.  The port is float32 throughout, so the reference's ``dtype`` and
+``gdm_impl`` fields have no counterpart: the dtype is fixed, and the kernel
+follows the tensor's device.  The MoE, hybrid, SSM and enc-dec fields come
+with the slices that port those families.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from dataclasses import dataclass, replace
 class ModelConfig:
     # identity ----------------------------------------------------------
     name: str = "model"
-    family: str = "dense"         # only "gdm" runs in the port so far
+    family: str = "dense"         # "dense" (LM) and "gdm" run in the port
     # transformer core ----------------------------------------------------
     num_layers: int = 2
     d_model: int = 128
@@ -26,6 +27,11 @@ class ModelConfig:
     d_ff: int = 256
     vocab_size: int = 256
     qkv_bias: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    # long context ---------------------------------------------------------
+    attention_window: int = 0     # 0 -> full attention; >0 sliding window
     # GDM service ----------------------------------------------------------
     gdm_blocks: int = 0           # B in the paper; >0 marks a GDM service
     latent_hw: int = 0            # latent spatial size (patch grid)
@@ -42,6 +48,11 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.resolved_head_dim
+
+    def padded_vocab(self, multiple: int = 256) -> int:
+        """Vocab padded to a multiple of ``multiple`` (the reference pads
+        for even sharding; the port keeps the shapes)."""
+        return ((self.vocab_size + multiple - 1) // multiple) * multiple
 
     # -- reduced smoke-test variant -----------------------------------------
     def reduced(self) -> "ModelConfig":

@@ -6,7 +6,8 @@ so a run can show that the main path went through the kernels.
 """
 import torch
 
-LAUNCHES = {"adaln_norm": 0, "adaln_norm_epilogue": 0, "flash_attention": 0}
+LAUNCHES = {"adaln_norm": 0, "adaln_norm_epilogue": 0, "flash_attention": 0,
+            "decode_attention": 0, "rmsnorm": 0}
 
 
 def reset_launches() -> None:

@@ -37,6 +37,9 @@ SIGNATURES = {
                        _LL, _I, _I, _F, _P],
     "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _F, _P],
+    "decode_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _F, _P],
+    "rmsnorm_f32": [_P, _P, _P, _LL, _I, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

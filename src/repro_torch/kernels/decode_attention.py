@@ -1,0 +1,92 @@
+"""Wrapper of the split-K decode attention CUDA kernel
+(``csrc/decode_attention.cu``).
+
+Replaces ``repro.kernels.decode_attention.decode_attention_pallas``: one
+query token per batch row against a KV cache, attending to positions
+``[0, lengths[b])``, with G = H/KH query heads per kv head read by index.
+Its plain version is :func:`repro_torch.kernels.ref.decode_attention`;
+:func:`repro_torch.kernels.ops.decode_attention` picks between them by the
+tensor's device.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, build, check_launch, check_operand
+
+HEAD_DIMS = (16, 32, 64, 128)     # the kernel's compiled head widths
+MAX_GROUP = 8                     # query heads per kv head
+MIN_SPLIT_KEYS = 64               # keys a split takes at the least
+BLOCKS_PER_SM = 4                 # blocks in flight the splits aim for
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def num_splits(pairs: int, seq: int, sms: int) -> int:
+    """Splits of the cache per (b, kv head): as many blocks as fit one
+    wave of ``BLOCKS_PER_SM`` blocks on every SM, but no split under
+    ``MIN_SPLIT_KEYS`` keys.  Taken from the shapes alone, so the lengths
+    never leave the card."""
+    want = BLOCKS_PER_SM * sms // pairs
+    return max(1, min(want, -(-seq // MIN_SPLIT_KEYS)))
+
+
+def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
+                          scale: float | None = None):
+    """q: (B, H, D); k_cache, v_cache: (B, S, KH, D), H % KH == 0 and
+    H / KH <= 8; float32, contiguous and 16-byte aligned, with lengths (B,)
+    int32, on one CUDA device.  Returns (B, H, D)."""
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError("decode_attention: q must be (B, H, D) and the "
+                         "caches (B, S, KH, D)")
+    b, h, d = q.shape
+    _, s, kh, _ = k_cache.shape
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"decode_attention_cuda: q is on {dev}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: head_dim {d} not in {HEAD_DIMS}")
+    if kh == 0 or h % kh or h // kh > MAX_GROUP:
+        raise ValueError(f"decode_attention: {h} heads over {kh} kv heads "
+                         f"(at most {MAX_GROUP} per kv head)")
+    if s == 0:
+        raise ValueError("decode_attention: empty cache")
+    check_operand("q", q, dev, (b, h, d))
+    check_operand("k_cache", k_cache, dev, (b, s, kh, d))
+    check_operand("v_cache", v_cache, dev, (b, s, kh, d))
+    if (lengths.device != dev or lengths.dtype != torch.int32
+            or tuple(lengths.shape) != (b,) or not lengths.is_contiguous()):
+        raise ValueError(f"decode_attention: lengths must be contiguous "
+                         f"int32 ({b},) on {dev}, got {lengths.dtype} "
+                         f"{tuple(lengths.shape)} on {lengths.device}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} is not 16-byte "
+                             "aligned")
+    scale = scale if scale is not None else d ** -0.5
+    o = torch.empty_like(q)
+    if b == 0:
+        return o
+    splits = num_splits(b * kh, s, _sm_count(dev.index or 0))
+    g = h // kh
+    ws_acc = ws_ml = None
+    if splits > 1:
+        ws_acc = torch.empty(b * kh * splits * g * d, device=dev)
+        ws_ml = torch.empty(b * kh * splits * g * 2, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.decode_attention_f32(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lengths.data_ptr(), o.data_ptr(),
+            ws_acc.data_ptr() if ws_acc is not None else None,
+            ws_ml.data_ptr() if ws_ml is not None else None,
+            b, s, h, kh, d, splits, float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("decode_attention", err)
+    LAUNCHES["decode_attention"] += 1
+    return o

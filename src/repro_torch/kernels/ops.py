@@ -10,7 +10,9 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.adaln_norm import adaln_norm_cuda
+from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
 
 def _no_path(op: str, device):
@@ -49,3 +51,24 @@ def adaln_norm(x, shift, scale, weight, bias, gate=None, residual=None, *,
         return ref.adaln_norm(x, shift, scale, weight, bias, gate=gate,
                               residual=residual, eps=eps)
     raise _no_path("adaln_norm", x.device)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *,
+                     scale: float | None = None):
+    """Single-token GQA cache attention.  q: (B,H,D); caches: (B,S,KH,D);
+    lengths: (B,) int32."""
+    if q.device.type == "cuda":
+        return decode_attention_cuda(q, k_cache, v_cache, lengths,
+                                     scale=scale)
+    if q.device.type == "cpu":
+        return ref.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+    raise _no_path("decode_attention", q.device)
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-6):
+    """Row RMSNorm over the last axis.  x: (..., D); scale: (D,)."""
+    if x.device.type == "cuda":
+        return rmsnorm_cuda(x, scale, eps=eps)
+    if x.device.type == "cpu":
+        return ref.rmsnorm(x, scale, eps=eps)
+    raise _no_path("rmsnorm", x.device)

@@ -66,3 +66,37 @@ def adaln_norm(x, shift, scale, weight, bias, gate=None, residual=None,
     y = y * (1.0 + scale.float()[:, None, :]) + shift.float()[:, None, :]
     y = y.to(x.dtype)
     return y if residual is None else (y, x32.to(x.dtype))
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *,
+                     scale: float | None = None):
+    """One query token against a KV cache.
+
+    q: (B, H, D); k_cache/v_cache: (B, S, KH, D); lengths: (B,) int.
+    Attends to cache positions [0, lengths[b]); masked scores are the
+    finite -1e30, so a row with length 0 gets the uniform average of its S
+    values.  GQA repeats each kv head over its G = H/KH query heads (query
+    head h reads kv head h // G).  Returns (B, H, D).
+    """
+    b, h, d = q.shape
+    _, s, kh, _ = k_cache.shape
+    g = h // kh
+    scale = scale if scale is not None else d ** -0.5
+    qf, kf, vf = q.float(), k_cache.float(), v_cache.float()
+    if g > 1:
+        kf = kf.repeat_interleave(g, dim=2)
+        vf = vf.repeat_interleave(g, dim=2)
+    scores = torch.einsum("bhd,bshd->bhs", qf, kf) * scale
+    valid = torch.arange(s, device=q.device)[None, :] < lengths[:, None]
+    scores = scores.masked_fill(~valid[:, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", probs, vf)
+    return out.to(q.dtype)
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """x: (..., D); scale: (D,).  Float32 reduction, output in x.dtype:
+    ``x * (mean(x^2) + eps) ** -0.5``, then ``* scale``."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * (var + eps) ** -0.5 * scale.float()).to(x.dtype)

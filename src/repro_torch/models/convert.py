@@ -1,13 +1,22 @@
 """Weights carried across from the JAX reference.
 
 ``torch`` cannot reproduce ``jax.random``, so a port that must match the
-reference number for number loads the parameters the reference drew.  The
-reference's GDM params are a nested dict whose ``layers`` entry is stacked
-along a leading layer axis (``repro.models.gdm.stack_layer_params``);
-:func:`dit_from_jax` takes that tree as numpy arrays (any array type numpy
-can read) and returns a :class:`~repro_torch.models.gdm.DiT` whose
-parameter ``layers.{i}.attn.wq.w`` is ``params["layers"]["attn"]["wq"]["w"]
-[i]``.  :func:`dit_to_jax` is the inverse.
+reference number for number loads the parameters the reference drew, as
+numpy arrays (any array type numpy can read).  Dense weights keep the
+reference's ``(in, out)`` layout.
+
+* The GDM params are a nested dict whose ``layers`` entry is stacked along
+  a leading layer axis (``repro.models.gdm.stack_layer_params``):
+  :func:`dit_from_jax` returns a :class:`~repro_torch.models.gdm.DiT` whose
+  parameter ``layers.{i}.attn.wq.w`` is ``params["layers"]["attn"]["wq"]
+  ["w"][i]``.
+* The LM params (``repro.models.lm.init_lm``) hold in ``layers`` a tuple
+  with one dict per pattern slot, each leaf stacked over the periods:
+  :func:`lm_from_jax` returns a :class:`~repro_torch.models.lm.LM` whose
+  ``layers.{p}.{j}.attn.wq.w`` is ``params["layers"][j]["attn"]["wq"]["w"]
+  [p]``.
+
+:func:`dit_to_jax` and :func:`lm_to_jax` are the inverses, exact.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.gdm import DiT
+from repro_torch.models.lm import LM
 from repro_torch.serving.gdm_service import GDMService
 
 
@@ -26,32 +36,35 @@ def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...
     if isinstance(tree, dict):
         for key in sorted(tree):
             yield from _leaves(tree[key], prefix + (str(key),))
+    elif isinstance(tree, (tuple, list)):
+        for i, sub in enumerate(tree):
+            yield from _leaves(sub, prefix + (str(i),))
     else:
         yield prefix, tree
 
 
 @torch.no_grad()
-def dit_from_jax(params: Dict, cfg: ModelConfig, *, device=None) -> DiT:
-    """The port's DiT holding the reference's ``params`` (stacked layout).
-    Raises on a missing, extra or misshapen parameter."""
-    device = resolve_device(device)
-    model = DiT(cfg, device=device)
+def _fill(model, params: Dict, stacked: int) -> None:
+    """Copy every leaf of ``params`` into ``model``.  A ``layers`` leaf is
+    stacked along its first axis over ``stacked`` entries: entry i of
+    ``layers/<rest>`` goes in at ``layers.{i}.<rest>``.  Raises on a
+    missing, extra or misshapen parameter."""
     targets = dict(model.named_parameters())
     filled = set()
     for path, leaf in _leaves(params):
         arr = np.asarray(leaf, dtype=np.float32)
         if path[0] == "layers":
-            if arr.shape[0] != cfg.num_layers:
+            if arr.shape[0] != stacked:
                 raise ValueError(f"{'/'.join(path)}: {arr.shape[0]} stacked "
-                                 f"layers, config has {cfg.num_layers}")
+                                 f"layers, the config makes {stacked}")
             items = [(".".join(("layers", str(i)) + path[1:]), arr[i])
-                     for i in range(arr.shape[0])]
+                     for i in range(stacked)]
         else:
             items = [(".".join(path), arr)]
         for name, value in items:
             if name not in targets:
                 raise KeyError(f"reference parameter {name!r} has no place "
-                               "in the port's DiT")
+                               f"in the port's {type(model).__name__}")
             p = targets[name]
             if tuple(p.shape) != value.shape:
                 raise ValueError(f"{name}: shape {value.shape}, the port "
@@ -61,11 +74,12 @@ def dit_from_jax(params: Dict, cfg: ModelConfig, *, device=None) -> DiT:
     missing = sorted(set(targets) - filled)
     if missing:
         raise KeyError(f"reference params lack {missing}")
-    return model
 
 
-def dit_to_jax(model: DiT) -> Dict:
-    """The reference's nested, layer-stacked param tree as numpy arrays."""
+def _to_tree(model, slots: bool) -> Dict:
+    """The reference's nested param tree as numpy arrays, ``layers``
+    stacked along a leading axis (a tuple over pattern slots with
+    ``slots``)."""
     tree: Dict = {}
     stacked: Dict[Tuple[str, ...], list] = {}
     for name, p in model.named_parameters():
@@ -77,7 +91,35 @@ def dit_to_jax(model: DiT) -> Dict:
             _put(tree, parts, value)
     for path, values in stacked.items():
         _put(tree, ["layers", *path], np.stack(values))
+    if slots:
+        tree["layers"] = tuple(tree["layers"][str(j)]
+                               for j in range(len(tree["layers"])))
     return tree
+
+
+def dit_from_jax(params: Dict, cfg: ModelConfig, *, device=None) -> DiT:
+    """The port's DiT holding the reference's ``params`` (stacked layout)."""
+    model = DiT(cfg, device=resolve_device(device))
+    _fill(model, params, cfg.num_layers)
+    return model
+
+
+def dit_to_jax(model: DiT) -> Dict:
+    """The reference's nested, layer-stacked param tree as numpy arrays."""
+    return _to_tree(model, slots=False)
+
+
+def lm_from_jax(params: Dict, cfg: ModelConfig, *, device=None) -> LM:
+    """The port's LM holding the reference's ``params`` (a tuple over
+    pattern slots in ``layers``, each stacked over the periods)."""
+    model = LM(cfg, device=resolve_device(device))
+    _fill(model, params, len(model.layers))
+    return model
+
+
+def lm_to_jax(model: LM) -> Dict:
+    """The reference's LM param tree as numpy arrays."""
+    return _to_tree(model, slots=True)
 
 
 def _put(tree: Dict, path, value) -> None:

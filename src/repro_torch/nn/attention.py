@@ -1,18 +1,32 @@
-"""Multi-head attention: projections around the attention kernel.
+"""GQA multi-head attention: projections, RoPE and the KV cache around the
+attention kernels, as in ``repro.nn.attention``.
 
-The attention math is :func:`repro_torch.kernels.ops.flash_attention` (the
-CUDA kernel on the card, the plain version on the CPU); this module owns
-the projections.  Only the full-sequence path without rotary embedding is
-ported, which is what the DiT runs; rope, the KV cache and decode come with
-the LM slice.
+The attention math is :func:`repro_torch.kernels.ops.flash_attention` for a
+full sequence and :func:`repro_torch.kernels.ops.decode_attention` for one
+decode token (the CUDA kernels on the card, their plain versions on the
+CPU); this module owns the projections, the rotary embedding and the cache
+insert.  Cross-attention (enc-dec) and the sharded split-K decode wait for
+their slices.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.nn.linear import Dense, dense_apply
+from repro_torch.nn.rope import apply_rope
+
+
+class KVCache(NamedTuple):
+    """Per-layer KV cache: (B, S_max, KH, D) float32 + current length (B,)
+    int32.  The decode path writes into ``k`` and ``v`` in place."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
 
 
 class Attention(nn.Module):
@@ -36,18 +50,103 @@ def _split_heads(x, n_heads, head_dim):
 
 
 def attention_apply(params: Attention, x, *, cfg: ModelConfig,
-                    causal: bool = True, window: int = 0, q_offset: int = 0,
-                    rope: bool = True):
-    """Full-sequence self-attention.  x: (B, S, d_model)."""
-    if rope:
-        raise NotImplementedError(
-            "rotary embedding is not ported yet (LM slice, ROADMAP Queue 1 "
-            "item 12); the DiT calls attention_apply with rope=False")
+                    positions=None, causal: bool = True, window: int = 0,
+                    q_offset: int = 0, rope: bool = True):
+    """Full-sequence (train / prefill) self-attention.  x: (B, S, d_model).
+
+    With ``rope`` the queries rotate by ``positions`` (default ``arange(S)
+    + q_offset``) and the keys by ``arange(S)``, as in the reference; the
+    DiT calls it with ``rope=False``."""
     hd = cfg.resolved_head_dim
     b, s, _ = x.shape
     q = _split_heads(dense_apply(params.wq, x), cfg.num_heads, hd)
     k = _split_heads(dense_apply(params.wk, x), cfg.num_kv_heads, hd)
     v = _split_heads(dense_apply(params.wv, x), cfg.num_kv_heads, hd)
+    if rope:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :] + q_offset
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, torch.arange(s, device=x.device)[None, :],
+                       cfg.rope_theta)
     out = ops.flash_attention(q, k, v, causal=causal, window=window,
                               q_offset=q_offset)
     return dense_apply(params.wo, out.reshape(b, s, cfg.q_dim))
+
+
+def attention_decode(params: Attention, x, cache: KVCache, *,
+                     cfg: ModelConfig, fused_position: bool = False,
+                     sharded_decode=None):
+    """One-token decode step.  x: (B, 1, d_model); returns (y, new_cache).
+
+    The new key and value rows are written into ``cache.k`` / ``cache.v``
+    in place (the returned cache holds the same tensors and a new length).
+    ``fused_position=True`` writes every batch row at ``cache.length[0]``,
+    as the reference's ``dynamic_update_slice``, whose start index is
+    clamped so the row fits: a length of S or more writes row S - 1.
+    ``fused_position=False`` writes row b at ``cache.length[b]``, as the
+    reference's one-hot blend does for a finite cache: a row whose length
+    is outside ``[0, S)`` is left unwritten.  Neither reads the lengths on
+    the host.
+    """
+    if sharded_decode is not None:
+        raise NotImplementedError(
+            "sharded split-K decode is not ported yet (ROADMAP Queue 1 "
+            "item 12: distributed/flash_decode)")
+    hd = cfg.resolved_head_dim
+    b = x.shape[0]
+    s = cache.k.shape[1]
+    q = _split_heads(dense_apply(params.wq, x), cfg.num_heads, hd)  # (B,1,H,D)
+    k = _split_heads(dense_apply(params.wk, x), cfg.num_kv_heads, hd)
+    v = _split_heads(dense_apply(params.wv, x), cfg.num_kv_heads, hd)
+
+    pos = cache.length[:, None]                                      # (B,1)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    new_len = cache.length + 1
+
+    if fused_position:
+        idx = cache.length[:1].clamp(0, s - 1).long()
+        cache.k.index_copy_(1, idx, k.to(cache.k.dtype))
+        cache.v.index_copy_(1, idx, v.to(cache.v.dtype))
+    else:
+        rows = torch.arange(b, device=x.device)
+        idx = cache.length.clamp(0, s - 1).long()
+        inside = ((cache.length >= 0) & (cache.length < s))[:, None, None]
+        for buf, new in ((cache.k, k), (cache.v, v)):
+            buf[rows, idx] = torch.where(inside, new[:, 0].to(buf.dtype),
+                                         buf[rows, idx])
+    out = ops.decode_attention(q[:, 0], cache.k, cache.v, new_len)
+    y = dense_apply(params.wo, out.reshape(b, 1, cfg.q_dim))
+    return y, KVCache(cache.k, cache.v, new_len)
+
+
+def cross_attention_decode(*args, **kwargs):
+    raise NotImplementedError(
+        "decode-time cross-attention is not ported yet (ROADMAP Queue 1 "
+        "item 12: the enc-dec family)")
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+                  device=None) -> KVCache:
+    hd = cfg.resolved_head_dim
+    shape = (batch, max_seq, cfg.num_kv_heads, hd)
+    return KVCache(k=torch.zeros(shape, device=device),
+                   v=torch.zeros(shape, device=device),
+                   length=torch.zeros(batch, dtype=torch.int32,
+                                      device=device))
+
+
+def prefill_kv_cache(params: Attention, x, *, cfg: ModelConfig,
+                     max_seq: int) -> KVCache:
+    """A cache built from a full prompt x (B, S, d_model), zero-padded to
+    ``max_seq`` positions, with every length S."""
+    hd = cfg.resolved_head_dim
+    b, s, _ = x.shape
+    k = _split_heads(dense_apply(params.wk, x), cfg.num_kv_heads, hd)
+    k = apply_rope(k, torch.arange(s, device=x.device)[None, :],
+                   cfg.rope_theta)
+    v = _split_heads(dense_apply(params.wv, x), cfg.num_kv_heads, hd)
+    pad = (0, 0, 0, 0, 0, max_seq - s)
+    return KVCache(torch.nn.functional.pad(k, pad),
+                   torch.nn.functional.pad(v, pad),
+                   torch.full((b,), s, dtype=torch.int32, device=x.device))

@@ -60,3 +60,8 @@ class Embedding(nn.Module):
 
 def embedding_apply(params: Embedding, ids):
     return params.table[ids]
+
+
+def embedding_attend(params: Embedding, x):
+    """Tied-softmax logits: ``x @ table.T``."""
+    return x @ params.table.to(x.dtype).T

@@ -1,10 +1,34 @@
-"""LayerNorm.  Reductions always in float32, as in ``repro.nn.norm``."""
+"""RMSNorm and LayerNorm.  Reductions always in float32, as in
+``repro.nn.norm``.
+
+:func:`rmsnorm_apply` runs the ``rmsnorm`` kernel on the card (its plain
+version on the CPU), which computes the reference's ``rmsnorm_apply`` op
+for op; :func:`layernorm_apply` stays plain PyTorch (the DiT's adaLN
+kernel covers its hot path)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.kernels import ops
 from repro_torch.nn.linear import _param
+
+
+class RMSNorm(nn.Module):
+    """``scale`` = 1 at init."""
+
+    def __init__(self, dim: int, *, device=None):
+        super().__init__()
+        self.scale = _param(dim, device=device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator                     # deterministic init: draws nothing
+        self.scale.fill_(1.0)
+
+
+def rmsnorm_apply(params: RMSNorm, x, eps: float = 1e-6):
+    return ops.rmsnorm(x, params.scale, eps=eps)
 
 
 class LayerNorm(nn.Module):

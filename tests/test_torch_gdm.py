@@ -207,7 +207,24 @@ def test_ssim_proxy_matches_reference():
 
 
 def test_attention_apply_refuses_rope():
+    """The DiT's attention call refuses the rotary embedding: with
+    ``rope=False`` it is the plain projections around non-causal attention,
+    while the LM's default (``rope=True``) rotates q and k."""
+    from repro_torch.kernels import ref
     from repro_torch.nn.attention import attention_apply
+    from repro_torch.nn.linear import dense_apply
     layer = tgdm.DiTLayer(CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="rope|rotary"):
-        attention_apply(layer.attn, torch.zeros(1, 4, CFG.d_model), cfg=CFG)
+    layer.attn.apply(lambda m: m.reset_parameters(torch.Generator()
+                                                  .manual_seed(0))
+                     if hasattr(m, "reset_parameters") else None)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 6, CFG.d_model)).astype(np.float32))
+    got = attention_apply(layer.attn, x, cfg=CFG, causal=False, rope=False)
+    hd, h = CFG.resolved_head_dim, CFG.num_heads
+    q, k, v = (dense_apply(w, x).reshape(1, 6, -1, hd)
+               for w in (layer.attn.wq, layer.attn.wk, layer.attn.wv))
+    want = dense_apply(layer.attn.wo, ref.attention(
+        q, k, v, causal=False).reshape(1, 6, h * hd))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    rotated = attention_apply(layer.attn, x, cfg=CFG, causal=False)
+    assert float((rotated - got).abs().max()) > 1e-3

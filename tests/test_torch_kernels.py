@@ -120,7 +120,9 @@ def test_cuda_wrappers_reject_cpu_tensors():
     """The CUDA wrappers never run the plain version: a CPU tensor is an
     error there, and only ``ops`` routes it to the plain path."""
     from repro_torch.kernels.adaln_norm import adaln_norm_cuda
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
     x = torch.zeros(1, 4, 8)
     v = torch.zeros(8)
     with pytest.raises(ValueError, match="cpu"):
@@ -128,6 +130,11 @@ def test_cuda_wrappers_reject_cpu_tensors():
     q = torch.zeros(1, 4, 2, 16)
     with pytest.raises(ValueError, match="cpu"):
         flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="cpu"):
+        decode_attention_cuda(torch.zeros(1, 2, 16), q, q,
+                              torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="cpu"):
+        rmsnorm_cuda(x, v)
 
 
 def test_ops_refuse_unknown_devices():
@@ -140,4 +147,82 @@ def test_ops_refuse_unknown_devices():
     q = torch.zeros(1, 2, 1, 16, device="meta")
     with pytest.raises(ValueError, match="no implementation"):
         tops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="no implementation"):
+        tops.decode_attention(q[:, 0], q, q,
+                              torch.zeros(1, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="no implementation"):
+        tops.rmsnorm(x, torch.zeros(4, device="meta"))
+
+
+# -- decode_attention ---------------------------------------------------------------
+
+DECODE_CASES = [
+    # (b, s, h, kh, d, lengths)
+    (3, 24, 4, 2, 16, [0, 1, 24]),             # reduced yi-6b: G=2; 0, 1, S
+    (4, 37, 8, 2, 32, [5, 0, 37, 60]),         # G=4, ragged, length > S
+    (2, 19, 4, 4, 16, [7, 19]),                # reduced qwen1.5-4b: G=1
+    (2, 300, 4, 1, 64, [1, 257]),              # G=4 over several kv tiles
+    (1, 24, 32, 4, 128, [9]),                  # yi-6b heads at the launcher
+]
+
+
+@pytest.mark.parametrize("b,s,h,kh,d,lengths", DECODE_CASES)
+def test_decode_attention_matches_reference(b, s, h, kh, d, lengths):
+    q, k, v = _inputs(b * 100 + s, (b, h, d), (b, s, kh, d), (b, s, kh, d))
+    lens = np.asarray(lengths, np.int32)
+    want_ref = jref.decode_attention(q, k, v, lens)
+    t = torch.from_numpy
+    got = tref.decode_attention(t(q), t(k), t(v), t(lens))
+    _close(got, want_ref)
+    # the Pallas kernel pads the cache to whole tiles of 8 and, when every
+    # score of a row is masked (length 0), averages the pad rows in too; so
+    # a length-0 row is compared with it only where S needs no pad
+    if s % 8 == 0 or min(lengths) > 0:
+        want_pallas = jops.decode_attention(q, k, v, lens, impl="interpret",
+                                            block_k=8)
+        _close(got, want_pallas)
+    np.testing.assert_array_equal(
+        tops.decode_attention(t(q), t(k), t(v), t(lens)).numpy(),
+        got.numpy())
+
+
+def test_decode_attention_empty_row_is_the_uniform_average():
+    """Length 0: every score is the finite -1e30, so the row is the mean of
+    its S values, as in the reference oracle."""
+    q, k, v = _inputs(3, (1, 4, 16), (1, 6, 2, 16), (1, 6, 2, 16))
+    got = tref.decode_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                torch.zeros(1, dtype=torch.int32))
+    want = np.repeat(v.mean(axis=1), 2, axis=1)
+    _close(got, want)
+
+
+# -- rmsnorm ------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 64), (3, 100, 64), (1, 1, 2560),
+                                   (257, 48), (2, 3, 4096)])
+def test_rmsnorm_matches_reference(shape):
+    x, w = _inputs(len(shape) * 10 + shape[-1], shape, (shape[-1],))
+    w = 1.0 + 0.1 * w
+    want_ref = jref.rmsnorm(x, w)
+    want_pallas = jops.rmsnorm(x, w, impl="interpret", block_rows=256)
+    t = torch.from_numpy
+    got = tref.rmsnorm(t(x), t(w))
+    _close(got, want_ref)
+    _close(got, want_pallas)
+    np.testing.assert_array_equal(tops.rmsnorm(t(x), t(w)).numpy(),
+                                  got.numpy())
+
+
+def test_rmsnorm_is_the_reference_layer_function():
+    """The port's ``nn.rmsnorm_apply`` (which the LM calls) computes the
+    reference's ``nn.rmsnorm_apply`` — the dense LM's norm — as well as
+    the kernel's oracle."""
+    from repro.nn.norm import rmsnorm_apply as j_apply
+    from repro_torch.nn.norm import RMSNorm, rmsnorm_apply
+    x, w = _inputs(11, (5, 7, 96), (96,))
+    norm = RMSNorm(96, device="cpu")
+    norm.scale.data.copy_(torch.from_numpy(1.0 + 0.1 * w))
+    for eps in (1e-6, 1e-5):
+        got = rmsnorm_apply(norm, torch.from_numpy(x), eps=eps)
+        _close(got, j_apply({"scale": 1.0 + 0.1 * w}, x, eps=eps))
 
