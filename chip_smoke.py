@@ -27,7 +27,24 @@ non-zero before the result line):
 8. serve the edge launcher (``repro_torch.launch.serve``) with the LM
    service at full yi-6b (32 layers, 24.2 GB of weights on the card) and
    the GDM service at full gdm-dit, and check that the launch counts are
-   exactly what the launcher's own token and forward counts imply.
+   exactly what the launcher's own token and forward counts imply;
+9. a full-width two-layer Jamba hybrid ([attention, Mamba], no experts)
+   on the card against the CPU with the same weights: six train steps
+   through the trainer on the same batches (the first batch's loss and
+   gradients, the first step's gradient norm and update, every step's
+   loss, the final parameters), then a prefill and four greedy decode
+   steps;
+10. train one full-width Jamba period (8 layers: attention + 7 Mamba,
+    dense SwiGLU, 2.7 B parameters) for six steps through
+    ``repro_torch.launch.train.run`` and check every loss, the exact
+    launch counts of every step, the device time per phase and the peak
+    memory.
+
+Phase 3 also holds the selective scan (forward and backward kernels)
+against its plain version and autograd, and the gradients that
+``flash_attention`` and ``rmsnorm`` carry on the card against autograd of
+their plain versions; phase 4 times both scan kernels at the training
+shape.
 
 Then it prints one JSON line describing the kernels, and as its last line
 ``{"ok": true, "device": {...}}``.
@@ -36,6 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -50,6 +68,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # the memory rate and its float32 operations over the CUDA-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# exponentials run on the special-function units: 16 results per clock per
+# SM (CUDA C programming guide, compute capability 9.0) against 128 float32
+# FMA lanes (256 flops), so a sixteenth of the float32 rate
+PEAK_SFU_PER_S = PEAK_F32_FLOPS * 16 / 256
 TOL = 1e-5            # kernel vs plain version, float32, same inputs
 # whole DiT step, card vs CPU: both sides sum K up to 3072 per product in a
 # different order (cuBLAS vs the CPU BLAS), through 12 layers
@@ -58,6 +80,20 @@ STEP_TOL = 1e-4
 # sum K up to 11008 long in a different order on each side, through two
 # layers and five steps whose caches feed the next
 LM_TOL = 1e-4
+# scan kernels vs their plain version and autograd, and the gradients of
+# flash_attention and rmsnorm vs autograd of their plain versions: relative
+# to the largest magnitude of each output, float32 summed in another order
+# (the scan's dB and dC over 8192 channels, dA and dD over batch and time)
+SCAN_TOL = 1e-5
+GRAD_TOL = 1e-5
+# six train steps, card vs CPU: each step's loss, relative; the final
+# parameters' gap over how far training moved them, over the model and
+# for each leaf.  Adam moves an element by about lr whatever its gradient,
+# so the few elements whose gradient is at rounding level can step apart,
+# and those gaps carry on; a leaf the card failed to train would be 1 off
+TRAIN_TOL = 1e-3
+TRAIN_PARAM_TOL = 1e-2
+TRAIN_LEAF_TOL = 0.1
 TIMED_RUNS = 25
 
 
@@ -111,9 +147,13 @@ def device_ms(fn, runs: int = TIMED_RUNS, reps: int = 10,
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, exps: float = 0.0):
+    """The least time of the work, in ms, and what bounds it: its bytes at
+    the memory rate, or its operations, float32 ``flops`` on the CUDA
+    cores and ``exps`` exponentials on the special-function units, which
+    run side by side (the larger of the two counts)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = max(flops / PEAK_F32_FLOPS, exps / PEAK_SFU_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -244,6 +284,103 @@ def check_rmsnorm(gen):
     return worst
 
 
+def _rel(got, want):
+    """max|got - want| and that over max|want|."""
+    err = float((got - want).abs().max())
+    return err, err / max(float(want.abs().max()), 1e-30)
+
+
+def scan_inputs(gen, b, length, din, n):
+    """Operands as a Mamba block makes them: dt a softplus, A = -exp of the
+    S4D-real log (spread per channel), u, B, C, D ~ N(0, 1)."""
+    import torch
+    u = _randn(gen, b, length, din)
+    dt = torch.nn.functional.softplus(_randn(gen, b, length, din) - 2.0)
+    a = -(torch.arange(1, n + 1, dtype=torch.float32, device="cuda")
+          .repeat(din, 1)
+          * (0.5 + torch.rand(din, 1, generator=gen, device="cuda")))
+    return [u, dt, a.contiguous(), _randn(gen, b, length, n),
+            _randn(gen, b, length, n), _randn(gen, din)]
+
+
+# (B, L, Din, N): the training shape (one Jamba Mamba layer at global batch
+# 8, seq 128), B = 1, L = 1, an L no multiple of any tile, a Din no
+# multiple of a block, the reduced Jamba mixer, and a tiny ragged N
+SCAN_CASES = [(8, 128, 8192, 16), (1, 128, 8192, 16), (8, 1, 8192, 16),
+              (2, 37, 8192, 16), (2, 128, 8200, 16), (2, 16, 128, 8),
+              (3, 19, 100, 5)]
+
+
+def check_ssm_scan(gen):
+    """Forward kernel (y and h_final) and backward kernel (all six
+    gradients) against the plain scan and autograd through it, on the
+    card.  Returns the largest absolute errors of the forward and of the
+    backward."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_scan import (ssm_scan_backward_cuda,
+                                              ssm_scan_cuda)
+    worst = {"ssm_scan": 0.0, "ssm_scan_backward": 0.0}
+    for (b, length, din, n) in SCAN_CASES:
+        ins = scan_inputs(gen, b, length, din, n)
+        y, hf, states = ssm_scan_cuda(*ins, return_state=True,
+                                      save_states=True)
+        wy, wh = ref.ssm_scan(*ins)
+        (ey, ry), (eh, rh) = _rel(y, wy), _rel(hf, wh)
+        gy = _randn(gen, b, length, din)
+        got = ssm_scan_backward_cuda(*ins, states, gy)
+        leaves = [t.clone().requires_grad_() for t in ins]
+        want = torch.autograd.grad(ref.ssm_scan(*leaves)[0], leaves, gy)
+        gerr = [_rel(g, w) for g, w in zip(got, want)]
+        print(f"ssm_scan B={b} L={length} Din={din} N={n}: y {ey:.3e} (rel "
+              f"{ry:.3e}), h_final {eh:.3e} (rel {rh:.3e}); backward vs "
+              "autograd rel " + ", ".join(
+                  f"{name} {r:.2e}" for name, (_, r) in zip(
+                      ("du", "ddt", "dA", "dB", "dC", "dD"), gerr)))
+        assert max(ry, rh) <= SCAN_TOL, \
+            "ssm_scan disagrees with its plain version"
+        assert max(r for _, r in gerr) <= SCAN_TOL, \
+            "ssm_scan_backward disagrees with autograd of the plain scan"
+        if (b, length, din, n) == SCAN_CASES[0]:
+            again = ssm_scan_backward_cuda(*ins, states, gy)
+            assert all(torch.equal(x, z) for x, z in zip(got, again)), \
+                "ssm_scan_backward is not deterministic"
+            print("ssm_scan_backward at the training shape: a second call "
+                  "gives the same bits")
+        worst["ssm_scan"] = max(worst["ssm_scan"], ey, eh)
+        worst["ssm_scan_backward"] = max(worst["ssm_scan_backward"],
+                                         *(e for e, _ in gerr))
+    return worst
+
+
+def check_kernel_grads(gen):
+    """The gradients flash_attention and rmsnorm carry on the card (their
+    autograd functions) against autograd of the plain versions, at the
+    training shapes (Jamba's heads at B=8, S=128; 1024 rows of 4096)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    q = _randn(gen, 8, 128, 32, 128).requires_grad_()
+    k = _randn(gen, 8, 128, 8, 128).requires_grad_()
+    v = _randn(gen, 8, 128, 8, 128).requires_grad_()
+    do = _randn(gen, 8, 128, 32, 128)
+    got = torch.autograd.grad(ops.flash_attention(q, k, v), (q, k, v), do)
+    want = torch.autograd.grad(ref.attention(q, k, v), (q, k, v), do)
+    errs = [_rel(g, w)[1] for g, w in zip(got, want)]
+    x = _randn(gen, 8, 128, 4096).requires_grad_()
+    w = (1.0 + _randn(gen, 4096, scale=0.1)).requires_grad_()
+    dy = _randn(gen, 8, 128, 4096)
+    got = torch.autograd.grad(ops.rmsnorm(x, w), (x, w), dy)
+    want = torch.autograd.grad(ref.rmsnorm(x, w), (x, w), dy)
+    errs_rms = [_rel(g, ww)[1] for g, ww in zip(got, want)]
+    print("flash_attention gradients (B=8, S=128, H=32, KH=8, D=128, causal) "
+          "vs autograd of the plain version, rel: dq {:.2e}, dk {:.2e}, dv "
+          "{:.2e}".format(*errs))
+    print("rmsnorm gradients (1024 x 4096) vs autograd of the plain "
+          "version, rel: dx {:.2e}, dscale {:.2e}".format(*errs_rms))
+    assert max(errs + errs_rms) <= GRAD_TOL, \
+        "a kernel's gradient disagrees with autograd of its plain version"
+
+
 # -- phase 4: times -------------------------------------------------------------
 
 def time_kernels(gen, cfg):
@@ -332,6 +469,82 @@ def time_rmsnorm(gen, rows, d):
              library_ms=device_ms(lambda: F.rms_norm(x, (d,), w, eps=1e-6)))
     _print_times(f"rmsnorm rows={rows} d={d}", t)
     return t
+
+
+def time_ssm_scan(gen):
+    """Both scan kernels at the training shape (B=8, L=128, Din=8192,
+    N=16), as the training path calls them: the forward saving its
+    chunk-start states, the backward from them.  The plain versions are
+    the 128-step loop and autograd's backward through it; no single
+    PyTorch call computes a selective scan."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_scan import (ssm_scan_backward_cuda,
+                                              ssm_scan_cuda)
+    b, length, din, n = SCAN_CASES[0]
+    ins = scan_inputs(gen, b, length, din, n)
+    _, _, states = ssm_scan_cuda(*ins, save_states=True)
+    gy = _randn(gen, b, length, din)
+    rows, small = b * length * din, b * length * n
+    exps = rows * n                 # one exp(dt * a) per (b, t, d, n)
+    # forward: u, dt read, y written, B, C, A, D read once; per (b, t, d,
+    # n) one exponential and 6 flops (dt*a, da*h, the dt*u*B and the C.h
+    # FMAs), 3 flops per (b, t, d)
+    t_bound, by = bound_ms(4 * (3 * rows + 2 * small + din * n + din),
+                           rows * (6 * n + 3), exps)
+    fwd = dict(ms=device_ms(lambda: ssm_scan_cuda(*ins, save_states=True)),
+               plain_ms=device_ms(lambda: ref.ssm_scan(*ins), runs=5,
+                                  reps=1, sleep_cycles=2_000_000),
+               bound_ms=t_bound, bound_by=by, library_ms=None)
+    fwd_only = device_ms(lambda: ssm_scan_cuda(*ins))
+    # backward: u, dt, dy, B, C, A, D read, du, ddt, dA, dB, dC, dD written;
+    # per (b, t, d, n) the reverse scan's exponential and 16 flops (the
+    # forward's recomputation not counted), 6 flops per (b, t, d)
+    t_bound, by = bound_ms(4 * (5 * rows + 4 * small + 2 * (din * n + din)),
+                           rows * (16 * n + 6), exps)
+    leaves = [t.clone().requires_grad_() for t in ins]
+    y_plain = ref.ssm_scan(*leaves)[0]
+    bwd = dict(ms=device_ms(lambda: ssm_scan_backward_cuda(*ins, states,
+                                                           gy)),
+               plain_ms=device_ms(lambda: torch.autograd.grad(
+                   y_plain, leaves, gy, retain_graph=True), runs=5, reps=1,
+                   sleep_cycles=2_000_000),
+               bound_ms=t_bound, bound_by=by, library_ms=None)
+    del y_plain, leaves
+    what = f"B={b} L={length} Din={din} N={n}"
+    print(f"ssm_scan {what}: {exps / 1e6:.1f} M exponentials take "
+          f"{exps / PEAK_SFU_PER_S * 1e3:.7f} ms on the special-function "
+          f"units; the forward's bytes {4 * 3 * rows / 1e6:.1f} MB (u, dt, "
+          f"y) take {4 * 3 * rows / PEAK_BYTES_PER_S * 1e3:.7f} ms, the "
+          f"backward's {4 * 5 * rows / 1e6:.1f} MB (u, dt, dy, du, ddt) "
+          f"{4 * 5 * rows / PEAK_BYTES_PER_S * 1e3:.7f} ms")
+    _print_times(f"ssm_scan {what} (saving states)", fwd)
+    print(f"ssm_scan {what} without states (the prefill's call): "
+          f"{fwd_only:.7f} ms")
+    _print_times(f"ssm_scan_backward {what}", bwd)
+    return {"ssm_scan": fwd, "ssm_scan_backward": bwd}
+
+
+def time_training_kernels(gen):
+    """flash_attention and rmsnorm at the training shapes, forward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    b, s, h, kh, d = 8, 128, 32, 8, 128
+    q = _randn(gen, b, s, h, d)
+    k, v = _randn(gen, b, s, kh, d), _randn(gen, b, s, kh, d)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = s * (s + 1) // 2                   # causal (query, key) pairs
+    t_bound, by = bound_ms(4 * 2 * (b * s * h * d + b * s * kh * d),
+                           4 * b * h * pairs * d)
+    attn = dict(ms=device_ms(lambda: ops.flash_attention(q, k, v)),
+                plain_ms=device_ms(lambda: ref.attention(q, k, v)),
+                bound_ms=t_bound, bound_by=by,
+                library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)))
+    _print_times(f"flash_attention B={b} S={s} H={h} KH={kh} D={d} causal",
+                 attn)
+    return {"flash_attention": attn, "rmsnorm": time_rmsnorm(gen, b * s,
+                                                              4096)}
 
 
 def time_block_call(cfg, model):
@@ -430,10 +643,10 @@ def serve(cfg, frames_min: int = 16):
             assert arr.shape == (cfg.latent_hw ** 2, 4), (key, arr.shape)
             assert np.isfinite(arr).all(), f"non-finite {key} served"
     forwards = spb * (sum(calls.values()) + num_services * num_blocks)
-    expected = {"adaln_norm": cfg.num_layers * forwards,
-                "adaln_norm_epilogue": cfg.num_layers * forwards,
-                "flash_attention": cfg.num_layers * forwards,
-                "decode_attention": 0, "rmsnorm": 0}
+    expected = dict.fromkeys(LAUNCHES, 0)
+    expected.update(adaln_norm=cfg.num_layers * forwards,
+                    adaln_norm_epilogue=cfg.num_layers * forwards,
+                    flash_attention=cfg.num_layers * forwards)
     print(f"kernel launches {launches}; expected {expected} "
           f"(L={cfg.num_layers} x {forwards} DiT forwards)")
     assert launches == expected, "the main path did not run the kernels " \
@@ -443,14 +656,23 @@ def serve(cfg, frames_min: int = 16):
 
 # -- phase 7: LM steps, card vs CPU ---------------------------------------------
 
-def lm_vs_cpu(cfg, prompt_len: int = 16, steps: int = 4):
+def _state_tensors(state):
+    """Every tensor of a decode state, slot by slot (KV caches and their
+    lengths, Mamba conv tails and SSM states), on the CPU."""
+    return [t.cpu() for slot in state for key in sorted(slot)
+            for t in slot[key]]
+
+
+def lm_vs_cpu(cfg, prompt_len: int = 16, steps: int = 4, model=None):
     """One prefill and ``steps`` greedy decode steps of ``cfg`` on the card
-    and on the CPU from the same weights: the largest gaps in logits and KV
-    cache, relative to the largest |logit| and |kv|, and the token streams."""
+    and on the CPU from the same weights (``model``'s, or drawn from a
+    seed): the largest gaps in logits and in the decode state, relative to
+    the largest |logit| and |state value|, and the token streams."""
     import torch
     from repro_torch.models.lm import (LM, init_lm, lm_decode_step,
                                        lm_prefill)
-    model = init_lm(cfg, seed=11, device="cuda")
+    model = model if model is not None else init_lm(cfg, seed=11,
+                                                    device="cuda")
     cpu_model = LM(cfg, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
     gen = torch.Generator().manual_seed(5)
@@ -467,30 +689,32 @@ def lm_vs_cpu(cfg, prompt_len: int = 16, steps: int = 4):
                 tokens.append(int(tok[0]))
                 logits, state = lm_decode_step(m, tok, state)
                 outs.append(logits)
-            kv = state[0]["kv"]
             runs[dev] = ([o.cpu() for o in outs], tokens,
-                         (kv.k.cpu(), kv.v.cpu()), kv.length.cpu())
-    del model, cpu_model
-    (g_out, g_tok, g_kv, g_len), (c_out, c_tok, c_kv, c_len) = \
+                         _state_tensors(state))
+    del cpu_model
+    (g_out, g_tok, g_state), (c_out, c_tok, c_state) = \
         runs["cuda"], runs["cpu"]
     for o in g_out:
         assert torch.isfinite(o).all(), "non-finite logits on the card"
     scale = max(float(o[:, :cfg.vocab_size].abs().max()) for o in c_out)
     gap = max(float((g[:, :cfg.vocab_size] - c[:, :cfg.vocab_size])
                     .abs().max()) for g, c in zip(g_out, c_out))
-    kv_scale = max(float(t.abs().max()) for t in c_kv)
-    kv_gap = max(float((g - c).abs().max()) for g, c in zip(g_kv, c_kv))
+    floats = [(g, c) for g, c in zip(g_state, c_state) if c.is_floating_point()]
+    st_scale = max(float(c.abs().max()) for _, c in floats)
+    st_gap = max(float((g - c).abs().max()) for g, c in floats)
     print(f"{cfg.name}, {cfg.num_layers} layers, vocab {cfg.vocab_size}: "
           f"prefill {prompt_len} + {steps} decode steps; max|card - cpu| "
           f"logits {gap:.3e} (max|logit| {scale:.3f}, relative "
-          f"{gap / scale:.3e}), KV cache {kv_gap:.3e} (max|kv| "
-          f"{kv_scale:.3f}, relative {kv_gap / kv_scale:.3e}); tolerance "
+          f"{gap / scale:.3e}), decode state {st_gap:.3e} (max "
+          f"{st_scale:.3f}, relative {st_gap / st_scale:.3e}); tolerance "
           f"{LM_TOL} relative")
     print(f"greedy tokens: card {g_tok}, cpu {c_tok}")
     assert gap / scale <= LM_TOL, "logits on the card disagree with the CPU"
-    assert kv_gap / kv_scale <= LM_TOL, "KV cache on the card disagrees"
+    assert st_gap / st_scale <= LM_TOL, "decode state on the card disagrees"
     assert g_tok == c_tok, "greedy tokens differ between card and CPU"
-    assert torch.equal(g_len, c_len)
+    for g, c in zip(g_state, c_state):
+        if not c.is_floating_point():
+            assert torch.equal(g, c), "cache lengths differ"
 
 
 # -- phase 8: serve the edge launcher at full width --------------------------------
@@ -583,10 +807,12 @@ def serve_launcher(lm_cfg, gdm_cfg):
         assert torch.isfinite(req.state["x0"]).all(), "non-finite x0 served"
     assert len(counters.step_events) == counters.lm_tokens
     per_fwd = gdm_cfg.num_layers * counters.dit_forwards
-    expected = {"adaln_norm": per_fwd, "adaln_norm_epilogue": per_fwd,
-                "flash_attention": per_fwd,
-                "decode_attention": lm_cfg.num_layers * counters.lm_tokens,
-                "rmsnorm": (2 * lm_cfg.num_layers + 1) * counters.lm_tokens}
+    expected = dict.fromkeys(LAUNCHES, 0)
+    expected.update(
+        adaln_norm=per_fwd, adaln_norm_epilogue=per_fwd,
+        flash_attention=per_fwd,
+        decode_attention=lm_cfg.num_layers * counters.lm_tokens,
+        rmsnorm=(2 * lm_cfg.num_layers + 1) * counters.lm_tokens)
     print(f"kernel launches {launches}; expected {expected}")
     assert launches == expected, "the launcher did not run the kernels " \
         "exactly as its tokens and forwards imply"
@@ -599,11 +825,221 @@ def serve_launcher(lm_cfg, gdm_cfg):
     return launches
 
 
+# -- phase 9: a full-width hybrid, card vs CPU --------------------------------------
+
+def _ratio(num: float, den: float) -> float:
+    return num / max(den, 1e-30)
+
+
+def train_vs_cpu(cfg, tcfg, batch_size: int = 2, seq_len: int = 64):
+    """``tcfg.total_steps`` train steps of ``cfg`` through
+    ``repro_torch.launch.train.run`` on the card and on the CPU, from the
+    same weights on the same batches.  Checks the first batch's loss and
+    every gradient (autograd of ``lm_loss``), the first step's gradient
+    norm and update, every step's loss and the final parameters.  Returns
+    the card's model, trained."""
+    import torch
+    from repro_torch.data import DataConfig, TokenDataset
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import trainable
+    from repro_torch.models.lm import LM, init_lm, lm_loss
+    from repro_torch.optim.schedules import cosine_decay
+    model = init_lm(cfg, seed=11, device="cuda")
+    cpu_model = LM(cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    models = {"card": model, "cpu": cpu_model}
+    p0 = {k: p.detach().clone() for k, p in trainable(cpu_model).items()}
+    # run's first batch
+    batch = TokenDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=seq_len, global_batch=batch_size,
+                                    seed=tcfg.seed)).batch_at(0)
+    loss0, grads = {}, {}
+    for side, m in models.items():
+        params = trainable(m)
+        total, _ = lm_loss(m, {k: torch.from_numpy(v).to(m.embed.table.device)
+                               for k, v in batch.items()})
+        g = torch.autograd.grad(total, list(params.values()))
+        loss0[side] = float(total.detach())
+        grads[side] = {k: x.cpu() for k, x in zip(params, g)}
+    gerr = {k: float((grads["card"][k] - gc).abs().max())
+            for k, gc in grads["cpu"].items()}
+    grad_rel = {k: _ratio(gerr[k], float(gc.abs().max()))
+                for k, gc in grads["cpu"].items()}
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    # the elements whose first update cannot hinge on rounding: a gradient
+    # the same on both sides, or 1000 times the leaf's largest gap, so the
+    # two sides' Adam directions g / (|g| + eps) agree to 1e-3 of their size
+    settled = {k: (grads["card"][k] == gc) | (gc.abs() > 1e3 * gerr[k])
+               for k, gc in grads["cpu"].items()}
+    del grads
+
+    after1, norm1, runs, secs = {}, {}, {}, {}
+    for side, m in models.items():
+        def on_step(step, metrics, side=side, m=m):
+            if step == 0:
+                after1[side] = {k: p.detach().to("cpu", copy=True)
+                                for k, p in trainable(m).items()}
+                norm1[side] = float(metrics["grad_norm"])
+        print(f"train.run on the {side}:")
+        t0 = time.perf_counter()
+        runs[side] = train.run(cfg, tcfg, global_batch=batch_size,
+                              seq_len=seq_len, model=m, log_every=1,
+                              on_step=on_step)
+        secs[side] = time.perf_counter() - t0
+
+    lr1 = cosine_decay(tcfg.learning_rate, tcfg.warmup_steps,
+                       tcfg.total_steps)(1)
+    # first update, new minus old, where it is settled: the gap against
+    # 1e-2 of the CPU's update plus a float32 rounding of each new value
+    upd_worst, n_settled, n_all, n_unit, free_gap = 0.0, 0, 0, 0, 0.0
+    for k, mask in settled.items():
+        d_cpu = after1["cpu"][k] - p0[k]
+        gap = (after1["card"][k] - after1["cpu"][k]).abs()
+        slack = 1e-2 * d_cpu.abs() + 2 * torch.finfo(torch.float32).eps \
+            * after1["cpu"][k].abs()
+        if mask.any():
+            upd_worst = max(upd_worst, float(
+                (gap[mask] / slack[mask].clamp_min(1e-30)).max()))
+        if (~mask).any():
+            free_gap = max(free_gap, float(gap[~mask].max()))
+        n_settled += int(mask.sum())
+        n_all += mask.numel()
+        n_unit += int(((d_cpu.abs() - lr1).abs() <= 0.1 * lr1).sum())
+    del settled, after1
+    finals = {side: {k: p.detach().cpu() for k, p in trainable(m).items()}
+              for side, m in models.items()}
+    moved_rel = {k: _ratio(float((finals["card"][k] - pc).norm()),
+                           float((pc - p0[k]).norm()))
+                 for k, pc in finals["cpu"].items()}
+    worst_leaf = max(moved_rel, key=moved_rel.get)
+    gap_all = math.sqrt(sum(float((finals["card"][k] - pc).square().sum())
+                            for k, pc in finals["cpu"].items()))
+    moved_all = math.sqrt(sum(float((pc - p0[k]).square().sum())
+                              for k, pc in finals["cpu"].items()))
+    del finals, p0
+    loss_g, loss_c = runs["card"]["losses"], runs["cpu"]["losses"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(loss_g, loss_c)]
+
+    print(f"{cfg.name}, {cfg.num_layers} layers "
+          f"{[s.mixer for s in step_pattern(cfg)]}, B={batch_size} "
+          f"S={seq_len}: first batch's loss card {loss0['card']:.7f} cpu "
+          f"{loss0['cpu']:.7f}; first step's grad norm card "
+          f"{norm1['card']:.7f} cpu {norm1['cpu']:.7f}")
+    print(f"gradients: worst leaf {worst_grad}, max|card - cpu| / max|cpu| "
+          f"= {grad_rel[worst_grad]:.3e} (tolerance {LM_TOL})")
+    print(f"first update (lr {lr1:.3e}): {n_unit} of {n_all} elements moved "
+          f"by lr within 10% on the CPU; on the {n_settled} settled "
+          f"elements the worst gap is {upd_worst:.3e} of its allowance "
+          f"(1e-2 of the CPU's update + 2 ulp); the other "
+          f"{n_all - n_settled} differ by at most {free_gap:.3e} "
+          f"({free_gap / lr1:.3f} lr)")
+    print("losses, card: " + ", ".join(f"{x:.6f}" for x in loss_g))
+    print("losses, cpu:  " + ", ".join(f"{x:.6f}" for x in loss_c))
+    print("relative gap per step: " + ", ".join(f"{x:.2e}" for x in loss_rel)
+          + f" (tolerance {TRAIN_TOL})")
+    print(f"final parameters: |card - cpu| / |cpu - start| = "
+          f"{_ratio(gap_all, moved_all):.3e} over the model (tolerance "
+          f"{TRAIN_PARAM_TOL}), worst leaf {worst_leaf} "
+          f"{moved_rel[worst_leaf]:.3e} (tolerance {TRAIN_LEAF_TOL}); "
+          f"{len(loss_g)} steps took {secs['card']:.2f} s on the card and "
+          f"{secs['cpu']:.2f} s on the CPU")
+    assert abs(loss0["card"] - loss0["cpu"]) <= LM_TOL * abs(loss0["cpu"]), \
+        "losses differ"
+    assert grad_rel[worst_grad] <= LM_TOL, \
+        "gradients on the card disagree with the CPU"
+    assert abs(norm1["card"] - norm1["cpu"]) <= LM_TOL * norm1["cpu"], \
+        "gradient norms differ"
+    assert upd_worst <= 1.0, "the first updates disagree"
+    assert len(loss_g) == len(loss_c) == tcfg.total_steps
+    assert max(loss_rel) <= TRAIN_TOL, "a step's loss differs"
+    assert _ratio(gap_all, moved_all) <= TRAIN_PARAM_TOL, \
+        "the trained parameters differ"
+    assert moved_rel[worst_leaf] <= TRAIN_LEAF_TOL, \
+        f"the trained parameters of {worst_leaf} differ"
+    del cpu_model, models
+    return model
+
+
+def step_pattern(cfg):
+    from repro_torch.models.lm import layer_pattern
+    return layer_pattern(cfg) * (cfg.num_layers // len(layer_pattern(cfg)))
+
+
+# -- phase 10: train one full-width Jamba period -----------------------------------
+
+def train_period(cfg, tcfg, kernel_ms, global_batch: int = 8,
+                 seq_len: int = 128):
+    """``run`` trains ``cfg`` on the card; every step must launch each
+    kernel exactly as the layer pattern implies."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.models.lm import init_lm
+    pattern = step_pattern(cfg)
+    mamba = sum(s.mixer == "mamba" for s in pattern)
+    attn = len(pattern) - mamba
+    expected = dict.fromkeys(LAUNCHES, 0)
+    expected.update(ssm_scan=mamba, ssm_scan_backward=mamba,
+                    flash_attention=attn, rmsnorm=2 * len(pattern) + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=tcfg.seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name}: {cfg.num_layers} layers {[s.mixer for s in pattern]}, "
+          f"d={cfg.d_model}, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, no "
+          f"experts: {n_params / 1e9:.3f} B parameters ({n_params * 4 / 1e9:.2f} "
+          f"GB), drawn in {time.perf_counter() - t0:.2f} s")
+    per_step, last = [], {}
+    host = []
+
+    def on_step(step, metrics):
+        nonlocal last
+        now = dict(LAUNCHES)
+        per_step.append({k: now[k] - last.get(k, 0) for k in now})
+        last = now
+        host.append(time.perf_counter())
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = train.run(cfg, tcfg, global_batch=global_batch, seq_len=seq_len,
+                    model=model, log_every=1, on_step=on_step)
+    wall = time.perf_counter() - t0
+    steps = [b - a for a, b in zip([t0] + host, host)]
+    print(f"expected launches per step {expected}")
+    for i, (loss, ph, launches) in enumerate(zip(out["losses"],
+                                                 out["phase_ms"], per_step)):
+        print(f"step {i + 1}: loss {loss:.6f}; device ms forward "
+              f"{ph['forward']:.3f}, backward {ph['backward']:.3f}, "
+              f"optimizer {ph['optimizer']:.3f}, step {ph['step']:.3f}; "
+              f"host {steps[i] * 1e3:.3f} ms; launches {launches}")
+        assert math.isfinite(loss), "non-finite loss"
+        assert launches == expected, "a train step did not run the kernels " \
+            "exactly as the layer pattern implies"
+    print(f"{out['steps']} steps in {wall:.2f} s; peak device memory "
+          f"{out['peak_bytes'] / 2**30:.3f} GiB")
+    step_ms = sorted(ph["step"] for ph in out["phase_ms"][1:])
+    med = step_ms[len(step_ms) // 2]
+    for name in ("ssm_scan", "ssm_scan_backward", "flash_attention",
+                 "rmsnorm"):
+        t = kernel_ms[name]
+        print(f"  {name:18s} {expected[name]:3d} launches x {t['ms']:.5f} ms "
+              f"= {expected[name] * t['ms']:.4f} ms a step (bound "
+              f"{t['bound_ms']:.5f} ms a launch, {t['bound_by']})")
+    total = sum(expected[k] * kernel_ms[k]["ms"] for k in kernel_ms)
+    print(f"  the kernels take {total:.3f} ms of a {med:.3f} ms step "
+          f"(median of steps 2-{out['steps']}, device time)")
+    assert out["peak_bytes"] < torch.cuda.get_device_properties(0).total_memory
+    del model
+    torch.cuda.empty_cache()
+    return per_step
+
+
 def main() -> int:
     phase("1. card")
     card_info()
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.configs import TrainConfig, get_config
     from repro_torch.kernels import build
 
     phase("2. build")
@@ -623,6 +1059,8 @@ def main() -> int:
     errs["flash_attention"] = check_attention(gen)
     errs["decode_attention"] = check_decode(gen)
     errs["rmsnorm"] = check_rmsnorm(gen)
+    errs.update(check_ssm_scan(gen))
+    check_kernel_grads(gen)
 
     phase("4. times (median of "
           f"{TIMED_RUNS} device-timed samples of 10 back-to-back calls)")
@@ -633,11 +1071,15 @@ def main() -> int:
     times["decode_attention"] = time_decode(gen, 1, 24, 24)
     time_rmsnorm(gen, 8192, yi.d_model)
     times["rmsnorm"] = time_rmsnorm(gen, 1, yi.d_model)
+    train_ms = time_ssm_scan(gen)
+    times.update(train_ms)
+    train_ms.update(time_training_kernels(gen))
 
     phase("5. one block call, card vs CPU")
     model = step_vs_cpu(full)
     block_ms = time_block_call(full, model)
-    per_forward = full.num_layers * sum(t["ms"] for t in times.values())
+    per_forward = full.num_layers * sum(times[k]["ms"] for k in (
+        "adaln_norm", "adaln_norm_epilogue", "flash_attention"))
     print(f"run_block_batched B=4 full width: {block_ms:.4f} ms per DiT "
           f"forward; the kernels take {per_forward:.4f} ms of it "
           f"({full.num_layers} x (adaLN + adaLN epilogue + attention))")
@@ -656,12 +1098,36 @@ def main() -> int:
     launches.update(decode_attention=lm_launches["decode_attention"],
                     rmsnorm=lm_launches["rmsnorm"])
 
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"), num_experts=0)
+    # the trainer's CLI settings (repro.launch.train): AdamW at 3e-4 on the
+    # cosine schedule, warmup max(steps // 20, 5)
+    tcfg = TrainConfig(learning_rate=3e-4, total_steps=6, warmup_steps=5)
+    phase("9. full-width hybrid [attention, Mamba], card vs CPU: six train "
+          "steps, then prefill + 4 decode steps")
+    pair = dataclasses.replace(jamba, attn_every=2, num_layers=2)
+    model = train_vs_cpu(pair, tcfg)
+    lm_vs_cpu(pair, model=model)
+    del model
+    torch.cuda.empty_cache()
+
+    phase("10. train one full-width Jamba period (8 layers, no experts), "
+          "global batch 8, seq 128, six steps")
+    per_step = train_period(dataclasses.replace(jamba, num_layers=8), tcfg,
+                            train_ms)
+    # the scan kernels' launches come from the training path
+    for name in ("ssm_scan", "ssm_scan_backward"):
+        launches[name] = sum(s[name] for s in per_step)
+
     replaces = {
         "adaln_norm": "src/repro/kernels/adaln_norm.py:76",
         "adaln_norm_epilogue": "src/repro/kernels/adaln_norm.py:86",
         "flash_attention": "src/repro/kernels/flash_attention.py:100",
         "decode_attention": "src/repro/kernels/decode_attention.py:86",
         "rmsnorm": "src/repro/kernels/rmsnorm.py:32",
+        "ssm_scan": "src/repro/kernels/ssm_scan.py:74",
+        "ssm_scan_backward": "none: no Pallas backward; the reference "
+                             "differentiates src/repro/kernels/ref.py:91 "
+                             "with XLA",
     }
     sources = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
                for name in replaces}

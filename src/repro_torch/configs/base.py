@@ -1,23 +1,39 @@
 """Model configuration for the port.
 
-A copy of the fields of ``repro.configs.base.ModelConfig`` that the DiT and
-the dense LM read, with the same defaults, derived properties and
-``reduced()`` rule, so a config built here equals the reference's field for
-field.  The port is float32 throughout, so the reference's ``dtype`` and
-``gdm_impl`` fields have no counterpart: the dtype is fixed, and the kernel
-follows the tensor's device.  The MoE, hybrid, SSM and enc-dec fields come
-with the slices that port those families.
+A copy of the fields of ``repro.configs.base.ModelConfig`` that the DiT,
+the dense LM and the hybrid (Jamba) LM read, with the same defaults,
+derived properties and ``reduced()`` rule, so a config built here equals
+the reference's field for field; ``MambaConfig`` and ``TrainConfig`` are
+copies too.  The port is float32 throughout, so the reference's ``dtype``
+and ``gdm_impl`` fields have no counterpart: the dtype is fixed, and the
+kernel follows the tensor's device.  The MoE fields are carried so the
+hybrid configs copy whole, but no MoE layer runs yet; the xLSTM and
+enc-dec fields come with the slices that port those families.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
+from typing import Dict, Optional
+
+
+@dataclass(frozen=True)
+class MambaConfig:
+    """Selective-SSM (Mamba) block hyper-parameters."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
+
+    def resolved_dt_rank(self, d_model: int) -> int:
+        return self.dt_rank if self.dt_rank > 0 else max(1, math.ceil(d_model / 16))
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     # identity ----------------------------------------------------------
     name: str = "model"
-    family: str = "dense"         # "dense" (LM) and "gdm" run in the port
+    family: str = "dense"         # "dense", "hybrid" (LM) and "gdm" run in the port
     # transformer core ----------------------------------------------------
     num_layers: int = 2
     d_model: int = 128
@@ -30,6 +46,15 @@ class ModelConfig:
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
+    # MoE ----------------------------------------------------------------
+    num_experts: int = 0          # 0 -> dense MLP
+    experts_per_token: int = 0
+    moe_d_ff: int = 0             # per-expert hidden (0 -> d_ff)
+    moe_every: int = 1            # MoE layer every N layers (jamba: 2)
+    moe_capacity_factor: float = 1.25  # GShard-style capacity (drops overflow)
+    # hybrid (jamba) -------------------------------------------------------
+    attn_every: int = 1           # attention layer every N layers (jamba: 8)
+    mamba: Optional[MambaConfig] = None
     # long context ---------------------------------------------------------
     attention_window: int = 0     # 0 -> full attention; >0 sliding window
     # GDM service ----------------------------------------------------------
@@ -49,6 +74,10 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.resolved_head_dim
 
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
     def padded_vocab(self, multiple: int = 256) -> int:
         """Vocab padded to a multiple of ``multiple`` (the reference pads
         for even sharding; the port keeps the shapes)."""
@@ -57,10 +86,11 @@ class ModelConfig:
     # -- reduced smoke-test variant -----------------------------------------
     def reduced(self) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's rule for
-        a dense or GDM config)."""
-        kw = dict(
+        a dense, hybrid or GDM config)."""
+        kw: Dict = dict(
             name=self.name + "-reduced",
-            num_layers=min(self.num_layers, 2),
+            num_layers=min(self.num_layers,
+                           4 if self.family in ("hybrid", "ssm") else 2),
             d_model=64,
             num_heads=4,
             num_kv_heads=min(self.num_kv_heads, 2) if self.num_kv_heads < self.num_heads else 4,
@@ -68,6 +98,28 @@ class ModelConfig:
             d_ff=128 if self.d_ff else 0,
             vocab_size=128,
         )
+        if self.is_moe:
+            # generous capacity: tiny batches must not drop tokens
+            kw.update(num_experts=4, experts_per_token=2, moe_d_ff=64,
+                      moe_capacity_factor=8.0)
+        if self.family == "hybrid":
+            kw.update(num_layers=8, attn_every=min(self.attn_every, 8),
+                      moe_every=self.moe_every,
+                      mamba=MambaConfig(d_state=8, d_conv=4, expand=2))
         if self.gdm_blocks:
             kw.update(gdm_blocks=min(self.gdm_blocks, 4), latent_hw=4)
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    microbatch: int = 0           # 0 -> no gradient accumulation
+    remat: bool = True
+    seed: int = 0

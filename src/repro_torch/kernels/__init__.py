@@ -2,12 +2,14 @@
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made in this
 process: a wrapper adds one where it launches its kernel and nowhere else,
-so a run can show that the main path went through the kernels.
+so a run can show that the main path went through the kernels (a wrapper
+that makes two launches, as the scan's backward does, counts one).
 """
 import torch
 
 LAUNCHES = {"adaln_norm": 0, "adaln_norm_epilogue": 0, "flash_attention": 0,
-            "decode_attention": 0, "rmsnorm": 0}
+            "decode_attention": 0, "rmsnorm": 0, "ssm_scan": 0,
+            "ssm_scan_backward": 0}
 
 
 def reset_launches() -> None:
@@ -39,3 +41,20 @@ def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
+
+
+def wants_grad(*tensors) -> bool:
+    """Whether autograd would record an op on ``tensors`` here."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a kernel without a backward would be asked for a
+    gradient: a ctypes launch fills a fresh tensor, so autograd would see
+    a constant and the graph would be cut without a word."""
+    if wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet (ROADMAP Queue 2 "
+            "item 6); call it under torch.no_grad() or on inputs that do "
+            "not require grad")

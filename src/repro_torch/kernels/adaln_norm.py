@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build, check_launch, check_operand
+from repro_torch.kernels import (LAUNCHES, build, check_launch,
+                                 check_operand, refuse_grad)
 
 MAX_D = 1024          # the kernel keeps a row in one warp's registers
 
@@ -26,6 +27,7 @@ def adaln_norm_cuda(x, shift, scale, weight, bias, gate=None, residual=None,
         raise ValueError("adaln_norm: gate and residual go together")
     if x.dim() != 3:
         raise ValueError(f"adaln_norm: x must be (B, S, d), got {tuple(x.shape)}")
+    refuse_grad("adaln_norm", x, shift, scale, weight, bias, gate, residual)
     b, s, d = x.shape
     dev = x.device
     if dev.type != "cuda":

@@ -3,8 +3,8 @@
 Every ``csrc/*.cu`` source is compiled for Hopper (``sm_90a``) into one
 shared library with a plain C interface, at first use, from the sources in
 the checkout only.  The library lands in ``build/kernels/`` at the root of
-the checkout (listed in ``.gitignore``), named by a hash of the sources and
-flags, so an edited source is never served by a stale build.  The sources
+the checkout (listed in ``.gitignore``), named by a hash of the sources,
+their shared headers (``csrc/*.cuh``) and the flags, so an edited source is never served by a stale build.  The sources
 compile in parallel, one ``nvcc`` each, then link.  A failed compile
 raises with the compiler's output.
 
@@ -40,6 +40,13 @@ SIGNATURES = {
     "decode_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _F, _P],
     "rmsnorm_f32": [_P, _P, _P, _LL, _I, _F, _P],
+    "ssm_scan_f32": [_P] * 9 + [_I] * 4 + [_P],
+    "ssm_scan_backward_f32": [_P] * 15 + [_I] * 4 + [_P],
+}
+# C functions that size a kernel's buffers (they return a float count)
+SIZES = {
+    "ssm_scan_states_floats": [_I] * 4,
+    "ssm_scan_backward_workspace_floats": [_I] * 4,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -49,6 +56,10 @@ last_build = {"seconds": 0.0, "log": "", "path": ""}
 
 def _sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def _headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc() -> str:
@@ -65,7 +76,7 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels_{digest.hexdigest()[:16]}.so"
@@ -117,9 +128,11 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        for table, restype in ((SIGNATURES, ctypes.c_int),
+                               (SIZES, ctypes.c_longlong)):
+            for name, argtypes in table.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
         _lib = lib
     return _lib

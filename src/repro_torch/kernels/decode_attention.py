@@ -14,7 +14,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build, check_launch, check_operand
+from repro_torch.kernels import (LAUNCHES, build, check_launch,
+                                 check_operand, refuse_grad)
 
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's compiled head widths
 MAX_GROUP = 8                     # query heads per kv head
@@ -44,6 +45,7 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError("decode_attention: q must be (B, H, D) and the "
                          "caches (B, S, KH, D)")
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     b, h, d = q.shape
     _, s, kh, _ = k_cache.shape
     dev = q.device

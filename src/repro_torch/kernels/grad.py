@@ -1,0 +1,107 @@
+"""Gradients of the ``flash_attention`` and ``rmsnorm`` kernels on the card.
+
+Each kernel becomes a :class:`torch.autograd.Function` whose forward is the
+kernel, unchanged, and whose backward is the gradient written out in torch
+ops: the reference has no backward kernel for either (XLA differentiates
+its plain versions), and hand-written backward kernels for these two are
+queued in ROADMAP Queue 2 item 6.  The formulas are plain functions of
+tensors, so the CPU tests hold them against autograd of the plain versions
+and against ``jax.grad`` of the reference's.  (The scan's gradient is a
+kernel: :mod:`repro_torch.kernels.ssm_scan`.)
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+
+def attention_backward(q, k, v, o, do, *, causal: bool = True,
+                       window: int = 0, q_offset: int = 0,
+                       scale: float | None = None):
+    """(dq, dk, dv) of ``o = attention(q, k, v)`` given ``do``.
+
+    q, o, do: (B, Sq, H, D); k, v: (B, Sk, KH, D).  P is recomputed from q
+    and k under the forward's mask; then dV = P^T dO, dS = P * (dP -
+    rowsum(dO * O)) with dP = dO V^T, dQ = scale dS K and dK = scale dS^T Q.
+    Masked scores are constants in the forward (the finite -1e30), so dS is
+    zero there.  With GQA each kv head sums the gradients of its H/KH query
+    heads.  Float32 throughout."""
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    g = h // kh
+    scale = scale if scale is not None else d ** -0.5
+    qf, kf, vf = q.float(), k.float(), v.float()
+    of, dof = o.float(), do.float()
+    if g > 1:
+        kf = kf.repeat_interleave(g, dim=2)
+        vf = vf.repeat_interleave(g, dim=2)
+    scores = torch.einsum("bqhd,bshd->bhqs", qf, kf) * scale
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    kpos = torch.arange(sk, device=q.device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window > 0:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    scores = scores.masked_fill(~mask[None, None], -1e30)
+    p = torch.softmax(scores, dim=-1)                        # (B, H, Sq, Sk)
+    dv = torch.einsum("bhqs,bqhd->bshd", p, dof)
+    dp = torch.einsum("bqhd,bshd->bhqs", dof, vf)
+    rows = (dof * of).sum(-1).permute(0, 2, 1)[..., None]    # (B, H, Sq, 1)
+    ds = (p * (dp - rows)).masked_fill(~mask[None, None], 0.0)
+    dq = torch.einsum("bhqs,bshd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqs,bqhd->bshd", ds, qf) * scale
+    if g > 1:
+        dk = dk.reshape(b, sk, kh, g, d).sum(3)
+        dv = dv.reshape(b, sk, kh, g, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def rmsnorm_backward(x, scale, dy, eps: float = 1e-6):
+    """(dx, dscale) of ``y = x * r * scale``, r = (mean(x^2) + eps)^-1/2,
+    over the last axis: with gs = dy * scale,
+    dx = r * gs - x * r^3 * mean(gs * x), and dscale sums dy * x * r over
+    the rows.  Float32 throughout."""
+    x32, dy32, w = x.float(), dy.float(), scale.float()
+    r = ((x32 * x32).mean(dim=-1, keepdim=True) + eps) ** -0.5
+    gs = dy32 * w
+    dx = r * gs - x32 * r ** 3 * (gs * x32).mean(dim=-1, keepdim=True)
+    dscale = (dy32 * x32 * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` on the card with a gradient for q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale):
+        o = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, scale=scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset,
+                        scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, o, do, **ctx.mask)
+        return dq, dk, dv, None, None, None, None
+
+
+class RmsNormFn(torch.autograd.Function):
+    """``rmsnorm`` on the card with a gradient for x and scale."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_cuda(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_backward(x, scale, dy, ctx.eps)
+        return dx, dscale, None

@@ -100,3 +100,31 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     return (x32 * (var + eps) ** -0.5 * scale.float()).to(x.dtype)
+
+
+def ssm_scan(u, delta, a, bmat, cmat, d, *, h0=None):
+    """Selective SSM scan (Mamba), as ``repro.kernels.ref.ssm_scan``.
+
+    u, delta: (B, L, Din); a: (Din, N); bmat, cmat: (B, L, N); d: (Din,);
+    h0: optional initial state (B, Din, N).  Per step, in float32:
+    ``h = exp(dt * a) * h + (dt * B_t) * u_t`` and ``y_t = sum(h * C_t)``;
+    then ``y += u * d``.  Returns (y (B, L, Din) in u.dtype, h_final
+    (B, Din, N) float32).  A Python loop over t: differentiable by
+    autograd, which is how the CPU trains through it.
+    """
+    bsz, length, din = u.shape
+    n = a.shape[-1]
+    uf, df, af = u.float(), delta.float(), a.float()
+    bf, cf = bmat.float(), cmat.float()
+    h = (torch.zeros(bsz, din, n, device=u.device) if h0 is None
+         else h0.float())
+    ys = []
+    for t in range(length):
+        dt = df[:, t]
+        da = torch.exp(dt[..., None] * af[None])              # (B, Din, N)
+        db = dt[..., None] * bf[:, t, None, :]                # (B, Din, N)
+        h = da * h + db * uf[:, t, :, None]
+        ys.append((h * cf[:, t, None, :]).sum(-1))            # (B, Din)
+    y = torch.stack(ys, 1) if ys else uf.new_zeros(bsz, 0, din)
+    y = y + uf * d.float()[None, None]
+    return y.to(u.dtype), h

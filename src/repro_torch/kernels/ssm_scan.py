@@ -1,0 +1,125 @@
+"""Wrappers of the selective-scan CUDA kernels, forward
+(``csrc/ssm_scan.cu``) and backward (``csrc/ssm_scan_backward.cu``), and
+the autograd function that joins them.
+
+The forward replaces ``repro.kernels.ssm_scan.ssm_scan_pallas`` and, unlike
+it, can also return the final state (the reference's prefill takes that
+from its plain scan) and save the chunk-start states its backward needs.
+The backward has no Pallas counterpart: the reference differentiates its
+plain scan with XLA, which a kernel of the port does instead.  The plain
+version is :func:`repro_torch.kernels.ref.ssm_scan`, differentiated by
+autograd; :func:`repro_torch.kernels.ops.ssm_scan` picks between them by
+the tensor's device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, build, check_launch, check_operand
+
+MAX_N = 16            # the state a thread keeps in registers
+
+
+def _check(u, delta, a, bmat, cmat, d):
+    if u.dim() != 3 or a.dim() != 2:
+        raise ValueError("ssm_scan: u must be (B, L, Din) and a (Din, N)")
+    b, length, din = u.shape
+    n = a.shape[1]
+    dev = u.device
+    if dev.type != "cuda":
+        raise ValueError(f"ssm_scan_cuda: u is on {dev}")
+    if not 0 < n <= MAX_N:
+        raise ValueError(f"ssm_scan: d_state={n} outside 1..{MAX_N}")
+    if b > 65535:
+        raise ValueError(f"ssm_scan: batch {b} > 65535")
+    check_operand("u", u, dev, (b, length, din))
+    check_operand("delta", delta, dev, (b, length, din))
+    check_operand("a", a, dev, (din, n))
+    check_operand("bmat", bmat, dev, (b, length, n))
+    check_operand("cmat", cmat, dev, (b, length, n))
+    check_operand("d", d, dev, (din,))
+    return b, length, din, n, dev
+
+
+def ssm_scan_cuda(u, delta, a, bmat, cmat, d, *, return_state: bool = False,
+                  save_states: bool = False):
+    """u, delta: (B, L, Din); a: (Din, N); bmat, cmat: (B, L, N); d: (Din,).
+    Contiguous float32 on one CUDA device, N <= 16; the state starts at 0.
+    Returns (y (B, L, Din), h_final (B, Din, N) or None, states or None):
+    h_final with ``return_state``, the chunk-start states the backward
+    reads with ``save_states``."""
+    b, length, din, n, dev = _check(u, delta, a, bmat, cmat, d)
+    y = torch.empty_like(u)
+    h_final = torch.empty(b, din, n, device=dev) if return_state else None
+    if length == 0 or din == 0 or b == 0:
+        if h_final is not None:
+            h_final.zero_()
+        return y, h_final, (torch.empty(0, device=dev) if save_states
+                            else None)
+    lib = build.library()
+    states = (torch.empty(lib.ssm_scan_states_floats(b, length, din, n),
+                          device=dev) if save_states else None)
+    with torch.cuda.device(dev):
+        err = lib.ssm_scan_f32(
+            u.data_ptr(), delta.data_ptr(), a.data_ptr(), bmat.data_ptr(),
+            cmat.data_ptr(), d.data_ptr(), y.data_ptr(),
+            h_final.data_ptr() if h_final is not None else None,
+            states.data_ptr() if states is not None else None,
+            b, length, din, n,
+            torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("ssm_scan", err)
+    LAUNCHES["ssm_scan"] += 1
+    return y, h_final, states
+
+
+def ssm_scan_backward_cuda(u, delta, a, bmat, cmat, d, states, gy):
+    """Gradients of y from the forward's inputs and its ``states``
+    (``ssm_scan_cuda(..., save_states=True)``): gy (B, L, Din) is the
+    gradient of y.  Returns (gu, gdelta, ga, gb, gc, gd)."""
+    b, length, din, n, dev = _check(u, delta, a, bmat, cmat, d)
+    check_operand("gy", gy, dev, (b, length, din))
+    gu, gdelta = torch.empty_like(u), torch.empty_like(delta)
+    ga, gd = torch.empty_like(a), torch.empty_like(d)
+    gb, gc = torch.empty_like(bmat), torch.empty_like(cmat)
+    if length == 0 or din == 0 or b == 0:
+        for t in (ga, gb, gc, gd):
+            t.zero_()
+        return gu, gdelta, ga, gb, gc, gd
+    lib = build.library()
+    want = lib.ssm_scan_states_floats(b, length, din, n)
+    if (states is None or states.device != dev
+            or states.dtype != torch.float32 or states.numel() != want
+            or not states.is_contiguous()):
+        raise ValueError("ssm_scan_backward: states must be the forward's "
+                         f"{want} float32 checkpoints on {dev}")
+    work = torch.empty(
+        lib.ssm_scan_backward_workspace_floats(b, length, din, n), device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ssm_scan_backward_f32(
+            u.data_ptr(), delta.data_ptr(), a.data_ptr(), bmat.data_ptr(),
+            cmat.data_ptr(), d.data_ptr(), states.data_ptr(), gy.data_ptr(),
+            gu.data_ptr(), gdelta.data_ptr(), ga.data_ptr(), gb.data_ptr(),
+            gc.data_ptr(), gd.data_ptr(), work.data_ptr(),
+            b, length, din, n,
+            torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("ssm_scan_backward", err)
+    LAUNCHES["ssm_scan_backward"] += 1
+    return gu, gdelta, ga, gb, gc, gd
+
+
+class SsmScanFn(torch.autograd.Function):
+    """The scan's y on the card with a gradient: the forward kernel (saving
+    its chunk-start states), the backward kernel for every input."""
+
+    @staticmethod
+    def forward(ctx, u, delta, a, bmat, cmat, d):
+        y, _, states = ssm_scan_cuda(u, delta, a, bmat, cmat, d,
+                                     save_states=True)
+        ctx.save_for_backward(u, delta, a, bmat, cmat, d, states)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        u, delta, a, bmat, cmat, d, states = ctx.saved_tensors
+        return ssm_scan_backward_cuda(u, delta, a, bmat, cmat, d, states,
+                                      gy.contiguous())

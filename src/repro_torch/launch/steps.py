@@ -1,0 +1,128 @@
+"""The train step, as ``repro.launch.steps.make_train_step``.
+
+``make_train_step`` returns ``train_step(model, opt_state, batch)``: the
+loss and its gradients (``torch.autograd`` through the model; on the card
+the kernels' own backward), global-norm clipping, AdamW on the cosine
+schedule with weight decay on matrices only, applied to the model's
+parameters in place.  ``StepOptions`` keeps the reference's levers that
+change what a step computes on one card: the chunked cross-entropy and
+gradient accumulation over microbatches.  Int8 gradient compression and
+the all-to-all MoE dispatch raise until their modules are ported; the
+sharding levers (sequence-parallel carries, sharded decode) belong to the
+mesh paths, and ``remat`` and ``impl`` have no counterpart (PyTorch runs
+eagerly and the kernel follows the device).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.models.lm import LM, lm_loss
+from repro_torch.optim import (adamw, apply_updates, clip_by_global_norm,
+                               cosine_decay)
+
+Mark = Optional[Callable[[str], None]]
+
+
+@dataclasses.dataclass(frozen=True)
+class StepOptions:
+    loss_chunk: int = 0              # chunked CE (0 = off)
+    microbatch: int = 0              # gradient accumulation chunks (0 = off)
+    grad_compression: bool = False   # int8 error-feedback DP all-reduce
+    moe_a2a: bool = False            # all-to-all EP dispatch
+
+
+def trainable(model: LM) -> Dict[str, torch.Tensor]:
+    """The model's parameters by name, each set to require grad (the
+    port's parameters are created without, for the serving paths)."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    return params
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
+                    opts: StepOptions = StepOptions()):
+    """Returns ``train_step(model, opt_state, batch, mark=None) -> (model,
+    opt_state, metrics)``.  batch: {"tokens", "labels"} (B, S) int tensors
+    on the model's device.  ``mark``, if given, is called with "forward",
+    "backward", "optimizer" and "end" as the step reaches each phase (once
+    per microbatch for the first two)."""
+    if opts.grad_compression:
+        raise NotImplementedError(
+            "int8 gradient compression is not ported yet (ROADMAP Queue 1 "
+            "item 12: optim/compression)")
+    if opts.moe_a2a:
+        raise NotImplementedError(
+            "the all-to-all MoE dispatch is not ported yet (ROADMAP Queue 1 "
+            "item 12: nn/moe_sharded)")
+    lr = cosine_decay(tcfg.learning_rate, tcfg.warmup_steps, tcfg.total_steps)
+    _, opt_update = adamw(lr, b1=tcfg.b1, b2=tcfg.b2,
+                          weight_decay=tcfg.weight_decay, wd_mask=_wd_mask)
+
+    def compute_grads(model, params, batch, mark):
+        names = list(params)
+
+        def metrics_and_grads(mb):
+            mark("forward")
+            total, metrics = lm_loss(model, mb, loss_chunk=opts.loss_chunk)
+            mark("backward")
+            grads = torch.autograd.grad(total, [params[k] for k in names],
+                                        allow_unused=True,
+                                        materialize_grads=True)
+            return ({k: v.detach() for k, v in metrics.items()},
+                    dict(zip(names, grads)))
+
+        b = batch["tokens"].shape[0]
+        if not (opts.microbatch and b % opts.microbatch == 0):
+            return metrics_and_grads(batch)
+        # gradient accumulation: the mean of the microbatches' gradients,
+        # the last microbatch's metrics, as in the reference
+        nmb = opts.microbatch
+        chunks = [dict(zip(batch, rows)) for rows in zip(
+            *(t.reshape(nmb, b // nmb, *t.shape[1:]) for t in
+              batch.values()))]
+        g_acc = {k: torch.zeros_like(p, dtype=torch.float32)
+                 for k, p in params.items()}
+        for mb in chunks:
+            metrics, g = metrics_and_grads(mb)
+            g_acc = {k: g_acc[k] + g[k].float() for k in names}
+        return metrics, {k: g / nmb for k, g in g_acc.items()}
+
+    def train_step(model: LM, opt_state, batch, mark: Mark = None):
+        mark = mark or (lambda _: None)
+        params = trainable(model)
+        metrics, grads = compute_grads(model, params, batch, mark)
+        mark("optimizer")
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        updates, opt_state = opt_update(grads, opt_state, params)
+        del grads
+        apply_updates(params, updates)
+        mark("end")
+        metrics = dict(metrics)
+        metrics["grad_norm"] = gnorm
+        return model, opt_state, metrics
+
+    return train_step
+
+
+def _wd_mask(params: Dict[str, torch.Tensor]) -> Dict[str, bool]:
+    """Weight decay on matrices only (no norms, biases or embeddings), leaf
+    for leaf as the reference's rule reads its tree: the path
+    ``layers/{slot}/...`` (the port's ``layers.{period}.{slot}...``) and the
+    rank with the stacked period axis, so the per-channel vectors of a
+    layer (Mamba's ``d`` and ``conv_b``) are decayed there, and here."""
+    mask = {}
+    for name, p in params.items():
+        parts = name.split(".")
+        ndim = p.dim()
+        if parts[0] == "layers":
+            parts = ["layers"] + parts[2:]
+            ndim += 1
+        path = "/".join(parts)
+        mask[name] = (ndim >= 2 and "norm" not in path
+                      and not path.endswith("/b") and "embed" not in path)
+    return mask

@@ -1,0 +1,139 @@
+"""Training launcher: the port of ``repro.launch.train``, on the card.
+
+``python -m repro_torch.launch.train --arch yi-6b --steps 200`` trains the
+reduced config on the card (``--device cpu`` on the CPU); as in the
+reference, ``--reduced`` is a flag that defaults to on, so the CLI always
+trains the reduced config.  :func:`run` takes any config, full width
+included (``chip_smoke.py`` trains one full-width Jamba period through
+it).  Checkpointing (``--ckpt-dir``) and int8 gradient compression wait
+for their modules and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import TrainConfig, get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data import DataConfig, TokenDataset
+from repro_torch.launch.steps import StepOptions, make_train_step, trainable
+from repro_torch.models.lm import LM, init_lm
+from repro_torch.optim import adamw
+
+PHASES = ("forward", "backward", "optimizer")
+
+
+class _PhaseEvents:
+    """CUDA events at the step's phase marks; ``ms()`` sums the device
+    time between consecutive marks by the phase each one opens."""
+
+    def __init__(self):
+        self.events: List = []
+
+    def __call__(self, name: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append((name, ev))
+
+    def ms(self) -> Dict[str, float]:
+        out = dict.fromkeys(PHASES, 0.0)
+        for (name, a), (_, b) in zip(self.events, self.events[1:]):
+            out[name] += a.elapsed_time(b)
+        out["step"] = self.events[0][1].elapsed_time(self.events[-1][1])
+        return out
+
+
+def run(cfg: ModelConfig, tcfg: TrainConfig, *, global_batch: int = 8,
+        seq_len: int = 128, opts: StepOptions = StepOptions(),
+        model: Optional[LM] = None, device=None, log_every: int = 20,
+        on_step: Optional[Callable[[int, Dict], None]] = None) -> Dict:
+    """Train ``cfg`` for ``tcfg.total_steps`` steps on ``TokenDataset``
+    batches (seed ``tcfg.seed``), from ``model`` or weights drawn from
+    ``tcfg.seed``.  Returns first/last loss, steps, every loss and, on the
+    card, each step's device ms by phase (CUDA events) and the peak device
+    memory.  ``on_step(step, metrics)`` is called after each step."""
+    device = model.embed.table.device if model is not None \
+        else resolve_device(device)
+    if model is None:
+        model = init_lm(cfg, seed=tcfg.seed, device=device)
+    cuda = device.type == "cuda"
+    opt_init, _ = adamw(tcfg.learning_rate)
+    opt_state = opt_init(trainable(model))
+    data = TokenDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=seq_len, global_batch=global_batch,
+                                   seed=tcfg.seed))
+    step_fn = make_train_step(cfg, tcfg, opts=opts)
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, phase_ms = [], []
+    t0 = time.time()
+    for step in range(tcfg.total_steps):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch_at(step).items()}
+        marks = _PhaseEvents() if cuda else None
+        model, opt_state, metrics = step_fn(model, opt_state, batch,
+                                            mark=marks)
+        losses.append(float(metrics["loss"]))
+        if cuda:
+            torch.cuda.synchronize(device)
+            phase_ms.append(marks.ms())
+        if on_step is not None:
+            on_step(step, metrics)
+        if log_every and (step + 1) % log_every == 0:
+            dt = (time.time() - t0) / (step + 1)
+            print(f"[train] step {step + 1:5d} loss={losses[-1]:.4f} "
+                  f"ppl={float(metrics['perplexity']):.1f} "
+                  f"{dt * 1e3:.0f} ms/step")
+    result = {"first_loss": losses[0] if losses else float("nan"),
+              "last_loss": losses[-1] if losses else float("nan"),
+              "steps": len(losses), "losses": losses}
+    if cuda:
+        result["phase_ms"] = phase_ms
+        result["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    print(f"[train] done: loss {result['first_loss']:.4f} -> "
+          f"{result['last_loss']:.4f}")
+    return result
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="yi-6b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--grad-compression", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=20)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.ckpt_dir:
+        raise NotImplementedError(
+            "checkpointing is not ported yet (ROADMAP Queue 1 item 12: "
+            "checkpoint)")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
+                       warmup_steps=max(args.steps // 20, 5),
+                       microbatch=args.microbatch, seed=args.seed)
+    opts = StepOptions(microbatch=args.microbatch,
+                       grad_compression=args.grad_compression)
+    return run(cfg, tcfg, global_batch=args.global_batch,
+               seq_len=args.seq_len, opts=opts, device=args.device,
+               log_every=args.log_every)
+
+
+if __name__ == "__main__":
+    main()

@@ -6,4 +6,4 @@ from repro_torch.models.gdm import (LATENT_CHANNELS, DiT,  # noqa: F401
                                     ssim_proxy)
 from repro_torch.models.lm import (LM, init_decode_state,  # noqa: F401
                                    init_lm, layer_pattern, lm_decode_step,
-                                   lm_forward, lm_prefill)
+                                   lm_forward, lm_loss, lm_prefill)

@@ -1,22 +1,28 @@
-"""The dense LM of the edge launcher's decode service.
+"""The LM stack of the edge launcher and the trainer: the dense and the
+hybrid (Jamba) families.
 
-Port of the dense family of ``repro.models.lm``: token embedding, L
-pre-norm blocks (RMSNorm, GQA attention with RoPE, RMSNorm, SwiGLU), a final
-RMSNorm and an untied (or tied) head whose padded-vocab columns are -1e9.
+Port of ``repro.models.lm``: token embedding, periods of pre-norm blocks
+(RMSNorm, a mixer, RMSNorm, SwiGLU), a final RMSNorm and an untied (or
+tied) head whose padded-vocab columns are -1e9.  The mixer is GQA
+attention with RoPE (dense: every block; hybrid: the first block of each
+period of ``attn_every``) or a Mamba selective-SSM block (the others).
 The reference expresses depth as a periodic layer pattern with
 period-stacked parameters; the port keeps that structure by name —
 ``layers.{p}.{j}`` is slot j of period p, the reference's
 ``params["layers"][j]`` at index p — so :mod:`repro_torch.models.convert`
-carries weights across and later families fit the same tree.
+carries weights across.
 
-Every norm runs the ``rmsnorm`` kernel (2L + 1 launches a decode step);
-decode attention runs ``decode_attention`` (L launches a step), prefill and
-the full forward ``flash_attention`` (causal, rope).  The decode state keeps
-the reference's stacked layout, one entry per pattern slot:
+Every norm runs the ``rmsnorm`` kernel (2L + 1 launches a forward or a
+decode step), every Mamba block the ``ssm_scan`` kernel on a full
+sequence (training and prefill; its backward kernel in training);
+decode attention runs ``decode_attention``, prefill and the full forward
+``flash_attention`` (causal, rope).  The decode state keeps the
+reference's stacked layout, one entry per pattern slot:
 ``{"kv": KVCache(k, v, length)}`` with k, v (P, B, S, KH, D) float32 and
-length (P, B) int32, so a request's payload has the reference's bytes.
-The MoE, hybrid (Mamba), xLSTM and enc-dec families, and ``lm_loss``, wait
-for later slices.
+length (P, B) int32, or ``{"mamba": MambaState(conv, ssm)}`` with conv
+(P, B, K-1, d_in) and ssm (P, B, d_in, N) float32, so a request's payload
+has the reference's bytes.  MoE layers (``num_experts > 0``), xLSTM and
+enc-dec wait for later slices.
 """
 from __future__ import annotations
 
@@ -28,9 +34,10 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.nn import (Attention, Dense, Embedding, RMSNorm, SwiGLU,
-                            dense_apply, embedding_apply, embedding_attend,
-                            rmsnorm_apply, swiglu_apply)
+from repro_torch.nn import (Attention, Dense, Embedding, Mamba, MambaState,
+                            RMSNorm, SwiGLU, dense_apply, embedding_apply,
+                            embedding_attend, mamba_apply, mamba_decode,
+                            mamba_init_state, rmsnorm_apply, swiglu_apply)
 from repro_torch.nn.attention import (KVCache, attention_apply,
                                       attention_decode, prefill_kv_cache)
 
@@ -39,29 +46,45 @@ PAD_LOGIT = -1e9          # logits of the padded-vocab columns
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str          # attn (mamba | mlstm | slstm in later slices)
-    mlp: str            # swiglu (moe | gelu | none in later slices)
+    mixer: str          # attn | mamba (mlstm | slstm in later slices)
+    mlp: str            # swiglu | moe (moe raises; gelu | none later)
 
 
 def layer_pattern(cfg: ModelConfig) -> List[LayerSpec]:
-    """The repeating per-period layer pattern for ``cfg`` (dense: one
-    attention + SwiGLU sub-layer per period)."""
-    if cfg.family != "dense":
+    """The repeating per-period layer pattern for ``cfg``: one attention +
+    SwiGLU sub-layer (dense), or ``attn_every`` sub-layers, attention first
+    and Mamba after, with MoE on every ``moe_every``-th (hybrid)."""
+    if cfg.family == "hybrid":
+        specs = [LayerSpec("attn" if j == 0 else "mamba",
+                           "moe" if cfg.is_moe and j % cfg.moe_every
+                           == cfg.moe_every - 1 else "swiglu")
+                 for j in range(cfg.attn_every)]
+    elif cfg.family == "dense":
+        specs = [LayerSpec("attn", "moe" if cfg.is_moe else "swiglu")]
+    else:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the hybrid (Jamba) "
-            "family is the next slice (ROADMAP Queue 2 item 4); MoE, xLSTM "
-            "and enc-dec follow (ROADMAP Queue 1 item 12)")
-    return [LayerSpec("attn", "swiglu")]
+            f"family {cfg.family!r} is not ported yet: MoE, xLSTM and "
+            "enc-dec follow (ROADMAP Queue 1 item 12)")
+    if any(s.mlp == "moe" for s in specs):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
+            "item 12: nn/moe); num_experts=0 puts a dense SwiGLU in every "
+            "slot")
+    return specs
 
 
 class Block(nn.Module):
-    """One attention + SwiGLU sub-layer's parameters (the reference's
-    ``layers[j]`` at one period)."""
+    """One sub-layer's parameters (the reference's ``layers[j]`` at one
+    period): ``norm1``, the mixer (``attn`` or ``mamba``), ``norm2`` and
+    ``mlp``."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, *, device=None):
         super().__init__()
         self.norm1 = RMSNorm(cfg.d_model, device=device)
-        self.attn = Attention(cfg, device=device)
+        if spec.mixer == "attn":
+            self.attn = Attention(cfg, device=device)
+        else:
+            self.mamba = Mamba(cfg, device=device)
         self.norm2 = RMSNorm(cfg.d_model, device=device)
         self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, num_layers=cfg.num_layers,
                           device=device)
@@ -83,7 +106,7 @@ class LM(nn.Module):
         self.embed = Embedding(vpad, cfg.d_model, device=device)
         self.final_norm = RMSNorm(cfg.d_model, device=device)
         self.layers = nn.ModuleList(
-            nn.ModuleList(Block(cfg, device=device) for _ in pattern)
+            nn.ModuleList(Block(cfg, spec, device=device) for spec in pattern)
             for _ in range(cfg.num_layers // len(pattern)))
         if cfg.tie_embeddings:
             self.register_module("head", None)
@@ -128,55 +151,103 @@ def _mlp(block: Block, x, cfg: ModelConfig):
 
 
 def lm_forward(model: LM, tokens):
-    """Full-sequence forward.  tokens: (B, S) int -> logits (B, S,
-    padded_vocab).  (The reference also returns the MoE load-balancing
-    loss, which the dense family does not have.)"""
+    """Full-sequence forward.  tokens: (B, S) int -> (logits (B, S,
+    padded_vocab), aux), aux the MoE load-balancing loss: a float32 zero,
+    since no ported family has experts yet."""
     cfg = model.cfg
     x = embedding_apply(model.embed, tokens)
     for period in model.layers:
-        for block in period:
+        for spec, block in zip(model.pattern, period):
             h = rmsnorm_apply(block.norm1, x, eps=cfg.norm_eps)
-            x = x + attention_apply(block.attn, h, cfg=cfg)
-            x = _mlp(block, x, cfg)
+            if spec.mixer == "attn":
+                h = attention_apply(block.attn, h, cfg=cfg)
+            else:
+                h = mamba_apply(block.mamba, h, cfg=cfg)
+            x = _mlp(block, x + h, cfg)
     x = rmsnorm_apply(model.final_norm, x, eps=cfg.norm_eps)
-    return _lm_head(model, x)
+    return _lm_head(model, x), torch.zeros((), device=x.device)
+
+
+def lm_loss(model: LM, batch, *, aux_weight: float = 0.01,
+            loss_chunk: int = 0):
+    """Causal LM cross-entropy + MoE aux loss, as the reference's
+    ``lm_loss``.  batch: {"tokens", "labels"} (B, S) int.  Log-softmax in
+    float32 over the padded vocab (its columns at -1e9).
+
+    ``loss_chunk`` > 0 (and dividing S) sums the log-likelihood chunk by
+    chunk along the sequence, never holding the whole (B, S, V)
+    log-softmax.  Returns (total, {"loss", "aux", "perplexity"})."""
+    logits, aux = lm_forward(model, batch["tokens"])
+    labels = batch["labels"].long()
+    b, s = labels.shape
+    if loss_chunk and s % loss_chunk == 0:
+        total_ll = torch.zeros((), device=logits.device)
+        for c in range(0, s, loss_chunk):
+            logp = torch.log_softmax(logits[:, c:c + loss_chunk].float(),
+                                     dim=-1)
+            ll = logp.gather(-1, labels[:, c:c + loss_chunk, None])[..., 0]
+            total_ll = total_ll + ll.sum()
+        loss = -total_ll / (b * s)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -logp.gather(-1, labels[..., None])[..., 0].mean()
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux": aux,
+                   "perplexity": torch.exp(loss.clamp(max=20.0))}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
-                      device=None) -> Tuple[Dict[str, KVCache], ...]:
+                      device=None) -> Tuple[Dict, ...]:
     """Stacked (num_periods, ...) float32 decode state, one entry per
-    pattern slot, every length 0."""
+    pattern slot: an empty KV cache (every length 0) for attention, zero
+    conv tail and SSM state for Mamba."""
     device = resolve_device(device)
-    n_periods = cfg.num_layers // len(layer_pattern(cfg))
-    shape = (n_periods, batch, max_seq, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return tuple(
-        {"kv": KVCache(torch.zeros(shape, device=device),
-                       torch.zeros(shape, device=device),
-                       torch.zeros((n_periods, batch), dtype=torch.int32,
-                                   device=device))}
-        for _ in layer_pattern(cfg))
+    pattern = layer_pattern(cfg)
+    n_periods = cfg.num_layers // len(pattern)
+    state = []
+    for spec in pattern:
+        if spec.mixer == "attn":
+            shape = (n_periods, batch, max_seq, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            state.append({"kv": KVCache(
+                torch.zeros(shape, device=device),
+                torch.zeros(shape, device=device),
+                torch.zeros((n_periods, batch), dtype=torch.int32,
+                            device=device))})
+        else:
+            state.append({"mamba": MambaState(*(
+                torch.stack([t] * n_periods)
+                for t in mamba_init_state(cfg, batch, device=device)))})
+    return tuple(state)
 
 
 def lm_prefill(model: LM, tokens, *, max_seq: int):
     """Prompt prefill: the full forward that also builds the decode state.
 
     Returns (logits (B, S, padded_vocab), state) — ``state`` laid out as
-    :func:`init_decode_state` with every length S, so decode continues
-    from it."""
+    :func:`init_decode_state` with every length S (and each Mamba slot's
+    conv tail and final scan state), so decode continues from it."""
     cfg = model.cfg
     x = embedding_apply(model.embed, tokens)
-    caches: List[List[KVCache]] = [[] for _ in model.pattern]
+    slots: List[list] = [[] for _ in model.pattern]
     for period in model.layers:
-        for j, block in enumerate(period):
+        for j, (spec, block) in enumerate(zip(model.pattern, period)):
             h = rmsnorm_apply(block.norm1, x, eps=cfg.norm_eps)
-            caches[j].append(prefill_kv_cache(block.attn, h, cfg=cfg,
-                                              max_seq=max_seq))
-            x = x + attention_apply(block.attn, h, cfg=cfg)
-            x = _mlp(block, x, cfg)
+            if spec.mixer == "attn":
+                slots[j].append(prefill_kv_cache(block.attn, h, cfg=cfg,
+                                                 max_seq=max_seq))
+                h = attention_apply(block.attn, h, cfg=cfg)
+            else:
+                h, ms = mamba_apply(block.mamba, h, cfg=cfg,
+                                    return_state=True)
+                slots[j].append(ms)
+            x = _mlp(block, x + h, cfg)
     x = rmsnorm_apply(model.final_norm, x, eps=cfg.norm_eps)
-    state = tuple({"kv": KVCache(*(torch.stack(t) for t in zip(*slot)))}
-                  for slot in caches)
+    state = tuple(
+        {"kv": KVCache(*(torch.stack(t) for t in zip(*slot)))}
+        if spec.mixer == "attn" else
+        {"mamba": MambaState(*(torch.stack(t) for t in zip(*slot)))}
+        for spec, slot in zip(model.pattern, slots))
     return _lm_head(model, x), state
 
 
@@ -184,19 +255,28 @@ def lm_decode_step(model: LM, token, state, *, fused_position: bool = True):
     """One decode step.  token: (B,) int -> (logits (B, padded_vocab),
     state).
 
-    The state is updated in place and returned: each layer writes its new
-    key/value row into its slice of the stacked cache and advances its
-    lengths.  Clone the state first to keep the old one."""
+    The state is updated in place and returned: each attention layer
+    writes its new key/value row into its slice of the stacked cache and
+    advances its lengths, each Mamba layer overwrites its slice of the conv
+    tail and SSM state.  Clone the state first to keep the old one."""
     cfg = model.cfg
     x = embedding_apply(model.embed, token[:, None])               # (B,1,d)
     for p, period in enumerate(model.layers):
-        for j, block in enumerate(period):
-            kv = state[j]["kv"]
+        for j, (spec, block) in enumerate(zip(model.pattern, period)):
             h = rmsnorm_apply(block.norm1, x, eps=cfg.norm_eps)
-            h, new = attention_decode(
-                block.attn, h, KVCache(kv.k[p], kv.v[p], kv.length[p]),
-                cfg=cfg, fused_position=fused_position)
-            kv.length[p] = new.length
+            if spec.mixer == "attn":
+                kv = state[j]["kv"]
+                h, new = attention_decode(
+                    block.attn, h, KVCache(kv.k[p], kv.v[p], kv.length[p]),
+                    cfg=cfg, fused_position=fused_position)
+                kv.length[p] = new.length
+            else:
+                ms = state[j]["mamba"]
+                h, new = mamba_decode(block.mamba, h,
+                                      MambaState(ms.conv[p], ms.ssm[p]),
+                                      cfg=cfg)
+                ms.conv[p] = new.conv
+                ms.ssm[p] = new.ssm
             x = _mlp(block, x + h, cfg)
     x = rmsnorm_apply(model.final_norm, x, eps=cfg.norm_eps)
     return _lm_head(model, x)[:, 0], state

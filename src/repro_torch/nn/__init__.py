@@ -8,3 +8,5 @@ from repro_torch.nn.mlp import (GeluMLP, SwiGLU, gelu_mlp_apply,  # noqa: F401
 from repro_torch.nn.norm import (LayerNorm, RMSNorm,  # noqa: F401
                                  layernorm_apply, rmsnorm_apply)
 from repro_torch.nn.rope import apply_rope, rope_frequencies  # noqa: F401
+from repro_torch.nn.ssm import (Mamba, MambaState, mamba_apply,  # noqa: F401
+                                mamba_decode, mamba_init_state)

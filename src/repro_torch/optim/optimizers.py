@@ -1,0 +1,126 @@
+"""Optimizers as (init, update) pairs over ``{name: tensor}`` parameter
+dicts, as ``repro.optim.optimizers`` over pytrees.
+
+AdamW keeps float32 first and second moments and applies
+``(m / b1c) / (sqrt(v / b2c) + eps)``; ``clip_by_global_norm`` divides by
+``max(norm, 1e-9)`` (``clip_grad_norm_`` would add 1e-6 instead).  Where
+the reference is pure, the port updates in place to save a copy of the
+model: ``clip_by_global_norm`` scales the gradients in place,
+``update_fn`` advances the moments in ``state`` in place and returns the
+updates, and ``apply_updates`` adds them into the parameters in place.  The step counter stays a host integer, so no update reads the
+card back.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+
+class OptState(NamedTuple):
+    step: int
+    mu: Optional[Params]
+    nu: Optional[Params]
+
+
+def global_norm(tree: Params) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32, the leaves
+    summed in order."""
+    total = 0
+    for x in tree.values():
+        total = total + torch.square(x.float()).sum()
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Params, max_norm: float):
+    """Scale every gradient by ``min(1, max_norm / max(norm, 1e-9))``, in
+    place; returns (grads, norm)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    for g in grads.values():
+        g.copy_((g.float() * scale).to(g.dtype))
+    return grads, norm
+
+
+def _lr_fn(learning_rate):
+    return (learning_rate if callable(learning_rate)
+            else (lambda _: float(np.float32(learning_rate))))
+
+
+def _bias_correction(b: float, step: int) -> float:
+    # 1 - b ** step in float32: the power correctly rounded (from float64)
+    # as XLA's float32 power is, then the difference in float32
+    power = np.float32(np.float64(np.float32(b)) ** step)
+    return float(np.float32(1.0) - power)
+
+
+def adamw(learning_rate: Callable[[int], float] | float,
+          b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.0,
+          wd_mask: Optional[Callable[[Params], Dict[str, bool]]] = None):
+    """Returns (init_fn, update_fn)."""
+    lr_fn = _lr_fn(learning_rate)
+
+    def init_fn(params: Params) -> OptState:
+        return OptState(step=0,
+                        mu={k: torch.zeros_like(p, dtype=torch.float32)
+                            for k, p in params.items()},
+                        nu={k: torch.zeros_like(p, dtype=torch.float32)
+                            for k, p in params.items()})
+
+    def update_fn(grads: Params, state: OptState, params: Params):
+        step = state.step + 1
+        lr = lr_fn(step)
+        b1c, b2c = _bias_correction(b1, step), _bias_correction(b2, step)
+        mask = wd_mask(params) if wd_mask is not None else {}
+        updates = {}
+        for k, g in grads.items():
+            g32 = g.float()
+            m, v, p = state.mu[k], state.nu[k], params[k]
+            m.mul_(b1).add_((1 - b1) * g32)
+            v.mul_(b2).add_((1 - b2) * g32 * g32)
+            u = (m / b1c) / (torch.sqrt(v / b2c) + eps)
+            if weight_decay and mask.get(k, True):
+                u = u + weight_decay * p.float()
+            updates[k] = (u * -lr).to(p.dtype)
+        return updates, OptState(step, state.mu, state.nu)
+
+    return init_fn, update_fn
+
+
+def sgd(learning_rate: Callable[[int], float] | float,
+        momentum: float = 0.0):
+    lr_fn = _lr_fn(learning_rate)
+
+    def init_fn(params: Params) -> OptState:
+        mu = ({k: torch.zeros_like(p, dtype=torch.float32)
+               for k, p in params.items()} if momentum else None)
+        return OptState(step=0, mu=mu, nu=None)
+
+    def update_fn(grads: Params, state: OptState, params: Params):
+        step = state.step + 1
+        lr = lr_fn(step)
+        if momentum:
+            for k, g in grads.items():
+                state.mu[k].mul_(momentum).add_(g.float())
+            updates = {k: (state.mu[k] * -lr).to(params[k].dtype)
+                       for k in grads}
+            return updates, OptState(step, state.mu, None)
+        updates = {k: (g.float() * -lr).to(params[k].dtype)
+                   for k, g in grads.items()}
+        return updates, OptState(step, None, None)
+
+    return init_fn, update_fn
+
+
+@torch.no_grad()
+def apply_updates(params: Params, updates: Params) -> Params:
+    """``p + u`` in float32, written into each parameter in place."""
+    for k, u in updates.items():
+        p = params[k]
+        p.copy_((p.float() + u.float()).to(p.dtype))
+    return params

@@ -6,8 +6,13 @@ interpret mode, on the same numpy inputs.
 Tolerance 1e-6 in float32: the port's ops follow the oracle's op order, so
 only the summation order inside a reduction or a contraction differs.
 The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
-them against these plain versions there.
+them against these plain versions there.  The gradient formulas that the
+card's ``flash_attention`` and ``rmsnorm`` run backwards are held here, on
+CPU tensors, to autograd of the plain versions and to ``jax.grad`` of the
+oracles at 1e-5 (sums over keys, rows and heads in another order).
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -226,3 +231,144 @@ def test_rmsnorm_is_the_reference_layer_function():
         got = rmsnorm_apply(norm, torch.from_numpy(x), eps=eps)
         _close(got, j_apply({"scale": 1.0 + 0.1 * w}, x, eps=eps))
 
+
+
+# -- gradients on the card: the formulas and the autograd functions -------------------
+
+GRAD_TOL = 1e-5
+
+GRAD_CASES = [
+    # (b, sq, sk, h, kh, d, causal, window, q_offset): the training
+    # attention (causal, GQA), a window, q_offset, rows with every key
+    # masked, multi-query, ragged Sk
+    (2, 12, 12, 4, 2, 16, True, 0, 0),
+    (2, 10, 10, 4, 4, 8, True, 4, 0),
+    (1, 6, 14, 4, 2, 8, True, 0, 8),
+    (1, 5, 7, 2, 2, 8, True, 0, -3),
+    (1, 9, 9, 4, 1, 8, False, 0, 0),
+    (2, 7, 11, 2, 2, 16, False, 3, 0),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,causal,window,q_offset", GRAD_CASES)
+def test_attention_backward_matches_autograd_and_jax(b, sq, sk, h, kh, d,
+                                                     causal, window,
+                                                     q_offset):
+    """``grad.attention_backward`` (what ``flash_attention``'s backward runs
+    on the card) on CPU tensors, against autograd of the plain version and
+    ``jax.grad`` of the reference's oracle."""
+    from repro_torch.kernels import grad
+    q, k, v, do = _inputs(sq * 7 + sk, (b, sq, h, d), (b, sk, kh, d),
+                          (b, sk, kh, d), (b, sq, h, d))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = jax.grad(lambda q, k, v: jnp.sum(jref.attention(q, k, v, **kw)
+                                            * do), argnums=(0, 1, 2))(q, k, v)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    o = tref.attention(*leaves, **kw)
+    auto = torch.autograd.grad(o, leaves, torch.from_numpy(do))
+    got = grad.attention_backward(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  o.detach(), torch.from_numpy(do), **kw)
+    for g, a, w in zip(got, auto, want):
+        _close(g, a.numpy(), GRAD_TOL)
+        _close(g, w, GRAD_TOL)
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 64), (7, 4096), (1, 1, 96)])
+def test_rmsnorm_backward_matches_autograd_and_jax(shape):
+    from repro_torch.kernels import grad
+    x, w, dy = _inputs(shape[-1] + len(shape), shape, (shape[-1],), shape)
+    w = 1.0 + 0.1 * w
+    want = jax.grad(lambda x, w: jnp.sum(jref.rmsnorm(x, w) * dy),
+                    argnums=(0, 1))(x, w)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, w)]
+    auto = torch.autograd.grad(tref.rmsnorm(*leaves), leaves,
+                               torch.from_numpy(dy))
+    got = grad.rmsnorm_backward(torch.from_numpy(x), torch.from_numpy(w),
+                                torch.from_numpy(dy))
+    for g, a, want_g in zip(got, auto, want):
+        scale = max(1.0, float(np.abs(want_g).max()))
+        _close(g / scale, a.numpy() / scale, GRAD_TOL)
+        _close(g / scale, np.asarray(want_g) / scale, GRAD_TOL)
+
+
+def test_autograd_functions_carry_gradients(monkeypatch):
+    """The autograd functions that ``ops`` takes on the card, with their
+    CUDA launches stood in for by the plain versions (there is no card
+    here): every input gets the gradient autograd gives the plain path."""
+    from repro_torch.kernels import grad
+    from repro_torch.kernels import ssm_scan as scan_mod
+    monkeypatch.setattr(grad, "flash_attention_cuda", tref.attention)
+    monkeypatch.setattr(grad, "rmsnorm_cuda", tref.rmsnorm)
+
+    def fake_scan(u, delta, a, bmat, cmat, d, *, return_state=False,
+                  save_states=False):
+        y, h = tref.ssm_scan(u, delta, a, bmat, cmat, d)
+        return y, h, torch.empty(0)        # no checkpoints to save
+
+    def fake_backward(u, delta, a, bmat, cmat, d, states, gy):
+        leaves = [x.detach().requires_grad_()
+                  for x in (u, delta, a, bmat, cmat, d)]
+        with torch.enable_grad():
+            y, _ = tref.ssm_scan(*leaves)
+        return torch.autograd.grad(y, leaves, gy)
+
+    monkeypatch.setattr(scan_mod, "ssm_scan_cuda", fake_scan)
+    monkeypatch.setattr(scan_mod, "ssm_scan_backward_cuda", fake_backward)
+
+    def both(fn_kernel, fn_plain, arrays):
+        a = [torch.from_numpy(x).requires_grad_() for x in arrays]
+        b = [torch.from_numpy(x).requires_grad_() for x in arrays]
+        out_k, out_p = fn_kernel(*a), fn_plain(*b)
+        w = torch.from_numpy(_inputs(1, tuple(out_p.shape))[0])
+        for gk, gp in zip(torch.autograd.grad((out_k * w).sum(), a),
+                          torch.autograd.grad((out_p * w).sum(), b)):
+            _close(gk, gp.numpy(), GRAD_TOL)
+
+    qkv = _inputs(2, (2, 6, 4, 8), (2, 6, 2, 8), (2, 6, 2, 8))
+    both(lambda q, k, v: grad.FlashAttentionFn.apply(q, k, v, True, 3, 0,
+                                                     None),
+         lambda q, k, v: tref.attention(q, k, v, causal=True, window=3),
+         qkv)
+    x, w = _inputs(3, (4, 16), (16,))
+    both(lambda x, w: grad.RmsNormFn.apply(x, w, 1e-6), tref.rmsnorm, [x, w])
+    ins = _inputs(4, (2, 5, 8), (2, 5, 8), (8, 4), (2, 5, 4), (2, 5, 4),
+                  (8,))
+    ins[1] = np.abs(ins[1]) * 0.3
+    ins[2] = -np.abs(ins[2])
+
+    def kernel_path(*t):
+        return scan_mod.SsmScanFn.apply(*t)
+
+    def plain_path(*t):
+        return tref.ssm_scan(*t)[0]
+
+    both(kernel_path, plain_path, ins)
+
+
+def test_kernels_without_a_backward_refuse_gradients(monkeypatch):
+    """On the card, ``adaln_norm`` and ``decode_attention`` raise where a
+    gradient is wanted instead of cutting the graph, before they reach the
+    library (stubbed here: reaching it fails the test)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.adaln_norm import adaln_norm_cuda
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+
+    def no_library():
+        raise AssertionError("the kernel library was reached")
+
+    monkeypatch.setattr(build, "library", no_library)
+    x = torch.zeros(1, 4, 8, requires_grad=True)
+    mod = torch.zeros(1, 8)
+    v = torch.zeros(8)
+    q = torch.zeros(1, 2, 16, requires_grad=True)
+    cache = torch.zeros(1, 4, 2, 16)
+    lens = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        adaln_norm_cuda(x, mod, mod, v, v)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        decode_attention_cuda(q, cache, cache, lens)
+    with torch.no_grad():              # no graph to cut: the usual checks
+        with pytest.raises(ValueError, match="cpu"):
+            adaln_norm_cuda(x, mod, mod, v, v)
+        with pytest.raises(ValueError, match="cpu"):
+            decode_attention_cuda(q, cache, cache, lens)

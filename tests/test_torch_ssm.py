@@ -1,0 +1,279 @@
+"""Port parity: the selective scan and the Mamba block (``repro_torch.
+kernels.ref.ssm_scan``, its written-out backward, ``repro_torch.nn.ssm``)
+against the JAX reference (``repro.kernels.ref.ssm_scan``, the Pallas
+kernel in interpret mode, ``jax.grad``, ``repro.nn.ssm``), on the same
+numpy inputs and on weights carried across.
+
+Tolerances, float32: the scan 1e-6 (the same op order as the oracle, only
+the sums over N and the exps round differently); gradients 1e-5 (sums over
+L and over the batch and channels, in another order); the Mamba block 1e-5
+(its matrix products sum in another order).  The CUDA kernels run only on
+the card, where ``chip_smoke.py`` holds them against these plain versions.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import MambaConfig as JMambaConfig
+from repro.configs.base import ModelConfig as JModelConfig
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.nn import ssm as jssm
+from repro_torch.configs.base import MambaConfig, ModelConfig
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.nn import ssm as tssm
+
+TOL = 1e-6
+GRAD_TOL = 1e-5
+BLOCK_TOL = 1e-5
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=tol,
+                               rtol=tol)
+
+
+def _scan_inputs(seed, b, length, din, n, *, h0=False):
+    """Inputs shaped as a Mamba block makes them: dt a softplus, a = -exp
+    of the S4D-real log, u ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    u = rng.standard_normal((b, length, din)).astype(f)
+    delta = np.log1p(np.exp(rng.standard_normal((b, length, din)) - 2.0)
+                     ).astype(f)
+    a = -np.tile(np.arange(1, n + 1, dtype=f), (din, 1)) * (
+        0.5 + rng.random((din, 1)).astype(f))
+    bmat = rng.standard_normal((b, length, n)).astype(f)
+    cmat = rng.standard_normal((b, length, n)).astype(f)
+    d = rng.standard_normal(din).astype(f)
+    out = [u, delta, a.astype(f), bmat, cmat, d]
+    if h0:
+        out.append(rng.standard_normal((b, din, n)).astype(f))
+    return out
+
+
+SCAN_CASES = [
+    # (b, L, Din, N): the reduced Jamba mixer (d_in 128, N 8), N 16,
+    # B = 1, L = 1, an L that is no multiple of a chunk, a ragged Din
+    (2, 12, 128, 8),
+    (2, 32, 64, 16),
+    (1, 16, 32, 16),
+    (3, 1, 48, 8),
+    (2, 37, 40, 5),
+]
+
+
+@pytest.mark.parametrize("b,length,din,n", SCAN_CASES)
+def test_scan_matches_reference(b, length, din, n):
+    u, delta, a, bmat, cmat, d = _scan_inputs(length * 10 + n, b, length,
+                                              din, n)
+    want_y, want_h = jref.ssm_scan(u, delta, a, bmat, cmat, d)
+    want_pallas = jops.ssm_scan(u, delta, a, bmat, cmat, d,
+                                impl="interpret", chunk=8, block_d=16)
+    t = torch.from_numpy
+    got_y, got_h = tref.ssm_scan(t(u), t(delta), t(a), t(bmat), t(cmat), t(d))
+    _close(got_y, want_y)
+    _close(got_h, want_h)
+    _close(got_y, want_pallas)
+    args = [t(x) for x in (u, delta, a, bmat, cmat, d)]
+    np.testing.assert_array_equal(tops.ssm_scan(*args).numpy(),
+                                  got_y.numpy())
+    y2, h2 = tops.ssm_scan(*args, return_state=True)
+    np.testing.assert_array_equal(h2.numpy(), got_h.numpy())
+
+
+def test_scan_from_an_initial_state_matches_reference():
+    u, delta, a, bmat, cmat, d, h0 = _scan_inputs(3, 2, 10, 24, 8, h0=True)
+    want_y, want_h = jref.ssm_scan(u, delta, a, bmat, cmat, d, h0=h0)
+    t = torch.from_numpy
+    got_y, got_h = tref.ssm_scan(t(u), t(delta), t(a), t(bmat), t(cmat),
+                                 t(d), h0=t(h0))
+    _close(got_y, want_y)
+    _close(got_h, want_h)
+
+
+@pytest.mark.parametrize("b,length,din,n", SCAN_CASES[:2] + SCAN_CASES[3:])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_scan_gradients_match_jax_grad(b, length, din, n, with_state):
+    """Autograd through the plain scan (the CPU's training path and what
+    the backward kernel is held to on the card) against ``jax.grad`` of
+    the oracle: all six input gradients, and dh0 with an initial state and
+    a gradient on h_final."""
+    *ins, h0 = _scan_inputs(length + din, b, length, din, n, h0=True)
+    rng = np.random.default_rng(7)
+    gy = rng.standard_normal((b, length, din)).astype(np.float32)
+    gh = rng.standard_normal((b, din, n)).astype(np.float32)
+
+    def jloss(u, delta, a, bmat, cmat, d, h0):
+        y, h = jref.ssm_scan(u, delta, a, bmat, cmat, d,
+                             h0=h0 if with_state else None)
+        out = jnp.sum(y * gy)
+        return out + jnp.sum(h * gh) if with_state else out
+
+    want = jax.grad(jloss, argnums=tuple(range(7)))(*ins, h0)
+    t = torch.from_numpy
+    leaves = [t(x).requires_grad_() for x in ins + [h0]]
+    y, h = tref.ssm_scan(*leaves[:6], h0=leaves[6] if with_state else None)
+    obj = (y * t(gy)).sum() + ((h * t(gh)).sum() if with_state else 0)
+    auto = torch.autograd.grad(obj, leaves, allow_unused=True,
+                               materialize_grads=True)
+    names = ("u", "delta", "a", "bmat", "cmat", "d", "h0")
+    for i, name in enumerate(names):
+        if name == "h0" and not with_state:
+            continue
+        scale = max(1.0, float(np.abs(want[i]).max()))
+        _close(auto[i].numpy() / scale, np.asarray(want[i]) / scale,
+               GRAD_TOL)
+
+
+def test_ops_scan_refuses_unknown_devices():
+    x = torch.zeros(1, 2, 4, device="meta")
+    with pytest.raises(ValueError, match="no implementation"):
+        tops.ssm_scan(x, x, torch.zeros(4, 2, device="meta"),
+                      torch.zeros(1, 2, 2, device="meta"),
+                      torch.zeros(1, 2, 2, device="meta"),
+                      torch.zeros(4, device="meta"))
+
+
+def test_scan_cuda_wrappers_reject_cpu_tensors():
+    from repro_torch.kernels.ssm_scan import (ssm_scan_backward_cuda,
+                                              ssm_scan_cuda)
+    args = [torch.from_numpy(x) for x in _scan_inputs(0, 1, 4, 8, 4)]
+    with pytest.raises(ValueError, match="cpu"):
+        ssm_scan_cuda(*args)
+    with pytest.raises(ValueError, match="cpu"):
+        ssm_scan_backward_cuda(*args, torch.zeros(1), torch.zeros(1, 4, 8))
+
+
+# -- the Mamba block -------------------------------------------------------------------
+
+D_MODEL = 32
+
+
+def _mamba(seed=0, d_state=8):
+    jcfg = JModelConfig(num_layers=1, d_model=D_MODEL, num_heads=4,
+                        num_kv_heads=4, d_ff=0,
+                        mamba=JMambaConfig(d_state=d_state))
+    cfg = ModelConfig(num_layers=1, d_model=D_MODEL, num_heads=4,
+                      num_kv_heads=4, d_ff=0,
+                      mamba=MambaConfig(d_state=d_state))
+    params = jssm.mamba_init(jax.random.PRNGKey(seed), jcfg)
+    block = tssm.Mamba(cfg, device="cpu")
+    flat = {jax.tree_util.keystr(p, simple=True, separator="."): np.array(v)
+            for p, v in jax.tree_util.tree_leaves_with_path(params)}
+    named = dict(block.named_parameters())
+    assert set(named) == set(flat)
+    with torch.no_grad():
+        for name, p in named.items():
+            p.copy_(torch.from_numpy(flat[name]))
+    return cfg, jcfg, params, block
+
+
+def _x(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("d_state", [8, 16])
+def test_mamba_apply_matches_reference(d_state):
+    cfg, jcfg, params, block = _mamba(d_state=d_state)
+    x = _x((2, 11, D_MODEL), 1)
+    want = jssm.mamba_apply(params, x, cfg=jcfg, impl="xla")
+    want_pallas = jssm.mamba_apply(params, x, cfg=jcfg, impl="interpret")
+    got = tssm.mamba_apply(block, torch.from_numpy(x), cfg=cfg)
+    _close(got, want, BLOCK_TOL)
+    _close(got, want_pallas, BLOCK_TOL)
+
+
+def test_mamba_prefill_state_matches_reference():
+    """The prefill path: output, raw pre-conv tail and final scan state."""
+    cfg, jcfg, params, block = _mamba()
+    x = _x((2, 9, D_MODEL), 2)
+    want, wstate = jssm.mamba_apply(params, x, cfg=jcfg, return_state=True)
+    got, state = tssm.mamba_apply(block, torch.from_numpy(x), cfg=cfg,
+                                  return_state=True)
+    _close(got, want, BLOCK_TOL)
+    _close(state.conv, wstate.conv, BLOCK_TOL)
+    _close(state.ssm, wstate.ssm, BLOCK_TOL)
+    assert state.conv.shape == (2, 3, 2 * D_MODEL)
+
+
+def test_mamba_decode_matches_reference():
+    cfg, jcfg, params, block = _mamba()
+    x = _x((2, 4, D_MODEL), 3)
+    jst = jssm.mamba_init_state(jcfg, 2, dtype=jnp.float32)
+    st = tssm.mamba_init_state(cfg, 2, device="cpu")
+    _close(st.conv, jst.conv)
+    _close(st.ssm, jst.ssm)
+    for t in range(4):
+        want, jst = jssm.mamba_decode(params, x[:, t:t + 1], jst, cfg=jcfg)
+        got, st = tssm.mamba_decode(block, torch.from_numpy(x[:, t:t + 1]),
+                                    st, cfg=cfg)
+        _close(got, want, BLOCK_TOL)
+        _close(st.conv, jst.conv, BLOCK_TOL)
+        _close(st.ssm, jst.ssm, BLOCK_TOL)
+
+
+def test_mamba_full_vs_decode():
+    """The reference's own continuity checks, carried over: decoding token
+    by token from a zero state, and from a prefill's state, reproduces the
+    full-sequence forward."""
+    cfg, _, _, block = _mamba()
+    x = torch.from_numpy(_x((2, 8, D_MODEL), 4))
+    full = tssm.mamba_apply(block, x, cfg=cfg)
+    st = tssm.mamba_init_state(cfg, 2, device="cpu")
+    outs = []
+    for t in range(8):
+        y, st = tssm.mamba_decode(block, x[:, t:t + 1], st, cfg=cfg)
+        outs.append(y)
+    _close(torch.cat(outs, 1), full, 1e-5)
+    _, st = tssm.mamba_apply(block, x[:, :6], cfg=cfg, return_state=True)
+    y6, _ = tssm.mamba_decode(block, x[:, 6:7], st, cfg=cfg)
+    _close(y6, full[:, 6:7], 1e-5)
+
+
+def test_causal_conv_sums_taps_in_order():
+    """Tap i reads x shifted by K-1-i; the bias is added after the taps."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((1, 6, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((4, 3)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(3).astype(np.float32))
+    out, tail = tssm._causal_conv(x, w, b)
+    want, wtail = jssm._causal_conv(x.numpy(), w.numpy(), b.numpy())
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(tail.numpy(), np.asarray(wtail))
+
+
+def test_mamba_init_follows_the_reference():
+    """A, D and the conv bias exactly; the dt bias inside the inverse
+    softplus of [1e-3, 1e-1]; the weights' spreads."""
+    cfg = ModelConfig(num_layers=4, d_model=64, num_heads=4, num_kv_heads=4,
+                      d_ff=0, mamba=MambaConfig(d_state=16))
+    block = tssm.Mamba(cfg, device="cpu")
+    block.apply(lambda m: m.reset_parameters(torch.Generator().manual_seed(0))
+                if hasattr(m, "reset_parameters") else None)
+    jcfg = JModelConfig(num_layers=4, d_model=64, num_heads=4,
+                        num_kv_heads=4, d_ff=0,
+                        mamba=JMambaConfig(d_state=16))
+    want = jssm.mamba_init(jax.random.PRNGKey(0), jcfg)
+    np.testing.assert_array_equal(block.a_log.detach().numpy(),
+                                  np.asarray(want["a_log"]))
+    np.testing.assert_array_equal(block.d.detach().numpy(),
+                                  np.asarray(want["d"]))
+    assert not block.conv_b.detach().any()
+    dt = torch.nn.functional.softplus(block.dt_proj.b.detach())
+    assert float(dt.min()) >= 1e-3 * (1 - 1e-5)
+    assert float(dt.max()) <= 1e-1 * (1 + 1e-5)
+    for got, w in ((block.conv_w, want["conv_w"]),
+                   (block.dt_proj.w, want["dt_proj"]["w"]),
+                   (block.in_proj.w, want["in_proj"]["w"]),
+                   (block.out_proj.w, want["out_proj"]["w"])):
+        w = np.asarray(w)
+        g = got.detach().numpy()
+        assert g.shape == w.shape
+        assert abs(g.std() / w.std() - 1) < 5 / math.sqrt(w.size)
