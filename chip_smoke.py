@@ -8,7 +8,9 @@ non-zero before the result line):
 
 1. the card: name and power limit from nvidia-smi, CUDA required;
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc,
-   sm_90a) and print the build time and ptxas' register report;
+   sm_90a) and print the build time, ptxas' register report per kernel
+   and the resident blocks per SM of ``flash_attention`` (each head
+   width) and ``ssm_scan_backward``;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (full-width gdm-dit at B in {1, 4, 8}, yi-6b's heads
    and widths, the reduced configs), on attention's masking cases and on
@@ -41,7 +43,8 @@ non-zero before the result line):
     memory.
 
 Phase 3 also holds the selective scan (forward and backward kernels)
-against its plain version and autograd, and the gradients that
+against its plain version and autograd (and the backward against itself:
+two calls give the same bits), and the gradients that
 ``flash_attention`` and ``rmsnorm`` carry on the card against autograd of
 their plain versions; phase 4 times both scan kernels at the training
 shape.
@@ -68,6 +71,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # the memory rate and its float32 operations over the CUDA-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# dense TF32 on the tensor cores; flash_attention's 3xTF32 products issue
+# three TF32 products for each float32 one
+PEAK_TF32_FLOPS = 495e12
 # exponentials run on the special-function units: 16 results per clock per
 # SM (CUDA C programming guide, compute capability 9.0) against 128 float32
 # FMA lanes (256 flops), so a sixteenth of the float32 rate
@@ -147,13 +153,16 @@ def device_ms(fn, runs: int = TIMED_RUNS, reps: int = 10,
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float, exps: float = 0.0):
+def bound_ms(nbytes: float, flops: float, exps: float = 0.0,
+             tf32_flops: float = 0.0):
     """The least time of the work, in ms, and what bounds it: its bytes at
     the memory rate, or its operations, float32 ``flops`` on the CUDA
-    cores and ``exps`` exponentials on the special-function units, which
-    run side by side (the larger of the two counts)."""
+    cores, ``tf32_flops`` on the tensor cores and ``exps`` exponentials on
+    the special-function units, which run side by side (the largest of
+    the three counts)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = max(flops / PEAK_F32_FLOPS, exps / PEAK_SFU_PER_S) * 1e3
+    t_ops = max(flops / PEAK_F32_FLOPS, exps / PEAK_SFU_PER_S,
+                tf32_flops / PEAK_TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -212,6 +221,11 @@ ATTN_CASES = [
     (3, 100, 77, 6, 6, 64, False, 0, 0),        # ragged Sk != Sq
     (2, 128, 128, 8, 8, 128, True, 0, 0),       # head_dim 128
     (2, 33, 3, 4, 2, 16, False, 0, 0),          # fewer keys than one tile
+    (2, 100, 77, 8, 2, 128, True, 0, 0),        # D=128, Sk no multiple of
+                                                # its 32-key tile, GQA
+    (2, 48, 112, 4, 2, 16, True, 24, 64),       # D=16, window + q_offset
+    (1, 70, 90, 4, 4, 64, True, 0, -20),        # rows with every key masked
+    (2, 40, 50, 2, 2, 32, False, 8, 30),        # window: late rows see none
 ]
 
 
@@ -332,21 +346,20 @@ def check_ssm_scan(gen):
         leaves = [t.clone().requires_grad_() for t in ins]
         want = torch.autograd.grad(ref.ssm_scan(*leaves)[0], leaves, gy)
         gerr = [_rel(g, w) for g, w in zip(got, want)]
+        # no atomics: a second call on the same inputs gives the same bits
+        again = ssm_scan_backward_cuda(*ins, states, gy)
+        same = all(torch.equal(x, z) for x, z in zip(got, again))
         print(f"ssm_scan B={b} L={length} Din={din} N={n}: y {ey:.3e} (rel "
               f"{ry:.3e}), h_final {eh:.3e} (rel {rh:.3e}); backward vs "
               "autograd rel " + ", ".join(
                   f"{name} {r:.2e}" for name, (_, r) in zip(
-                      ("du", "ddt", "dA", "dB", "dC", "dD"), gerr)))
+                      ("du", "ddt", "dA", "dB", "dC", "dD"), gerr))
+              + f"; a second backward call bit-identical: {same}")
         assert max(ry, rh) <= SCAN_TOL, \
             "ssm_scan disagrees with its plain version"
         assert max(r for _, r in gerr) <= SCAN_TOL, \
             "ssm_scan_backward disagrees with autograd of the plain scan"
-        if (b, length, din, n) == SCAN_CASES[0]:
-            again = ssm_scan_backward_cuda(*ins, states, gy)
-            assert all(torch.equal(x, z) for x, z in zip(got, again)), \
-                "ssm_scan_backward is not deterministic"
-            print("ssm_scan_backward at the training shape: a second call "
-                  "gives the same bits")
+        assert same, "ssm_scan_backward is not deterministic"
         worst["ssm_scan"] = max(worst["ssm_scan"], ey, eh)
         worst["ssm_scan_backward"] = max(worst["ssm_scan_backward"],
                                          *(e for e, _ in gerr))
@@ -407,8 +420,8 @@ def time_kernels(gen, cfg):
     q, k, v = (_randn(gen, b, s, h, hd) for _ in range(3))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     nbytes = 4 * 4 * b * s * h * hd
-    flops = 4 * b * h * s * s * hd
-    t_bound, by = bound_ms(nbytes, flops)
+    t_bound, by = flash_bound(nbytes, b * h * s * s, hd,
+                              f"flash_attention B={b} S={s} H={h} D={hd}")
     out["flash_attention"] = dict(
         ms=device_ms(lambda: ops.flash_attention(q, k, v, causal=False)),
         plain_ms=device_ms(lambda: ref.attention(q, k, v, causal=False)),
@@ -418,6 +431,21 @@ def time_kernels(gen, cfg):
     for name, t in out.items():
         _print_times(f"{name:20s} B={b} S={s} d={d}", t)
     return out
+
+
+def flash_bound(nbytes, pairs, d, what):
+    """flash_attention's least time on its route: 4 d flops per unmasked
+    (query, key) pair, each a 3xTF32 product (three TF32 ones) on the
+    tensor cores, one exponential per pair, or the bytes.  The bound of
+    the float32 CUDA-core route (the products as float32 FMAs) is printed
+    beside it."""
+    flops = 4 * pairs * d
+    t_bound, by = bound_ms(nbytes, 0.0, pairs, 3 * flops)
+    t_old, by_old = bound_ms(nbytes, flops, pairs)
+    print(f"{what}: {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.3f} MB; bound "
+          f"on the 3xTF32 tensor-core route {t_bound:.7f} ms ({by}), on "
+          f"the float32 CUDA-core route {t_old:.7f} ms ({by_old})")
+    return t_bound, by
 
 
 def _print_times(what, t):
@@ -534,8 +562,10 @@ def time_training_kernels(gen):
     k, v = _randn(gen, b, s, kh, d), _randn(gen, b, s, kh, d)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     pairs = s * (s + 1) // 2                   # causal (query, key) pairs
-    t_bound, by = bound_ms(4 * 2 * (b * s * h * d + b * s * kh * d),
-                           4 * b * h * pairs * d)
+    t_bound, by = flash_bound(4 * 2 * (b * s * h * d + b * s * kh * d),
+                              b * h * pairs, d,
+                              f"flash_attention B={b} S={s} H={h} KH={kh} "
+                              f"D={d} causal")
     attn = dict(ms=device_ms(lambda: ops.flash_attention(q, k, v)),
                 plain_ms=device_ms(lambda: ref.attention(q, k, v)),
                 bound_ms=t_bound, bound_by=by,
@@ -1035,6 +1065,23 @@ def train_period(cfg, tcfg, kernel_ms, global_batch: int = 8,
     return per_step
 
 
+def print_occupancy(lib):
+    """Resident blocks per SM of the two kernels redesigned for occupancy
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    for d in HEAD_DIMS:
+        blocks = lib.flash_attention_occupancy(d)
+        print(f"flash_attention D={d}: {blocks} blocks of 128 threads per "
+              f"SM ({4 * blocks} warps)")
+        assert blocks >= 1, "flash_attention cannot be resident"
+    blocks = lib.ssm_scan_backward_occupancy()
+    print(f"ssm_scan_backward: {blocks} blocks of 512 threads per SM "
+          f"({16 * blocks} warps; a design that keeps each channel's "
+          "history in 64 kB of shared memory holds 3 blocks of 64 "
+          "threads, 6 warps)")
+    assert 16 * blocks > 6, "ssm_scan_backward holds no more warps than before"
+
+
 def main() -> int:
     phase("1. card")
     card_info()
@@ -1048,8 +1095,11 @@ def main() -> int:
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"({build.last_build['path'] or build.library_path()})")
     for line in build.last_build["log"].splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "Compiling entry function" in line:
+            print("  " + line.split("'")[1])      # the mangled kernel name
+        elif "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
+    print_occupancy(build.library())
 
     full = get_config("gdm-dit")
     yi = get_config("yi-6b")

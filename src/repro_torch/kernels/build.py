@@ -48,6 +48,11 @@ SIZES = {
     "ssm_scan_states_floats": [_I] * 4,
     "ssm_scan_backward_workspace_floats": [_I] * 4,
 }
+# C functions that report a kernel's resident blocks per SM (-1 on error)
+OCCUPANCY = {
+    "flash_attention_occupancy": [_I],
+    "ssm_scan_backward_occupancy": [],
+}
 
 _lib: Optional[ctypes.CDLL] = None
 # what the last build of this process did: seconds and compiler output
@@ -129,7 +134,8 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         for table, restype in ((SIGNATURES, ctypes.c_int),
-                               (SIZES, ctypes.c_longlong)):
+                               (SIZES, ctypes.c_longlong),
+                               (OCCUPANCY, ctypes.c_int)):
             for name, argtypes in table.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

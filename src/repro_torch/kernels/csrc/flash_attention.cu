@@ -1,4 +1,5 @@
-// FlashAttention-2 style attention for Hopper (sm_90a), float32.
+// FlashAttention-2 style attention for Hopper (sm_90a), float32 in and out,
+// products on the tensor cores at float32 accuracy (3xTF32).
 //
 //   o[b, i, h] = softmax_j(scale * q[b, i, h] . k[b, j, h / G]) @ v[b, :, h / G]
 //
@@ -6,222 +7,403 @@
 // G = H / KH (grouped-query attention by index: kv is never repeated).
 // Masks: causal (q_pos >= k_pos), sliding window (q_pos - k_pos < window
 // when window > 0), with q_pos = i + q_offset; a masked score is the finite
-// -1e30 of the TPU kernel.  Keys past Sk (the ragged end) take no part.
+// -1e30 of the TPU kernel, so a row with every key masked averages the
+// values uniformly.  Keys past Sk (the ragged end) take no part.
 //
 // Replaces: src/repro/kernels/flash_attention.py :: flash_attention_pallas
 //   (_flash_kernel).
 //
-// Bound: operations.  In strict float32 (no TF32) the products run on the
-// CUDA cores; at the DiT's shapes (S = 256, D = 64) the 4 * S * D flops per
-// query row against 16 * D bytes of q/k/v/o per row put it far above the
-// card's float32 operations-per-byte balance.
+// Bound: operations.  4 * Sq * Sk * D flops per head against 16 * S * D
+// bytes of q, k, v and o; on the tensor cores each product is three TF32
+// products (below), so the floor is 3 * flops at the TF32 rate, or the
+// exponentials, or the bytes, whichever is largest (chip_smoke.py).
 //
-// Design: one block per (b, h, 32-query tile).  Each lane owns one query
-// row and keeps q and the output accumulator in registers; the block's four
-// warps split the key sequence into four contiguous slices, so four times
-// as many threads are in flight as query rows.  Each warp stages its keys
-// and values through shared memory in tiles of BK rows (synchronising only
-// itself), and every lane of the warp reads the same k/v row at the same
-// time, a broadcast without bank conflicts, as 16-byte vectors.  The online
-// softmax (running max m, denominator l, accumulator) is float32 per lane,
-// one rescale per tile.  At the end the four partial (m, l, acc) states of
-// each row are merged through shared memory in a fixed warp order, with l
-// clamped at 1e-30 as in the TPU kernel, and the block writes its output
-// tile with coalesced stores.  Moving the products to the tensor cores
-// (wgmma) and the copies to TMA is the next step for speed.
+// Design.
+// - Products: mma.sync m16n8k8 with TF32 operands and float32 accumulators.
+//   TF32 keeps 10 mantissa bits, too few for the port's 1e-5 against its
+//   float32 plain version, so every operand x is split into big =
+//   tf32(x) and small = tf32(x - big) (cvt.rna) and each product is
+//   big*small + small*big + big*big, small terms first, into the same
+//   float32 accumulator: the small*small term it drops is 2^-22 of the
+//   product (CUTLASS's OpMultiplyAddFastF32).  Both S = Q K^T and O = P V.
+// - Tiling: one block of four warps per (b, h, 64-query tile); each warp
+//   owns 16 query rows (the mma's M) for the whole key loop, so the online
+//   softmax never leaves its registers.  Q is staged once in shared memory
+//   and its fragments are split as they are read (holding them split in
+//   registers would take D registers a thread, 128 at D = 128).  K and V come in
+//   tiles of BK keys (64 for D <= 64, 32 for D = 128, by registers).
+// - Copies: K and V tiles through cp.async, 16 bytes a thread, coalesced,
+//   in a ring of two stages: the next tile is in flight while the current
+//   one is computed.  Keys past Sk are zero-filled by the copy.
+// - Bank conflicts: shared rows are D + 4 floats apart.  The B fragment of
+//   S reads K at (key g, feature t) and that of O reads V at (key 2t or
+//   2t + 1, feature g), g = lane / 4, t = lane % 4: both land on 32
+//   distinct banks.
+// - P from accumulator to operand: the accumulator of S holds, per thread,
+//   keys 2t and 2t + 1 of each 8-key column block, while the A operand of
+//   O = P V wants keys t and t + 4.  A sum over keys does not care in which
+//   order the keys come, so the k index t of the P V product stands for
+//   key 2t and k index t + 4 for key 2t + 1, and V's B fragment is read in
+//   the same order: P goes from accumulator to operand in place, with no
+//   shuffle and no trip through shared memory.
+// - Softmax: scale * log2(e) is folded into the scores and exp2f taken;
+//   row max by two __shfl_xor_sync steps across the quad that shares a
+//   row; the row sum is kept per thread and summed across the quad once at
+//   the end; one rescale of O per tile; l clamped at 1e-30.
+// - Masks: tiles that causal or window masking empties for every row of
+//   the block are skipped (all tiles are visited when some row of the
+//   block has every key masked, for its uniform average); inside a partly
+//   masked tile a masked score is -1e30 and a key past Sk is -inf.
+// - Output: each warp stages its 16 rows in its part of the Q buffer and
+//   writes them out with 16-byte coalesced stores.
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kBQ = kWarp;   // query rows per block, one per lane
-constexpr int kSplits = 4;   // warps per block, one key slice each
-constexpr float kNegInf = -1e30f;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;     // query rows per block
+constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Tile {
-  static constexpr int BK = D <= 64 ? 16 : 8;          // keys per smem tile
-  static constexpr int kFloats = 2 * kSplits * BK * D;  // k and v tiles
-  static_assert(D * (kBQ + 1) <= kFloats, "output tile must fit the kv tiles");
+  static constexpr int BK = D <= 64 ? 64 : 32;   // keys per K/V tile
+  static constexpr int LD = D + 4;               // shared row stride
+  static constexpr int kQFloats = kBQ * LD;
+  static constexpr int kKvFloats = BK * LD;      // one K or V tile
+  // Q, then a ring of two stages of a K and a V tile
+  static constexpr int kFloats = kQFloats + 2 * 2 * kKvFloats;
+  static constexpr int kBytes = kFloats * 4;
 };
 
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small, both TF32
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1,
+                                    uint32_t a2, uint32_t a3, uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32: a (rows g, g+8 by columns t, t+4) split once and
+// reused over several b; b (rows t, t+4 of column g) as float32
+__device__ __forceinline__ void mma3_split(float (&c)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           const float (&b)[2]) {
+  uint32_t bb[2], bs[2];
+  split(b[0], bb[0], bs[0]);
+  split(b[1], bb[1], bs[1]);
+  mma(c, ab[0], ab[1], ab[2], ab[3], bs[0], bs[1]);
+  mma(c, as[0], as[1], as[2], as[3], bb[0], bb[1]);
+  mma(c, ab[0], ab[1], ab[2], ab[3], bb[0], bb[1]);
+}
+
+// 16 bytes from global to shared, asynchronously; zero-filled unless valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N));
+}
+
+// rows [row0, row0 + ROWS) of a (rows, stride) float32 matrix, its first D
+// columns, into shared memory at LD floats a row; rows >= nrows are zero
+template <int ROWS, int D, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long stride, int row0,
+                                          int nrows) {
+  constexpr int kChunks = ROWS * D / 4;
+#pragma unroll
+  for (int i = threadIdx.x; i < kChunks; i += kThreads) {
+    const int r = i / (D / 4);
+    const int c = (i % (D / 4)) * 4;
+    const bool valid = row0 + r < nrows;
+    cp_async16(dst + r * LD + c,
+               src + (valid ? (long long)(row0 + r) * stride + c : 0), valid);
+  }
+}
+
 template <int D>
-__global__ void __launch_bounds__(kWarp * kSplits)
+__global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int sq,
              int sk, int heads, int kv_heads, int causal, int window,
              int q_offset, float scale) {
-  constexpr int BK = Tile<D>::BK;
-  constexpr int D4 = D / 4;
-  // kv tiles during the loop; afterwards the same bytes hold the merged
-  // output tile, laid out [D][kBQ + 1] so both its write (by lane) and its
-  // read (by feature) are free of bank conflicts
-  __shared__ __align__(16) float smem[Tile<D>::kFloats];
-  __shared__ float m_sh[kSplits][kBQ];
-  __shared__ float l_sh[kSplits][kBQ];
+  using T = Tile<D>;
+  constexpr int BK = T::BK;
+  constexpr int LD = T::LD;
+  constexpr int NS = BK / 8;       // 8-key column blocks of S per tile
+  constexpr int NO = D / 8;        // 8-feature column blocks of O
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                                  // [kBQ][LD]
+  float* kvs = smem + T::kQFloats;                   // [stage][K, V][BK][LD]
 
-  const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const int kvh = h / (heads / kv_heads);
   const int q0 = blockIdx.x * kBQ;
-  const int qi = q0 + lane;
-  const bool active = qi < sq;
-  const int qpos = qi + q_offset;
   const long long q_stride = (long long)heads * D;
   const long long kv_stride = (long long)kv_heads * D;
-
-  float qr[D];
-  float acc[D];
-  {
-    const float* qp = q + (b * sq + (active ? qi : 0)) * q_stride + (long long)h * D;
-#pragma unroll
-    for (int dd = 0; dd < D; ++dd) {
-      qr[dd] = active ? qp[dd] : 0.f;
-      acc[dd] = 0.f;
-    }
-  }
-  float m = kNegInf;
-  float l = 0.f;
-
-  float* ks = smem + warp * (2 * BK * D);
-  float* vs = ks + BK * D;
+  const float* qb = q + b * sq * q_stride + (long long)h * D;
   const float* kb = k + b * sk * kv_stride + (long long)kvh * D;
   const float* vb = v + b * sk * kv_stride + (long long)kvh * D;
-  const int n_tiles = (sk + BK - 1) / BK;
-  const int per_warp = (n_tiles + kSplits - 1) / kSplits;
-  const int t_end = min(n_tiles, (warp + 1) * per_warp);
 
-  for (int t = warp * per_warp; t < t_end; ++t) {
-    const int kstart = t * BK;
-    const int nvalid = min(BK, sk - kstart);
-    __syncwarp();  // the previous tile's reads are done
-    for (int idx = lane; idx < BK * D; idx += kWarp) {
-      const int j = idx / D;
-      const int dd = idx % D;
-      float kval = 0.f, vval = 0.f;
-      if (j < nvalid) {
-        const long long off = (long long)(kstart + j) * kv_stride + dd;
-        kval = kb[off];
-        vval = vb[off];
-      }
-      ks[idx] = kval;
-      vs[idx] = vval;
-    }
-    __syncwarp();
-
-    float s[BK];
-    float tile_max = kNegInf;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(ks + j * D);
-      float dot = 0.f;
-#pragma unroll
-      for (int c = 0; c < D4; ++c) {
-        const float4 kk = kr[c];
-        dot += qr[4 * c] * kk.x;
-        dot += qr[4 * c + 1] * kk.y;
-        dot += qr[4 * c + 2] * kk.z;
-        dot += qr[4 * c + 3] * kk.w;
-      }
-      const int kpos = kstart + j;
-      bool keep = true;
-      if (causal) keep = keep && qpos >= kpos;
-      if (window > 0) keep = keep && qpos - kpos < window;
-      // keys past the ragged end get exp(-inf) = 0 weight; masked keys get
-      // the TPU kernel's finite -1e30
-      s[j] = j < nvalid ? (keep ? dot * scale : kNegInf) : -CUDART_INF_F;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    float p_sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      s[j] = expf(s[j] - m_new);
-      p_sum += s[j];
-    }
-    l = alpha * l + p_sum;
-#pragma unroll
-    for (int dd = 0; dd < D; ++dd) acc[dd] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float4* vr = reinterpret_cast<const float4*>(vs + j * D);
-      const float p = s[j];
-#pragma unroll
-      for (int c = 0; c < D4; ++c) {
-        const float4 vv = vr[c];
-        acc[4 * c] += p * vv.x;
-        acc[4 * c + 1] += p * vv.y;
-        acc[4 * c + 2] += p * vv.z;
-        acc[4 * c + 3] += p * vv.w;
-      }
-    }
-    m = m_new;
+  // the key tiles some row of this block can see
+  const int qlo = q0 + q_offset;
+  const int qhi = min(q0 + kBQ, sq) - 1 + q_offset;
+  const bool some_row_blind = (causal && qlo < 0) ||
+                              (window > 0 && qhi - window + 1 > sk - 1);
+  int kmin = 0, kmax = sk - 1;
+  if (!some_row_blind) {
+    if (window > 0) kmin = max(0, qlo - window + 1);
+    if (causal) kmax = min(sk - 1, qhi);
   }
+  const int t_lo = kmin / BK;
+  const int t_hi = kmax / BK + 1;
 
-  // merge the kSplits partial states of each query row
-  m_sh[warp][lane] = m;
-  l_sh[warp][lane] = l;
-  __syncthreads();  // every warp is past its kv tiles: smem is free
-  float m_tot = kNegInf;
+  auto load_kv = [&](int tile, int stage) {
+    float* ks = kvs + stage * 2 * T::kKvFloats;
+    load_rows<BK, D, LD>(ks, kb, kv_stride, tile * BK, sk);
+    load_rows<BK, D, LD>(ks + T::kKvFloats, vb, kv_stride, tile * BK, sk);
+  };
+  load_rows<kBQ, D, LD>(qs, qb, q_stride, q0, sq);
+  load_kv(t_lo, 0);
+  cp_async_commit();
+
+  const float sl2 = scale * kLog2e;
+  const int row_g = q0 + warp * 16 + g;        // this thread's two rows
+  const int pos_g = row_g + q_offset;
+  const int pos_g8 = pos_g + 8;
+  const float* qw = qs + warp * 16 * LD;
+
+  float acc[NO][4];
 #pragma unroll
-  for (int w = 0; w < kSplits; ++w) m_tot = fmaxf(m_tot, m_sh[w][lane]);
-  float l_tot = 0.f;
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-  for (int w = 0; w < kSplits; ++w)
-    l_tot += expf(m_sh[w][lane] - m_tot) * l_sh[w][lane];
-  const float wgt = expf(m - m_tot) / fmaxf(l_tot, 1e-30f);
-  float* out_t = smem;  // [D][kBQ + 1]
-  for (int w = 0; w < kSplits; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int dd = 0; dd < D; ++dd) {
-        const float part = wgt * acc[dd];
-        out_t[dd * (kBQ + 1) + lane] =
-            w == 0 ? part : out_t[dd * (kBQ + 1) + lane] + part;
-      }
-    }
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  float m_g = kMasked, m_g8 = kMasked;   // running max (log2 domain)
+  float l_g = 0.f, l_g8 = 0.f;           // this thread's share of the sum
+
+  for (int tile = t_lo; tile < t_hi; ++tile) {
+    const int stage = (tile - t_lo) & 1;
+    if (tile + 1 < t_hi) load_kv(tile + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();                 // this tile (and Q) have landed
     __syncthreads();
-  }
+    const float* ks = kvs + stage * 2 * T::kKvFloats;
+    const float* vs = ks + T::kKvFloats;
+    const int k0 = tile * BK;
 
-  const int rows = min(kBQ, sq - q0);
-  for (int idx = threadIdx.x; idx < rows * D; idx += kWarp * kSplits) {
-    const int r = idx / D;
-    const int dd = idx % D;
-    o[(b * sq + q0 + r) * q_stride + (long long)h * D + dd] =
-        out_t[dd * (kBQ + 1) + r];
+    // S = Q K^T for the warp's 16 rows and the tile's BK keys
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t ab[4], as[4];
+      split(qw[g * LD + kk * 8 + t], ab[0], as[0]);
+      split(qw[(g + 8) * LD + kk * 8 + t], ab[1], as[1]);
+      split(qw[g * LD + kk * 8 + t + 4], ab[2], as[2]);
+      split(qw[(g + 8) * LD + kk * 8 + t + 4], ab[3], as[3]);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float* kr = ks + (j * 8 + g) * LD + kk * 8 + t;
+        const float bf[2] = {kr[0], kr[4]};
+        mma3_split(s[j], ab, as, bf);
+      }
+    }
+
+    // mask, scale into the log2 domain, row max across the quad
+    float tmax_g = kMasked, tmax_g8 = kMasked;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kpos = k0 + j * 8 + 2 * t + (i & 1);
+        const int qpos = i < 2 ? pos_g : pos_g8;
+        bool keep = true;
+        if (causal) keep = keep && qpos >= kpos;
+        if (window > 0) keep = keep && qpos - kpos < window;
+        const float x = kpos < sk ? (keep ? s[j][i] * sl2 : kMasked)
+                                  : -CUDART_INF_F;
+        s[j][i] = x;
+        if (i < 2) tmax_g = fmaxf(tmax_g, x);
+        else tmax_g8 = fmaxf(tmax_g8, x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      tmax_g = fmaxf(tmax_g, __shfl_xor_sync(0xffffffffu, tmax_g, off));
+      tmax_g8 = fmaxf(tmax_g8, __shfl_xor_sync(0xffffffffu, tmax_g8, off));
+    }
+    const float mn_g = fmaxf(m_g, tmax_g), mn_g8 = fmaxf(m_g8, tmax_g8);
+    const float al_g = exp2f(m_g - mn_g), al_g8 = exp2f(m_g8 - mn_g8);
+    m_g = mn_g;
+    m_g8 = mn_g8;
+    float ps_g = 0.f, ps_g8 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      s[j][0] = exp2f(s[j][0] - mn_g);
+      s[j][1] = exp2f(s[j][1] - mn_g);
+      s[j][2] = exp2f(s[j][2] - mn_g8);
+      s[j][3] = exp2f(s[j][3] - mn_g8);
+      ps_g += s[j][0] + s[j][1];
+      ps_g8 += s[j][2] + s[j][3];
+    }
+    l_g = al_g * l_g + ps_g;
+    l_g8 = al_g8 * l_g8 + ps_g8;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= al_g;
+      acc[n][1] *= al_g;
+      acc[n][2] *= al_g8;
+      acc[n][3] *= al_g8;
+    }
+
+    // O += P V: k index t is key 2t, k index t + 4 is key 2t + 1 of each
+    // 8-key block, so S's accumulator is P's operand as it stands
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      uint32_t ab[4], as[4];
+      split(s[j][0], ab[0], as[0]);     // row g,     key 2t
+      split(s[j][2], ab[1], as[1]);     // row g + 8, key 2t
+      split(s[j][1], ab[2], as[2]);     // row g,     key 2t + 1
+      split(s[j][3], ab[3], as[3]);     // row g + 8, key 2t + 1
+      const float* vr = vs + (j * 8 + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const float bf[2] = {vr[n * 8], vr[LD + n * 8]};
+        mma3_split(acc[n], ab, as, bf);
+      }
+    }
+    __syncthreads();                    // the stage is free for a load
   }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_g += __shfl_xor_sync(0xffffffffu, l_g, off);
+    l_g8 += __shfl_xor_sync(0xffffffffu, l_g8, off);
+  }
+  const float inv_g = 1.f / fmaxf(l_g, 1e-30f);
+  const float inv_g8 = 1.f / fmaxf(l_g8, 1e-30f);
+  // the warp's rows of Q are read for the last time: stage O there
+  float* ow = qs + warp * 16 * LD;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    *reinterpret_cast<float2*>(ow + g * LD + n * 8 + 2 * t) =
+        make_float2(acc[n][0] * inv_g, acc[n][1] * inv_g);
+    *reinterpret_cast<float2*>(ow + (g + 8) * LD + n * 8 + 2 * t) =
+        make_float2(acc[n][2] * inv_g8, acc[n][3] * inv_g8);
+  }
+  __syncwarp();
+  const int rows = min(16, sq - (q0 + warp * 16));
+  for (int i = lane; i < rows * (D / 4); i += 32) {
+    const int r = i / (D / 4);
+    const int c = (i % (D / 4)) * 4;
+    *reinterpret_cast<float4*>(
+        o + (b * sq + q0 + warp * 16 + r) * q_stride + (long long)h * D + c) =
+        *reinterpret_cast<const float4*>(ow + r * LD + c);
+  }
+}
+
+template <int D>
+cudaError_t prepare() {
+  // above 48 kB, dynamic shared memory must be asked for (per device)
+  return cudaFuncSetAttribute(flash_kernel<D>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Tile<D>::kBytes);
+}
+
+template <int D>
+cudaError_t launch(dim3 grid, cudaStream_t s, const float* q, const float* k,
+                   const float* v, float* o, int sq, int sk, int heads,
+                   int kv_heads, int causal, int window, int q_offset,
+                   float scale) {
+  cudaError_t e = prepare<D>();
+  if (e != cudaSuccess) return e;
+  flash_kernel<D><<<grid, kThreads, Tile<D>::kBytes, s>>>(
+      q, k, v, o, sq, sk, heads, kv_heads, causal, window, q_offset, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+int occupancy() {
+  if (prepare<D>() != cudaSuccess) return -1;
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, flash_kernel<D>, kThreads, Tile<D>::kBytes) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 }  // namespace
 
-// head_dim in {16, 32, 64, 128}; heads % kv_heads == 0; sq, sk >= 1.
-// Returns cudaGetLastError() after the launch.
+// head_dim in {16, 32, 64, 128}; heads % kv_heads == 0; sq, sk >= 1; every
+// pointer 16-byte aligned.  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int batch,
                                    int sq, int sk, int heads, int kv_heads,
                                    int head_dim, int causal, int window,
                                    int q_offset, float scale, void* stream) {
-  if (batch <= 0 || sq <= 0 || sk <= 0 || kv_heads <= 0 || heads <= 0 ||
-      heads % kv_heads != 0)
+  if (batch <= 0 || batch > 65535 || sq <= 0 || sk <= 0 || kv_heads <= 0 ||
+      heads <= 0 || heads > 65535 || heads % kv_heads != 0)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((sq + kBQ - 1) / kBQ, heads, batch);
-  const dim3 block(kWarp * kSplits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH_LAUNCH(DIM)                                              \
-  flash_kernel<DIM><<<grid, block, 0, s>>>(q, k, v, o, sq, sk, heads,        \
-                                           kv_heads, causal, window,         \
-                                           q_offset, scale)
   switch (head_dim) {
-    case 16: REPRO_FLASH_LAUNCH(16); break;
-    case 32: REPRO_FLASH_LAUNCH(32); break;
-    case 64: REPRO_FLASH_LAUNCH(64); break;
-    case 128: REPRO_FLASH_LAUNCH(128); break;
+    case 16: return (int)launch<16>(grid, s, q, k, v, o, sq, sk, heads,
+                                    kv_heads, causal, window, q_offset, scale);
+    case 32: return (int)launch<32>(grid, s, q, k, v, o, sq, sk, heads,
+                                    kv_heads, causal, window, q_offset, scale);
+    case 64: return (int)launch<64>(grid, s, q, k, v, o, sq, sk, heads,
+                                    kv_heads, causal, window, q_offset, scale);
+    case 128: return (int)launch<128>(grid, s, q, k, v, o, sq, sk, heads,
+                                      kv_heads, causal, window, q_offset,
+                                      scale);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef REPRO_FLASH_LAUNCH
-  return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel for head_dim one SM holds at once (-1 on error).
+extern "C" int flash_attention_occupancy(int head_dim) {
+  switch (head_dim) {
+    case 16: return occupancy<16>();
+    case 32: return occupancy<32>();
+    case 64: return occupancy<64>();
+    case 128: return occupancy<128>();
+    default: return -1;
+  }
 }

@@ -9,20 +9,27 @@
 // (b, t, d, n) that the gradient needs; this kernel takes a second
 // exponential and more operations to recompute the forward.
 //
-// Design: a reverse-time scan per (b, d) channel, one thread each, 64
-// channels of one b per block.  For each chunk, last first, the thread
-// reloads the chunk's start state from the forward's checkpoints and
-// recomputes the chunk's forward, keeping every h_{t-1} in shared memory
-// (the recurrence is never inverted: dividing by exp(dt * A) is unstable),
-// then walks the chunk backwards carrying g = dL/dh_t in registers.  du
-// and ddt are per channel and written directly; dA and dD are summed over
-// t in registers.  dB_t and dC_t are sums over all Din channels: each warp
-// reduces its 2N values per step with a fixed-order butterfly, the block's
-// warps are summed in order, and one partial per (b, block, t) goes to a
-// workspace; a second kernel sums the partials over the blocks (and dA, dD
-// over the batch) in a fixed order, so the gradients are deterministic.
-// The history takes kChunk * 16 floats a thread (64 kB a block at N = 16),
-// which bounds the blocks an SM holds to three.
+// Design: a reverse-time scan with one thread per (channel d, state n), 16
+// lanes of a warp on the 16 states of one channel, two channels a warp,
+// 32 channels of one b a block (512 threads).  For each chunk of 16 steps,
+// last first, the block stages the chunk's u, dt, dy (coalesced over d),
+// B_t and C_t, and the forward's checkpoint of its channels' states
+// (coalesced over d) in shared memory.  Each thread recomputes its own
+// state's 16-step forward from the checkpoint, keeping every h_{t-1} in 16
+// registers (the recurrence is never inverted: dividing by exp(dt * A) is
+// unstable), then walks the chunk backwards carrying g = dL/dh_t.
+// - du_t and ddt_t are sums over n.  Each thread keeps its per-step terms
+//   of the chunk in 32 registers; once per chunk a fixed-order butterfly
+//   over the 16 lanes (30 shuffles) leaves lane n with the totals of step
+//   n, and the block writes du and ddt through shared memory, coalesced.
+// - dB_t and dC_t are sums over all Din channels: per step one shuffle
+//   adds a warp's two channels, the block's 16 warps are summed in warp
+//   order once per chunk, and one partial per (b, block, t) goes to a
+//   workspace; a second kernel sums the partials over the blocks (and dA,
+//   dD over the batch) in a fixed order.  No atomics: the gradients are
+//   the same bits on every call.
+// The history lives in registers, not shared memory (47 kB a block), so an
+// SM holds as many blocks as registers allow.
 #include <cuda_runtime.h>
 
 #include "ssm_scan.cuh"
@@ -31,45 +38,44 @@ namespace {
 
 using namespace repro_ssm;
 
-constexpr int kBwdThreads = 64;   // channels per block
-constexpr int kBwdWarps = kBwdThreads / kWarp;
+constexpr int kLanes = 16;                     // states per channel, padded
+constexpr int kChanPerWarp = kWarp / kLanes;   // 2
+constexpr int kBwdWarps = 16;
+constexpr int kBwdThreads = kBwdWarps * kWarp;
+constexpr int kBwdChans = kBwdWarps * kChanPerWarp;   // 32 channels a block
+constexpr int kV = 2 * kLanes;                 // dB then dC columns
+constexpr int kPad = kBwdChans + 1;
 constexpr int kCombineThreads = 256;
+static_assert(kChunk == kLanes, "lane n reduces step n of a chunk");
+static_assert(kBwdThreads == kChunk * kBwdChans, "one staged value a thread");
 
-// Sums v[0..V-1] over the 32 lanes of a warp in a fixed order.  Lanes
-// differing in bits >= log2(V) are folded first; then each exchange halves
-// the values a lane keeps (lane bit s set keeps the upper half).  Lane l
-// returns the total of value l % V.  V is a power of two, V <= 32.
-template <int V>
-__device__ __forceinline__ float warp_transpose_sum(float (&v)[V]) {
+// One butterfly step over the 16 lanes of a half warp: lanes with bit S
+// clear keep the lower W values, the others the upper W, each added to its
+// partner's.
+template <int S, int W>
+__device__ __forceinline__ void fold(float (&v)[2 * kChunk], int lane) {
+  const bool lower = (lane & S) == 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float send = lower ? v[i + W] : v[i];
+    const float keep = lower ? v[i] : v[i + W];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, S);
+  }
+}
+
+// Sums v[0..31] over the 16 lanes of each half warp in a fixed order; lane
+// l (of its half) is left with the totals of v[2l] in v[0] and v[2l + 1]
+// in v[1].
+__device__ __forceinline__ void half_warp_transpose_sum(
+    float (&v)[2 * kChunk]) {
   const int lane = threadIdx.x & (kWarp - 1);
-#pragma unroll
-  for (int s = kWarp / 2; s >= V; s >>= 1) {
-#pragma unroll
-    for (int i = 0; i < V; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], s);
-  }
-#pragma unroll
-  for (int s = V / 2; s >= 1; s >>= 1) {
-    const bool lower = (lane & s) == 0;
-#pragma unroll
-    for (int i = 0; i < s; ++i) {
-      const float send = lower ? v[i + s] : v[i];
-      const float keep = lower ? v[i] : v[i + s];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, s);
-    }
-  }
-  return v[0];
+  fold<8, 16>(v, lane);
+  fold<4, 8>(v, lane);
+  fold<2, 4>(v, lane);
+  fold<1, 2>(v, lane);
 }
 
-template <int NT>
-constexpr int bwd_smem_floats() {
-  // hist [kChunk][NT][kBwdThreads], sB and sC [kChunk][NT],
-  // red [kChunk][kBwdWarps][2 NT]
-  return kChunk * NT * kBwdThreads + 2 * kChunk * NT +
-         kChunk * kBwdWarps * 2 * NT;
-}
-
-template <int NT>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kBwdThreads, 2)
 ssm_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__ dt,
                     const float* __restrict__ A, const float* __restrict__ Bm,
                     const float* __restrict__ Cm, const float* __restrict__ Dv,
@@ -79,119 +85,118 @@ ssm_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__ dt,
                     float* __restrict__ part_bc, float* __restrict__ part_a,
                     float* __restrict__ part_d,
                     int L, int Din, int N) {
-  constexpr int V = 2 * NT;
-  extern __shared__ float smem[];
-  float* hist = smem;                                   // h_{t-1} per step
-  float* sB = hist + kChunk * NT * kBwdThreads;
-  float* sC = sB + kChunk * NT;
-  float* red = sC + kChunk * NT;
+  __shared__ float sU[kChunk][kBwdChans];
+  __shared__ float sDt[kChunk][kBwdChans];
+  __shared__ float sGy[kChunk][kBwdChans];
+  __shared__ float sB[kChunk][kLanes];
+  __shared__ float sC[kChunk][kLanes];
+  __shared__ float sH[kLanes][kPad];          // the chunk's start states
+  __shared__ float sGu[kChunk][kPad];
+  __shared__ float sGdt[kChunk][kPad];
+  __shared__ float red[kBwdWarps][kChunk][kV];  // dB, dC per warp and step
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int warp = tid / kWarp, lane = tid % kWarp;
-  const int d = blockIdx.x * kBwdThreads + tid;
-  const bool live = d < Din;
+  const int n = lane % kLanes;                          // this thread's state
+  const int dl = warp * kChanPerWarp + lane / kLanes;   // and channel
+  const int d0 = blockIdx.x * kBwdChans;
+  const int d = d0 + dl;
+  const bool live = d < Din && n < N;
+  // the block's staging and write-out: row sk (a step, or a state) of
+  // channel d0 + sc
+  const int sk = tid / kBwdChans, sc = tid % kBwdChans;
+  const bool s_live = d0 + sc < Din;
   const int nc = num_chunks(L);
   const long long row = (long long)b * L;
-  const long long chan = (long long)b * Din + d;
 
-  float a[NT], g[NT], ga[NT];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    a[n] = (live && n < N) ? A[(long long)d * N + n] : 0.f;
-    g[n] = 0.f;
-    ga[n] = 0.f;
-  }
-  const float dd = live ? Dv[d] : 0.f;
-  float gd = 0.f;
+  const float a = live ? A[(long long)d * N + n] : 0.f;
+  const float dd = d < Din ? Dv[d] : 0.f;
+  float g = 0.f, ga = 0.f, gd = 0.f;
 
   for (int c = nc - 1; c >= 0; --c) {
     const int t0 = c * kChunk;
     const int kn = min(kChunk, L - t0);
-    for (int i = tid; i < kChunk * NT; i += kBwdThreads) {
-      const int k = i / NT, n = i % NT;
-      const bool in = k < kn && n < N;
-      sB[i] = in ? Bm[(row + t0 + k) * N + n] : 0.f;
-      sC[i] = in ? Cm[(row + t0 + k) * N + n] : 0.f;
+    {
+      const bool in = s_live && sk < kn;
+      const long long idx = (row + t0 + sk) * Din + d0 + sc;
+      sU[sk][sc] = in ? u[idx] : 0.f;
+      sDt[sk][sc] = in ? dt[idx] : 0.f;
+      sGy[sk][sc] = in ? gy[idx] : 0.f;
+      sH[sk][sc] = (s_live && sk < N)
+                       ? states[state_index(b, c, nc, sk, N, d0 + sc, Din)]
+                       : 0.f;
     }
-    float uk[kChunk], dk[kChunk], gk[kChunk];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const bool in = live && k < kn;
-      const long long idx = (row + t0 + k) * Din + d;
-      uk[k] = in ? u[idx] : 0.f;
-      dk[k] = in ? dt[idx] : 0.f;
-      gk[k] = in ? gy[idx] : 0.f;
+    if (tid < kChunk * kLanes) {
+      const int k = tid / kLanes, m = tid % kLanes;
+      const bool in = k < kn && m < N;
+      sB[k][m] = in ? Bm[(row + t0 + k) * N + m] : 0.f;
+      sC[k][m] = in ? Cm[(row + t0 + k) * N + m] : 0.f;
     }
-    float h[NT];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      h[n] = (live && n < N) ? states[state_index(b, c, nc, n, N, d, Din)]
-                             : 0.f;
     __syncthreads();
 
     // the chunk's forward again, keeping h_{t-1} of every step
+    float hist[kChunk];
+    float h = sH[n][dl];
 #pragma unroll
     for (int k = 0; k < kChunk; ++k) {
-      if (k < kn) {
-        const float du = dk[k] * uk[k];
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          hist[(k * NT + n) * kBwdThreads + tid] = h[n];
-          h[n] = exp_(dk[k] * a[n]) * h[n] + du * sB[k * NT + n];
-        }
+      hist[k] = h;
+      if (k < kn) {                     // the same in the block
+        const float dk = sDt[k][dl];
+        const float du = dk * sU[k][dl];
+        h = exp_(dk * a) * h + du * sB[k][n];
       }
     }
     // h is h_t of the chunk's last step; walk the chunk backwards
+    float pv[2 * kChunk];               // per step: g.B and g.h_{t-1}.dA.A
 #pragma unroll
     for (int k = kChunk - 1; k >= 0; --k) {
+      float gb = 0.f, gda = 0.f, cb = 0.f, cc = 0.f;
       if (k < kn) {
-        const float du = dk[k] * uk[k];
-        float contrib[V];                 // dB_t (n < NT), dC_t (n >= NT)
-        float s_gb = 0.f, s_gda = 0.f;
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          g[n] += gk[k] * sC[k * NT + n];
-          const float hp = hist[(k * NT + n) * kBwdThreads + tid];
-          const float da = exp_(dk[k] * a[n]);
-          contrib[n] = g[n] * du;
-          contrib[NT + n] = gk[k] * h[n];
-          s_gb += g[n] * sB[k * NT + n];
-          const float q = g[n] * hp * da;
-          s_gda += q * a[n];
-          ga[n] += q * dk[k];
-          g[n] *= da;
-          h[n] = hp;
-        }
-        if (live) {
-          const long long idx = (row + t0 + k) * Din + d;
-          gu[idx] = dd * gk[k] + dk[k] * s_gb;
-          gdt[idx] = uk[k] * s_gb + s_gda;
-        }
-        gd += gk[k] * uk[k];
-        const float tot = warp_transpose_sum<V>(contrib);
-        if (lane < V) red[(k * kBwdWarps + warp) * V + lane] = tot;
+        const float uk = sU[k][dl], dk = sDt[k][dl], gk = sGy[k][dl];
+        const float du = dk * uk;
+        g += gk * sC[k][n];
+        const float hp = hist[k];
+        const float da = exp_(dk * a);
+        cb = g * du;                    // this channel's dB_t[n]
+        cc = gk * h;                    // and dC_t[n]
+        gb = g * sB[k][n];
+        const float q = g * hp * da;
+        gda = q * a;
+        ga += q * dk;
+        g *= da;
+        h = hp;
+        gd += gk * uk;
       }
+      pv[2 * k] = gb;
+      pv[2 * k + 1] = gda;
+      // the warp's two channels: lanes < 16 keep dB, the others dC
+      const bool low = lane < kLanes;
+      red[warp][k][lane] = (low ? cb : cc) +
+          __shfl_xor_sync(0xffffffffu, low ? cc : cb, kLanes);
+    }
+    half_warp_transpose_sum(pv);        // lane n: step n's sums over states
+    if (n < kn) {
+      sGu[n][dl] = dd * sGy[n][dl] + sDt[n][dl] * pv[0];
+      sGdt[n][dl] = sU[n][dl] * pv[0] + pv[1];
     }
     __syncthreads();
+    if (s_live && sk < kn) {
+      const long long idx = (row + t0 + sk) * Din + d0 + sc;
+      gu[idx] = sGu[sk][sc];
+      gdt[idx] = sGdt[sk][sc];
+    }
     // this block's partial of dB_t, dC_t: its warps summed in order
-    for (int i = tid; i < kn * V; i += kBwdThreads) {
-      const int k = i / V, j = i % V;
+    if (sk < kn) {
       float s = 0.f;
 #pragma unroll
-      for (int w = 0; w < kBwdWarps; ++w)
-        s += red[(k * kBwdWarps + w) * V + j];
-      part_bc[(((long long)b * gridDim.x + blockIdx.x) * L + t0 + k) * V + j] =
-          s;
+      for (int w = 0; w < kBwdWarps; ++w) s += red[w][sk][sc];
+      part_bc[(((long long)b * gridDim.x + blockIdx.x) * L + t0 + sk) * kV +
+              sc] = s;
     }
     __syncthreads();                    // before the next chunk's staging
   }
-  if (live) {
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      if (n < N) part_a[chan * N + n] = ga[n];
-    }
-    part_d[chan] = gd;
-  }
+  if (live) part_a[((long long)b * Din + d) * N + n] = ga;
+  if (d < Din && n == 0) part_d[(long long)b * Din + d] = gd;
 }
 
 // dB, dC: sum of the blocks' partials in block order; dA, dD: sum over
@@ -230,35 +235,16 @@ ssm_scan_bwd_combine_kernel(const float* __restrict__ part_bc,
   }
 }
 
-template <int NT>
-cudaError_t launch_bwd(dim3 grid, cudaStream_t s, const float* u,
-                       const float* dt, const float* A, const float* B,
-                       const float* C, const float* D, const float* states,
-                       const float* gy, float* gu, float* gdt,
-                       float* part_bc, float* part_a, float* part_d, int L,
-                       int Din, int N) {
-  const int smem = bwd_smem_floats<NT>() * (int)sizeof(float);
-  // above 48 kB, dynamic shared memory must be asked for (per device)
-  cudaError_t e = cudaFuncSetAttribute(
-      ssm_scan_bwd_kernel<NT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  ssm_scan_bwd_kernel<NT><<<grid, kBwdThreads, smem, s>>>(
-      u, dt, A, B, C, D, states, gy, gu, gdt, part_bc, part_a, part_d, L,
-      Din, N);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Floats of the backward's workspace: the dB/dC partials (batch, blocks,
-// L, 2 NT), then the dA partials (batch, Din, N) and the dD partials
+// L, 32), then the dA partials (batch, Din, N) and the dD partials
 // (batch, Din).
 extern "C" long long ssm_scan_backward_workspace_floats(int batch, int L,
                                                         int Din, int N) {
-  const long long nblk = (Din + kBwdThreads - 1) / kBwdThreads;
-  return (long long)batch * nblk * L * 2 * state_tile(N) +
-         (long long)batch * Din * N + (long long)batch * Din;
+  const long long nblk = (Din + kBwdChans - 1) / kBwdChans;
+  return (long long)batch * nblk * L * kV + (long long)batch * Din * N +
+         (long long)batch * Din;
 }
 
 // states: the forward's checkpoints of the same inputs; workspace:
@@ -271,27 +257,30 @@ extern "C" int ssm_scan_backward_f32(
     float* workspace, int batch, int L, int Din, int N, void* stream) {
   if (bad_shape(batch, L, Din, N)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nt = state_tile(N);
-  const int nblk = (Din + kBwdThreads - 1) / kBwdThreads;
+  const int nblk = (Din + kBwdChans - 1) / kBwdChans;
   float* part_bc = workspace;
-  float* part_a = part_bc + (long long)batch * nblk * L * 2 * nt;
+  float* part_a = part_bc + (long long)batch * nblk * L * kV;
   float* part_d = part_a + (long long)batch * Din * N;
-  const dim3 grid(nblk, batch);
-  cudaError_t err;
-#define REPRO_SSM_BWD(NT)                                                    \
-  err = launch_bwd<NT>(grid, s, u, dt, A, B, C, D, states, gy, gu, gdt,      \
-                       part_bc, part_a, part_d, L, Din, N)
-  if (nt == 4) REPRO_SSM_BWD(4);
-  else if (nt == 8) REPRO_SSM_BWD(8);
-  else REPRO_SSM_BWD(16);
-#undef REPRO_SSM_BWD
+  ssm_scan_bwd_kernel<<<dim3(nblk, batch), kBwdThreads, 0, s>>>(
+      u, dt, A, B, C, D, states, gy, gu, gdt, part_bc, part_a, part_d, L,
+      Din, N);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long total =
       (long long)batch * L * 2 * N + (long long)Din * N + Din;
   const unsigned blocks =
       (unsigned)((total + kCombineThreads - 1) / kCombineThreads);
   ssm_scan_bwd_combine_kernel<<<blocks, kCombineThreads, 0, s>>>(
-      part_bc, part_a, part_d, gB, gC, gA, gD, batch, L, Din, N, 2 * nt,
-      nblk);
+      part_bc, part_a, part_d, gB, gC, gA, gD, batch, L, Din, N, kV, nblk);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the reverse scan (512 threads each) one SM holds at once (-1 on
+// error).
+extern "C" int ssm_scan_backward_occupancy() {
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, ssm_scan_bwd_kernel, kBwdThreads, 0) != cudaSuccess)
+    return -1;
+  return blocks;
 }

@@ -19,7 +19,9 @@ HEAD_DIMS = (16, 32, 64, 128)     # the kernel's compiled head widths
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          q_offset: int = 0, scale: float | None = None):
     """q: (B, Sq, H, D); k, v: (B, Sk, KH, D), H % KH == 0; contiguous
-    float32 on one CUDA device.  Returns (B, Sq, H, D)."""
+    float32 on one CUDA device, starting on 16 bytes.  Returns (B, Sq, H,
+    D), with the products on the tensor cores in 3xTF32 (float32
+    accuracy)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be 4-D (B, S, H, D)")
     b, sq, h, d = q.shape
@@ -36,6 +38,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     check_operand("q", q, dev, (b, sq, h, d))
     check_operand("k", k, dev, (b, sk, kh, d))
     check_operand("v", v, dev, (b, sk, kh, d))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must start on 16 bytes "
+                         "(the kernel copies 16-byte chunks)")
     scale = scale if scale is not None else d ** -0.5
     o = torch.empty_like(q)
     if q.numel() == 0:

@@ -11,6 +11,8 @@ card's ``flash_attention`` and ``rmsnorm`` run backwards are held here, on
 CPU tensors, to autograd of the plain versions and to ``jax.grad`` of the
 oracles at 1e-5 (sums over keys, rows and heads in another order).
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -119,6 +121,78 @@ def test_attention_fully_masked_rows_match_reference():
     want = jref.attention(q, k, v, **kw)
     got = tref.attention(*(torch.from_numpy(a) for a in (q, k, v)), **kw)
     _close(got, want)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: add half of the 13 dropped bits
+    to the magnitude, then clear them (a carry moves into the exponent)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mma(a, b, split):
+    """a @ b as the tensor cores form it from TF32 operands, accumulated in
+    float32 (a product of two TF32 values is exact in float32).  With
+    ``split`` (3xTF32) each operand is big = tf32(x) plus small =
+    tf32(x - big), and the three products that matter are summed small
+    terms first: big.small + small.big + big.big."""
+    ab, bb = _tf32(a), _tf32(b)
+    if not split:
+        return ab @ bb
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    return (ab @ b_s + a_s @ bb) + ab @ bb
+
+
+def _tensor_core_attention(q, k, v, causal, split):
+    """Attention with both products (S = Q K^T, O = P V) on emulated TF32
+    tensor cores and the softmax in float32, as ``flash_attention.cu``
+    computes it: scale * log2(e) folded into the scores, exp2, masked
+    scores at -1e30, GQA by index."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    kf = k.repeat_interleave(h // kh, dim=2).permute(0, 2, 3, 1)  # b h d s
+    vf = v.repeat_interleave(h // kh, dim=2).transpose(1, 2)      # b h s d
+    s = _mma(q.transpose(1, 2), kf, split) * (d ** -0.5 * math.log2(math.e))
+    if causal:
+        keep = torch.arange(sq)[:, None] >= torch.arange(sk)[None, :]
+        s = torch.where(keep, s, torch.tensor(-1e30))
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    o = _mma(p, vf, split) / p.sum(-1, keepdim=True)
+    return o.transpose(1, 2)
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("b,s,h,kh,d,causal", [
+    (1, 256, 3, 3, 64, False),      # the DiT's attention, 3 of its 12 heads
+    (1, 128, 8, 2, 128, True),      # the trainer's: D=128, GQA, causal
+])
+def test_3xtf32_attention_holds_the_float32_tolerance(b, s, h, kh, d, causal,
+                                                      split):
+    """The arithmetic of ``flash_attention.cu``'s tensor-core route, on the
+    CPU: 3xTF32 products hold 1e-5 (the card's tolerance against the plain
+    version) at the DiT's and the trainer's shapes; plain TF32 (no small
+    terms) misses it there, so this test tells the two apart."""
+    rng = np.random.default_rng(s + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    want = tref.attention(q, k, v, causal=causal)
+    err = float((_tensor_core_attention(q, k, v, causal, split)
+                 - want).abs().max())
+    if split:
+        assert err <= 1e-5
+    else:
+        assert err > 1e-5
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    """Ties go away from zero, a carry rounds up into the exponent."""
+    x = torch.tensor([1.0, 1 + 2 ** -12, 1 + 2 ** -11, 1 + 3 * 2 ** -11,
+                      -(1 + 2 ** -11), 2 - 2 ** -12, 1 + 2 ** -10])
+    want = [1.0, 1.0, 1 + 2 ** -10, 1 + 2 ** -9, -(1 + 2 ** -10), 2.0,
+            1 + 2 ** -10]
+    np.testing.assert_array_equal(_tf32(x).numpy(),
+                                  np.array(want, np.float32))
 
 
 def test_cuda_wrappers_reject_cpu_tensors():

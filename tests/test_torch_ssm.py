@@ -250,8 +250,14 @@ def test_causal_conv_sums_taps_in_order():
 
 
 def test_mamba_init_follows_the_reference():
-    """A, D and the conv bias exactly; the dt bias inside the inverse
-    softplus of [1e-3, 1e-1]; the weights' spreads."""
+    """A: the correctly rounded float32 log of 1..N bit for bit, and within
+    1 ulp of the reference's; D and the conv bias exactly; the dt bias
+    inside the inverse softplus of [1e-3, 1e-1]; the weights' spreads.
+
+    The reference's ``jnp.log`` in float32 is not correctly rounded, and
+    XLA's CPU code rounds it differently with the host's vector ISA (on
+    some hosts log(7) is one ulp off), so the exact value held here is the
+    float64 log rounded once, and the reference is held to 1 ulp of it."""
     cfg = ModelConfig(num_layers=4, d_model=64, num_heads=4, num_kv_heads=4,
                       d_ff=0, mamba=MambaConfig(d_state=16))
     block = tssm.Mamba(cfg, device="cpu")
@@ -261,8 +267,11 @@ def test_mamba_init_follows_the_reference():
                         num_kv_heads=4, d_ff=0,
                         mamba=JMambaConfig(d_state=16))
     want = jssm.mamba_init(jax.random.PRNGKey(0), jcfg)
-    np.testing.assert_array_equal(block.a_log.detach().numpy(),
-                                  np.asarray(want["a_log"]))
+    a_log = block.a_log.detach().numpy()
+    exact = np.log(np.arange(1, 17, dtype=np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(a_log, np.broadcast_to(exact, a_log.shape))
+    np.testing.assert_array_max_ulp(a_log, np.asarray(want["a_log"]),
+                                    maxulp=1)
     np.testing.assert_array_equal(block.d.detach().numpy(),
                                   np.asarray(want["d"]))
     assert not block.conv_b.detach().any()
