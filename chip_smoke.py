@@ -9,15 +9,19 @@ non-zero before the result line):
 1. the card: name and power limit from nvidia-smi, CUDA required;
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a) and print the build time, ptxas' register report per kernel
-   and the resident blocks per SM of ``flash_attention`` (each head
-   width) and ``ssm_scan_backward``;
+   and the resident blocks per SM of ``adaln_norm``, ``decode_attention``
+   and ``flash_attention`` (each head width) and ``ssm_scan_backward``;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (full-width gdm-dit at B in {1, 4, 8}, yi-6b's heads
-   and widths, the reduced configs), on attention's masking cases and on
-   ragged decode lengths; tolerance 1e-5 (float32);
+   and widths, the reduced configs), on attention's masking cases, on
+   ragged decode lengths at tile and split edges and on both of adaLN's
+   load widths; tolerance 1e-5 (float32); adaLN and decode also against a
+   second call, bit for bit;
 4. time each kernel, its plain version and the PyTorch call that computes
    the same function, where there is one, at the main paths' shapes,
-   beside the least time the card could take;
+   beside the least time the card could take and the launch floor (a
+   one-element ``zero_``); adaLN at B=1 and B=4, decode at the launcher's
+   shape also with L2 flushed before each call;
 5. one full-width ``run_block_batched`` call on the card against the same
    call on the CPU (plain versions) with the same weights;
 6. serve the ``paper-fig3`` trace with three full-width gdm-dit services
@@ -51,6 +55,13 @@ shape.
 
 Then it prints one JSON line describing the kernels, and as its last line
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --kernel-times TREE`` builds the kernels of another
+checkout's ``TREE/src/repro_torch`` (a parent commit unpacked with ``git
+archive``) and times its adaLN and decode kernels, the DiT forward at B=4
+and the device time of a yi-6b decode step in this harness, so that two
+trees are compared on one card in one run (parent, change, change,
+parent); it ends with a ``{"tree": ..., "kernel_times": ...}`` line.
 """
 from __future__ import annotations
 
@@ -128,13 +139,14 @@ def card_info():
 # -- timing -------------------------------------------------------------------
 
 def device_ms(fn, runs: int = TIMED_RUNS, reps: int = 10,
-              sleep_cycles: int = 20_000_000) -> float:
+              sleep_cycles: int = 20_000_000, before=None) -> float:
     """Device time of one ``fn()`` call, in ms: the median over ``runs``
     samples, each ``reps`` back-to-back calls between two CUDA events,
     divided by ``reps``.  Before each sample the stream sleeps
     (``sleep_cycles`` clock cycles, about 1 ms per 2e6) long enough for the
     host to enqueue all ``reps`` calls, so the events bracket device work,
-    not the host's launch path."""
+    not the host's launch path; ``before()``, if given, runs after the
+    sleep and outside the events (an L2 flush)."""
     import torch
     for _ in range(3):
         fn()
@@ -144,6 +156,8 @@ def device_ms(fn, runs: int = TIMED_RUNS, reps: int = 10,
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(sleep_cycles)
+        if before is not None:
+            before()
         start.record()
         for _ in range(reps):
             fn()
@@ -173,11 +187,12 @@ def _randn(gen, *shape, scale=1.0):
     return torch.randn(*shape, generator=gen, device="cuda") * scale
 
 
-def adaln_inputs(gen, b, s, d, epilogue):
+def adaln_inputs(gen, b, s, d, epilogue, offset=0):
     """Main-path operands: modulation as (B, 1, d) chunks of one (B, 1, 6d)
-    projection, as the DiT layer passes them."""
+    projection, as the DiT layer passes them; ``offset`` floats into a
+    wider projection, so that the chunks are not 16-byte aligned."""
     x = _randn(gen, b, s, d)
-    mods = _randn(gen, b, 1, 6 * d, scale=0.1)
+    mods = _randn(gen, b, 1, 6 * d + offset, scale=0.1)[..., offset:]
     sh, sc, g = mods.chunk(6, dim=-1)[:3]
     w = 1.0 + _randn(gen, d, scale=0.1)
     bias = _randn(gen, d, scale=0.1)
@@ -185,23 +200,44 @@ def adaln_inputs(gen, b, s, d, epilogue):
     return (x, sh, sc, w, bias) + extra
 
 
+# (B, S, d, offset of the modulation chunks in floats): the DiT at B in
+# {1, 4, 8}, the reduced DiT, d = 100 (16-byte loads), d = 99 (no multiple
+# of 4) and the DiT's width with unaligned modulation (single floats), rows
+# wider than 1024 floats (16-byte loads; single floats four and eight a
+# thread)
+ADALN_CASES = [(1, 256, 768, 0), (4, 256, 768, 0), (8, 256, 768, 0),
+               (4, 16, 64, 0), (3, 5, 100, 0), (3, 5, 99, 0),
+               (4, 256, 768, 1), (2, 8, 3000, 0), (2, 8, 2001, 0),
+               (2, 7, 3001, 0)]
+
+
 def check_adaln(gen):
+    import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.adaln_norm import launch_shape, load_width
     worst = {"adaln_norm": 0.0, "adaln_norm_epilogue": 0.0}
-    for (b, s, d) in ((1, 256, 768), (4, 256, 768), (8, 256, 768),
-                      (4, 16, 64), (3, 5, 100)):
+    for (b, s, d, offset) in ADALN_CASES:
         for epilogue in (False, True):
-            args = adaln_inputs(gen, b, s, d, epilogue)
+            args = adaln_inputs(gen, b, s, d, epilogue, offset)
             got = ops.adaln_norm(*args)
-            sh, sc = args[1].reshape(b, d), args[2].reshape(b, d)
-            rest = (args[5].reshape(b, d), args[6]) if epilogue else ()
-            want = ref.adaln_norm(args[0], sh, sc, args[3], args[4], *rest)
-            pairs = zip(got, want) if epilogue else [(got, want)]
+            # no atomics: a second call gives the same bits
+            again = ops.adaln_norm(*args)
+            flat = [a.reshape(b, d) if a.dim() == 3 and a.shape[1] == 1
+                    else a for a in args]
+            want = ref.adaln_norm(*flat)
+            pairs = list(zip(got, want)) if epilogue else [(got, want)]
             err = max(float((g - w).abs().max()) for g, w in pairs)
+            same = all(torch.equal(g, a) for g, a in (
+                zip(got, again) if epilogue else [(got, again)]))
+            width = load_width(*flat)
+            threads, vpt = launch_shape(d, width)
             name = "adaln_norm_epilogue" if epilogue else "adaln_norm"
-            print(f"{name:20s} B={b} S={s} d={d}: max|kernel - plain| = "
-                  f"{err:.3e}")
+            print(f"{name:20s} B={b} S={s} d={d} modulation offset "
+                  f"{offset}: {4 * width}-byte loads, {threads} threads x "
+                  f"{vpt}; max|kernel - plain| = {err:.3e}; a second call "
+                  f"bit-identical: {same}")
             assert err <= TOL, f"{name} disagrees with its plain version"
+            assert same, f"{name} is not deterministic"
             worst[name] = max(worst[name], err)
     return worst
 
@@ -260,23 +296,35 @@ DECODE_CASES = [
     (3, 24, 4, 2, 16, [0, 1, 24]),                  # reduced yi-6b
     (2, 24, 4, 4, 16, [5, 24]),                     # reduced qwen1.5-4b
     (2, 777, 16, 4, 32, [777, 100]),                # G=4, D=32
+    (2, 1, 32, 4, 128, [1, 0]),                     # S = 1
+    (4, 63, 32, 4, 128, [31, 32, 33, 63]),          # tile edges, one split
+    (3, 65, 32, 4, 128, [0, 64, 65]),               # a last tile of 1 key
+    (4, 129, 32, 4, 128, [64, 65, 66, 129]),        # split edge at 65
+    (3, 200, 8, 2, 64, [67, 134, 135]),             # 3 splits x 4 groups
 ]
 
 
 def check_decode(gen):
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decode_attention import decode_grid
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
     for (b, s, h, kh, d, lengths) in DECODE_CASES:
         q = _randn(gen, b, h, d)
         k = _randn(gen, b, s, kh, d)
         v = _randn(gen, b, s, kh, d)
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        err = float((ops.decode_attention(q, k, v, lens)
-                     - ref.decode_attention(q, k, v, lens)).abs().max())
+        got = ops.decode_attention(q, k, v, lens)
+        same = torch.equal(got, ops.decode_attention(q, k, v, lens))
+        err = float((got - ref.decode_attention(q, k, v, lens)).abs().max())
+        splits, groups = decode_grid(b * kh, h // kh, s, sms)
         print(f"decode_attention B={b} S={s} H={h} KH={kh} D={d} lengths="
-              f"{lengths}: max|kernel - plain| = {err:.3e}")
+              f"{lengths}: {splits} splits x {groups} head groups; "
+              f"max|kernel - plain| = {err:.3e}; a second call "
+              f"bit-identical: {same}")
         assert err <= TOL, "decode_attention disagrees with its plain version"
+        assert same, "decode_attention is not deterministic"
         worst = max(worst, err)
     return worst
 
@@ -396,12 +444,24 @@ def check_kernel_grads(gen):
 
 # -- phase 4: times -------------------------------------------------------------
 
-def time_kernels(gen, cfg):
+def launch_floor_ms() -> float:
+    """The card's launch-to-launch gap in ``device_ms``: a one-element
+    ``zero_``, beside which the tiny kernels' times are read."""
     import torch
+    z = torch.zeros(1, device="cuda")
+    t = device_ms(z.zero_)
+    print(f"launch floor: a one-element zero_ takes {t:.7f} ms in the same "
+          "harness")
+    return t
+
+
+def time_adaln(gen, b, s, d):
+    """Both adaLN variants at the DiT's shape (B, S, d), with
+    ``F.layer_norm`` on the same x printed as the nearest PyTorch call (it
+    leaves out the modulation and the residual, so no variant has a
+    library time)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    b, s, d = 4, cfg.latent_hw ** 2, cfg.d_model
-    h, hd = cfg.num_heads, cfg.resolved_head_dim
     out = {}
     for epilogue in (False, True):
         name = "adaln_norm_epilogue" if epilogue else "adaln_norm"
@@ -417,6 +477,28 @@ def time_kernels(gen, cfg):
             ms=device_ms(lambda: ops.adaln_norm(*args)),
             plain_ms=device_ms(lambda: ref.adaln_norm(*flat)),
             bound_ms=t_bound, bound_by=by, library_ms=None)
+        got, want = ops.adaln_norm(*args), ref.adaln_norm(*flat)
+        out[name]["err"] = float(((got[0] - want[0]) if epilogue
+                                  else (got - want)).abs().max())
+        if not epilogue:
+            ln_ms = device_ms(lambda: F.layer_norm(args[0], (d,), args[3],
+                                                   args[4]))
+    for name, t in out.items():
+        _print_times(f"{name:20s} B={b} S={s} d={d}", t)
+        print(f"  max|kernel - plain| of the timed call: {t.pop('err'):.3e}")
+    print(f"F.layer_norm B={b} S={s} d={d} (the nearest PyTorch call, "
+          f"without the modulation): {ln_ms:.7f} ms")
+    return out
+
+
+def time_kernels(gen, cfg):
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    b, s, d = 4, cfg.latent_hw ** 2, cfg.d_model
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    launch_floor_ms()
+    time_adaln(gen, 1, s, d)
+    out = time_adaln(gen, b, s, d)
     q, k, v = (_randn(gen, b, s, h, hd) for _ in range(3))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     nbytes = 4 * 4 * b * s * h * hd
@@ -428,8 +510,8 @@ def time_kernels(gen, cfg):
         bound_ms=t_bound, bound_by=by,
         library_ms=device_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt)))
-    for name, t in out.items():
-        _print_times(f"{name:20s} B={b} S={s} d={d}", t)
+    _print_times(f"flash_attention      B={b} S={s} d={d}",
+                 out["flash_attention"])
     return out
 
 
@@ -455,10 +537,13 @@ def _print_times(what, t):
           f"bound {t['bound_ms']:.7f} ms ({t['bound_by']}), library {lib}")
 
 
-def time_decode(gen, b, s, length):
+def time_decode(gen, b, s, length, cold=False):
     """decode_attention at yi-6b's heads, every row ``length`` long, against
     ``scaled_dot_product_attention`` (GQA, boolean length mask).  The bound
-    counts the cache rows these lengths read."""
+    counts the cache rows these lengths read.  With ``cold``, one call is
+    also timed with L2 flushed before it by a 64 MB write (the served step
+    streams the weights between two layers' attention), beside one warm
+    call in the same single-call harness."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -480,8 +565,22 @@ def time_decode(gen, b, s, length):
         bound_ms=t_bound, bound_by=by,
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)))
-    _print_times(f"decode_attention B={b} S={s} lengths={length} H={h} "
-                 f"KH={kh} D={d}", t)
+    what = f"decode_attention B={b} S={s} lengths={length} H={h} KH={kh} " \
+           f"D={d}"
+    _print_times(what, t)
+    err = float((ops.decode_attention(q, k, v, lens)
+                 - ref.decode_attention(q, k, v, lens)).abs().max())
+    print(f"  max|kernel - plain| of the timed call: {err:.3e}")
+    if cold:
+        flush = torch.empty(16 << 20, device="cuda")          # 64 MB
+        one = dict(reps=1, runs=2 * TIMED_RUNS, sleep_cycles=2_000_000)
+        warm1 = device_ms(lambda: ops.decode_attention(q, k, v, lens), **one)
+        cold1 = device_ms(lambda: ops.decode_attention(q, k, v, lens),
+                          before=flush.zero_, **one)
+        print(f"{what}, one call at a time: warm {warm1:.7f} ms, L2 flushed "
+              f"by a 64 MB write before each call {cold1:.7f} ms")
+        t = dict(t, warm1_ms=warm1, cold1_ms=cold1)
+        del flush
     return t
 
 
@@ -1066,9 +1165,27 @@ def train_period(cfg, tcfg, kernel_ms, global_batch: int = 8,
 
 
 def print_occupancy(lib):
-    """Resident blocks per SM of the two kernels redesigned for occupancy
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    """Resident blocks per SM of the kernels redesigned for Hopper
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at the blocks their
+    main paths launch."""
+    from repro_torch.kernels.adaln_norm import launch_shape
     from repro_torch.kernels.flash_attention import HEAD_DIMS
+    threads, vpt = launch_shape(768, 4)
+    for epilogue in (0, 1):
+        blocks = lib.adaln_norm_occupancy(4, vpt, threads, epilogue)
+        warps = blocks * threads // 32
+        print(f"adaln_norm{'_epilogue' if epilogue else ''} d=768: {blocks} "
+              f"blocks of {threads} threads per SM ({warps} warps; a row a "
+              f"block, two float4 a thread; the first port held one block "
+              f"of 8 warps an SM at B=4)")
+        assert warps > 8, "adaln_norm holds no more warps than before"
+    # the launcher's block (one head, one copy stage) and that of B=8,
+    # S=4096 (eight heads, two a warp, a two-stage ring)
+    for hpw, stages in ((1, 1), (2, 2)):
+        blocks = lib.decode_attention_occupancy(128, hpw, 4, stages)
+        print(f"decode_attention D=128, {hpw} head(s) a warp, {stages} "
+              f"copy stage(s): {blocks} blocks of 4 warps per SM")
+        assert blocks >= 1, "decode_attention cannot be resident"
     for d in HEAD_DIMS:
         blocks = lib.flash_attention_occupancy(d)
         print(f"flash_attention D={d}: {blocks} blocks of 128 threads per "
@@ -1082,14 +1199,8 @@ def print_occupancy(lib):
     assert 16 * blocks > 6, "ssm_scan_backward holds no more warps than before"
 
 
-def main() -> int:
-    phase("1. card")
-    card_info()
-    import torch
-    from repro_torch.configs import TrainConfig, get_config
+def build_kernels():
     from repro_torch.kernels import build
-
-    phase("2. build")
     t0 = time.perf_counter()
     build.library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
@@ -1099,7 +1210,67 @@ def main() -> int:
             print("  " + line.split("'")[1])      # the mangled kernel name
         elif "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
-    print_occupancy(build.library())
+    return build.library()
+
+
+def kernel_times(tree: str) -> int:
+    """``--kernel-times TREE``: build the kernels of the ``repro_torch``
+    package under ``TREE/src`` (another checkout, such as a parent commit
+    unpacked with ``git archive``) and time the adaLN and decode kernels
+    at phase 4's shapes in this script's harness, and the two layers they
+    serve, phase 5's DiT forward at B=4 and phase 8's decode step of full
+    yi-6b (device time), so that two trees are compared within one run on
+    one card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.gdm import init_gdm
+    from repro_torch.models.lm import init_lm
+    phase("1. card")
+    card_info()
+    phase(f"2. build the kernels of {tree}")
+    build_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    phase(f"4. times of {tree}'s adaLN and decode kernels")
+    out = {"launch_floor_ms": launch_floor_ms()}
+    for b in (1, 4):
+        for name, t in time_adaln(gen, b, 256, 768).items():
+            out[f"{name} B={b}"] = t["ms"]
+    out["decode_attention B=8 S=4096"] = time_decode(gen, 8, 4096,
+                                                     4096)["ms"]
+    t = time_decode(gen, 1, 24, 24, cold=True)
+    out.update({"decode_attention B=1 S=24": t["ms"],
+                "decode_attention B=1 S=24, one call, warm": t["warm1_ms"],
+                "decode_attention B=1 S=24, one call, L2 flushed":
+                    t["cold1_ms"]})
+    phase(f"5, 8. {tree}'s DiT forward at B=4 and yi-6b decode step")
+    full = get_config("gdm-dit")
+    out["DiT forward B=4"] = time_block_call(full, init_gdm(
+        full, seed=11, device="cuda"))
+    dev_ms, host_ms = time_decode_step(init_lm(get_config("yi-6b"), seed=1,
+                                               device="cuda"))
+    out["yi-6b decode step, device"] = dev_ms
+    out["yi-6b decode step, host enqueue"] = host_ms
+    for name in ("DiT forward B=4", "yi-6b decode step, device",
+                 "yi-6b decode step, host enqueue"):
+        print(f"{name}: {out[name]:.4f} ms")
+    print(json.dumps({"tree": tree, "kernel_times": out}))
+    return 0
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--kernel-times"] and len(argv) == 2:
+        sys.path.insert(0, os.path.join(os.path.abspath(argv[1]), "src"))
+        return kernel_times(argv[1])
+    if argv:
+        print("usage: chip_smoke.py [--kernel-times TREE]", file=sys.stderr)
+        return 2
+    phase("1. card")
+    card_info()
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+
+    phase("2. build")
+    print_occupancy(build_kernels())
 
     full = get_config("gdm-dit")
     yi = get_config("yi-6b")
@@ -1118,7 +1289,9 @@ def main() -> int:
     # the JSON line carries each kernel at the launcher's shapes: decode
     # at B=1 against a full 24-row cache, rmsnorm on one decode row
     time_decode(gen, 8, 4096, 4096)
-    times["decode_attention"] = time_decode(gen, 1, 24, 24)
+    decode = time_decode(gen, 1, 24, 24, cold=True)
+    times["decode_attention"] = {k: decode[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     time_rmsnorm(gen, 8192, yi.d_model)
     times["rmsnorm"] = time_rmsnorm(gen, 1, yi.d_model)
     train_ms = time_ssm_scan(gen)
@@ -1195,4 +1368,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -14,13 +14,43 @@ import torch
 from repro_torch.kernels import (LAUNCHES, build, check_launch,
                                  check_operand, refuse_grad)
 
-MAX_D = 1024          # the kernel keeps a row in one warp's registers
+MAX_D = 4096          # a row lives in one block's registers
+MAX_THREADS = 512
+
+
+def load_width(x, shift, scale, weight, bias, gate=None, residual=None):
+    """Floats per load and store: 4 (16 bytes) where d % 4 == 0, every
+    tensor starts on a 16-byte boundary and every modulation row stride is
+    a multiple of 4 floats, so every row of every operand is aligned (x and
+    the residual are contiguous); else 1."""
+    if x.shape[-1] % 4:
+        return 1
+    tensors = [t for t in (x, shift, scale, weight, bias, gate, residual)
+               if t is not None]
+    if any(t.data_ptr() % 16 for t in tensors):
+        return 1
+    if any(t.stride(0) % 4 for t in (shift, scale, gate) if t is not None):
+        return 1
+    return 4
+
+
+def launch_shape(d: int, width: int):
+    """(threads, vectors per thread) of the block that owns one row: two
+    vectors a thread while the row has at most 1024, else four or eight; a
+    whole number of warps."""
+    n = d // width
+    vpt = 2
+    while -(-n // vpt) > MAX_THREADS:
+        vpt *= 2
+    threads = -(-(-(-n // vpt)) // 32) * 32
+    return threads, vpt
 
 
 def adaln_norm_cuda(x, shift, scale, weight, bias, gate=None, residual=None,
                     *, eps: float = 1e-5):
     """x/residual: (B, S, d); shift/scale/gate: (B, d) with unit stride in
-    d (any row stride); weight/bias: (d,).  All float32 on one CUDA device.
+    d (any row stride); weight/bias: (d,).  All float32 on one CUDA device,
+    d <= 4096.
     """
     epilogue = residual is not None
     if epilogue != (gate is not None):
@@ -46,6 +76,8 @@ def adaln_norm_cuda(x, shift, scale, weight, bias, gate=None, residual=None,
     r = torch.empty_like(x) if epilogue else None
     if x.numel() == 0:
         return (y, r) if epilogue else y
+    width = load_width(x, shift, scale, weight, bias, gate, residual)
+    threads, vpt = launch_shape(d, width)
     lib = build.library()
     with torch.cuda.device(dev):
         err = lib.adaln_norm_f32(
@@ -56,7 +88,8 @@ def adaln_norm_cuda(x, shift, scale, weight, bias, gate=None, residual=None,
             scale.data_ptr(), scale.stride(0),
             weight.data_ptr(), bias.data_ptr(),
             y.data_ptr(), r.data_ptr() if epilogue else None,
-            b * s, s, d, eps, torch.cuda.current_stream(dev).cuda_stream)
+            b * s, s, d, width, threads, vpt, eps,
+            torch.cuda.current_stream(dev).cuda_stream)
     check_launch("adaln_norm", err)
     LAUNCHES["adaln_norm_epilogue" if epilogue else "adaln_norm"] += 1
     return (y, r) if epilogue else y

@@ -34,11 +34,11 @@ _F = ctypes.c_float
 # C signatures of the entry points (see the sources)
 SIGNATURES = {
     "adaln_norm_f32": [_P, _P, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P,
-                       _LL, _I, _I, _F, _P],
+                       _LL, _I, _I, _I, _I, _I, _F, _P],
     "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _F, _P],
     "decode_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _F, _P],
+                             _I, _I, _F, _P],
     "rmsnorm_f32": [_P, _P, _P, _LL, _I, _F, _P],
     "ssm_scan_f32": [_P] * 9 + [_I] * 4 + [_P],
     "ssm_scan_backward_f32": [_P] * 15 + [_I] * 4 + [_P],
@@ -50,6 +50,8 @@ SIZES = {
 }
 # C functions that report a kernel's resident blocks per SM (-1 on error)
 OCCUPANCY = {
+    "adaln_norm_occupancy": [_I] * 4,
+    "decode_attention_occupancy": [_I] * 4,
     "flash_attention_occupancy": [_I],
     "ssm_scan_backward_occupancy": [],
 }

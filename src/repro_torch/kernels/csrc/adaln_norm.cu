@@ -14,22 +14,52 @@
 // Bound: bytes.  Per element it does ~10 float operations against 8 bytes
 // (plain) or 16 bytes (epilogue) of traffic, far below the card's
 // operations-per-byte balance, so the least time is the bytes over the
-// memory rate.
+// memory rate.  At the DiT's shapes (B <= 4 rows of 256 x 768) the bytes
+// take under 4 us, so what bounds a call in practice is latency: the
+// launch, one memory round trip, and the two reductions.
 //
-// Design: each (b, s) row is owned by one warp and lives in that warp's
-// registers (VPT = ceil(d / 32) values per lane), so x and the residual are
-// read once and y and r written once; nothing round-trips through device
-// memory between the residual add, the two reductions and the modulation.
-// Mean and variance are two warp-shuffle reductions over the registers: the
-// variance is the mean of squared deviations, as jnp.var computes it, not
-// E[x^2] - mean^2.  Lane l owns elements l + 32 k, so each warp load or
-// store is one contiguous 128-byte segment.  Eight rows (warps) per block.
+// Design.  The first port gave each row to one warp, 8 rows a block: at
+// B = 4 that is 128 blocks of 8 warps, one block an SM, each lane issuing
+// 24 scalar loads, and the four parameter vectors were read only after both
+// reductions (a second round trip on the critical path).  Here:
+// - One block a row, each thread two vectors of it (a float4 where the
+//   row allows, see below), so a d = 768 row is 96 threads (3 warps) and
+//   1024 rows (B = 4) fit one wave; at B = 1, 256 blocks put work on every
+//   SM.  Rows wider than 1024 vectors give each thread 4 or 8 (d <= 4096).
+//   Tried on the card and not kept (PERF.md): one float4 a thread (192
+//   threads a row; 6 blocks an SM by registers, so 1024 rows took 1.3
+//   waves) and two rows of one batch row a block sharing the parameter
+//   loads (the epilogue 2% faster, the plain form 3% and B = 1 7% slower).
+// - 16-byte loads and stores (W = 4) where d % 4 == 0 and every pointer
+//   and modulation row stride is 16-byte aligned, as for the DiT's (B, 6d)
+//   projection chunks; single floats (W = 1) otherwise.  The wrapper picks
+//   the width from the shapes, strides and pointers; both widths are this
+//   kernel, one template.
+// - The parameters (w, b, scale, shift) are loaded with the row, before the
+//   reductions that do not need them, so their latency hides under the
+//   sums.
+// - Mean and variance are two block sums over the registers: a warp
+//   shuffle butterfly, then every thread adds the warps' partials from
+//   shared memory in warp order, so every thread holds the same bits and
+//   two calls give the same result.  The variance is the mean of squared
+//   deviations, as jnp.var computes it, not E[x^2] - mean^2; the row stays
+//   in registers between the passes, so x and the residual are read once
+//   and y and r written once.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 8;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxWarps = kMaxThreads / kWarp;
+
+// W consecutive floats, moved as one load or store (16 bytes for W = 4)
+template <int W>
+struct __align__(4 * W) Vec {
+  float v[W];
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -38,109 +68,169 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int VPT, bool EPILOGUE>
-__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
+// the block's sum of v, the same bits in every thread: warps in order
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if (threadIdx.x % kWarp == 0) red[threadIdx.x / kWarp] = v;
+  __syncthreads();
+  float t = 0.f;
+  const int warps = blockDim.x / kWarp;
+  for (int i = 0; i < warps; ++i) t += red[i];
+  return t;
+}
+
+// W: floats per vector (1 or 4); VPT: vectors per thread
+template <int W, int VPT, bool EPILOGUE>
+__global__ void __launch_bounds__(kMaxThreads)
 adaln_kernel(const float* __restrict__ x, const float* __restrict__ residual,
              const float* __restrict__ gate, long long gate_stride,
              const float* __restrict__ shift, long long shift_stride,
              const float* __restrict__ scale, long long scale_stride,
              const float* __restrict__ weight, const float* __restrict__ bias,
-             float* __restrict__ y, float* __restrict__ r_out,
-             long long rows, int seq, int d, float eps) {
-  const int lane = threadIdx.x % kWarp;
-  const long long row =
-      (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
-  if (row >= rows) return;  // whole warp leaves together
+             float* __restrict__ y, float* __restrict__ r_out, int seq,
+             int d, float eps) {
+  using V = Vec<W>;
+  __shared__ float red_sum[kMaxWarps];
+  __shared__ float red_sq[kMaxWarps];
+  const long long row = blockIdx.x;
   const long long b = row / seq;
-  const long long base = row * d;
+  const int n = d / W;                       // vectors in a row
+  const V* xr = reinterpret_cast<const V*>(x + row * d);
+  const V* rr = reinterpret_cast<const V*>(residual + row * d);
+  const V* gr = reinterpret_cast<const V*>(gate + b * gate_stride);
+  const V* shr = reinterpret_cast<const V*>(shift + b * shift_stride);
+  const V* scr = reinterpret_cast<const V*>(scale + b * scale_stride);
+  const V* wr = reinterpret_cast<const V*>(weight);
+  const V* br = reinterpret_cast<const V*>(bias);
 
-  float v[VPT];
+  V v[VPT], w[VPT], bi[VPT], sc[VPT], sh[VPT];
+  bool ok[VPT];
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    ok[k] = i < n;
+    if (ok[k]) {
+      v[k] = xr[i];
+      if (EPILOGUE) {
+        const V res = rr[i];
+        const V g = gr[i];
+#pragma unroll
+        for (int e = 0; e < W; ++e) v[k].v[e] = res.v[e] + g.v[e] * v[k].v[e];
+      }
+      // nothing below the sums depends on these: load them now
+      w[k] = wr[i];
+      bi[k] = br[i];
+      sc[k] = scr[i];
+      sh[k] = shr[i];
+    }
+  }
+
   float sum = 0.f;
 #pragma unroll
   for (int k = 0; k < VPT; ++k) {
-    const int i = lane + k * kWarp;
-    float val = 0.f;
-    if (i < d) {
-      val = x[base + i];
-      if (EPILOGUE) {
-        val = residual[base + i] + gate[b * gate_stride + i] * val;
-        r_out[base + i] = val;
-      }
+    if (ok[k]) {
+      if (EPILOGUE) reinterpret_cast<V*>(r_out + row * d)[threadIdx.x +
+                                                          k * blockDim.x] =
+          v[k];
+#pragma unroll
+      for (int e = 0; e < W; ++e) sum += v[k].v[e];
     }
-    v[k] = val;
-    sum += val;
   }
-  const float mean = warp_sum(sum) / d;
+  const float mean = block_sum(sum, red_sum) / d;
 
   float sq = 0.f;
 #pragma unroll
   for (int k = 0; k < VPT; ++k) {
-    if (lane + k * kWarp < d) {
-      const float c = v[k] - mean;
-      sq += c * c;
+    if (ok[k]) {
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        const float c = v[k].v[e] - mean;
+        sq += c * c;
+      }
     }
   }
-  const float rstd = 1.0f / sqrtf(warp_sum(sq) / d + eps);
+  const float rstd = 1.0f / sqrtf(block_sum(sq, red_sq) / d + eps);
 
+  V* yr = reinterpret_cast<V*>(y + row * d);
 #pragma unroll
   for (int k = 0; k < VPT; ++k) {
-    const int i = lane + k * kWarp;
-    if (i < d) {
-      float o = (v[k] - mean) * rstd;
-      o = o * weight[i] + bias[i];
-      o = o * (1.0f + scale[b * scale_stride + i]) + shift[b * shift_stride + i];
-      y[base + i] = o;
+    if (ok[k]) {
+      V o;
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        float t = (v[k].v[e] - mean) * rstd;
+        t = t * w[k].v[e] + bi[k].v[e];
+        o.v[e] = t * (1.0f + sc[k].v[e]) + sh[k].v[e];
+      }
+      yr[threadIdx.x + k * blockDim.x] = o;
     }
   }
 }
 
 template <bool EPILOGUE>
-cudaError_t launch(int vpt, dim3 grid, dim3 block, cudaStream_t stream,
-                   const float* x, const float* residual, const float* gate,
-                   long long gate_stride, const float* shift,
-                   long long shift_stride, const float* scale,
-                   long long scale_stride, const float* weight,
-                   const float* bias, float* y, float* r_out, long long rows,
-                   int seq, int d, float eps) {
-#define REPRO_ADALN_LAUNCH(V)                                                 \
-  adaln_kernel<V, EPILOGUE><<<grid, block, 0, stream>>>(                      \
-      x, residual, gate, gate_stride, shift, shift_stride, scale,             \
-      scale_stride, weight, bias, y, r_out, rows, seq, d, eps)
-  if (vpt <= 2) REPRO_ADALN_LAUNCH(2);
-  else if (vpt <= 4) REPRO_ADALN_LAUNCH(4);
-  else if (vpt <= 8) REPRO_ADALN_LAUNCH(8);
-  else if (vpt <= 16) REPRO_ADALN_LAUNCH(16);
-  else if (vpt <= 24) REPRO_ADALN_LAUNCH(24);
-  else if (vpt <= 32) REPRO_ADALN_LAUNCH(32);
-  else return cudaErrorInvalidValue;
-#undef REPRO_ADALN_LAUNCH
-  return cudaSuccess;
+const void* kernel_for(int width, int vpt) {
+  if (width == 4 && vpt == 2) return (const void*)adaln_kernel<4, 2, EPILOGUE>;
+  if (width == 1 && vpt == 2) return (const void*)adaln_kernel<1, 2, EPILOGUE>;
+  if (width == 1 && vpt == 4) return (const void*)adaln_kernel<1, 4, EPILOGUE>;
+  if (width == 1 && vpt == 8) return (const void*)adaln_kernel<1, 8, EPILOGUE>;
+  return nullptr;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
 // residual == nullptr selects the plain form (gate and r_out are ignored).
-// d <= 1024.  Returns cudaGetLastError() after the launch.
+// width 4 (16-byte vectors: d % 4 == 0, every pointer 16-byte aligned and
+// every modulation row stride a multiple of 4) with vpt 2, or width 1 with
+// vpt 2, 4 or 8; threads a whole number of warps up to 512 with threads *
+// vpt >= d / width (the wrapper's launch_shape).  Returns cudaGetLastError()
+// after the launch.
 extern "C" int adaln_norm_f32(const float* x, const float* residual,
                               const float* gate, long long gate_stride,
                               const float* shift, long long shift_stride,
                               const float* scale, long long scale_stride,
                               const float* weight, const float* bias, float* y,
                               float* r_out, long long rows, int seq, int d,
-                              float eps, void* stream) {
-  if (rows <= 0 || seq <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  const int vpt = (d + kWarp - 1) / kWarp;
-  const dim3 grid((unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock));
-  const dim3 block(kWarp * kRowsPerBlock);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                              int width, int threads, int vpt, float eps,
+                              void* stream) {
+  const bool epilogue = residual != nullptr;
+  const void* fn = epilogue ? kernel_for<true>(width, vpt)
+                            : kernel_for<false>(width, vpt);
+  if (fn == nullptr || rows <= 0 || rows > 0x7fffffffLL || seq <= 0 ||
+      d <= 0 || d % width != 0 || threads % kWarp != 0 || threads <= 0 ||
+      threads > kMaxThreads || (long long)threads * vpt < d / width)
+    return (int)cudaErrorInvalidValue;
+  if (width == 4) {
+    const void* ptrs[] = {x, shift, scale, weight, bias, y};
+    for (const void* p : ptrs)
+      if (!aligned16(p)) return (int)cudaErrorInvalidValue;
+    if (shift_stride % 4 || scale_stride % 4) return (int)cudaErrorInvalidValue;
+    if (epilogue && (!aligned16(residual) || !aligned16(gate) ||
+                     !aligned16(r_out) || gate_stride % 4))
+      return (int)cudaErrorInvalidValue;
+  }
+  void* args[] = {&x,      &residual,     &gate,  &gate_stride, &shift,
+                  &shift_stride, &scale, &scale_stride, &weight, &bias,
+                  &y,      &r_out,        &seq,   &d,           &eps};
   cudaError_t err =
-      residual == nullptr
-          ? launch<false>(vpt, grid, block, s, x, residual, gate, gate_stride,
-                          shift, shift_stride, scale, scale_stride, weight,
-                          bias, y, r_out, rows, seq, d, eps)
-          : launch<true>(vpt, grid, block, s, x, residual, gate, gate_stride,
-                         shift, shift_stride, scale, scale_stride, weight,
-                         bias, y, r_out, rows, seq, d, eps);
+      cudaLaunchKernel(fn, dim3((unsigned)rows), dim3(threads), args, 0,
+                       static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel for (width, vpt, threads, epilogue) one SM holds at
+// once (-1 on error).
+extern "C" int adaln_norm_occupancy(int width, int vpt, int threads,
+                                    int epilogue) {
+  const void* fn = epilogue ? kernel_for<true>(width, vpt)
+                            : kernel_for<false>(width, vpt);
+  int blocks = -1;
+  if (fn == nullptr || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           &blocks, fn, threads, 0) != cudaSuccess)
+    return -1;
+  return blocks;
 }

@@ -20,7 +20,7 @@ from repro_torch.kernels import (LAUNCHES, build, check_launch,
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's compiled head widths
 MAX_GROUP = 8                     # query heads per kv head
 MIN_SPLIT_KEYS = 64               # keys a split takes at the least
-BLOCKS_PER_SM = 4                 # blocks in flight the splits aim for
+BLOCKS_PER_SM = 2                 # blocks in flight the splits aim for
 
 
 @functools.lru_cache(maxsize=None)
@@ -28,13 +28,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def num_splits(pairs: int, seq: int, sms: int) -> int:
-    """Splits of the cache per (b, kv head): as many blocks as fit one
-    wave of ``BLOCKS_PER_SM`` blocks on every SM, but no split under
-    ``MIN_SPLIT_KEYS`` keys.  Taken from the shapes alone, so the lengths
-    never leave the card."""
-    want = BLOCKS_PER_SM * sms // pairs
-    return max(1, min(want, -(-seq // MIN_SPLIT_KEYS)))
+def decode_grid(pairs: int, group: int, seq: int, sms: int):
+    """(splits, head groups) of the launch, from the shapes alone, so the
+    lengths never leave the card.  The cache of each (b, kv head) is split
+    into as many chunks as fill ``BLOCKS_PER_SM`` blocks on every SM, but
+    none under ``MIN_SPLIT_KEYS`` keys; then, while the blocks are fewer
+    than the SMs, the ``group`` query heads of a kv head go to as many
+    blocks (a divisor of ``group``) as keep one block an SM at most."""
+    splits = max(1, min(BLOCKS_PER_SM * sms // pairs,
+                        seq // MIN_SPLIT_KEYS))
+    head_groups = max([hg for hg in range(1, group + 1)
+                       if group % hg == 0 and pairs * splits * hg <= sms],
+                      default=1)
+    return splits, head_groups
 
 
 def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
@@ -74,8 +80,9 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
     o = torch.empty_like(q)
     if b == 0:
         return o
-    splits = num_splits(b * kh, s, _sm_count(dev.index or 0))
     g = h // kh
+    splits, head_groups = decode_grid(b * kh, g, s,
+                                      _sm_count(dev.index or 0))
     ws_acc = ws_ml = None
     if splits > 1:
         ws_acc = torch.empty(b * kh * splits * g * d, device=dev)
@@ -87,7 +94,7 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
             lengths.data_ptr(), o.data_ptr(),
             ws_acc.data_ptr() if ws_acc is not None else None,
             ws_ml.data_ptr() if ws_ml is not None else None,
-            b, s, h, kh, d, splits, float(scale),
+            b, s, h, kh, d, splits, head_groups, float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch("decode_attention", err)
     LAUNCHES["decode_attention"] += 1
