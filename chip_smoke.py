@@ -9,19 +9,22 @@ non-zero before the result line):
 1. the card: name and power limit from nvidia-smi, CUDA required;
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a) and print the build time, ptxas' register report per kernel
-   and the resident blocks per SM of ``adaln_norm``, ``decode_attention``
-   and ``flash_attention`` (each head width) and ``ssm_scan_backward``;
+   and the resident blocks per SM of ``adaln_norm``, ``decode_attention``,
+   ``flash_attention`` (each head width), ``rmsnorm``, ``ssm_scan`` and
+   ``ssm_scan_backward``;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (full-width gdm-dit at B in {1, 4, 8}, yi-6b's heads
-   and widths, the reduced configs), on attention's masking cases, on
-   ragged decode lengths at tile and split edges and on both of adaLN's
-   load widths; tolerance 1e-5 (float32); adaLN and decode also against a
-   second call, bit for bit;
+   and widths, the trainer's rows, the reduced configs), on attention's
+   masking cases, on ragged decode lengths at tile and split edges, on
+   both load widths of adaLN and rmsnorm and on scans whose channels do
+   not fill whole warps; tolerance 1e-5 (float32); adaLN, decode, rmsnorm
+   and both scan kernels also against a second call, bit for bit;
 4. time each kernel, its plain version and the PyTorch call that computes
    the same function, where there is one, at the main paths' shapes,
    beside the least time the card could take and the launch floor (a
    one-element ``zero_``); adaLN at B=1 and B=4, decode at the launcher's
-   shape also with L2 flushed before each call;
+   shape and rmsnorm on one decode row also with L2 flushed before each
+   call;
 5. one full-width ``run_block_batched`` call on the card against the same
    call on the CPU (plain versions) with the same weights;
 6. serve the ``paper-fig3`` trace with three full-width gdm-dit services
@@ -47,8 +50,8 @@ non-zero before the result line):
     memory.
 
 Phase 3 also holds the selective scan (forward and backward kernels)
-against its plain version and autograd (and the backward against itself:
-two calls give the same bits), and the gradients that
+against its plain version and autograd (and both against themselves: two
+calls give the same bits), and the gradients that
 ``flash_attention`` and ``rmsnorm`` carry on the card against autograd of
 their plain versions; phase 4 times both scan kernels at the training
 shape.
@@ -58,10 +61,12 @@ Then it prints one JSON line describing the kernels, and as its last line
 
 ``python3 chip_smoke.py --kernel-times TREE`` builds the kernels of another
 checkout's ``TREE/src/repro_torch`` (a parent commit unpacked with ``git
-archive``) and times its adaLN and decode kernels, the DiT forward at B=4
-and the device time of a yi-6b decode step in this harness, so that two
-trees are compared on one card in one run (parent, change, change,
-parent); it ends with a ``{"tree": ..., "kernel_times": ...}`` line.
+archive``) and times its adaLN, decode, rmsnorm and both scan kernels,
+and the layers they serve (the DiT forward at B=4, the device time and
+host enqueue of a yi-6b decode step, a full-width Jamba Mamba block's
+forward at B=8, L=128) in this harness, so that two trees are compared on
+one card in one run (parent, change, change, parent); it ends with a
+``{"tree": ..., "kernel_times": ...}`` line.
 """
 from __future__ import annotations
 
@@ -329,19 +334,34 @@ def check_decode(gen):
     return worst
 
 
-RMS_CASES = [(1, 4096), (8192, 4096), (1, 2560), (8192, 2560), (1000, 4096),
-             (24, 64), (7, 8192), (5, 100)]
+# (rows, d, offset of x in floats): the decode row and the trainer's rows
+# of yi-6b and Jamba (d = 4096), qwen1.5-4b's width, the widest row, rows
+# of a few floats; x a view one float into its buffer (single floats, also
+# four and eight a thread), and d = 99 (no multiple of 4)
+RMS_CASES = [(1, 4096, 0), (8192, 4096, 0), (1024, 4096, 0), (1, 2560, 0),
+             (8192, 2560, 0), (1000, 4096, 0), (24, 64, 0), (7, 8192, 0),
+             (5, 100, 0), (1, 4096, 1), (1024, 4096, 1), (3, 8192, 1),
+             (5, 99, 0)]
 
 
 def check_rmsnorm(gen):
+    import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rmsnorm import launch_shape, load_width
     worst = 0.0
-    for rows, d in RMS_CASES:
-        x = _randn(gen, rows, d)
+    for rows, d, offset in RMS_CASES:
+        x = _randn(gen, rows * d + offset)[offset:].view(rows, d)
         w = 1.0 + _randn(gen, d, scale=0.1)
-        err = float((ops.rmsnorm(x, w) - ref.rmsnorm(x, w)).abs().max())
-        print(f"rmsnorm rows={rows} d={d}: max|kernel - plain| = {err:.3e}")
+        got = ops.rmsnorm(x, w)
+        same = torch.equal(got, ops.rmsnorm(x, w))
+        err = float((got - ref.rmsnorm(x, w)).abs().max())
+        width = load_width(x, w)
+        threads, vpt = launch_shape(d, width)
+        print(f"rmsnorm rows={rows} d={d} x offset {offset}: {4 * width}-byte "
+              f"loads, {threads} threads x {vpt}; max|kernel - plain| = "
+              f"{err:.3e}; a second call bit-identical: {same}")
         assert err <= TOL, "rmsnorm disagrees with its plain version"
+        assert same, "rmsnorm is not deterministic"
         worst = max(worst, err)
     return worst
 
@@ -367,10 +387,15 @@ def scan_inputs(gen, b, length, din, n):
 
 # (B, L, Din, N): the training shape (one Jamba Mamba layer at global batch
 # 8, seq 128), B = 1, L = 1, an L no multiple of any tile, a Din no
-# multiple of a block, the reduced Jamba mixer, and a tiny ragged N
+# multiple of a block, the reduced Jamba mixer, a tiny ragged N; Dins
+# that fill no whole warp (100 and 300 channels), Dins no multiple of 4
+# (single-float copies of u and dt), and N = 1, 4, 8 and 12 (a lane's
+# states mostly padding)
 SCAN_CASES = [(8, 128, 8192, 16), (1, 128, 8192, 16), (8, 1, 8192, 16),
               (2, 37, 8192, 16), (2, 128, 8200, 16), (2, 16, 128, 8),
-              (3, 19, 100, 5)]
+              (3, 19, 100, 5), (2, 40, 100, 16), (2, 37, 300, 1),
+              (2, 20, 200, 4), (2, 33, 520, 8), (2, 21, 99, 16),
+              (1, 18, 130, 12)]
 
 
 def check_ssm_scan(gen):
@@ -387,6 +412,9 @@ def check_ssm_scan(gen):
         ins = scan_inputs(gen, b, length, din, n)
         y, hf, states = ssm_scan_cuda(*ins, return_state=True,
                                       save_states=True)
+        fwd_same = all(torch.equal(x, z) for x, z in zip(
+            (y, hf, states), ssm_scan_cuda(*ins, return_state=True,
+                                           save_states=True)))
         wy, wh = ref.ssm_scan(*ins)
         (ey, ry), (eh, rh) = _rel(y, wy), _rel(hf, wh)
         gy = _randn(gen, b, length, din)
@@ -402,11 +430,13 @@ def check_ssm_scan(gen):
               "autograd rel " + ", ".join(
                   f"{name} {r:.2e}" for name, (_, r) in zip(
                       ("du", "ddt", "dA", "dB", "dC", "dD"), gerr))
-              + f"; a second backward call bit-identical: {same}")
+              + f"; a second call bit-identical: forward {fwd_same}, "
+              f"backward {same}")
         assert max(ry, rh) <= SCAN_TOL, \
             "ssm_scan disagrees with its plain version"
         assert max(r for _, r in gerr) <= SCAN_TOL, \
             "ssm_scan_backward disagrees with autograd of the plain scan"
+        assert fwd_same, "ssm_scan is not deterministic"
         assert same, "ssm_scan_backward is not deterministic"
         worst["ssm_scan"] = max(worst["ssm_scan"], ey, eh)
         worst["ssm_scan_backward"] = max(worst["ssm_scan_backward"],
@@ -572,38 +602,60 @@ def time_decode(gen, b, s, length, cold=False):
                  - ref.decode_attention(q, k, v, lens)).abs().max())
     print(f"  max|kernel - plain| of the timed call: {err:.3e}")
     if cold:
-        flush = torch.empty(16 << 20, device="cuda")          # 64 MB
-        one = dict(reps=1, runs=2 * TIMED_RUNS, sleep_cycles=2_000_000)
-        warm1 = device_ms(lambda: ops.decode_attention(q, k, v, lens), **one)
-        cold1 = device_ms(lambda: ops.decode_attention(q, k, v, lens),
-                          before=flush.zero_, **one)
-        print(f"{what}, one call at a time: warm {warm1:.7f} ms, L2 flushed "
-              f"by a 64 MB write before each call {cold1:.7f} ms")
-        t = dict(t, warm1_ms=warm1, cold1_ms=cold1)
-        del flush
+        t["warm1_ms"], t["cold1_ms"] = one_call_ms(
+            lambda: ops.decode_attention(q, k, v, lens), what)
     return t
 
 
-def time_rmsnorm(gen, rows, d):
+def one_call_ms(fn, what):
+    """``fn``'s device time one call at a time (each between its own
+    events, the stream idle before it): warm, and with L2 flushed by a 64
+    MB write before each call, as the served decode step finds its
+    operands after streaming a layer's weights."""
+    import torch
+    flush = torch.empty(16 << 20, device="cuda")          # 64 MB
+    one = dict(reps=1, runs=2 * TIMED_RUNS, sleep_cycles=2_000_000)
+    warm1 = device_ms(fn, **one)
+    cold1 = device_ms(fn, before=flush.zero_, **one)
+    del flush
+    print(f"{what}, one call at a time: warm {warm1:.7f} ms, L2 flushed "
+          f"by a 64 MB write before each call {cold1:.7f} ms")
+    return warm1, cold1
+
+
+def time_rmsnorm(gen, rows, d, cold=False, plain=True):
+    """rmsnorm on ``rows`` rows of ``d`` against ``F.rms_norm``; with
+    ``cold``, one call at a time also with L2 flushed (``one_call_ms``);
+    without ``plain``, the kernel alone (``--kernel-times``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     x = _randn(gen, rows, d)
     w = 1.0 + _randn(gen, d, scale=0.1)
     t_bound, by = bound_ms(4 * (2 * rows * d + d), 4 * rows * d)
     t = dict(ms=device_ms(lambda: ops.rmsnorm(x, w)),
-             plain_ms=device_ms(lambda: ref.rmsnorm(x, w)),
+             plain_ms=device_ms(lambda: ref.rmsnorm(x, w)) if plain else None,
              bound_ms=t_bound, bound_by=by,
-             library_ms=device_ms(lambda: F.rms_norm(x, (d,), w, eps=1e-6)))
-    _print_times(f"rmsnorm rows={rows} d={d}", t)
+             library_ms=device_ms(lambda: F.rms_norm(x, (d,), w, eps=1e-6))
+             if plain else None)
+    what = f"rmsnorm rows={rows} d={d}"
+    if plain:
+        _print_times(what, t)
+    else:
+        print(f"{what}: kernel {t['ms']:.7f} ms, bound {t_bound:.7f} ms "
+              f"({by})")
+    if cold:
+        t["warm1_ms"], t["cold1_ms"] = one_call_ms(
+            lambda: ops.rmsnorm(x, w), what)
     return t
 
 
-def time_ssm_scan(gen):
+def time_ssm_scan(gen, plain=True):
     """Both scan kernels at the training shape (B=8, L=128, Din=8192,
     N=16), as the training path calls them: the forward saving its
     chunk-start states, the backward from them.  The plain versions are
-    the 128-step loop and autograd's backward through it; no single
-    PyTorch call computes a selective scan."""
+    the 128-step loop and autograd's backward through it (not timed
+    without ``plain``); no single PyTorch call computes a selective
+    scan."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssm_scan import (ssm_scan_backward_cuda,
@@ -621,7 +673,8 @@ def time_ssm_scan(gen):
                            rows * (6 * n + 3), exps)
     fwd = dict(ms=device_ms(lambda: ssm_scan_cuda(*ins, save_states=True)),
                plain_ms=device_ms(lambda: ref.ssm_scan(*ins), runs=5,
-                                  reps=1, sleep_cycles=2_000_000),
+                                  reps=1, sleep_cycles=2_000_000)
+               if plain else None,
                bound_ms=t_bound, bound_by=by, library_ms=None)
     fwd_only = device_ms(lambda: ssm_scan_cuda(*ins))
     # backward: u, dt, dy, B, C, A, D read, du, ddt, dA, dB, dC, dD written;
@@ -629,15 +682,16 @@ def time_ssm_scan(gen):
     # forward's recomputation not counted), 6 flops per (b, t, d)
     t_bound, by = bound_ms(4 * (5 * rows + 4 * small + 2 * (din * n + din)),
                            rows * (16 * n + 6), exps)
-    leaves = [t.clone().requires_grad_() for t in ins]
-    y_plain = ref.ssm_scan(*leaves)[0]
     bwd = dict(ms=device_ms(lambda: ssm_scan_backward_cuda(*ins, states,
                                                            gy)),
-               plain_ms=device_ms(lambda: torch.autograd.grad(
-                   y_plain, leaves, gy, retain_graph=True), runs=5, reps=1,
-                   sleep_cycles=2_000_000),
-               bound_ms=t_bound, bound_by=by, library_ms=None)
-    del y_plain, leaves
+               plain_ms=None, bound_ms=t_bound, bound_by=by, library_ms=None)
+    if plain:
+        leaves = [t.clone().requires_grad_() for t in ins]
+        y_plain = ref.ssm_scan(*leaves)[0]
+        bwd["plain_ms"] = device_ms(lambda: torch.autograd.grad(
+            y_plain, leaves, gy, retain_graph=True), runs=5, reps=1,
+            sleep_cycles=2_000_000)
+        del y_plain, leaves
     what = f"B={b} L={length} Din={din} N={n}"
     print(f"ssm_scan {what}: {exps / 1e6:.1f} M exponentials take "
           f"{exps / PEAK_SFU_PER_S * 1e3:.7f} ms on the special-function "
@@ -645,11 +699,48 @@ def time_ssm_scan(gen):
           f"y) take {4 * 3 * rows / PEAK_BYTES_PER_S * 1e3:.7f} ms, the "
           f"backward's {4 * 5 * rows / 1e6:.1f} MB (u, dt, dy, du, ddt) "
           f"{4 * 5 * rows / PEAK_BYTES_PER_S * 1e3:.7f} ms")
-    _print_times(f"ssm_scan {what} (saving states)", fwd)
-    print(f"ssm_scan {what} without states (the prefill's call): "
-          f"{fwd_only:.7f} ms")
-    _print_times(f"ssm_scan_backward {what}", bwd)
+    if plain:
+        _print_times(f"ssm_scan {what} (saving states)", fwd)
+        # the same call at N = 8: what the other half of the exponentials
+        # costs at the margin, against the special-function units' rate
+        half = scan_inputs(gen, b, length, din, n // 2)
+        t_half = device_ms(lambda: ssm_scan_cuda(*half))
+        rate = (exps - exps // 2) / ((fwd_only - t_half) * 1e-3)
+        print(f"ssm_scan {what[:-4]}N={n // 2} without states: "
+              f"{t_half:.7f} ms; N={n}'s other {(exps - exps // 2) / 1e6:.1f}"
+              f" M exponentials add {fwd_only - t_half:.7f} ms: {rate:.3e} "
+              f"a second, {rate / PEAK_SFU_PER_S:.1%} of the units' "
+              f"{PEAK_SFU_PER_S:.3e}")
+        del half
+    print(f"ssm_scan {what} saving states: {fwd['ms']:.7f} ms; without "
+          f"states (the prefill's call): {fwd_only:.7f} ms")
+    if plain:
+        _print_times(f"ssm_scan_backward {what}", bwd)
+    print(f"ssm_scan_backward {what}: {bwd['ms']:.7f} ms")
+    fwd["no_states_ms"] = fwd_only
     return {"ssm_scan": fwd, "ssm_scan_backward": bwd}
+
+
+def time_mamba_block():
+    """Device time of one full-width Jamba Mamba block forward
+    (``nn.ssm.mamba_apply``, d_model 4096, d_inner 8192, N 16) at B=8,
+    L=128, the trainer's shape, with random weights: the layer the forward
+    scan serves."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.nn.ssm import Mamba, mamba_apply
+    cfg = get_config("jamba-v0.1-52b")
+    block = Mamba(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for m in block.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(gen)
+    x = torch.randn(8, 128, cfg.d_model, generator=gen, device="cuda")
+    with torch.no_grad():
+        t = device_ms(lambda: mamba_apply(block, x, cfg=cfg), runs=10,
+                      reps=2, sleep_cycles=40_000_000)
+    del block, x
+    return t
 
 
 def time_training_kernels(gen):
@@ -1191,6 +1282,25 @@ def print_occupancy(lib):
         print(f"flash_attention D={d}: {blocks} blocks of 128 threads per "
               f"SM ({4 * blocks} warps)")
         assert blocks >= 1, "flash_attention cannot be resident"
+    import torch
+    from repro_torch.kernels.rmsnorm import launch_shape as rms_shape
+    threads, vpt = rms_shape(4096, 4)
+    for rpb in (1, 2):
+        blocks = lib.rmsnorm_occupancy(4, vpt, threads, rpb)
+        print(f"rmsnorm d=4096, {rpb} row(s) a block: {blocks} blocks of "
+              f"{threads} threads per SM ({blocks * rpb} rows; x and scale "
+              f"in registers, {vpt} float4 of each a thread; the first port "
+              f"held 8 rows, x alone)")
+    assert blocks * 2 >= 8, "rmsnorm holds fewer rows an SM than before"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b, _, din, n = SCAN_CASES[0]
+    blocks = lib.ssm_scan_occupancy(n)
+    print(f"ssm_scan N={n}: {blocks} blocks of 128 threads per SM "
+          f"({4 * blocks} warps; a thread a channel, its states in "
+          f"registers): the training shape's {b * din // 128} blocks take "
+          f"{-(-b * din // 128 // (blocks * sms))} wave(s) on {sms} SMs")
+    assert blocks * sms >= b * din // 128, \
+        "the scan's training shape takes more than one wave"
     blocks = lib.ssm_scan_backward_occupancy()
     print(f"ssm_scan_backward: {blocks} blocks of 512 threads per SM "
           f"({16 * blocks} warps; a design that keeps each channel's "
@@ -1216,11 +1326,12 @@ def build_kernels():
 def kernel_times(tree: str) -> int:
     """``--kernel-times TREE``: build the kernels of the ``repro_torch``
     package under ``TREE/src`` (another checkout, such as a parent commit
-    unpacked with ``git archive``) and time the adaLN and decode kernels
-    at phase 4's shapes in this script's harness, and the two layers they
-    serve, phase 5's DiT forward at B=4 and phase 8's decode step of full
-    yi-6b (device time), so that two trees are compared within one run on
-    one card."""
+    unpacked with ``git archive``) and time the adaLN, decode, rmsnorm and
+    scan kernels at phase 4's shapes in this script's harness, and the
+    layers they serve: phase 5's DiT forward at B=4, phase 8's decode step
+    of full yi-6b (device time and host enqueue) and one full-width Jamba
+    Mamba block forward at the trainer's shape, so that two trees are
+    compared within one run on one card."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.gdm import init_gdm
@@ -1230,7 +1341,7 @@ def kernel_times(tree: str) -> int:
     phase(f"2. build the kernels of {tree}")
     build_kernels()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    phase(f"4. times of {tree}'s adaLN and decode kernels")
+    phase(f"4. times of {tree}'s adaLN, decode, rmsnorm and scan kernels")
     out = {"launch_floor_ms": launch_floor_ms()}
     for b in (1, 4):
         for name, t in time_adaln(gen, b, 256, 768).items():
@@ -1242,7 +1353,20 @@ def kernel_times(tree: str) -> int:
                 "decode_attention B=1 S=24, one call, warm": t["warm1_ms"],
                 "decode_attention B=1 S=24, one call, L2 flushed":
                     t["cold1_ms"]})
-    phase(f"5, 8. {tree}'s DiT forward at B=4 and yi-6b decode step")
+    t = time_rmsnorm(gen, 1, 4096, cold=True, plain=False)
+    out.update({"rmsnorm 1x4096": t["ms"],
+                "rmsnorm 1x4096, one call, warm": t["warm1_ms"],
+                "rmsnorm 1x4096, one call, L2 flushed": t["cold1_ms"]})
+    for rows in (1024, 8192):
+        out[f"rmsnorm {rows}x4096"] = time_rmsnorm(gen, rows, 4096,
+                                                   plain=False)["ms"]
+    scan = time_ssm_scan(gen, plain=False)
+    out["ssm_scan B=8 L=128 saving states"] = scan["ssm_scan"]["ms"]
+    out["ssm_scan B=8 L=128 without states"] = \
+        scan["ssm_scan"]["no_states_ms"]
+    out["ssm_scan_backward B=8 L=128"] = scan["ssm_scan_backward"]["ms"]
+    phase(f"5, 8, 10. {tree}'s DiT forward at B=4, yi-6b decode step and "
+          "Jamba Mamba block forward")
     full = get_config("gdm-dit")
     out["DiT forward B=4"] = time_block_call(full, init_gdm(
         full, seed=11, device="cuda"))
@@ -1250,8 +1374,11 @@ def kernel_times(tree: str) -> int:
                                                device="cuda"))
     out["yi-6b decode step, device"] = dev_ms
     out["yi-6b decode step, host enqueue"] = host_ms
+    torch.cuda.empty_cache()
+    out["Mamba block forward B=8 L=128"] = time_mamba_block()
     for name in ("DiT forward B=4", "yi-6b decode step, device",
-                 "yi-6b decode step, host enqueue"):
+                 "yi-6b decode step, host enqueue",
+                 "Mamba block forward B=8 L=128"):
         print(f"{name}: {out[name]:.4f} ms")
     print(json.dumps({"tree": tree, "kernel_times": out}))
     return 0
@@ -1293,7 +1420,7 @@ def main(argv) -> int:
     times["decode_attention"] = {k: decode[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     time_rmsnorm(gen, 8192, yi.d_model)
-    times["rmsnorm"] = time_rmsnorm(gen, 1, yi.d_model)
+    times["rmsnorm"] = time_rmsnorm(gen, 1, yi.d_model, cold=True)
     train_ms = time_ssm_scan(gen)
     times.update(train_ms)
     train_ms.update(time_training_kernels(gen))
@@ -1358,7 +1485,8 @@ def main(argv) -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": errs[name], **times[name]}
+         "max_abs_err": errs[name], **{k: times[name][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for name in replaces
     ]}))
     print(json.dumps({"ok": True, "device": {

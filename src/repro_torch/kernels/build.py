@@ -39,7 +39,7 @@ SIGNATURES = {
                             _I, _F, _P],
     "decode_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _F, _P],
-    "rmsnorm_f32": [_P, _P, _P, _LL, _I, _F, _P],
+    "rmsnorm_f32": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _F, _P],
     "ssm_scan_f32": [_P] * 9 + [_I] * 4 + [_P],
     "ssm_scan_backward_f32": [_P] * 15 + [_I] * 4 + [_P],
 }
@@ -53,6 +53,8 @@ OCCUPANCY = {
     "adaln_norm_occupancy": [_I] * 4,
     "decode_attention_occupancy": [_I] * 4,
     "flash_attention_occupancy": [_I],
+    "rmsnorm_occupancy": [_I] * 4,
+    "ssm_scan_occupancy": [_I],
     "ssm_scan_backward_occupancy": [],
 }
 

@@ -10,17 +10,34 @@
 // Replaces: src/repro/kernels/rmsnorm.py :: rmsnorm_pallas (_rmsnorm_kernel).
 //
 // Bound: bytes.  Three float operations per element against 8 bytes of
-// traffic.
+// traffic.  On the LM's decode step a call normalises one row of 4096: the
+// bytes take 0.015 us, so what bounds the call is latency (the launch and
+// the memory round trips on its critical path).
 //
-// Design: the TPU kernel holds tiles of 256 full rows in VMEM.  Here one
-// block owns one row, which lives in its threads' registers (at most eight
-// values a thread), so x is read once and y written once; the sum of
-// squares is a warp-shuffle reduction and then a fixed-order reduction over
-// the warps through shared memory, so it does not depend on scheduling.
-// Rows whose width is a multiple of 4 (and whose pointers are 16-byte
-// aligned) move as float4, others as single floats.  The block has as many
-// threads as give each at most four vectors, from 32 up to 1024: 256 at
-// d = 4096, so a single decode row is spread over a whole SM.
+// Design.  The TPU kernel holds tiles of 256 full rows in VMEM.  Here a
+// row lives in its block's registers, so x is read once and y written
+// once.  The first port read scale only after the reduction,
+// behind two barriers: two dependent memory round trips a call, the second
+// with the scale vector cold from HBM in the decode step, where the
+// weights stream through L2 between two norms.  Here:
+// - Each thread loads its slice of scale in the same burst as its slice of
+//   x, before the reduction, which does not need it: one round trip a
+//   call.
+// - One barrier: each warp reduces its squares with a shuffle butterfly and
+//   writes one partial; after a single __syncthreads() every thread adds
+//   all the partials itself in warp order, so every thread holds the same
+//   bits and two calls give the same result.
+// - Four vectors a thread (a float4 where d % 4 == 0 and every pointer is
+//   16-byte aligned, else single floats; eight single floats for rows over
+//   4096), so a row of 4096 is 256 threads.
+// - Scale in registers costs as many registers as x: one row a block then
+//   holds fewer rows an SM than the first port did, and many rows lose
+//   their rate (the trainer's 1024 rows, L2-warm, ran 4% slower).  So where
+//   a call has many rows a block takes two, and each thread's scale slice
+//   serves both: an SM holds as many rows as before, and scale is read
+//   half as often.  One row takes one block (no idle second row's sums).
+// The wrapper picks the width (load_width), threads and vectors from d
+// (launch_shape) and the rows a block from the row count.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -29,6 +46,13 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kMaxThreads = 1024;
+constexpr int kMaxWarps = kMaxThreads / kWarp;
+
+// W consecutive floats, moved as one load or store (16 bytes for W = 4)
+template <int W>
+struct __align__(4 * W) Vec {
+  float v[W];
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -37,101 +61,124 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float sumsq(float a) { return a * a; }
-__device__ __forceinline__ float sumsq(float4 a) {
-  return a.x * a.x + a.y * a.y + a.z * a.z + a.w * a.w;
-}
-__device__ __forceinline__ float norm(float x, float inv, float w) {
-  return x * inv * w;
-}
-__device__ __forceinline__ float4 norm(float4 x, float inv, float4 w) {
-  return make_float4(x.x * inv * w.x, x.y * inv * w.y, x.z * inv * w.z,
-                     x.w * inv * w.w);
-}
-template <typename T>
-__device__ __forceinline__ T zero();
-template <>
-__device__ __forceinline__ float zero<float>() { return 0.f; }
-template <>
-__device__ __forceinline__ float4 zero<float4>() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// T: float or float4; VPT: values of T per thread; n: values of T per row
-template <typename T, int VPT>
+// W: floats per vector (1 or 4); VPT: vectors per thread; ROWS: rows a
+// block (1 or 2), which share the thread's slice of scale
+template <int W, int VPT, int ROWS>
 __global__ void __launch_bounds__(kMaxThreads)
 rmsnorm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-               float* __restrict__ y, int n, int d, float eps) {
-  __shared__ float red[kMaxThreads / kWarp];
-  const long long row = blockIdx.x;
-  const T* xr = reinterpret_cast<const T*>(x + row * d);
-  T* yr = reinterpret_cast<T*>(y + row * d);
-  const T* w = reinterpret_cast<const T*>(scale);
+               float* __restrict__ y, long long rows, int d, float eps) {
+  using V = Vec<W>;
+  __shared__ float red[ROWS][kMaxWarps];
+  const long long row0 = (long long)blockIdx.x * ROWS;
+  // a block of two rows may hold one (the last of an odd count)
+  const int live = ROWS == 1 ? 1 : (int)min((long long)ROWS, rows - row0);
+  const int n = d / W;                       // vectors in a row
+  const V* wr = reinterpret_cast<const V*>(scale);
 
-  T v[VPT];
-  float sq = 0.f;
+  // one burst: the rows' values and the scale's, before any is used
+  V v[ROWS][VPT], w[VPT];
+  bool ok[VPT];
 #pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    const int idx = threadIdx.x + i * blockDim.x;
-    v[i] = idx < n ? xr[idx] : zero<T>();
-    sq += sumsq(v[i]);
-  }
-  sq = warp_sum(sq);
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (lane == 0) red[warp] = sq;
-  __syncthreads();
-  if (warp == 0) {
-    const int nwarps = blockDim.x / kWarp;
-    float t = lane < nwarps ? red[lane] : 0.f;
-    t = warp_sum(t);
-    if (lane == 0) red[0] = t;
-  }
-  __syncthreads();
-  const float inv = rsqrtf(red[0] / d + eps);
+  for (int k = 0; k < VPT; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    ok[k] = i < n;
+    if (ok[k]) {
+      w[k] = wr[i];
 #pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    const int idx = threadIdx.x + i * blockDim.x;
-    if (idx < n) yr[idx] = norm(v[i], inv, w[idx]);
+      for (int r = 0; r < ROWS; ++r)
+        if (r < live) v[r][k] = reinterpret_cast<const V*>(x + (row0 + r) * d)[i];
+    }
+  }
+  // squares in vector order, then element order; a warp's sum by shuffles
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    if (r < live) {
+      float sq = 0.f;
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        if (ok[k]) {
+#pragma unroll
+          for (int e = 0; e < W; ++e) sq += v[r][k].v[e] * v[r][k].v[e];
+        }
+      }
+      sq = warp_sum(sq);
+      if (threadIdx.x % kWarp == 0) red[r][threadIdx.x / kWarp] = sq;
+    }
+  }
+  __syncthreads();
+  const int warps = blockDim.x / kWarp;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    if (r < live) {
+      float total = 0.f;
+      for (int i = 0; i < warps; ++i) total += red[r][i];
+      const float inv = rsqrtf(total / d + eps);
+      V* yr = reinterpret_cast<V*>(y + (row0 + r) * d);
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        if (ok[k]) {
+          V o;
+#pragma unroll
+          for (int e = 0; e < W; ++e) o.v[e] = v[r][k].v[e] * inv * w[k].v[e];
+          yr[threadIdx.x + k * blockDim.x] = o;
+        }
+      }
+    }
   }
 }
 
-template <typename T>
-cudaError_t launch(long long rows, int n, int d, float eps, const float* x,
-                   const float* scale, float* y, cudaStream_t stream) {
-  // threads: enough that each holds at most four values, a whole number of
-  // warps, at most 1024 (then up to eight values each)
-  int threads = ((n + 3) / 4 + kWarp - 1) / kWarp * kWarp;
-  threads = threads < kWarp ? kWarp : (threads > kMaxThreads ? kMaxThreads
-                                                             : threads);
-  const int vpt = (n + threads - 1) / threads;
-  const dim3 grid((unsigned)rows);
-#define REPRO_RMS_LAUNCH(V)                                                  \
-  rmsnorm_kernel<T, V><<<grid, threads, 0, stream>>>(x, scale, y, n, d, eps)
-  if (vpt <= 1) REPRO_RMS_LAUNCH(1);
-  else if (vpt <= 2) REPRO_RMS_LAUNCH(2);
-  else if (vpt <= 4) REPRO_RMS_LAUNCH(4);
-  else if (vpt <= 8) REPRO_RMS_LAUNCH(8);
-  else return cudaErrorInvalidValue;
-#undef REPRO_RMS_LAUNCH
-  return cudaSuccess;
+const void* kernel_for(int width, int vpt, int rows_per_block) {
+#define REPRO_RMS_KERNEL(W, V)                                               \
+  if (width == W && vpt == V)                                                \
+    return rows_per_block == 1 ? (const void*)rmsnorm_kernel<W, V, 1>        \
+                               : (const void*)rmsnorm_kernel<W, V, 2>;
+  if (rows_per_block != 1 && rows_per_block != 2) return nullptr;
+  REPRO_RMS_KERNEL(4, 4)
+  REPRO_RMS_KERNEL(1, 4)
+  REPRO_RMS_KERNEL(1, 8)
+#undef REPRO_RMS_KERNEL
+  return nullptr;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
-// 1 <= d <= 8192; 1 <= rows < 2^31.  Returns cudaGetLastError() after the
-// launch.
+// 1 <= d <= 8192; 1 <= rows < 2^31.  width 4 (16-byte vectors: d % 4 == 0
+// and x, scale and y 16-byte aligned) with vpt 4, or width 1 with vpt 4 or
+// 8; threads a whole number of warps up to 1024 with threads * vpt >=
+// d / width (the wrapper's launch_shape); rows_per_block 1 or 2.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int rmsnorm_f32(const float* x, const float* scale, float* y,
-                           long long rows, int d, float eps, void* stream) {
-  if (rows <= 0 || rows > 0x7fffffffLL || d <= 0 || d > 8192)
+                           long long rows, int d, int width, int threads,
+                           int vpt, int rows_per_block, float eps,
+                           void* stream) {
+  const void* fn = kernel_for(width, vpt, rows_per_block);
+  if (fn == nullptr || rows <= 0 || rows > 0x7fffffffLL || d <= 0 ||
+      d > 8192 || d % width != 0 || threads % kWarp != 0 || threads <= 0 ||
+      threads > kMaxThreads || (long long)threads * vpt < d / width)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = d % 4 == 0 &&
-                   ((reinterpret_cast<std::uintptr_t>(x) |
-                     reinterpret_cast<std::uintptr_t>(scale) |
-                     reinterpret_cast<std::uintptr_t>(y)) & 15) == 0;
-  cudaError_t err = vec ? launch<float4>(rows, d / 4, d, eps, x, scale, y, s)
-                        : launch<float>(rows, d, d, eps, x, scale, y, s);
+  if (width == 4 && !(aligned16(x) && aligned16(scale) && aligned16(y)))
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {&x, &scale, &y, &rows, &d, &eps};
+  const unsigned blocks =
+      (unsigned)((rows + rows_per_block - 1) / rows_per_block);
+  cudaError_t err = cudaLaunchKernel(fn, dim3(blocks), dim3(threads), args,
+                                     0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel for (width, vpt, threads, rows_per_block) one SM
+// holds at once (-1 on error).
+extern "C" int rmsnorm_occupancy(int width, int vpt, int threads,
+                                 int rows_per_block) {
+  const void* fn = kernel_for(width, vpt, rows_per_block);
+  int blocks = -1;
+  if (fn == nullptr || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           &blocks, fn, threads, 0) != cudaSuccess)
+    return -1;
+  return blocks;
 }

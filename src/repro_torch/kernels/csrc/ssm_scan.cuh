@@ -20,9 +20,10 @@ inline bool bad_shape(int batch, int L, int Din, int N) {
          N > 16;
 }
 
-// __expf (ex2.approx after a multiply): against expf it was chosen by the
-// 1e-5 check of both scans against their plain version on the card, which
-// it holds at ~1e-7 (chip_smoke.py)
+// The backward's exponential, __expf (ex2.approx after a multiply):
+// against expf it was chosen by the 1e-5 check of both scans against their
+// plain version on the card, which it holds at ~1e-7 (chip_smoke.py).  The
+// forward folds log2(e) into A once per state instead (ssm_scan.cu).
 __device__ __forceinline__ float exp_(float x) { return __expf(x); }
 
 // index of state n of channel (b, d) at the start of chunk c, in the

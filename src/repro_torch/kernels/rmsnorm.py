@@ -13,6 +13,37 @@ import torch
 from repro_torch.kernels import LAUNCHES, build, check_launch, check_operand
 
 MAX_D = 8192          # a row lives in one block's registers
+MAX_THREADS = 1024
+MANY_ROWS = 512       # from here two rows a block (rows_per_block)
+
+
+def load_width(x, scale):
+    """Floats per load and store: 4 (16 bytes) where d % 4 == 0 and x and
+    scale start on a 16-byte boundary (x is contiguous, so every row then
+    does, and y is a fresh allocation); else 1."""
+    if x.shape[-1] % 4 or x.data_ptr() % 16 or scale.data_ptr() % 16:
+        return 1
+    return 4
+
+
+def launch_shape(d: int, width: int):
+    """(threads, vectors per thread) of a block's row: four vectors a
+    thread while a row has at most 4096 vectors, else eight; a whole number
+    of warps."""
+    n = d // width
+    vpt = 4
+    while -(-n // vpt) > MAX_THREADS:
+        vpt *= 2
+    threads = -(-(-(-n // vpt)) // 32) * 32
+    return threads, vpt
+
+
+def rows_per_block(rows: int) -> int:
+    """Rows a block takes: two where a call has ``MANY_ROWS`` or more (the
+    two share each thread's slice of scale, so an SM holds twice the rows
+    in the same registers), one below, so that a decode row pays for no
+    second row's sums."""
+    return 2 if rows >= MANY_ROWS else 1
 
 
 def rmsnorm_cuda(x, scale, *, eps: float = 1e-6):
@@ -32,10 +63,13 @@ def rmsnorm_cuda(x, scale, *, eps: float = 1e-6):
     rows = x.numel() // d
     if rows == 0:
         return y
+    width = load_width(x, scale)
+    threads, vpt = launch_shape(d, width)
     lib = build.library()
     with torch.cuda.device(dev):
         err = lib.rmsnorm_f32(x.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                              rows, d, float(eps),
+                              rows, d, width, threads, vpt,
+                              rows_per_block(rows), float(eps),
                               torch.cuda.current_stream(dev).cuda_stream)
     check_launch("rmsnorm", err)
     LAUNCHES["rmsnorm"] += 1

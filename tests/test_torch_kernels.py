@@ -502,6 +502,85 @@ def test_rmsnorm_matches_reference(shape):
                                   got.numpy())
 
 
+def _rmsnorm_block_emulation(x, scale, *, eps=1e-6, width=4):
+    """``rmsnorm.cu``'s arithmetic on CPU tensors: a row on ``launch_shape``
+    threads (a block takes one or two rows; each row's arithmetic is the
+    same); thread t holds vectors t + k * threads (k < vpt) of ``width``
+    floats and adds their squares in k, then element order; a warp's 32
+    partials meet in a shuffle butterfly (offsets 16 .. 1), and after the
+    one barrier the warps' sums are added in warp order; then x times the
+    inverse root, times scale."""
+    from repro_torch.kernels.rmsnorm import launch_shape
+    rows, d = x.shape
+    threads, vpt = launch_shape(d, width)
+    padded = torch.zeros(rows, threads * vpt * width)
+    padded[:, :d] = x
+    per = padded.view(rows, vpt, threads, width)
+    part = torch.zeros(rows, threads)
+    for k in range(vpt):
+        for e in range(width):
+            part = part + per[:, k, :, e] * per[:, k, :, e]
+    part = part.view(rows, threads // 32, 32)
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        part = part + part[..., lanes ^ off]
+    total = torch.zeros(rows)
+    for w in range(threads // 32):
+        total = total + part[:, w, 0]
+    inv = torch.rsqrt(total / d + eps)
+    return x * inv[:, None] * scale
+
+
+@pytest.mark.parametrize("rows,d,width,tol", [
+    (3, 64, 4, TOL),         # one warp, four float4 a thread, half idle
+    (5, 100, 1, TOL),        # single floats, one warp
+    (4, 99, 1, TOL),         # no multiple of 4
+    (2, 2560, 4, TOL),       # qwen1.5-4b's width: 160 threads
+    (3, 4096, 4, 1e-5),      # yi-6b's and Jamba's rows: 256 threads
+    (2, 4096, 1, 1e-5),      # an unaligned view: 1024 threads, four each
+    (2, 8192, 4, 1e-5),      # the widest row: 512 threads, four float4
+    (2, 8192, 1, 1e-5),      # the widest unaligned row: eight floats each
+])
+def test_rmsnorm_block_sums_match_reference(rows, d, width, tol):
+    """The kernel's one-barrier, fixed-order block sum holds the
+    reference's oracle and its Pallas kernel at 1e-6, and rows of 4096 or
+    more at the card's 1e-5 (the sums of thousands of squares round in
+    another order)."""
+    x, w = _inputs(d + rows, (rows, d), (d,))
+    w = 1.0 + 0.1 * w
+    t = torch.from_numpy
+    got = _rmsnorm_block_emulation(t(x), t(w), width=width)
+    _close(got, jref.rmsnorm(x, w), tol)
+    _close(got, jops.rmsnorm(x, w, impl="interpret", block_rows=8), tol)
+    _close(got, tref.rmsnorm(t(x), t(w)), tol)
+
+
+def test_rmsnorm_load_width_and_launch_shape_follow_rows_and_pointers():
+    """The wrapper moves 16 bytes a load only where d % 4 == 0 and x and
+    scale start on 16-byte boundaries, gives a thread four vectors of x
+    and four of scale while a row has at most 4096 vectors, and gives a
+    block two rows from 512 rows up; the choice needs no card."""
+    from repro_torch.kernels.rmsnorm import (launch_shape, load_width,
+                                             rows_per_block)
+    x, w = torch.zeros(3, 4096), torch.zeros(4096)
+    assert load_width(x, w) == 4
+    assert load_width(torch.zeros(3 * 4096 + 1)[1:].view(3, 4096), w) == 1
+    assert load_width(x, torch.zeros(4097)[1:]) == 1
+    assert load_width(torch.zeros(2, 99), torch.zeros(99)) == 1
+    assert load_width(torch.zeros(2, 100), torch.zeros(100)) == 4
+    assert launch_shape(4096, 4) == (256, 4)      # the decode row
+    assert launch_shape(8192, 4) == (512, 4)
+    assert launch_shape(2560, 4) == (160, 4)
+    assert launch_shape(64, 4) == (32, 4)
+    assert launch_shape(4096, 1) == (1024, 4)
+    assert launch_shape(8192, 1) == (1024, 8)
+    assert launch_shape(100, 1) == (32, 4)
+    assert launch_shape(99, 1) == (32, 4)
+    assert launch_shape(1, 1) == (32, 4)
+    assert [rows_per_block(r) for r in (1, 65, 511, 512, 1024, 8192)] == [
+        1, 1, 1, 2, 2, 2]
+
+
 def test_rmsnorm_is_the_reference_layer_function():
     """The port's ``nn.rmsnorm_apply`` (which the LM calls) computes the
     reference's ``nn.rmsnorm_apply`` — the dense LM's norm — as well as

@@ -87,6 +87,53 @@ def test_scan_matches_reference(b, length, din, n):
     np.testing.assert_array_equal(h2.numpy(), got_h.numpy())
 
 
+SCAN_TOL = 1e-5       # the card's: relative to the largest |output|
+
+
+def _scan_kernel_emulation(u, delta, a, bmat, cmat, d):
+    """``ssm_scan.cu``'s arithmetic on CPU tensors: a * log2(e) formed once
+    per state, each step h = 2^(dt * a2) * h + (dt * u) * B_t, y_t = C_t . h
+    summed in state order (the kernel's zero states past N add exact
+    zeros), then D * u."""
+    bsz, length, din = u.shape
+    n = a.shape[1]
+    a2 = a * torch.tensor(math.log2(math.e), dtype=torch.float32)
+    h = torch.zeros(bsz, din, n)
+    ys = []
+    for t in range(length):
+        dt, ut = delta[:, t], u[:, t]
+        du = dt * ut
+        h = torch.exp2(dt[..., None] * a2) * h + du[..., None] * bmat[:, t,
+                                                                     None]
+        acc = torch.zeros(bsz, din)
+        for k in range(n):
+            acc = acc + h[..., k] * cmat[:, t, None, k]
+        ys.append(acc + d * ut)
+    return torch.stack(ys, 1), h
+
+
+@pytest.mark.parametrize("b,length,din,n", SCAN_CASES + [
+    (2, 20, 100, 16),    # 100 channels: no whole warps
+    (2, 9, 24, 1),       # N = 1: one state, fifteen zero ones
+    (1, 17, 40, 4),      # N = 4
+])
+def test_scan_kernel_arithmetic_matches_reference(b, length, din, n):
+    """The forward kernel's exp2 form and order of sums hold the
+    reference's scan and its Pallas kernel at the card's tolerance, y and
+    the final state alike."""
+    ins = _scan_inputs(length * 7 + din + n, b, length, din, n)
+    want_y, want_h = jref.ssm_scan(*ins)
+    want_pallas = jops.ssm_scan(*ins, impl="interpret", chunk=8,
+                                block_d=8)
+    got_y, got_h = _scan_kernel_emulation(
+        *(torch.from_numpy(x) for x in ins))
+    for got, want in ((got_y, want_y), (got_y, want_pallas),
+                      (got_h, want_h)):
+        want = np.asarray(want)
+        err = float(np.abs(got.numpy() - want).max())
+        assert err <= SCAN_TOL * float(np.abs(want).max())
+
+
 def test_scan_from_an_initial_state_matches_reference():
     u, delta, a, bmat, cmat, d, h0 = _scan_inputs(3, 2, 10, 24, 8, h0=True)
     want_y, want_h = jref.ssm_scan(u, delta, a, bmat, cmat, d, h0=h0)
