@@ -47,7 +47,23 @@ non-zero before the result line):
     dense SwiGLU, 2.7 B parameters) for six steps through
     ``repro_torch.launch.train.run`` and check every loss, the exact
     launch counts of every step, the device time per phase and the peak
-    memory.
+    memory;
+11. the D3QL agent at Table II widths (paper-fig3: U=15, A=17, H=3,
+    obs_dim 302, LSTM 128, FC 128/64/32, batch 32) on the card against
+    the same agent on the CPU: bit-equal initial weights, Q on 256
+    observations, 50 updates on the same batches (every loss, the final
+    parameters), greedy actions (near-ties counted); device ms per update
+    and per act at E=8, host ms per update;
+12. Fig. 3 on the card: train LEARN-GDM on paper-fig3 (synthetic Omega,
+    240 episodes at E=8, seed 0) as ``benchmarks/bench_convergence.py``
+    does and check its criteria (late reward above early, late MSE below
+    early), with the wall clock and frames per second;
+13. the paper's closed loop: three full-width gdm-dit services measure
+    Omega, LEARN-GDM trains against it (48 episodes at E=8), and the
+    paper-fig3 trace is served under the learned policy and under GR;
+    every served latent finite, the DiT kernels' launch counts exactly
+    what Omega and the served block calls imply, and every recorded
+    decision the CPU copy of the agent's on the same observations.
 
 Phase 3 also holds the selective scan (forward and backward kernels)
 against its plain version and autograd (and both against themselves: two
@@ -56,8 +72,10 @@ calls give the same bits), and the gradients that
 their plain versions; phase 4 times both scan kernels at the training
 shape.
 
-Then it prints one JSON line describing the kernels, and as its last line
-``{"ok": true, "device": {...}}``.
+Then it prints one JSON line describing the kernels (each kernel's
+launches from the path that carries it: the DiT kernels from the closed
+loop of phase 13, decode and rmsnorm from phase 8, the scan kernels from
+phase 10), and as its last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernel-times TREE`` builds the kernels of another
 checkout's ``TREE/src/repro_torch`` (a parent commit unpacked with ``git
@@ -116,6 +134,13 @@ GRAD_TOL = 1e-5
 TRAIN_TOL = 1e-3
 TRAIN_PARAM_TOL = 1e-2
 TRAIN_LEAF_TOL = 0.1
+# the D3QL agent, card vs CPU: Q relative to its largest magnitude; each
+# update's loss, relative; a greedy action may differ only where the two
+# best Q-values of that row lie within AGENT_TIE_TOL of max|Q| (a near-tie
+# that float32 rounding can order either way)
+AGENT_Q_TOL = 1e-5
+AGENT_LOSS_TOL = 1e-4
+AGENT_TIE_TOL = 1e-5
 TIMED_RUNS = 25
 
 
@@ -1255,6 +1280,351 @@ def train_period(cfg, tcfg, kernel_ms, global_batch: int = 8,
     return per_step
 
 
+# -- phase 11: the D3QL agent, card vs CPU ----------------------------------------------
+
+def profile_kernels(fn):
+    """The kernels one ``fn()`` launches on the card and their summed
+    device time in ms, from ``torch.profiler`` (CUPTI); (0, nan) where the
+    profiler sees no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return 0, float("nan")
+    return len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3
+
+def agent_config():
+    """The agent for paper-fig3 at Table II widths."""
+    from repro_torch.rl import D3QLConfig
+    from repro_torch.sim import EdgeSimulator, get_scenario
+    scen = get_scenario("paper-fig3")
+    return scen, D3QLConfig(obs_dim=EdgeSimulator(scen).obs_dim,
+                            num_ues=scen.num_ues,
+                            num_actions=scen.num_bs + 1, seed=0)
+
+
+def rollout_windows(scen, frames: int, num_envs: int = 8, seed: int = 0):
+    """Eq. (7) windows of a short numpy rollout under random actions:
+    (obs, actions, rewards, next_obs, dones), leading axis frames * E."""
+    import numpy as np
+    from repro_torch.core.learn_gdm import obs_history_window
+    from repro_torch.sim import VecEdgeSimulator
+    venv = VecEdgeSimulator(scen, num_envs, seeds=seed + np.arange(num_envs))
+    rng = np.random.default_rng(seed)
+    history = [venv.observation()]
+    out = {k: [] for k in ("obs", "actions", "rewards", "next_obs", "dones")}
+    for _ in range(frames):
+        obs = obs_history_window(history, 3)
+        acts = rng.integers(0, scen.num_bs + 1, (num_envs, scen.num_ues))
+        mac = rng.integers(-1, scen.num_channels, (num_envs, scen.num_ues))
+        res = venv.step(mac, acts - 1)
+        history = history[-2:] + [venv.observation(res["bs_load"])]
+        for k, v in (("obs", obs), ("actions", acts),
+                     ("rewards", res["rewards"]),
+                     ("next_obs", obs_history_window(history, 3)),
+                     ("dones", np.full(num_envs, res["done"]))):
+            out[k].append(v)
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
+def greedy_mismatches(q_ref, got, want):
+    """Rows where two greedy action sets differ, and how many of them are
+    near-ties of ``q_ref`` (the two actions' Q within AGENT_TIE_TOL of
+    max|Q|); raises on any other mismatch."""
+    import numpy as np
+    diff = got != want
+    if not diff.any():
+        return 0, 0
+    scale = float(np.abs(q_ref).max())
+    qa = np.take_along_axis(q_ref, got[..., None], -1)[..., 0]
+    qb = np.take_along_axis(q_ref, want[..., None], -1)[..., 0]
+    gaps = np.abs(qa - qb)[diff]
+    ties = int((gaps <= AGENT_TIE_TOL * scale).sum())
+    assert ties == int(diff.sum()), (
+        f"{int(diff.sum()) - ties} greedy actions differ beyond a near-tie "
+        f"(largest Q gap {gaps.max():.3e}, max|Q| {scale:.3e})")
+    return int(diff.sum()), ties
+
+
+def agent_vs_cpu(card: str, updates: int = 50, act_envs: int = 8,
+                 n_obs: int = 256):
+    """The same agent on the card and on the CPU: initial weights, Q,
+    ``updates`` train steps on the same sampled batches, greedy actions;
+    then the update and act times on ``card`` (nvidia-smi's name and
+    power limit)."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.rl import D3QLAgent
+    from repro_torch.rl.networks import qnet_apply
+    scen, cfg = agent_config()
+    agents = {"card": D3QLAgent(cfg, device="cuda"),
+              "cpu": D3QLAgent(copy.deepcopy(cfg), device="cpu")}
+    start = {k: p.detach().clone() for k, p in agents["cpu"].params.items()}
+    for (name, pg), pc in zip(agents["card"].params.items(),
+                              agents["cpu"].params.values()):
+        assert torch.equal(pg.detach().cpu(), pc.detach()), \
+            f"initial {name} differs between the card and the CPU"
+    n_params = sum(p.numel() for p in start.values())
+    print(f"D3QL agent, paper-fig3: U={cfg.num_ues}, A={cfg.num_actions}, "
+          f"H={cfg.history}, obs_dim={cfg.obs_dim}, LSTM {cfg.lstm_units}, "
+          f"FC {cfg.fc}, batch {cfg.batch_size}: {n_params} parameters, "
+          "bit-equal at start on the card and the CPU")
+    data = rollout_windows(scen, 40, act_envs)
+    for agent in agents.values():
+        agent.memory.push_batch(data["obs"], data["actions"], data["rewards"],
+                                data["next_obs"], data["dones"])
+    obs = data["obs"][:n_obs]
+
+    def q_err():
+        q = {side: a.q_values(obs) for side, a in agents.items()}
+        return q, _ratio(float(np.abs(q["card"] - q["cpu"]).max()),
+                         float(np.abs(q["cpu"]).max()))
+
+    q0, err0 = q_err()
+    losses = {side: [] for side in agents}
+    for _ in range(updates):
+        for side, agent in agents.items():
+            losses[side].append(agent.train_step())
+    q1, err1 = q_err()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                losses["cpu"])]
+    final = {side: {k: p.detach().cpu() for k, p in a.params.items()}
+             for side, a in agents.items()}
+    moved_rel = {k: _ratio(float((final["card"][k] - pc).norm()),
+                           float((pc - start[k]).norm()))
+                 for k, pc in final["cpu"].items()}
+    worst_leaf = max(moved_rel, key=moved_rel.get)
+    gap_all = math.sqrt(sum(float((final["card"][k] - pc).square().sum())
+                            for k, pc in final["cpu"].items()))
+    moved_all = math.sqrt(sum(float((pc - start[k]).square().sum())
+                              for k, pc in final["cpu"].items()))
+    acts = {side: a.act_batch(obs, greedy=True)
+            for side, a in agents.items()}
+    n_diff, n_ties = greedy_mismatches(q1["cpu"], acts["card"], acts["cpu"])
+    print(f"Q on {len(obs)} observations: max|card - cpu| / max|Q| = "
+          f"{err0:.3e} at start, {err1:.3e} after {updates} updates "
+          f"(tolerance {AGENT_Q_TOL} at start)")
+    print("losses, card: " + ", ".join(f"{x:.6f}" for x in
+                                         losses["card"][::10]) + " ...")
+    print(f"loss, relative gap: first {rel[0]:.2e}, largest {max(rel):.2e} "
+          f"(tolerance {AGENT_LOSS_TOL}); final parameters |card - cpu| / "
+          f"|cpu - start| = {_ratio(gap_all, moved_all):.3e} over the net "
+          f"(tolerance {TRAIN_PARAM_TOL}), worst leaf {worst_leaf} "
+          f"{moved_rel[worst_leaf]:.3e} (tolerance {TRAIN_LEAF_TOL})")
+    print(f"greedy actions on {len(obs)} x {cfg.num_ues} rows: {n_diff} "
+          f"differ, {n_ties} of them near-ties (top-2 Q gap within "
+          f"{AGENT_TIE_TOL} of max|Q|)")
+    assert np.isfinite(q1["card"]).all(), "non-finite Q on the card"
+    assert err0 <= AGENT_Q_TOL, "Q on the card disagrees with the CPU"
+    assert max(rel) <= AGENT_LOSS_TOL, "an update's loss differs"
+    assert _ratio(gap_all, moved_all) <= TRAIN_PARAM_TOL, \
+        "the trained Q-net differs"
+    assert moved_rel[worst_leaf] <= TRAIN_LEAF_TOL, \
+        f"the trained {worst_leaf} differs"
+
+    # times on the card: an update on a fixed batch, a forward at E=8.  An
+    # update is some 650 operations, so ten back to back would fill the
+    # launch queue and time the host: time one at a time, behind a sleep
+    # longer than the host takes to enqueue it
+    agent = agents["card"]
+    batch = agent.device_batch(agent.memory.sample(cfg.batch_size))
+    upd_ms = device_ms(lambda: agent.update(batch), reps=1,
+                       sleep_cycles=60_000_000)
+    x = torch.from_numpy(obs[:act_envs]).cuda()
+    with torch.no_grad():
+        act_ms = device_ms(lambda: qnet_apply(agent.net, x),
+                           sleep_cycles=60_000_000)
+    host_upd, host_step, host_act = [], [], []
+    for _ in range(TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agent.update(batch)
+        host_upd.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agent.train_step()
+        host_step.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        agent.act_batch(obs[:act_envs], greedy=True)
+        host_act.append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) * 1e3 for k, v in (
+        ("update", host_upd), ("step", host_step), ("act", host_act))}
+    # last: the profiler may leave the host slower after it
+    kernels, kernel_ms = profile_kernels(lambda: agent.update(batch))
+    print(f"{card}: an update takes {upd_ms:.4f} ms of device time (batch "
+          f"{cfg.batch_size}: three forwards, one backward, clipping, "
+          f"AdamW; {kernels} kernels summing to {kernel_ms:.4f} ms in the "
+          f"profiler); the host enqueues it in {med['update']:.4f} ms, and "
+          f"a whole train_step (sample, copy in, update, loss read back) "
+          f"takes {med['step']:.4f} ms; a forward at E={act_envs} takes "
+          f"{act_ms:.4f} ms of device time, a greedy act_batch "
+          f"{med['act']:.4f} ms on the host's clock")
+    return {"update_ms": upd_ms, "act_ms": act_ms, **{
+        f"host_{k}_ms": v for k, v in med.items()}}
+
+
+# -- phase 12: Fig. 3 on the card -----------------------------------------------------
+
+def fig3(card: str, episodes: int = 240, num_envs: int = 8, seed: int = 0):
+    """``benchmarks/bench_convergence.py``'s run at its default scale, with
+    the agent on the card: its criteria must hold."""
+    import numpy as np
+    import torch
+    from repro_torch.core import LearnGDMController
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.sim import EdgeSimulator, get_scenario
+    scen = get_scenario("paper-fig3", seed=seed)
+    ctrl = LearnGDMController(EdgeSimulator(scen), variant="learn-gdm",
+                              seed=seed, device="cuda")
+    decay = ctrl.calibrate_epsilon(episodes, num_envs=num_envs, final=1e-2)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = ctrl.train_vectorized(episodes, num_envs=num_envs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    r = np.asarray(hist["reward"], dtype=float)
+    loss = np.asarray(hist["loss"], dtype=float)
+    w = max(len(r) // 10, 1)
+    early_r, late_r = float(np.mean(r[:w])), float(np.mean(r[-w:]))
+    valid = loss[~np.isnan(loss)]
+    wl = max(len(valid) // 10, 1)
+    early_l, late_l = float(np.mean(valid[:wl])), float(np.mean(valid[-wl:]))
+    frames = ctrl.train_frames(episodes, num_envs=num_envs)
+    print(f"LEARN-GDM on paper-fig3, seed {seed}: {episodes} episodes at "
+          f"E={num_envs} ({frames} frames, {ctrl.agent.steps} updates, "
+          f"epsilon decay {decay:.6f} to {ctrl.agent.epsilon:.4f})")
+    print(f"reward, first {w} episodes {early_r:.3f} -> last {w} "
+          f"{late_r:.3f}; MSE, first {wl} {early_l:.4f} -> last {wl} "
+          f"{late_l:.4f}")
+    print(f"{card}: wall clock {wall:.2f} s, {frames / wall:.1f} frames a "
+          f"second "
+          f"({frames * num_envs / wall:.1f} env-frames); kernel launches "
+          f"{dict(LAUNCHES)}")
+    assert np.isfinite(r).all() and len(valid) > 0
+    assert late_r > early_r, "Fig. 3: the late reward is not above the early"
+    assert late_l < early_l, "Fig. 3: the late MSE is not below the early"
+    assert not any(LAUNCHES.values()), "the agent path launched a DiT kernel"
+    return {"early_reward": early_r, "late_reward": late_r,
+            "early_mse": early_l, "late_mse": late_l, "wall_s": wall}
+
+
+# -- phase 13: the closed loop ------------------------------------------------------------
+
+def closed_loop(cfg, card: str, train_eps: int = 48, num_envs: int = 8):
+    """Measure Omega from full-width DiT services, train LEARN-GDM against
+    it, serve paper-fig3 under the learned policy and under GR.  Returns
+    the DiT kernels' launches over the whole loop."""
+    import numpy as np
+    import torch
+    from repro_torch.core.policy import GreedyPoAPolicy, LearnedPolicy
+    from repro_torch.experiments import serve_policy, train_variant
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.rl import D3QLAgent
+    from repro_torch.models.convert import qnet_to_jax
+    from repro_torch.serving import make_gdm_services, policy_bridge
+    from repro_torch.sim import get_scenario
+    scen = get_scenario("paper-fig3")
+    frames = scen.horizon
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    services, omega = make_gdm_services(scen.num_services, 0,
+                                        num_blocks=scen.max_blocks,
+                                        model_cfg=cfg, device="cuda")
+    torch.cuda.synchronize()
+    t_omega = time.perf_counter() - t0
+    for s, row in enumerate(omega):
+        print(f"service {s}: Omega(0..{scen.max_blocks}) = "
+              + ", ".join(f"{x:.6f}" for x in row))
+    t0 = time.perf_counter()
+    ctrl = train_variant(scen, "learn-gdm", train_eps, engine="vectorized",
+                         num_envs=num_envs, quality=omega, device="cuda")
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    print(f"{card}: Omega measured in {t_omega:.2f} s; LEARN-GDM trained "
+          f"against it "
+          f"in {t_train:.2f} s ({train_eps} episodes at E={num_envs}, "
+          f"{ctrl.agent.steps} updates, epsilon {ctrl.agent.epsilon:.4f})")
+    # serve_policy builds its engine inside; keep it to read the latents
+    engines = []
+    build = policy_bridge.engine_from_scenario
+
+    def keep(*args, **kw):
+        engine, world = build(*args, **kw)
+        engines.append(engine)
+        return engine, world
+
+    results = {}
+    policy_bridge.engine_from_scenario = keep
+    try:
+        for name, policy in (("learned", LearnedPolicy(ctrl.agent,
+                                                       "learn-gdm")),
+                             ("gr", GreedyPoAPolicy())):
+            t0 = time.perf_counter()
+            stats, bridge = serve_policy(scen, policy, frames,
+                                         services=services, seed=0,
+                                         record=True, return_bridge=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            results[name] = (stats, bridge, engines[-1])
+            print(f"{name:8s} completed {stats['completed']}/"
+                  f"{stats['submitted']}, mean quality "
+                  f"{stats['mean_quality']:.6f}, latency mean "
+                  f"{stats['mean_latency_frames']:.3f} p95 "
+                  f"{stats['p95_latency_frames']:.3f} frames, objective "
+                  f"{stats['objective']:.4f}, wall clock {wall:.2f} s")
+    finally:
+        policy_bridge.engine_from_scenario = build
+    launches = dict(LAUNCHES)
+    calls = {s: svc.batch_calls for s, svc in services.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"peak device memory {peak / 2**30:.3f} GiB; batch_calls {calls}")
+    for name, (stats, _, engine) in results.items():
+        assert stats["completed"] == len(engine.completed) > 0, \
+            f"{name} completed nothing"
+        for req in engine.completed:
+            for key in ("latent", "x0"):
+                arr = req.state[key]
+                assert arr.shape == (cfg.latent_hw ** 2, 4), (key, arr.shape)
+                assert np.isfinite(arr).all(), f"non-finite {key} served"
+    forwards = sum(calls.values()) + scen.num_services * scen.max_blocks
+    expected = dict.fromkeys(LAUNCHES, 0)
+    expected.update(adaln_norm=cfg.num_layers * forwards,
+                    adaln_norm_epilogue=cfg.num_layers * forwards,
+                    flash_attention=cfg.num_layers * forwards)
+    print(f"kernel launches {launches}; expected {expected} (L="
+          f"{cfg.num_layers} x {forwards} DiT forwards: Omega's "
+          f"{scen.num_services * scen.max_blocks} and the two serves' "
+          f"{sum(calls.values())} block calls)")
+    assert launches == expected, "the closed loop did not run the kernels " \
+        "exactly once per DiT layer"
+
+    # the learned serve's decisions, against the CPU copy of the agent
+    cpu = D3QLAgent(ctrl.agent.cfg, device="cpu",
+                    params=qnet_to_jax(ctrl.agent.net))
+    n_rows = n_diff = n_ties = 0
+    for _, obs_hist, actions in results["learned"][1].trace:
+        want = cpu.act_batch(obs_hist, greedy=True)[0]
+        d, t = greedy_mismatches(cpu.q_values(obs_hist)[0], actions, want)
+        n_rows += len(actions)
+        n_diff += d
+        n_ties += t
+    print(f"learned decisions: {len(results['learned'][1].trace)} quanta, "
+          f"{n_rows} UE rows; {n_diff} differ from the CPU copy of the "
+          f"agent, {n_ties} of them near-ties")
+    return launches, results
+
+
 def print_occupancy(lib):
     """Resident blocks per SM of the kernels redesigned for Hopper
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at the blocks their
@@ -1392,7 +1762,7 @@ def main(argv) -> int:
         print("usage: chip_smoke.py [--kernel-times TREE]", file=sys.stderr)
         return 2
     phase("1. card")
-    card_info()
+    card = card_info()
     import torch
     from repro_torch.configs import TrainConfig, get_config
 
@@ -1467,6 +1837,24 @@ def main(argv) -> int:
     # the scan kernels' launches come from the training path
     for name in ("ssm_scan", "ssm_scan_backward"):
         launches[name] = sum(s[name] for s in per_step)
+    torch.cuda.empty_cache()
+
+    phase("11. the D3QL agent at Table II widths, card vs CPU: Q, 50 "
+          "updates, greedy actions; update and act times")
+    agent_vs_cpu(card)
+
+    phase("12. Fig. 3 on the card: LEARN-GDM on paper-fig3, 240 episodes "
+          "at E=8, seed 0")
+    fig3(card)
+
+    phase("13. the closed loop: Omega from three full-width gdm-dit "
+          "services, LEARN-GDM trained against it, paper-fig3 served under "
+          "the learned policy and under GR")
+    loop_launches, _ = closed_loop(full, card)
+    # the DiT kernels' launches come from the paper's closed loop, the main
+    # path (phase 6 checked its own counts under GR placement)
+    for name in ("adaln_norm", "adaln_norm_epilogue", "flash_attention"):
+        launches[name] = loop_launches[name]
 
     replaces = {
         "adaln_norm": "src/repro/kernels/adaln_norm.py:76",

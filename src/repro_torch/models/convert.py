@@ -16,7 +16,13 @@ reference's ``(in, out)`` layout.
   ``layers.{p}.{j}.attn.wq.w`` is ``params["layers"][j]["attn"]["wq"]["w"]
   [p]``.
 
-:func:`dit_to_jax` and :func:`lm_to_jax` are the inverses, exact.
+* The D3QL Q-net params (``repro.rl.networks.qnet_init``) are a flat
+  dict of layers: :func:`qnet_from_jax` returns a
+  :class:`~repro_torch.rl.networks.QNet` whose ``lstm.wx`` is
+  ``params["lstm"]["wx"]`` and ``fc0.w`` is ``params["fc0"]["w"]``.
+
+:func:`dit_to_jax`, :func:`lm_to_jax` and :func:`qnet_to_jax` are the
+inverses, exact.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.gdm import DiT
 from repro_torch.models.lm import LM
+from repro_torch.rl.networks import QNet
 from repro_torch.serving.gdm_service import GDMService
 
 
@@ -120,6 +127,21 @@ def lm_from_jax(params: Dict, cfg: ModelConfig, *, device=None) -> LM:
 def lm_to_jax(model: LM) -> Dict:
     """The reference's LM param tree as numpy arrays."""
     return _to_tree(model, slots=True)
+
+
+def qnet_from_jax(params: Dict, cfg, *, device=None) -> QNet:
+    """The port's Q-net holding the reference's ``params``; ``cfg`` is the
+    agent's :class:`~repro_torch.rl.d3ql.D3QLConfig` (widths)."""
+    model = QNet(cfg.obs_dim, cfg.num_ues, cfg.num_actions,
+                 lstm_units=cfg.lstm_units, fc=cfg.fc,
+                 device=resolve_device(device))
+    _fill(model, params, 0)
+    return model
+
+
+def qnet_to_jax(model: QNet) -> Dict:
+    """The reference's Q-net param tree as numpy arrays."""
+    return _to_tree(model, slots=False)
 
 
 def _put(tree: Dict, path, value) -> None:

@@ -13,6 +13,7 @@ from repro_torch.serving.gdm_service import (  # noqa: F401
 )
 from repro_torch.serving.kv_manager import TransferLedger, state_nbytes  # noqa: F401
 from repro_torch.serving.policy_bridge import (  # noqa: F401
+    ServingPolicy,
     engine_from_scenario,
     serve_trace,
     submit_arrivals,

@@ -18,11 +18,13 @@ block across nodes.  Two contracts back the engine:
 
 Payloads stay numpy dicts (``{"latent", "prompt", "x0"}``), exactly as the
 reference's, so the engine, its ledger and its telemetry are unchanged.
-``SlotBatch``, ``instrument`` and the mesh argument of the reference come
-with the scheduler and fleet slices.
+``instrument`` attaches the tracer's metrics registry, under the
+reference's metric names.  ``SlotBatch`` and the mesh argument of the
+reference come with the scheduler and fleet slices.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -74,6 +76,13 @@ class GDMService:
         # persistent per-bucket host staging buffers, pinned when the model
         # is on the card so the copies in are asynchronous (see run_batch)
         self._buffers: Dict[int, Tuple[Tuple[torch.Tensor, np.ndarray], ...]] = {}
+        # observability (repro_torch.serving.tracing): instrument() attaches
+        # a MetricsRegistry; run_batch then wall-clocks its device calls.
+        # None -> the raw call
+        self.metrics = None
+        self._seen_buckets: set = set()
+        self._sample_every = 16
+        self._steady_calls = 0
 
         if omega is not None:
             omega = np.asarray(omega, dtype=float).copy()
@@ -98,6 +107,63 @@ class GDMService:
         q = q.cpu().numpy()
         self.omega = np.zeros(num_blocks + 1)
         self.omega[1:] = np.maximum.accumulate(np.clip(q, 0.0, 1.0))
+
+    def instrument(self, metrics, sample_every: int = 16) -> None:
+        """Attach a :class:`repro_torch.serving.tracing.MetricsRegistry`:
+        device calls are wall-clocked into ``gdm_run_batch_ms`` (steady
+        state) or ``gdm_compile_ms`` (the first call at a new bucket, which
+        pays the kernels' first launch at that shape; also counted in
+        ``gdm_compile_events``), as the reference names them.  Attach
+        BEFORE serving traffic so the first-seen set is honest.
+
+        The call copies its result back to the host before it returns, so
+        the wall clock brackets the device work with no extra
+        synchronisation.  Steady-state calls are timed every
+        ``sample_every``-th call, as in the reference, so the histograms
+        hold the same number of samples; ``sample_every=1`` times every
+        call."""
+        self.metrics = metrics
+        self._sample_every = max(int(sample_every), 1)
+        self._steady_calls = 0
+
+    def _call(self, lat_t, pr_t, idx_t):
+        """The device call of :meth:`run_batch` on staged host tensors,
+        results copied back to numpy; wall-clocked when instrumented."""
+        if self.metrics is None:
+            return self._device_call(lat_t, pr_t, idx_t)
+        m = self.metrics
+        bucket = int(lat_t.shape[0])
+        first = bucket not in self._seen_buckets
+        m.counter("gdm_runner_calls").inc()
+        m.gauge("gdm_last_batch_rows").set(bucket)
+        if not first:
+            self._steady_calls += 1
+            if self._steady_calls % self._sample_every:
+                return self._device_call(lat_t, pr_t, idx_t)
+        t0 = time.perf_counter()
+        out = self._device_call(lat_t, pr_t, idx_t)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        if first:
+            self._seen_buckets.add(bucket)
+            m.counter("gdm_compile_events").inc()
+            m.histogram("gdm_compile_ms").observe(dt_ms)
+        else:
+            m.histogram("gdm_run_batch_ms").observe(dt_ms)
+        return out
+
+    def _device_call(self, lat_t, pr_t, idx_t):
+        dev = self.device
+        with torch.no_grad():
+            latent, x0 = run_block_batched(
+                self.model, lat_t.to(dev, non_blocking=True),
+                pr_t.to(dev, non_blocking=True),
+                self.schedule, idx_t.to(dev, non_blocking=True),
+                steps_per_block=self.steps_per_block,
+                total_steps=self.num_blocks * self.steps_per_block)
+            # fresh host arrays every call: the returned states keep views
+            # of them, and the synchronous copy back also means the staging
+            # buffers are free again when this returns
+            return latent.cpu().numpy(), x0.cpu().numpy()
 
     # -- engine contracts -----------------------------------------------------
 
@@ -155,19 +221,7 @@ class GDMService:
             pr_np[i] = s["prompt"]
         idx_np[:b] = np.asarray(block_idxs, np.int32)
         idx_np[b:] = 0
-        dev = self.device
-        with torch.no_grad():
-            latent, x0 = run_block_batched(
-                self.model, lat_t.to(dev, non_blocking=True),
-                pr_t.to(dev, non_blocking=True),
-                self.schedule, idx_t.to(dev, non_blocking=True),
-                steps_per_block=self.steps_per_block,
-                total_steps=self.num_blocks * self.steps_per_block)
-            # fresh host arrays every call: the returned states keep views
-            # of them, and the synchronous copy back also means the staging
-            # buffers are free again when this returns
-            latent = latent.cpu().numpy()
-            x0 = x0.cpu().numpy()
+        latent, x0 = self._call(lat_t, pr_t, idx_t)
         self.batch_calls += 1
         out = [dict(s, latent=latent[i], x0=x0[i])
                for i, s in enumerate(states)]

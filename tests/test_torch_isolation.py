@@ -38,12 +38,18 @@ def test_port_imports_with_jax_and_the_reference_blocked():
         "    importlib.import_module(name)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, mod in sys.modules.items() if mod is not None)\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 48          # every submodule imported
+    names = set(out.stdout.split())
+    assert len(names) >= 62                       # every submodule imported
+    # the closed loop's modules among them
+    assert {f"repro_torch.{m}" for m in (
+        "experiments", "core.baselines", "core.constraints", "core.learn_gdm",
+        "core.mac", "core.policy", "nn.recurrent", "rl.d3ql", "rl.networks",
+        "rl.replay", "sim.vec_env", "sim.workloads")} <= names
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -52,8 +58,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.launch import serve, train
     from repro_torch.models.gdm import init_gdm, make_schedule
     from repro_torch.models.lm import init_decode_state, init_lm
+    from repro_torch import experiments
+    from repro_torch.core import LearnGDMController
+    from repro_torch.rl import D3QLAgent, D3QLConfig, qnet_init
     from repro_torch.serving import GDMService, make_gdm_services
+    from repro_torch.sim import EdgeSimulator, get_scenario
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    smoke = get_scenario("smoke")
     cfg = get_config("gdm-dit").reduced()
     lm_cfg = get_config("yi-6b").reduced()
     jamba = dataclasses.replace(get_config("jamba-v0.1-52b").reduced(),
@@ -66,7 +77,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: init_lm(jamba),
                  lambda: init_decode_state(jamba, 1, 8),
                  lambda: train.run(jamba, TrainConfig(total_steps=1)),
-                 lambda: train.main(["--steps", "1"])):
+                 lambda: train.main(["--steps", "1"]),
+                 lambda: D3QLAgent(D3QLConfig()), lambda: qnet_init(8, 2, 3),
+                 lambda: LearnGDMController(EdgeSimulator(smoke)),
+                 lambda: experiments.train_variant(smoke, "learn-gdm", 1),
+                 lambda: experiments.run_suite(smoke, train_eps=1,
+                                               eval_eps=1),
+                 lambda: experiments.serve_variant(smoke, train_eps=1,
+                                                   frames=1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
