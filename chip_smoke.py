@@ -63,7 +63,25 @@ non-zero before the result line):
     paper-fig3 trace is served under the learned policy and under GR;
     every served latent finite, the DiT kernels' launch counts exactly
     what Omega and the served block calls imply, and every recorded
-    decision the CPU copy of the agent's on the same observations.
+    decision the CPU copy of the agent's on the same observations;
+14. the fused engine: the tensor env (``sim/torch_env``) on the card in
+    float64 against the numpy simulator under the same injected draws
+    (integer state and observations exactly, rewards within 1e-9), one
+    fused round card vs CPU from the same draws, Fig. 3 through
+    ``train_fused`` with its criteria, and a round's host time, kernels
+    and device time beside phase 12's vectorized engine;
+15. the fleet: ``serve_fleet_variant`` on paper-fig3 with
+    ``examples/serve_fleet.py``'s defaults (4 cells, diurnal, handover
+    0.02, 48 training episodes through the fused engine, 40 frames) and
+    three full-width gdm-dit services, under quantum scheduling, the
+    continuous scheduler and node churn with failover+degrade (deadline
+    16): every latent finite, the DiT kernels' launches exactly L per
+    served block call, every decision the agent's CPU copy's (near-ties
+    counted), sync-mode continuous equal to quantum, peak memory and wall
+    clock; then the trained agent serves the continuous scheduler without
+    early exit (every chain all B blocks), each ``SlotBatch`` step held
+    against ``run_batch`` bit for bit, and node churn without early exit,
+    which must fail over; both must keep rows resident between steps.
 
 Phase 3 also holds the selective scan (forward and backward kernels)
 against its plain version and autograd (and both against themselves: two
@@ -73,9 +91,9 @@ their plain versions; phase 4 times both scan kernels at the training
 shape.
 
 Then it prints one JSON line describing the kernels (each kernel's
-launches from the path that carries it: the DiT kernels from the closed
-loop of phase 13, decode and rmsnorm from phase 8, the scan kernels from
-phase 10), and as its last line ``{"ok": true, "device": {...}}``.
+launches from the path that carries it: the DiT kernels from the fleet of
+phase 15, decode and rmsnorm from phase 8, the scan kernels from phase
+10), and as its last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernel-times TREE`` builds the kernels of another
 checkout's ``TREE/src/repro_torch`` (a parent commit unpacked with ``git
@@ -1473,9 +1491,12 @@ def agent_vs_cpu(card: str, updates: int = 50, act_envs: int = 8,
 
 # -- phase 12: Fig. 3 on the card -----------------------------------------------------
 
-def fig3(card: str, episodes: int = 240, num_envs: int = 8, seed: int = 0):
+def fig3(card: str, episodes: int = 240, num_envs: int = 8, seed: int = 0,
+         engine: str = "vectorized"):
     """``benchmarks/bench_convergence.py``'s run at its default scale, with
-    the agent on the card: its criteria must hold."""
+    the agent on the card, through ``train_vectorized`` (the numpy
+    simulator) or ``train_fused`` (the whole round on the card): its
+    criteria must hold."""
     import numpy as np
     import torch
     from repro_torch.core import LearnGDMController
@@ -1485,10 +1506,12 @@ def fig3(card: str, episodes: int = 240, num_envs: int = 8, seed: int = 0):
     ctrl = LearnGDMController(EdgeSimulator(scen), variant="learn-gdm",
                               seed=seed, device="cuda")
     decay = ctrl.calibrate_epsilon(episodes, num_envs=num_envs, final=1e-2)
+    train = {"vectorized": ctrl.train_vectorized,
+             "fused": ctrl.train_fused}[engine]
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    hist = ctrl.train_vectorized(episodes, num_envs=num_envs)
+    hist = train(episodes, num_envs=num_envs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     r = np.asarray(hist["reward"], dtype=float)
@@ -1499,9 +1522,10 @@ def fig3(card: str, episodes: int = 240, num_envs: int = 8, seed: int = 0):
     wl = max(len(valid) // 10, 1)
     early_l, late_l = float(np.mean(valid[:wl])), float(np.mean(valid[-wl:]))
     frames = ctrl.train_frames(episodes, num_envs=num_envs)
-    print(f"LEARN-GDM on paper-fig3, seed {seed}: {episodes} episodes at "
-          f"E={num_envs} ({frames} frames, {ctrl.agent.steps} updates, "
-          f"epsilon decay {decay:.6f} to {ctrl.agent.epsilon:.4f})")
+    print(f"LEARN-GDM on paper-fig3 through train_{engine}, seed {seed}: "
+          f"{episodes} episodes at E={num_envs} ({frames} frames, "
+          f"{ctrl.agent.steps} updates, epsilon decay {decay:.6f} to "
+          f"{ctrl.agent.epsilon:.4f})")
     print(f"reward, first {w} episodes {early_r:.3f} -> last {w} "
           f"{late_r:.3f}; MSE, first {wl} {early_l:.4f} -> last {wl} "
           f"{late_l:.4f}")
@@ -1514,7 +1538,231 @@ def fig3(card: str, episodes: int = 240, num_envs: int = 8, seed: int = 0):
     assert late_l < early_l, "Fig. 3: the late MSE is not below the early"
     assert not any(LAUNCHES.values()), "the agent path launched a DiT kernel"
     return {"early_reward": early_r, "late_reward": late_r,
-            "early_mse": early_l, "late_mse": late_l, "wall_s": wall}
+            "early_mse": early_l, "late_mse": late_l, "wall_s": wall,
+            "frames": frames, "ctrl": ctrl}
+
+
+# -- phase 14: the fused engine on the card --------------------------------------------
+
+def env_on_card(frames: int = 40, num_envs: int = 3, seed: int = 0):
+    """The tensor env on the card in float64 against the carried numpy
+    ``VecEdgeSimulator`` under the same injected draws, greedy and random
+    MAC, random placements on paper-fig3 and hotspot placements (C3
+    blocking): integer state and observations exactly, the reward
+    components within 1e-9."""
+    import numpy as np
+    import torch
+    from repro_torch.core.mac import vec_greedy_mac
+    from repro_torch.sim import VecEdgeSimulator, get_scenario, torch_env
+    scen = get_scenario("paper-fig3")
+    e, u = num_envs, scen.num_ues
+    worst = 0.0
+    for mac_scheme, high in (("greedy", scen.num_bs), ("random", scen.num_bs),
+                             ("greedy", 3)):
+        rng = np.random.default_rng(seed + high)
+        venv = VecEdgeSimulator(scen, e)
+        venv.reset(seeds=100 + np.arange(e))
+        world = torch_env.world_from_sim(venv, dtype=torch.float64,
+                                         device="cuda")
+        state = torch_env.state_from_numpy(venv, dtype=torch.float64,
+                                           device="cuda")
+
+        def dev(x):
+            return torch.from_numpy(np.asarray(x)).cuda()
+
+        for t in range(frames):
+            if mac_scheme == "greedy":
+                mac = vec_greedy_mac(venv)
+                got = torch_env.greedy_mac(scen, world, state)
+            else:
+                attempt, channel = rng.random((2, e, u))
+                got = torch_env.random_access(scen, state,
+                                              attempt_draws=dev(attempt),
+                                              channel_draws=dev(channel))
+                need = venv.needs_uplink() & (attempt < 0.8)
+                mac = np.where(need, np.floor(channel * scen.num_channels)
+                               .astype(int), -1)
+            assert np.array_equal(got.cpu().numpy(), mac), \
+                f"{mac_scheme} MAC differs at frame {t}"
+            pl = rng.integers(-1, high, size=(e, u))
+            arrival = rng.random((e, u))
+            redraw = rng.uniform(0, scen.side, size=(e, u, 2))
+            res = venv.step(mac, pl, arrival_draws=arrival,
+                            waypoint_redraw=redraw)
+            state, info = torch_env.env_step(
+                scen, world, state, dev(mac), dev(pl),
+                arrival_draws=dev(arrival), waypoint_draws=dev(redraw))
+            for field in ("poa", "prev_poa", "blocks_done", "chain_state",
+                          "cur_node", "has_request", "uploaded",
+                          "num_delivered", "num_collisions"):
+                assert np.array_equal(getattr(state, field).cpu().numpy(),
+                                      getattr(venv, field)), \
+                    f"{field} differs at frame {t}"
+            for k in ("bs_load", "delivered", "executed"):
+                assert np.array_equal(info[k].cpu().numpy(), res[k]), k
+            assert np.array_equal(
+                torch_env.observe(scen, world, state, info["bs_load"])
+                .cpu().numpy(), venv.observation(res["bs_load"])), \
+                f"observation differs at frame {t}"
+            for k in ("rewards", "quality_gain", "exec_cost", "trans_cost"):
+                worst = max(worst, float(np.abs(info[k].cpu().numpy()
+                                                - res[k]).max()))
+        assert venv.num_delivered.sum() > 0
+    print(f"tensor env on the card, float64, paper-fig3 at E={e}, {frames} "
+          f"frames each under greedy MAC, random access and hotspot "
+          f"placements: integer state, MAC and observations equal to the "
+          f"numpy simulator's every frame; reward components within "
+          f"{worst:.3e} (tolerance 1e-9)")
+    assert worst <= 1e-9, "a reward component differs"
+
+
+def _fused_pair(scen, cfg, num_envs: int):
+    """A controller on the card and one on the CPU with bit-equal agents,
+    each with a float64 world and a device replay, built for one round."""
+    import copy
+    import torch
+    from repro_torch.core import LearnGDMController
+    from repro_torch.rl import D3QLAgent, DeviceReplay
+    from repro_torch.sim import EdgeSimulator, torch_env
+    out = {}
+    for side, device, acfg in (("card", "cuda", cfg),
+                               ("cpu", "cpu", copy.deepcopy(cfg))):
+        env = EdgeSimulator(scen)
+        ctrl = LearnGDMController(env, agent=D3QLAgent(acfg, device=device))
+        ctrl.calibrate_epsilon(240, num_envs=num_envs, final=1e-2)
+        world = torch_env.world_from_sim(env, num_envs, dtype=torch.float64,
+                                         device=device)
+        replay = DeviceReplay(acfg.memory_capacity,
+                              (acfg.history, env.obs_dim), (acfg.num_ues,),
+                              device=device)
+        fused = ctrl._build_fused_round(world, num_envs, replay)
+        out[side] = (ctrl, fused, fused.init_carry())
+    return out
+
+
+def round_vs_cpu(num_envs: int = 8, seed: int = 0):
+    """One fused round (reset and 40 frames of act, env step, push and
+    update; 36 updates) on the card and on the CPU from bit-equal agents
+    and the same draws, the env in float64: every replay slot's actions
+    and observations equal up to the first near-tie (named, with its
+    frame; the trajectories part there), each loss before it within
+    AGENT_LOSS_TOL; with no near-tie, the trained parameters held by
+    their movement as in phase 11."""
+    import numpy as np
+    import torch
+    scen, cfg = agent_config()
+    pair = _fused_pair(scen, cfg, num_envs)
+    start = {k: p.detach().cpu().clone()
+             for k, p in pair["cpu"][0].agent.params.items()}
+    reset, draws = pair["cpu"][1].draw_round(
+        torch.Generator().manual_seed(seed))
+    outs, carries = {}, {}
+    for side, (ctrl, fused, carry) in pair.items():
+        dev = "cuda" if side == "card" else "cpu"
+        carry, out = fused.run_round(
+            carry, {k: v.to(dev) for k, v in reset.items()},
+            {k: v.to(dev) for k, v in draws.items()})
+        outs[side] = [x.cpu().numpy() for x in out]
+        carries[side] = carry
+        fused.write_back(carry)
+    rc, rp = carries["card"].replay, carries["cpu"].replay
+    e, horizon = num_envs, scen.horizon
+    acts = {s: c.replay.actions.cpu().numpy() for s, c in carries.items()}
+    obs = {s: c.replay.obs.cpu().numpy() for s, c in carries.items()}
+    first, ties = horizon, 0
+    for t in range(horizon):
+        rows = slice(t * e, (t + 1) * e)
+        assert np.array_equal(obs["card"][rows], obs["cpu"][rows]), \
+            f"observations differ at frame {t}"
+        if not np.array_equal(acts["card"][rows], acts["cpu"][rows]):
+            q = pair["cpu"][0].agent.q_values(obs["cpu"][rows])
+            d, ties = greedy_mismatches(q, acts["card"][rows],
+                                        acts["cpu"][rows])
+            first = t
+            print(f"frame {t}: {d} actions differ, all near-ties of the "
+                  f"CPU's Q; the trajectories part here")
+            break
+    losses = {s: o[1] for s, o in outs.items()}
+    ok = ~np.isnan(losses["cpu"][:first])
+    rel = np.abs(losses["card"][:first][ok] - losses["cpu"][:first][ok]) \
+        / np.abs(losses["cpu"][:first][ok])
+    steps = carries["card"].steps
+    print(f"one fused round at E={e}, Table II widths, env float64: "
+          f"{horizon} frames, {steps} updates; actions and observations "
+          f"equal on the card and the CPU for {first} of {horizon} frames "
+          f"({ties} near-ties); {int(ok.sum())} losses within "
+          f"{rel.max() if len(rel) else 0.0:.3e} relative (tolerance "
+          f"{AGENT_LOSS_TOL}); epsilon {carries['card'].epsilon:.6f} on "
+          f"both sides")
+    assert carries["card"].steps == carries["cpu"].steps > 0
+    assert carries["card"].epsilon == carries["cpu"].epsilon
+    assert len(rel) > 0 and rel.max() <= AGENT_LOSS_TOL, "a loss differs"
+    if first == horizon:
+        # float64 rewards summed over the UEs in another order, stored
+        # float32: equal but where a sum lands on a rounding boundary
+        assert np.abs(rc.rewards.cpu().numpy()
+                      - rp.rewards.cpu().numpy()).max() <= 1e-6, \
+            "a reward differs"
+        final = {s: {k: p.detach().cpu() for k, p in
+                     pair[s][0].agent.params.items()} for s in pair}
+        gap = math.sqrt(sum(float((final["card"][k] - p).square().sum())
+                            for k, p in final["cpu"].items()))
+        moved = math.sqrt(sum(float((p - start[k]).square().sum())
+                              for k, p in final["cpu"].items()))
+        print(f"final parameters |card - cpu| / |cpu - start| = "
+              f"{_ratio(gap, moved):.3e} (tolerance {TRAIN_PARAM_TOL})")
+        assert _ratio(gap, moved) <= TRAIN_PARAM_TOL, \
+            "the round trained the Q-net differently"
+
+
+def time_fused_round(card: str, ctrl, vec: dict, rounds: int = 5,
+                     num_envs: int = 8):
+    """Host and device time of a fused round at Table II widths with the
+    Fig. 3 agent (every frame updates): the wall clock of one round at a
+    time (synchronised before and after), and the profiler's kernels and
+    their summed device time over one round; beside phase 12's vectorized
+    run, per frame."""
+    import torch
+    from repro_torch.rl import DeviceReplay
+    from repro_torch.sim import torch_env
+    agent = ctrl.agent
+    acfg = agent.cfg
+    world = torch_env.world_from_sim(ctrl.env, num_envs, device="cuda")
+    replay = DeviceReplay(acfg.memory_capacity,
+                          (acfg.history, ctrl.env.obs_dim), (acfg.num_ues,),
+                          device="cuda")
+    fused = ctrl._build_fused_round(world, num_envs, replay)
+    state = {"carry": fused.init_carry(), "rd": 0}
+
+    def one_round():
+        gen = torch_env.round_generator(7, state["rd"], "cuda")
+        state["rd"] += 1
+        state["carry"], _ = fused.run_round(state["carry"],
+                                            *fused.draw_round(gen))
+
+    one_round()                      # fill the replay: every frame trains
+    walls = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_round()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    kernels, kernel_ms = profile_kernels(one_round)
+    horizon = ctrl.env.cfg.horizon
+    vec_frame = vec["wall_s"] * 1e3 / vec["frames"]
+    print(f"{card}: a fused round (E={num_envs}, {horizon} frames, every "
+          f"frame updating) takes {wall:.2f} ms on the host's clock "
+          f"(median of {rounds}; {min(walls):.2f}-{max(walls):.2f}), "
+          f"{wall / horizon:.3f} ms a frame; the profiler sees {kernels} "
+          f"kernels ({kernels / horizon:.0f} a frame) summing to "
+          f"{kernel_ms:.3f} ms of device time ({kernel_ms / horizon:.4f} "
+          f"ms a frame), so the card idles "
+          f"{100 * (1 - kernel_ms / wall):.1f}% of a round; phase 12's "
+          f"vectorized engine took {vec_frame:.3f} ms a frame")
+    return {"round_ms": wall, "frame_ms": wall / horizon,
+            "kernels": kernels, "device_ms": kernel_ms}
 
 
 # -- phase 13: the closed loop ------------------------------------------------------------
@@ -1623,6 +1871,279 @@ def closed_loop(cfg, card: str, train_eps: int = 48, num_envs: int = 8):
           f"{n_rows} UE rows; {n_diff} differ from the CPU copy of the "
           f"agent, {n_ties} of them near-ties")
     return launches, results
+
+
+# -- phase 15: the fleet --------------------------------------------------------------
+
+def fleet(cfg, card: str, cells: int = 4, train_eps: int = 48,
+          frames: int = 40, seed: int = 0):
+    """``serve_fleet_variant`` on paper-fig3 with ``examples/serve_fleet.
+    py``'s defaults (4 cells, diurnal, handover rate 0.02, 48 training
+    episodes through the fused engine, 40 frames) and three full-width DiT
+    services, three ways: quantum scheduling, continuous scheduling (the
+    example's scheduler: join/leave, sub-quantum arrivals) and node churn
+    with failover+degrade and deadline 16.  Then sync-mode continuous
+    serving against the quantum run, and two runs of the quantum run's
+    agent through ``serve_fleet_policy`` with ``early_exit=False``, so
+    that every chain runs all B blocks (with random weights Omega(1) is
+    about 0.999, and early exit ends every chain after one block): the
+    continuous scheduler with each ``SlotBatch`` step held bit for bit
+    against ``run_batch`` on the same states, and the continuous scheduler
+    under node churn with failover+degrade; both must reuse resident rows
+    (fewer rows staged than stepped), and node churn must fail over.  Each
+    run: every served latent finite, the DiT kernels' launches exactly L
+    per block call, and every decision the agent recorded equal to its CPU
+    copy's (near-ties counted).  Returns the DiT kernels' launches over
+    the phase (Omega included)."""
+    import numpy as np
+    import torch
+    from repro_torch import experiments
+    from repro_torch.core.policy import LearnedPolicy
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.convert import qnet_to_jax
+    from repro_torch.rl import D3QLAgent
+    from repro_torch.serving import (RecoveryConfig, SchedulerConfig,
+                                     cluster as cluster_mod,
+                                     make_gdm_services)
+    from repro_torch.serving.gdm_service import SlotBatch
+    from repro_torch.sim import get_scenario
+    scen = get_scenario("paper-fig3")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    services, omega = make_gdm_services(scen.num_services, seed,
+                                        num_blocks=scen.max_blocks,
+                                        model_cfg=cfg, device="cuda")
+    omega_forwards = scen.num_services * scen.max_blocks
+    # keep what the entry point builds inside: the trained controller (its
+    # agent records every decision) and the cluster (its served latents)
+    kept = {"ctrl": [], "cluster": []}
+    train, build = experiments.train_variant, cluster_mod.cluster_from_scenario
+
+    def record(agent):
+        """Log every decision ``agent`` makes from now on."""
+        log, act_batch = [], agent.act_batch
+
+        def recording(obs_hist, **kw):
+            actions = act_batch(obs_hist, **kw)
+            log.append((obs_hist.copy(), kw.get("mask"), actions.copy()))
+            return actions
+
+        agent.act_batch = recording
+        return log
+
+    def keep_ctrl(*a, **k):
+        t0 = time.perf_counter()
+        ctrl = train(*a, **k)
+        torch.cuda.synchronize()
+        kept["train_s"] = time.perf_counter() - t0
+        kept["ctrl"].append((ctrl, record(ctrl.agent)))
+        return ctrl
+
+    def keep_cluster(*a, **k):
+        kept["cluster"].append(build(*a, **k))
+        return kept["cluster"][-1]
+
+    runs = {
+        "quantum": {},
+        "continuous": dict(scheduling="continuous",
+                           sched=SchedulerConfig(sub_quantum_arrivals=True)),
+        "node-churn": dict(fault_schedule="node-churn",
+                           recovery=RecoveryConfig(mode="failover",
+                                                   deadline_frames=16,
+                                                   degrade=True)),
+    }
+    results = {}
+    slot_step = SlotBatch.step
+    experiments.train_variant = keep_ctrl
+    cluster_mod.cluster_from_scenario = keep_cluster
+    try:
+        for name, kw in runs.items():
+            calls0 = sum(s.batch_calls for s in services.values())
+            launches0 = dict(LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = experiments.serve_fleet_variant(
+                scen, "learn-gdm", train_eps=train_eps, frames=frames,
+                cells=cells, workload="diurnal", seed=seed,
+                handover_rate=0.02, services=services, device="cuda", **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            calls = sum(s.batch_calls for s in services.values()) - calls0
+            launched = {k: LAUNCHES[k] - launches0[k] for k in LAUNCHES}
+            results[name] = (stats, kept["cluster"][-1],
+                             kept["ctrl"][-1], calls, launched, wall)
+            print(f"{name:11s} {stats['completed']}/{stats['submitted']} "
+                  f"completed ({stats['satisfied']} satisfied), quality "
+                  f"{stats['mean_quality']:.6f}, latency mean "
+                  f"{stats['mean_latency_frames']:.3f} p95 "
+                  f"{stats['p95_latency_frames']:.3f} frames, objective "
+                  f"{stats['objective']:.4f}, handovers "
+                  f"{stats['handovers']}, goodput {stats['goodput']} drops "
+                  f"{stats['drops']} failovers {stats['failovers']} "
+                  f"deadline misses {stats['deadline_misses']}; {calls} "
+                  f"block calls; {wall:.2f} s on {card}: training "
+                  f"{kept['train_s']:.2f} s, serving "
+                  f"{wall - kept['train_s']:.2f} s")
+        # sync-mode continuous serving equals the quantum run, on the card
+        # (the quantum run's agent, its recorder removed: greedy acting
+        # draws nothing, so it decides as it did)
+        q_stats, _, (q_ctrl, _), *_ = results["quantum"]
+        del q_ctrl.agent.act_batch
+        sync = experiments.serve_fleet_policy(
+            scen, lambda c: LearnedPolicy(q_ctrl.agent, "learn-gdm"),
+            frames, cells=cells,
+            services=services, workload="diurnal", seed=seed,
+            handover_rate=0.02, scheduling="continuous",
+            sched=SchedulerConfig(join_leave=False))
+        assert sync == {k: v for k, v in q_stats.items()
+                        if k != "train_episodes"}, \
+            "sync-mode continuous serving differs from the quantum engine"
+        print("sync-mode continuous serving (join/leave off) equals the "
+              "quantum run's summary on the card")
+        slot = full_chains(q_ctrl, record, kept, results, scen, services,
+                           cells, frames, seed, card)
+    finally:
+        experiments.train_variant = train
+        cluster_mod.cluster_from_scenario = build
+        SlotBatch.step = slot_step
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    total_calls = sum(s.batch_calls for s in services.values())
+    print(f"SlotBatch on the card: {slot['steps']} steps of the continuous "
+          f"full-chain run held against run_batch on the same states, "
+          f"{slot['rows']} rows, max |diff| {slot['err']:.3e} (tolerance "
+          f"0: bit for bit); peak device memory {peak / 2**30:.3f} GiB")
+    for name, (stats, cluster, (ctrl, log), calls, launched, _) in \
+            results.items():
+        assert stats["completed"] > 0, f"{name} completed nothing"
+        n_lat = 0
+        for eng in cluster.engines:
+            for req in eng.completed:
+                for key in ("latent", "x0"):
+                    arr = req.state[key]
+                    assert arr.shape == (cfg.latent_hw ** 2, 4), (key,
+                                                                  arr.shape)
+                    assert np.isfinite(arr).all(), f"non-finite {key}"
+                n_lat += 1
+        want = {k: 0 for k in LAUNCHES}
+        want.update(adaln_norm=cfg.num_layers * calls,
+                    adaln_norm_epilogue=cfg.num_layers * calls,
+                    flash_attention=cfg.num_layers * calls)
+        assert launched == want, (name, launched, want)
+        cpu = D3QLAgent(ctrl.agent.cfg, device="cpu",
+                        params=qnet_to_jax(ctrl.agent.net))
+        n_rows = n_diff = n_ties = 0
+        for obs_hist, mask, actions in log:
+            q = cpu.q_values(obs_hist)
+            want_a = cpu.act_batch(obs_hist, greedy=True, mask=mask)
+            d, t = greedy_mismatches(q, actions, want_a)
+            n_rows += actions.size
+            n_diff += d
+            n_ties += t
+        print(f"{name:11s} {n_lat} served latents finite; launches "
+              f"{launched} = {cfg.num_layers} x {calls} block calls; "
+              f"{len(log)} placement passes, {n_rows} UE decisions, "
+              f"{n_diff} differ from the agent's CPU copy, {n_ties} of "
+              f"them near-ties")
+    expected = {k: 0 for k in LAUNCHES}
+    forwards = omega_forwards + total_calls
+    expected.update(adaln_norm=cfg.num_layers * forwards,
+                    adaln_norm_epilogue=cfg.num_layers * forwards,
+                    flash_attention=cfg.num_layers * forwards)
+    print(f"kernel launches over the phase {launches}; expected {expected} "
+          f"(L={cfg.num_layers} x {forwards} DiT forwards: Omega's "
+          f"{omega_forwards} and {total_calls} block calls over the "
+          f"phase's serves)")
+    assert launches == expected
+    return launches, {name: r[0] for name, r in results.items()}
+
+
+def full_chains(ctrl, record, kept, results, scen, services, cells, frames,
+                seed, card):
+    """Phase 15's two runs without early exit (see :func:`fleet`): the
+    trained agent of ``ctrl`` serves the fleet under the continuous
+    scheduler, then under node churn with failover+degrade; each run goes
+    into ``results`` as the served runs do.  Every ``SlotBatch`` step of
+    the first run is held against ``run_batch`` on the same states (its
+    calls are block calls too, and launch the same kernels).  Returns that
+    comparison's steps, rows and largest difference."""
+    import numpy as np
+    import torch
+    from repro_torch import experiments
+    from repro_torch.core.policy import LearnedPolicy
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.serving import RecoveryConfig, SchedulerConfig
+    from repro_torch.serving.gdm_service import SlotBatch
+    step = SlotBatch.step
+    seen = {"stepped": 0, "check": False, "steps": 0, "rows": 0, "err": 0.0}
+
+    def checked(self, items):
+        seen["stepped"] += len(items)
+        if not seen["check"]:
+            return step(self, items)
+        want, want_q = self.svc.run_batch(
+            [st for _, st, _ in items], np.asarray([k for *_, k in items]))
+        got, got_q = step(self, items)
+        for g, w in zip(got, want):
+            for key in ("latent", "x0"):
+                seen["err"] = max(seen["err"], float(
+                    np.abs(g[key] - w[key]).max()))
+        assert np.array_equal(got_q, want_q)
+        seen["steps"] += 1
+        seen["rows"] += len(items)
+        return got, got_q
+
+    SlotBatch.step = checked
+    runs = {
+        "continuous, full chains": dict(
+            sched=SchedulerConfig(sub_quantum_arrivals=True)),
+        "node-churn, full chains": dict(
+            sched=SchedulerConfig(sub_quantum_arrivals=True),
+            fault_schedule="node-churn",
+            recovery=RecoveryConfig(mode="failover", deadline_frames=16,
+                                    degrade=True)),
+    }
+    for name, kw in runs.items():
+        seen["check"] = name.startswith("continuous")
+        stepped0, checks0 = seen["stepped"], seen["steps"]
+        staged0 = sum(s.slot_batch().rows_staged for s in services.values())
+        calls0 = sum(s.batch_calls for s in services.values())
+        launches0 = dict(LAUNCHES)
+        log = record(ctrl.agent)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = experiments.serve_fleet_policy(
+            scen, lambda c: LearnedPolicy(ctrl.agent, "learn-gdm"), frames,
+            cells=cells, services=services, workload="diurnal", seed=seed,
+            handover_rate=0.02, early_exit=False, scheduling="continuous",
+            **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del ctrl.agent.act_batch
+        calls = sum(s.batch_calls for s in services.values()) - calls0
+        launched = {k: LAUNCHES[k] - launches0[k] for k in LAUNCHES}
+        stepped = seen["stepped"] - stepped0
+        staged = sum(s.slot_batch().rows_staged
+                     for s in services.values()) - staged0
+        results[name] = (stats, kept["cluster"][-1], (ctrl, log), calls,
+                         launched, wall)
+        print(f"{name}: {stats['completed']}/{stats['submitted']} "
+              f"completed ({stats['satisfied']} satisfied), latency mean "
+              f"{stats['mean_latency_frames']:.3f} p95 "
+              f"{stats['p95_latency_frames']:.3f} frames, objective "
+              f"{stats['objective']:.4f}, handovers {stats['handovers']}, "
+              f"failovers {stats['failovers']}, deadline misses "
+              f"{stats['deadline_misses']}; {calls} block calls "
+              f"({seen['steps'] - checks0} of them run_batch's, for the "
+              f"comparison); SlotBatch "
+              f"rows stepped {stepped}, staged {staged} (resident "
+              f"{stepped - staged}); {wall:.2f} s on {card}")
+        assert 0 < staged < stepped, (name, staged, stepped)
+    assert results["node-churn, full chains"][0]["failovers"] > 0, \
+        "node churn never failed over"
+    assert seen["steps"] > 0 and seen["err"] == 0.0, seen
+    return seen
 
 
 def print_occupancy(lib):
@@ -1845,16 +2366,33 @@ def main(argv) -> int:
 
     phase("12. Fig. 3 on the card: LEARN-GDM on paper-fig3, 240 episodes "
           "at E=8, seed 0")
-    fig3(card)
+    vec = fig3(card)
 
     phase("13. the closed loop: Omega from three full-width gdm-dit "
           "services, LEARN-GDM trained against it, paper-fig3 served under "
           "the learned policy and under GR")
-    loop_launches, _ = closed_loop(full, card)
-    # the DiT kernels' launches come from the paper's closed loop, the main
-    # path (phase 6 checked its own counts under GR placement)
+    closed_loop(full, card)
+
+    phase("14. the fused engine on the card: the tensor env vs the numpy "
+          "simulator (float64), one round card vs CPU, Fig. 3 through "
+          "train_fused, round times")
+    env_on_card()
+    round_vs_cpu()
+    fused = fig3(card, engine="fused")
+    time_fused_round(card, fused["ctrl"], vec)
+    print(f"Fig. 3 wall clock: train_fused {fused['wall_s']:.2f} s, "
+          f"train_vectorized (phase 12) {vec['wall_s']:.2f} s")
+    del vec, fused
+    torch.cuda.empty_cache()
+
+    phase("15. the fleet: serve_fleet_variant on paper-fig3, 4 cells, "
+          "diurnal, three full-width gdm-dit services; quantum, continuous, "
+          "node churn")
+    fleet_launches, _ = fleet(full, card)
+    # the DiT kernels' launches come from the fleet closed loop, the main
+    # path (phases 6 and 13 checked their own counts)
     for name in ("adaln_norm", "adaln_norm_epilogue", "flash_attention"):
-        launches[name] = loop_launches[name]
+        launches[name] = fleet_launches[name]
 
     replaces = {
         "adaln_norm": "src/repro/kernels/adaln_norm.py:76",

@@ -58,15 +58,17 @@ class GreedyController:
     def evaluate(self, episodes: int, *, seed0: int = 9_000,
                  engine: str = "vectorized",
                  num_envs: Optional[int] = None,
-                 seed: int = 0) -> Dict[str, float]:
+                 seed: int = 0, device=None) -> Dict[str, float]:
         """GR through the unified policy/engine seam (same engine knob
         semantics as ``LearnGDMController.evaluate``; "scalar" keeps the
-        original reference loop)."""
+        original reference loop; ``device`` is the fused engine's, the
+        card by default)."""
         from repro_torch.core.policy import GreedyPoAPolicy, evaluate_policy
         return evaluate_policy(
             GreedyPoAPolicy(), self.env, episodes, engine=engine,
             num_envs=num_envs, seed0=seed0, seed=seed,
-            scalar_episode=lambda s: self.run_episode(seed=s))
+            scalar_episode=lambda s: self.run_episode(seed=s),
+            device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -15,24 +15,31 @@ bookkeeping (eq. 8 — computed by the env), the replay/train plumbing
 (Algorithm 1 steps 23–28), and optional trace recording for the C1–C9
 checkers.
 
-Port of ``repro.core.learn_gdm``.  The simulator, masks, MAC and replay
-stay numpy, as in the reference (float64 where it is); only the agent's
-Q-nets and updates run on ``device``, the card unless the caller asks
-for another.  ``train_fused`` raises until the fused engine is ported
-(ROADMAP Queue 1, item 8).
+Port of ``repro.core.learn_gdm``.  In ``train`` and ``train_vectorized``
+the simulator, masks, MAC and replay stay numpy, as in the reference
+(float64 where it is), and only the agent's Q-nets and updates run on
+``device``, the card unless the caller asks for another.
+``train_fused`` runs the whole round on that device instead: the tensor
+env (:mod:`repro_torch.sim.torch_env`), the device replay, the acting and
+the update, with nothing read back inside a round.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.constraints import TraceRecorder
 from repro_torch.core.mac import (greedy_mac, random_access, vec_greedy_mac,
                                   vec_random_access)
-from repro_torch.rl.d3ql import D3QLAgent, D3QLConfig
+from repro_torch.optim import OptState
+from repro_torch.rl.d3ql import D3QLAgent, D3QLConfig, d3ql_update, fused_act
+from repro_torch.rl.networks import QNet
+from repro_torch.rl.replay import DeviceReplay, DeviceReplayState
+from repro_torch.sim import torch_env
 from repro_torch.sim.env import IDLE, EdgeSimulator
 from repro_torch.sim.vec_env import VecEdgeSimulator
 
@@ -200,8 +207,8 @@ class LearnGDMController:
     # -- vectorized training ---------------------------------------------------
 
     def train_frames(self, episodes: int, *, num_envs: int = 1) -> int:
-        """Frames (= epsilon-decay / train steps) a :meth:`train` (E=1) or
-        :meth:`train_vectorized` run will execute —
+        """Frames (= epsilon-decay / train steps) a :meth:`train` (E=1),
+        :meth:`train_vectorized` or :meth:`train_fused` run will execute —
         callers calibrating the epsilon schedule should use this instead of
         re-deriving round math."""
         rounds = -(-episodes // max(num_envs, 1)) if num_envs > 1 else episodes
@@ -280,13 +287,69 @@ class LearnGDMController:
                       f"reward(avg)={recent:8.3f}  eps={agent.epsilon:.3f}")
         return {k: v[:episodes] for k, v in hist.items()}
 
-    def train_fused(self, episodes: int, **kw) -> Dict[str, list]:
-        """The fused engine (act, env step, replay push and update as one
-        device program per round) is not ported yet."""
-        raise NotImplementedError(
-            "train_fused needs the fused device engine, which the port has "
-            "not built yet (ROADMAP Queue 1, item 8); train with "
-            "train_vectorized")
+    # -- fused (device-resident) training --------------------------------------
+
+    def _build_fused_round(self, world: torch_env.TorchWorld, num_envs: int,
+                           replay: DeviceReplay, mesh=None) -> "FusedRound":
+        """One training round on the device: reset, then the episode's
+        frames of act → env step → replay push → D3QL update (see
+        :class:`FusedRound`)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "train_fused(mesh=...) shards the round over devices, which "
+                "the port has not built yet (ROADMAP Queue 1, item 11)")
+        return FusedRound(self, world, num_envs, replay)
+
+    def train_fused(self, episodes: int, *, num_envs: int = 8,
+                    log_every: int = 0, seed: int = 0,
+                    mesh=None) -> Dict[str, list]:
+        """Algorithm 1 with each round on the agent's device: the tensor env
+        reset, then every frame's epsilon-greedy act, env step, device
+        replay push and D3QL update, with no read back inside the round;
+        the host pulls only the round's stats (E rewards and deliveries, T
+        losses).
+
+        Like :meth:`train_vectorized`, the stacked envs share
+        ``self.env``'s static world; episode randomness comes from a
+        ``torch.Generator`` on the device seeded by (``seed``, round), so
+        trajectories are not numpy-matched — the engine's logic is pinned
+        to the numpy one under injected draws
+        (``tests/test_torch_fused.py``).  The device replay is internal to
+        this method (``agent.memory`` is not filled); the agent's
+        parameters, target, optimizer state, epsilon and steps are written
+        back, so :meth:`evaluate` and further training see the progress.
+        Returns the same history dict as :meth:`train` (one entry per
+        episode, trimmed to ``episodes``).  ``mesh`` raises (ROADMAP Queue
+        1, item 11).
+        """
+        agent = self.agent
+        acfg = agent.cfg
+        world = torch_env.world_from_sim(self.env, num_envs,
+                                         device=agent.device)
+        replay = DeviceReplay(acfg.memory_capacity,
+                              obs_shape=(acfg.history, self.env.obs_dim),
+                              action_shape=(acfg.num_ues,),
+                              device=agent.device)
+        fused = self._build_fused_round(world, num_envs, replay, mesh)
+        carry = fused.init_carry()
+        rounds = -(-episodes // num_envs)
+        hist = {"reward": [], "loss": [], "delivered": []}
+        for rd in range(rounds):
+            gen = torch_env.round_generator(seed, rd, agent.device)
+            carry, (ep_reward, losses, delivered) = fused.run_round(
+                carry, *fused.draw_round(gen))
+            losses = losses.cpu().numpy()
+            valid = losses[~np.isnan(losses)]
+            mean_loss = float(valid.mean()) if len(valid) else np.nan
+            hist["reward"].extend(ep_reward.cpu().tolist())
+            hist["loss"].extend([mean_loss] * num_envs)
+            hist["delivered"].extend(delivered.cpu().tolist())
+            if log_every and (rd + 1) % log_every == 0:
+                recent = np.mean(hist["reward"][-num_envs * log_every:])
+                print(f"  round {rd + 1:5d} ({len(hist['reward'])} eps)  "
+                      f"reward(avg)={recent:8.3f}  eps={carry.epsilon:.3f}")
+        fused.write_back(carry)
+        return {k: v[:episodes] for k, v in hist.items()}
 
     def evaluate(self, episodes: int, *, seed0: int = 9_000,
                  engine: str = "vectorized",
@@ -296,10 +359,11 @@ class LearnGDMController:
 
         engine: "vectorized" (default — batched numpy rollout; per-episode
         results are numerically identical to the legacy scalar loop for any
-        ``num_envs``, since each stacked env replays the scalar stream) or
+        ``num_envs``, since each stacked env replays the scalar stream),
         "scalar" (the original ``run_episode`` loop, kept as the reference
-        implementation); "fused" raises until the fused engine is ported
-        (ROADMAP Queue 1, item 8).
+        implementation) or "fused" (the eval round on the tensor env, on
+        the agent's device; episode randomness from a generator seeded by
+        ``seed``).
         """
         # policy imports learn_gdm for EpisodeStats — import at call time
         from repro_torch.core.policy import LearnedPolicy, evaluate_policy
@@ -320,3 +384,151 @@ def summarize(stats: List[EpisodeStats]) -> Dict[str, float]:
         "trans_cost": float(np.mean([s.trans_cost for s in stats])),
         "collisions": float(np.mean([s.collisions for s in stats])),
     }
+
+
+# -- the fused engine's round ----------------------------------------------------
+
+@dataclasses.dataclass
+class FusedCarry:
+    """What crosses the rounds of the fused engine: the agent's online and
+    target nets with the online net's parameters by name, the optimizer
+    state and the device replay on the device; epsilon (float32-valued)
+    and the update count on the host, where the count of pushes fixes
+    them."""
+    net: QNet
+    target_net: QNet
+    params: Dict[str, torch.Tensor]
+    opt_state: OptState
+    replay: DeviceReplayState
+    epsilon: float
+    steps: int
+
+
+def _decay_epsilon(epsilon: float, cfg: D3QLConfig) -> float:
+    """``max(floor, epsilon * decay)`` in float32, the reference's carried
+    arithmetic (a float64 epsilon would flip ``draw < epsilon`` at the
+    boundary)."""
+    return float(max(np.float32(cfg.epsilon_floor),
+                     np.float32(epsilon) * np.float32(cfg.epsilon_decay)))
+
+
+class FusedRound:
+    """One training round of the fused engine, split in two.
+
+    :meth:`draw_round` draws the round's randomness from a generator: the
+    reset draws ``pos``/``dest`` ((E, U, 2) in [0, side)) and ``req`` ((E,
+    U)) in the world's float dtype, and the frame draws ``explore`` (T, E),
+    ``q_rand`` (T, E, U, A), ``arrival`` (T, E, U), ``waypoint`` (T, E, U,
+    2) in [0, side), ``sample`` (T, batch), ``mac_attempt`` and
+    ``mac_channel`` (T, E, U), all float32 — the reference's keys, shapes
+    and dtypes.  :meth:`run_round` is a function of its arguments alone:
+    ``(carry, reset_draws, draws) -> (carry, (episode rewards (E,), losses
+    (T,), delivered quality (E,)))``, the stats left on the device.  The
+    carry is donated: its nets, optimizer moments and replay are updated in
+    place.  Whether a frame trains, when the target syncs and each frame's
+    epsilon follow from the count of pushes, on the host, so nothing is
+    read back inside a round.
+    """
+
+    def __init__(self, ctrl: LearnGDMController, world: torch_env.TorchWorld,
+                 num_envs: int, replay: DeviceReplay):
+        self.agent = ctrl.agent
+        self.cfg = ctrl.env.cfg
+        self.variant, self.mac_scheme = ctrl.variant, ctrl.mac_scheme
+        self.world, self.num_envs, self.replay = world, num_envs, replay
+
+    def init_carry(self) -> FusedCarry:
+        agent = self.agent
+        return FusedCarry(net=agent.net, target_net=agent.target_net,
+                          params=agent.params, opt_state=agent.opt_state,
+                          replay=self.replay.init(),
+                          epsilon=float(np.float32(agent.epsilon)),
+                          steps=int(agent.steps))
+
+    def write_back(self, carry: FusedCarry) -> None:
+        agent = self.agent
+        agent.net, agent.target_net = carry.net, carry.target_net
+        agent.params, agent.opt_state = carry.params, carry.opt_state
+        agent.epsilon, agent.steps = carry.epsilon, carry.steps
+
+    def draw_round(self, generator: torch.Generator
+                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        cfg, acfg = self.cfg, self.agent.cfg
+        t, e, u = cfg.horizon, self.num_envs, acfg.num_ues
+        fdtype, dev = self.world.qbar.dtype, self.world.qbar.device
+
+        def rand(shape, dtype=torch.float32, scale=1.0):
+            x = torch.rand(shape, generator=generator, dtype=dtype,
+                           device=dev)
+            return x * scale if scale != 1.0 else x
+
+        reset_draws = {"pos": rand((e, u, 2), fdtype, cfg.side),
+                       "dest": rand((e, u, 2), fdtype, cfg.side),
+                       "req": rand((e, u), fdtype)}
+        draws = {"explore": rand((t, e)),
+                 "q_rand": rand((t, e, u, acfg.num_actions)),
+                 "arrival": rand((t, e, u)),
+                 "waypoint": rand((t, e, u, 2), scale=cfg.side),
+                 "sample": rand((t, acfg.batch_size)),
+                 "mac_attempt": rand((t, e, u)),
+                 "mac_channel": rand((t, e, u))}
+        return reset_draws, draws
+
+    def run_round(self, carry: FusedCarry, reset_draws: Dict[str, torch.Tensor],
+                  draws: Dict[str, torch.Tensor]):
+        agent, cfg, world = self.agent, self.cfg, self.world
+        acfg = agent.cfg
+        e, dev = self.num_envs, world.qbar.device
+        horizon = draws["explore"].shape[0]
+        state = torch_env.reset_env(cfg, world, pos_draws=reset_draws["pos"],
+                                    dest_draws=reset_draws["dest"],
+                                    req_draws=reset_draws["req"])
+        obs0 = torch_env.observe(cfg, world, state)
+        obs_hist = obs0[:, None].repeat(1, acfg.history, 1)    # (E, H, obs)
+        replay, epsilon, steps = carry.replay, carry.epsilon, carry.steps
+        opt_state = carry.opt_state
+        losses = torch.full((horizon,), float("nan"), device=dev)
+        rewards = []
+        for t in range(horizon):
+            if self.mac_scheme == "greedy":
+                mac = torch_env.greedy_mac(cfg, world, state)
+            else:
+                mac = torch_env.random_access(
+                    cfg, state, attempt_draws=draws["mac_attempt"][t],
+                    channel_draws=draws["mac_channel"][t])
+            mask = torch_env.action_mask(cfg, state, self.variant)
+            actions = fused_act(carry.net, obs_hist, epsilon=epsilon,
+                                mask=mask, explore_draw=draws["explore"][t],
+                                q_rand=draws["q_rand"][t])
+            state, info = torch_env.env_step(
+                cfg, world, state, mac, actions - 1,
+                arrival_draws=draws["arrival"][t],
+                waypoint_draws=draws["waypoint"][t])
+            next_obs = torch_env.observe(cfg, world, state, info["bs_load"])
+            next_hist = torch.cat([obs_hist[:, 1:], next_obs[:, None]], dim=1)
+            done = torch.full((e,), float(state.frame >= cfg.horizon),
+                              device=dev)
+            replay = self.replay.push(replay, obs_hist, actions,
+                                      info["rewards"], next_hist, done)
+            if replay.size >= acfg.batch_size:
+                batch = self.replay.sample_from_uniforms(replay,
+                                                         draws["sample"][t])
+                batch["actions"] = batch["actions"].long()
+                opt_state, loss, _ = d3ql_update(
+                    carry.net, carry.target_net, carry.params, opt_state,
+                    agent._opt_update, batch, acfg)
+                losses[t] = loss
+                steps += 1
+                if steps % acfg.target_sync == 0:
+                    with torch.no_grad():
+                        for tp, p in zip(carry.target_net.parameters(),
+                                         carry.net.parameters()):
+                            tp.copy_(p)
+            epsilon = _decay_epsilon(epsilon, acfg)
+            rewards.append(info["rewards"])
+            obs_hist = next_hist
+        carry = dataclasses.replace(carry, opt_state=opt_state,
+                                    replay=replay, epsilon=epsilon,
+                                    steps=steps)
+        return carry, (torch.stack(rewards).sum(dim=0), losses,
+                       state.total_delivered)

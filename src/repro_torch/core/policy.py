@@ -1,33 +1,45 @@
 """Unified policy/engine seam: every controller runs on every engine.
 
 Port of ``repro.core.policy``.  A :class:`Policy` is a placement decision
-rule exposed as ``act_batch(venv, obs_hist, draw)`` — numpy batched acting
-against a :class:`~repro_torch.sim.vec_env.VecEdgeSimulator` (the host-loop
-engine) or the serving bridge's slot view.  It emits (E, U) int actions in
-the controller convention (0 = null, n+1 = BS n) and applies the variant
-mask *after* any stochastic merge — the invariant the training path
-enforces via ``masked_argmax``.
+rule exposed twice:
+
+* ``act_batch(venv, obs_hist, draw)`` — numpy batched acting against a
+  :class:`~repro_torch.sim.vec_env.VecEdgeSimulator` (the host-loop
+  engine) or the serving bridge's slot view;
+* ``fused_spec(cfg)`` — a ``(params, act_fn)`` pair where
+  ``act_fn(params, state, obs_hist, draw)`` acts on device tensors, for the
+  evaluation round on the tensor env
+  (:func:`repro_torch.sim.torch_env.build_eval_round`).
+
+Both emit (E, U) int actions in the controller convention (0 = null, n+1 =
+BS n) and apply the variant mask *after* any stochastic merge — the
+invariant the training paths enforce via ``masked_argmax`` /
+``fused_act``.
 
 The shared batched rollout (:func:`evaluate_batched`) reproduces the legacy
 scalar ``evaluate()`` loop exactly: at any ``num_envs`` the stacked envs
 replay the scalar per-episode streams (seeds ``seed0 + episode``), obs
 history padding matches ``LearnGDMController._obs_hist``, and episode
-totals accumulate in the scalar frame order.  The reference's second face
-of a policy, ``fused_spec`` for the jitted evaluation scan, and
-``evaluate_fused`` / ``make_eval_draws`` come with the fused engine
-(ROADMAP Queue 1, item 8): ``engine="fused"`` raises until then.
+totals accumulate in the scalar frame order.  :func:`evaluate_fused` runs
+the same policy through one device round per episode batch; its episode
+randomness comes from a generator, and its logic is pinned to the
+reference's eval round under the same draws (``tests/test_torch_fused.
+py``).
 """
 from __future__ import annotations
 
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.learn_gdm import (EpisodeStats, obs_history_window,
                                         summarize, variant_action_mask_vec)
 from repro_torch.core.mac import vec_greedy_mac, vec_random_access
-from repro_torch.rl.d3ql import masked_argmax
+from repro_torch.rl.d3ql import greedy_act, masked_argmax
+from repro_torch.sim import torch_env
 from repro_torch.sim.env import IDLE, EdgeSimulator, SimConfig
 from repro_torch.sim.vec_env import VecEdgeSimulator
 
@@ -35,11 +47,15 @@ from repro_torch.sim.vec_env import VecEdgeSimulator
 class Policy:
     """Base policy: one decision rule, runnable on every engine.
 
-    Subclasses set ``name`` and override :meth:`act_batch`.
-    ``needs_obs``/``history`` tell the rollouts whether (and how deep) an
-    observation history must be maintained; ``needs_draws`` requests a
-    per-frame (E, U, A) uniform block (stochastic policies take their
-    randomness through it).
+    Subclasses set ``name`` and override :meth:`act_batch` +
+    :meth:`fused_spec`.  ``needs_obs``/``history`` tell the rollouts
+    whether (and how deep) an observation history must be maintained;
+    ``needs_draws`` requests a per-frame (E, U, A) uniform block
+    (stochastic policies take their randomness through it).
+
+    :meth:`fused_spec` returns ``(params, act_fn)``: ``act_fn`` reads
+    nothing but its arguments, and anything agent-derived goes through
+    ``params``.
     """
 
     name: str = "policy"
@@ -50,6 +66,9 @@ class Policy:
     def act_batch(self, venv: VecEdgeSimulator,
                   obs_hist: Optional[np.ndarray],
                   draw: Optional[np.ndarray] = None) -> np.ndarray:
+        raise NotImplementedError
+
+    def fused_spec(self, cfg: SimConfig) -> Tuple:
         raise NotImplementedError
 
 
@@ -70,6 +89,15 @@ class LearnedPolicy(Policy):
         mask = variant_action_mask_vec(venv, self.variant)
         return self.agent.act_batch(obs_hist, greedy=True, mask=mask)
 
+    def fused_spec(self, cfg):
+        variant = self.variant
+
+        def act_fn(net, state, obs_hist, draw):
+            mask = torch_env.action_mask(cfg, state, variant)
+            return greedy_act(net, obs_hist, mask=mask)
+
+        return self.agent.net, act_fn
+
 
 class GreedyPoAPolicy(Policy):
     """GR baseline: every block executes at the UE's current PoA; chains
@@ -79,6 +107,13 @@ class GreedyPoAPolicy(Policy):
 
     def act_batch(self, venv, obs_hist, draw=None):
         return np.where(venv.chain_state != IDLE, venv.poa + 1, 0)
+
+    def fused_spec(self, cfg):
+        def act_fn(params, state, obs_hist, draw):
+            return torch.where(state.chain_state != IDLE, state.poa + 1,
+                               0).to(torch.int32)
+
+        return (), act_fn
 
 
 class RandomPolicy(Policy):
@@ -104,6 +139,16 @@ class RandomPolicy(Policy):
                 (venv.num_envs, cfg.num_ues, cfg.num_bs + 1))
         mask = variant_action_mask_vec(venv, self.variant)
         return masked_argmax(draw, mask)
+
+    def fused_spec(self, cfg):
+        variant = self.variant
+
+        def act_fn(params, state, obs_hist, draw):
+            mask = torch_env.action_mask(cfg, state, variant)
+            return torch.where(mask, draw, -torch.inf).argmax(
+                dim=-1).to(torch.int32)
+
+        return (), act_fn
 
 
 # -- shared batched rollout (numpy vectorized engine) --------------------------
@@ -207,18 +252,88 @@ def _policy_draw_stack(policy: Policy, cfg: SimConfig,
                      for s in ep_seeds], axis=1)
 
 
+# -- fused evaluation (the tensor env on the device) -----------------------------
+
+def make_eval_draws(cfg: SimConfig, num_envs: int,
+                    generator: torch.Generator, *,
+                    fdtype: torch.dtype = torch.float32,
+                    mac_random: bool = False,
+                    policy_draws: bool = False) -> Dict[str, torch.Tensor]:
+    """A round's randomness for the eval round, on the generator's device:
+    ``arrival`` (T, E, U) and ``waypoint`` (T, E, U, 2) in [0, side) in
+    ``fdtype``, and in float32 ``mac_attempt`` / ``mac_channel`` (T, E, U)
+    for random access and ``policy`` (T, E, U, A) for a ``needs_draws``
+    policy — the reference's keys, shapes and dtypes."""
+    t, e, u = cfg.horizon, num_envs, cfg.num_ues
+    dev = generator.device
+
+    def rand(shape, dtype=torch.float32):
+        return torch.rand(shape, generator=generator, dtype=dtype,
+                          device=dev)
+
+    draws = {"arrival": rand((t, e, u), fdtype),
+             "waypoint": rand((t, e, u, 2), fdtype) * cfg.side}
+    if mac_random:
+        draws["mac_attempt"] = rand((t, e, u))
+        draws["mac_channel"] = rand((t, e, u))
+    if policy_draws:
+        draws["policy"] = rand((t, e, u, cfg.num_bs + 1))
+    return draws
+
+
+def evaluate_fused(policy: Policy, env: EdgeSimulator, episodes: int, *,
+                   num_envs: Optional[int] = None, seed: int = 0,
+                   mac_scheme: str = "greedy",
+                   device=None) -> Dict[str, float]:
+    """Evaluate ``policy`` through one device round per ``num_envs``
+    episodes on the tensor env, with nothing read back inside a round.
+
+    The stacked envs share ``env``'s static world; the round's reset and
+    draws come from a generator seeded by (``seed``, round), so per-episode
+    trajectories are not numpy-matched.  A learned policy runs on its
+    agent's device; the others on ``device`` (the card by default).
+    """
+    cfg = env.cfg
+    e = num_envs or min(max(episodes, 1), 8)
+    agent = getattr(policy, "agent", None)
+    device = agent.device if agent is not None else resolve_device(device)
+    world = torch_env.world_from_sim(env, e, device=device)
+    params, act_fn = policy.fused_spec(cfg)
+    round_fn = torch_env.build_eval_round(
+        cfg, act_fn, mac_scheme=mac_scheme, history=policy.history,
+        needs_obs=policy.needs_obs)
+    stats: List[EpisodeStats] = []
+    for rd in range(-(-episodes // e)):
+        gen = torch_env.round_generator(seed, rd, device)
+        state0 = torch_env.reset_env(cfg, world, generator=gen)
+        draws = make_eval_draws(cfg, e, gen, fdtype=world.qbar.dtype,
+                                mac_random=(mac_scheme == "random"),
+                                policy_draws=policy.needs_draws)
+        _, out = round_fn(params, world, state0, draws)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        stats.extend(EpisodeStats(
+            reward=float(out["reward"][i]),
+            quality_gain=float(out["quality_gain"][i]),
+            exec_cost=float(out["exec_cost"][i]),
+            trans_cost=float(out["trans_cost"][i]),
+            delivered_quality=float(out["delivered_quality"][i]),
+            num_delivered=int(out["num_delivered"][i]),
+            collisions=int(out["collisions"][i]),
+            losses=[]) for i in range(e))
+    return summarize(stats[:episodes])
+
+
 def evaluate_policy(policy: Policy, env: EdgeSimulator, episodes: int, *,
                     engine: str = "vectorized",
                     num_envs: Optional[int] = None, seed0: int = 9_000,
                     seed: int = 0, mac_scheme: str = "greedy",
-                    scalar_episode=None) -> Dict[str, float]:
+                    scalar_episode=None, device=None) -> Dict[str, float]:
     """The one engine dispatcher behind every controller's ``evaluate``.
 
     ``scalar_episode(seed) -> EpisodeStats`` is the controller's legacy
-    reference loop, used when ``engine="scalar"``; "vectorized" routes
-    through the shared batched rollout above.  "fused" raises: the fused
-    evaluation scan comes with the fused engine (ROADMAP Queue 1, item 8).
-    ``seed`` seeds only that engine's streams, so nothing reads it yet.
+    reference loop, used when ``engine="scalar"``; "vectorized" and "fused"
+    route through the shared batched rollouts above (``seed`` and
+    ``device`` are the fused engine's).
     """
     if engine == "scalar":
         assert scalar_episode is not None, \
@@ -226,10 +341,9 @@ def evaluate_policy(policy: Policy, env: EdgeSimulator, episodes: int, *,
         return summarize([scalar_episode(seed0 + ep)
                           for ep in range(episodes)])
     if engine == "fused":
-        raise NotImplementedError(
-            "engine='fused' needs the fused device engine, which the port "
-            "has not built yet (ROADMAP Queue 1, item 8); use "
-            "engine='vectorized'")
+        return evaluate_fused(policy, env, episodes, num_envs=num_envs,
+                              seed=seed, mac_scheme=mac_scheme,
+                              device=device)
     assert engine == "vectorized", f"unknown eval engine {engine!r}"
     return evaluate_batched(policy, env, episodes, seed0=seed0,
                             num_envs=num_envs, mac_scheme=mac_scheme)

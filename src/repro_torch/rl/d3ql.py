@@ -11,8 +11,9 @@ Only the Q-nets, the sampled batch and the update live on the device.
 Acting keeps the reference's numpy ``rng`` stream in its order (the explore
 draw per env, then the (E, U, A) uniforms only when some env explores),
 computes Q on the device, copies it back once and applies the numpy
-:func:`masked_argmax` last.  The in-scan acting of the fused engine
-(``fused_act``) comes with that engine (ROADMAP Queue 1, item 8).
+:func:`masked_argmax` last.  The fused engine acts on the device instead
+(:func:`fused_act`, from injected uniforms) and updates through
+:func:`d3ql_update` on nets it is handed.
 """
 from __future__ import annotations
 
@@ -37,6 +38,62 @@ def masked_argmax(q: np.ndarray, mask: Optional[np.ndarray]) -> np.ndarray:
     if mask is not None:
         q = np.where(mask, q, -np.inf)
     return q.argmax(axis=-1).astype(np.int32)
+
+
+def fused_act(net: QNet, obs_hist: torch.Tensor, *, epsilon: float,
+              mask: Optional[torch.Tensor], explore_draw: torch.Tensor,
+              q_rand: torch.Tensor) -> torch.Tensor:
+    """Epsilon-greedy acting on the device (the fused engine's).
+
+    obs_hist: (E, H, obs_dim); mask: (E, U, A) bool or None; epsilon a host
+    float (float32-valued).  Each env explores independently when its
+    ``explore_draw`` ((E,) uniforms) falls below epsilon, taking the
+    ``q_rand`` ((E, U, A) uniforms) in place of Q, as ``act_batch`` does;
+    the mask is applied after that merge, the invariant of
+    :func:`masked_argmax`, and ``torch.argmax`` takes the first maximum.
+    """
+    with torch.no_grad():
+        q = qnet_apply(net, obs_hist)
+        explore = explore_draw < epsilon
+        q = torch.where(explore[:, None, None], q_rand.to(q.dtype), q)
+        if mask is not None:
+            q = torch.where(mask, q, -torch.inf)
+        return q.argmax(dim=-1).to(torch.int32)
+
+
+def d3ql_loss(net: QNet, target_net: QNet, batch: Dict[str, torch.Tensor],
+              gamma: float) -> torch.Tensor:
+    """mean(td^2) of eq. (5) over a device batch, with the VDN sum over
+    UEs and the double-Q target (argmax of the online net on ``next_obs``,
+    evaluated by the target net, no gradient)."""
+    q = qnet_apply(net, batch["obs"])                         # (B, U, A)
+    q_sel = torch.gather(q, -1, batch["actions"][..., None])[..., 0]
+    q_tot = q_sel.sum(dim=-1)                                 # VDN sum
+    with torch.no_grad():
+        a_star = qnet_apply(net, batch["next_obs"]).argmax(dim=-1)
+        q_next_target = qnet_apply(target_net, batch["next_obs"])
+        q_next = torch.gather(q_next_target, -1,
+                              a_star[..., None])[..., 0].sum(dim=-1)
+    y = batch["rewards"] + gamma * (1.0 - batch["dones"]) * q_next
+    td = y - q_tot
+    return torch.mean(td ** 2)
+
+
+def d3ql_update(net: QNet, target_net: QNet, params: Dict[str, torch.Tensor],
+                opt_state, opt_update, batch: Dict[str, torch.Tensor],
+                cfg: "D3QLConfig"):
+    """One D3QL step on a device batch (``actions`` int64): autograd of
+    :func:`d3ql_loss`, global-norm clipping to ``cfg.grad_clip``, then
+    ``opt_update``; the parameters ``params`` (``net``'s, by name) move in
+    place.  Returns (opt_state, loss, gradient norm), the last two device
+    scalars."""
+    loss = d3ql_loss(net, target_net, batch, cfg.gamma)
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    updates, opt_state = opt_update(grads, opt_state, params)
+    apply_updates(params, updates)
+    return opt_state, loss.detach(), gnorm
 
 
 def greedy_act(net: QNet, obs_hist: torch.Tensor, *,
@@ -161,35 +218,17 @@ class D3QLAgent:
     # -- learning ------------------------------------------------------------
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """mean(td^2) of eq. (5) over a device batch, with the VDN sum over
-        UEs and the double-Q target (argmax of the online net on
-        ``next_obs``, evaluated by the target net, no gradient)."""
-        cfg = self.cfg
-        q = qnet_apply(self.net, batch["obs"])                    # (B, U, A)
-        q_sel = torch.gather(q, -1, batch["actions"][..., None])[..., 0]
-        q_tot = q_sel.sum(dim=-1)                                 # VDN sum
-        with torch.no_grad():
-            a_star = qnet_apply(self.net, batch["next_obs"]).argmax(dim=-1)
-            q_next_target = qnet_apply(self.target_net, batch["next_obs"])
-            q_next = torch.gather(q_next_target, -1,
-                                  a_star[..., None])[..., 0].sum(dim=-1)
-        y = batch["rewards"] + cfg.gamma * (1.0 - batch["dones"]) * q_next
-        td = y - q_tot
-        return torch.mean(td ** 2)
+        """:func:`d3ql_loss` of the agent's nets."""
+        return d3ql_loss(self.net, self.target_net, batch, self.cfg.gamma)
 
     def update(self, batch: Dict[str, torch.Tensor]):
-        """One D3QL step on a device batch: autograd of :meth:`loss`,
-        global-norm clipping to ``grad_clip``, AdamW (b1 0.9, b2 0.999, no
-        weight decay), all in place.  Returns (loss, gradient norm) as
-        device scalars."""
-        loss = self.loss(batch)
-        grads = dict(zip(self.params, torch.autograd.grad(
-            loss, list(self.params.values()))))
-        grads, gnorm = clip_by_global_norm(grads, self.cfg.grad_clip)
-        updates, self.opt_state = self._opt_update(grads, self.opt_state,
-                                                   self.params)
-        apply_updates(self.params, updates)
-        return loss.detach(), gnorm
+        """One D3QL step on a device batch (:func:`d3ql_update` with AdamW,
+        b1 0.9, b2 0.999, no weight decay), all in place.  Returns (loss,
+        gradient norm) as device scalars."""
+        self.opt_state, loss, gnorm = d3ql_update(
+            self.net, self.target_net, self.params, self.opt_state,
+            self._opt_update, batch, self.cfg)
+        return loss, gnorm
 
     def device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """A replay sample on the device (actions as int64 for ``gather``)."""

@@ -14,9 +14,9 @@ block function for one node (here :class:`repro_torch.serving.gdm_service.
 GDMService`, which runs the DiT on the card).
 
 Carried copy of the reference engine (``repro.serving.engine``), pinned
-frame for frame to it by ``tests/test_torch_serving.py``.  Two lazy imports
-of the reference are gone: the fault-leg order is the constant below, and
-``scheduling="continuous"`` raises until the scheduler is carried.
+frame for frame to it by ``tests/test_torch_serving.py``; its two lazy
+imports, the fault-leg order and the continuous scheduler, come from the
+port's copies of those modules.
 """
 from __future__ import annotations
 
@@ -29,11 +29,7 @@ import numpy as np
 from repro_torch.serving.kv_manager import TransferLedger, state_nbytes
 from repro_torch.serving.telemetry import QuantumEvent, TelemetryLog
 from repro_torch.serving.tracing import Tracer, latency_summary
-
-# the transmission legs a link-degradation schedule can scale, in the fixed
-# column order of the reference's ``FaultTrace.link_scale``
-# (``repro.sim.faults.FAULT_LEGS``)
-FAULT_LEGS = ("uplink", "migration", "downlink")
+from repro_torch.sim.faults import FAULT_LEGS
 
 
 @dataclasses.dataclass
@@ -331,7 +327,7 @@ class ServingEngine:
         engine's :class:`RecoveryConfig`.  ``cap_scale``: (N,) straggler
         capacity multipliers in (0, 1].  ``link_scale``: per-leg cost
         multipliers — a mapping, or an array in
-        :data:`repro.sim.faults.FAULT_LEGS` order.  All-healthy input makes
+        :data:`repro_torch.sim.faults.FAULT_LEGS` order.  All-healthy input makes
         every fault branch a no-op (the zero-fault pin)."""
         n = len(self.nodes)
         self._node_up = np.ones(n, dtype=bool) if node_up is None \
@@ -852,10 +848,8 @@ class ServingEngine:
 
     def step(self) -> Dict[str, float]:
         if self.cfg.scheduling == "continuous":
-            raise NotImplementedError(
-                "scheduling='continuous' needs the iteration-level scheduler, "
-                "which the port has not carried yet (ROADMAP Queue 1, item 9: "
-                "fleet layer)")
+            from repro_torch.serving.scheduler import continuous_step
+            return continuous_step(self)
         assigned = self.begin_step()
         # deferred batched execution: ONE run_batch per (node, quantum) —
         # placement never reads intra-quantum block results, so this is

@@ -19,8 +19,9 @@ block across nodes.  Two contracts back the engine:
 Payloads stay numpy dicts (``{"latent", "prompt", "x0"}``), exactly as the
 reference's, so the engine, its ledger and its telemetry are unchanged.
 ``instrument`` attaches the tracer's metrics registry, under the
-reference's metric names.  ``SlotBatch`` and the mesh argument of the
-reference come with the scheduler and fleet slices.
+reference's metric names.  :class:`SlotBatch` keeps the continuous
+scheduler's requests resident on the device between block steps.  The
+reference's mesh argument is not ported (ROADMAP Queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -76,6 +77,7 @@ class GDMService:
         # persistent per-bucket host staging buffers, pinned when the model
         # is on the card so the copies in are asynchronous (see run_batch)
         self._buffers: Dict[int, Tuple[Tuple[torch.Tensor, np.ndarray], ...]] = {}
+        self._slot_batch: Optional["SlotBatch"] = None
         # observability (repro_torch.serving.tracing): instrument() attaches
         # a MetricsRegistry; run_batch then wall-clocks its device calls.
         # None -> the raw call
@@ -126,11 +128,15 @@ class GDMService:
         self._sample_every = max(int(sample_every), 1)
         self._steady_calls = 0
 
-    def _call(self, lat_t, pr_t, idx_t):
-        """The device call of :meth:`run_batch` on staged host tensors,
-        results copied back to numpy; wall-clocked when instrumented."""
+    def _call(self, lat_t, pr_t, idx_t, keep=None):
+        """The one device call both batch paths (:meth:`run_batch`,
+        :meth:`SlotBatch.step`) issue, on staged tensors, results copied
+        back to numpy; wall-clocked when instrumented.  With ``keep`` (a
+        (bucket,) bool tensor) the new latents are also written into
+        ``lat_t`` at the rows it marks, on the device (SlotBatch's masked
+        write-back)."""
         if self.metrics is None:
-            return self._device_call(lat_t, pr_t, idx_t)
+            return self._device_call(lat_t, pr_t, idx_t, keep)
         m = self.metrics
         bucket = int(lat_t.shape[0])
         first = bucket not in self._seen_buckets
@@ -139,9 +145,9 @@ class GDMService:
         if not first:
             self._steady_calls += 1
             if self._steady_calls % self._sample_every:
-                return self._device_call(lat_t, pr_t, idx_t)
+                return self._device_call(lat_t, pr_t, idx_t, keep)
         t0 = time.perf_counter()
-        out = self._device_call(lat_t, pr_t, idx_t)
+        out = self._device_call(lat_t, pr_t, idx_t, keep)
         dt_ms = (time.perf_counter() - t0) * 1e3
         if first:
             self._seen_buckets.add(bucket)
@@ -151,7 +157,7 @@ class GDMService:
             m.histogram("gdm_run_batch_ms").observe(dt_ms)
         return out
 
-    def _device_call(self, lat_t, pr_t, idx_t):
+    def _device_call(self, lat_t, pr_t, idx_t, keep=None):
         dev = self.device
         with torch.no_grad():
             latent, x0 = run_block_batched(
@@ -160,6 +166,9 @@ class GDMService:
                 self.schedule, idx_t.to(dev, non_blocking=True),
                 steps_per_block=self.steps_per_block,
                 total_steps=self.num_blocks * self.steps_per_block)
+            if keep is not None:
+                keep = keep.to(dev, non_blocking=True)[:, None, None]
+                lat_t.copy_(torch.where(keep, latent, lat_t))
             # fresh host arrays every call: the returned states keep views
             # of them, and the synchronous copy back also means the staging
             # buffers are free again when this returns
@@ -174,6 +183,13 @@ class GDMService:
         shapes it compiled for, with at most 7 wasted rows on big batches."""
         assert b > 0
         return (1 << (b - 1).bit_length()) if b <= 8 else -(-b // 8) * 8
+
+    def slot_batch(self) -> "SlotBatch":
+        """The slot-resident batch view for the iteration-level scheduler
+        (one per service, lazily built) — see :class:`SlotBatch`."""
+        if self._slot_batch is None:
+            self._slot_batch = SlotBatch(self)
+        return self._slot_batch
 
     def _staging(self, bucket: int):
         buf = self._buffers.get(bucket)
@@ -231,6 +247,133 @@ class GDMService:
         """Scalar entry point (legacy per-request path): batch of one."""
         states, qs = self.run_batch([state], np.asarray([block_idx]))
         return states[0], float(qs[0])
+
+
+class SlotBatch:
+    """Slot-level batch mutation for the iteration-level scheduler.
+
+    ``run_batch`` restages every row on every call — right for the quantum
+    engine (one call per quantum), wasteful for the continuous scheduler,
+    which calls the service every *block step* with mostly the SAME
+    requests.  A :class:`SlotBatch` keeps requests *resident* in per-bucket
+    buffers on the device, keyed by rid: a continuing request's latent row
+    is already there (the previous step's output was written back into its
+    row on the device), so each step copies in only the rows that joined
+    and frees the rows that left.  The reference keeps such rows in host
+    buffers; here they never leave the card.
+
+    Correctness guards, as the reference's:
+
+    * **Residency check by identity** — a row is trusted only if the
+      request's current ``state["latent"]`` *is* the exact array this batch
+      returned for that rid last step; anything else (a recycled rid, a
+      state mutated elsewhere, a fresh latent) restages the row.  Handover
+      keeps the state object, so residency survives cross-cell moves
+      (service instances are fleet-shared).
+    * **Masked write-back** — outputs are written back on the device only
+      into the rows planned THIS step; pad and free rows keep what they
+      held (the call computes them too, but per-sample independence makes
+      them inert).
+    * **Own buffers** — the resident buffers are separate from
+      ``run_batch``'s staging (an interleaved ``run_batch`` call must not
+      overwrite resident rows), but both use the service's buckets and the
+      same device call (:meth:`GDMService._call`).
+
+    Bucket churn compacts: when the bucket for the live count changes,
+    every request restages into the new bucket's buffers.
+    """
+
+    def __init__(self, svc: GDMService):
+        self.svc = svc
+        self.bucket = 0
+        self.rows: Dict[int, int] = {}             # rid -> resident row
+        self._free: List[int] = []
+        self._latent_of: Dict[int, np.ndarray] = {}   # rid -> returned view
+        self._buffers: Dict[int, tuple] = {}
+        self.device_calls = 0
+        self.rows_staged = 0                       # rows written (joins etc.)
+
+    def _buffers_for(self, bucket: int):
+        """(latent, prompt) resident on the device, and pinned host staging
+        (tensor, numpy view) for the block indices and the planned-row
+        mask, copied in with each call."""
+        buf = self._buffers.get(bucket)
+        if buf is None:
+            svc = self.svc
+            dev = svc.device
+            pin = dev.type == "cuda"
+            idx = torch.zeros((bucket,), dtype=torch.int32, pin_memory=pin)
+            keep = torch.zeros((bucket,), dtype=torch.bool, pin_memory=pin)
+            buf = self._buffers[bucket] = (
+                torch.zeros((bucket, svc.cfg.latent_hw ** 2,
+                             LATENT_CHANNELS), dtype=torch.float32,
+                            device=dev),
+                torch.zeros((bucket, svc.prompt_len), dtype=torch.int32,
+                            device=dev),
+                (idx, idx.numpy()), (keep, keep.numpy()))
+        return buf
+
+    def step(self, items: List[Tuple[int, Dict, int]]
+             ) -> Tuple[List[Dict], np.ndarray]:
+        """Advance one block step: ``items`` is ``[(rid, state, block_idx)]``
+        for every request planned this step.  Returns ``(states,
+        qualities)`` exactly like :meth:`GDMService.run_batch`, and
+        bit-identical to it."""
+        svc = self.svc
+        if not items:
+            return [], svc.omega[np.asarray([], dtype=int) + 1]
+        bucket = svc._bucket(len(items))
+        if bucket != self.bucket:
+            # bucket churn: compact into the new bucket's buffers (every
+            # row restages below via the residency check)
+            self.bucket = bucket
+            self.rows = {}
+            self._free = []
+            self._latent_of = {}
+        lat_d, pr_d, (idx_t, idx_np), (keep_t, keep_np) = \
+            self._buffers_for(bucket)
+        # leaves: free the rows of rids not planned this step (a request
+        # skipping a step loses residency and restages when it returns)
+        planned = {rid for rid, _, _ in items}
+        for rid in [r for r in self.rows if r not in planned]:
+            self._free.append(self.rows.pop(rid))
+            self._latent_of.pop(rid, None)
+        self._free.sort(reverse=True)              # reuse lowest rows first
+        # joins (and residency-check failures): copy their rows in
+        next_row = len(self.rows) + len(self._free)
+        for rid, state, _ in items:
+            row = self.rows.get(rid)
+            resident = row is not None and \
+                state["latent"] is self._latent_of.get(rid)
+            if row is None:
+                if self._free:
+                    row = self._free.pop()
+                else:
+                    row = next_row
+                    next_row += 1
+                self.rows[rid] = row
+            if not resident:
+                lat_d[row].copy_(torch.from_numpy(
+                    np.asarray(state["latent"], np.float32)))
+                pr_d[row].copy_(torch.from_numpy(
+                    np.asarray(state["prompt"], np.int32)))
+                self.rows_staged += 1
+        idx_np[:] = 0                              # pad rows: valid block 0
+        keep_np[:] = False
+        for rid, _, k in items:
+            idx_np[self.rows[rid]] = k
+            keep_np[self.rows[rid]] = True
+        latent_out, x0 = svc._call(lat_d, pr_d, idx_t, keep=keep_t)
+        svc.batch_calls += 1
+        self.device_calls += 1
+        out: List[Dict] = []
+        for rid, state, _ in items:
+            row = self.rows[rid]
+            # the returned view is the residency token for the next step
+            self._latent_of[rid] = latent_row = latent_out[row]
+            out.append(dict(state, latent=latent_row, x0=x0[row]))
+        ks = np.asarray([k for _, _, k in items], dtype=int)
+        return out, svc.omega[ks + 1]
 
 
 def make_gdm_services(num_services: int, seed: int = 0, *,

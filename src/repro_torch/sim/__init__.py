@@ -1,6 +1,9 @@
 from repro_torch.sim.env import (IDLE, PENDING, EdgeSimulator,  # noqa: F401
                                  SimConfig, draw_static_world,
                                  grid_trans_cost)
+from repro_torch.sim.faults import (FaultTrace,  # noqa: F401
+                                    fault_descriptions, fault_names,
+                                    fault_trace, register_fault)
 from repro_torch.sim.mobility import (RandomWaypoint,  # noqa: F401
                                       VecRandomWaypoint)
 from repro_torch.sim.quality import synthetic_curves  # noqa: F401

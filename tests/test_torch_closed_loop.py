@@ -11,8 +11,9 @@ paper's closed loop — against the JAX reference on the ``smoke`` scenario.
   a linear stand-in for the DiT (summaries and bridge traces equal), and
   with reduced DiT services carried from the reference's (summaries and
   metrics equal, latents within 1e-5);
-* ``serve_variant`` end to end on the CPU, and the fused and continuous
-  paths, which raise until they are ported.
+* ``serve_variant`` end to end on the CPU, the fused engine as the
+  default and the continuous scheduler, and the mesh paths, which raise
+  until they are ported.
 """
 import dataclasses
 
@@ -337,27 +338,26 @@ def test_run_suite_on_the_cpu():
 
 def test_unported_engines_raise(monkeypatch):
     """The fused engine (ROADMAP Queue 1 item 8) and the continuous
-    scheduler (item 9) raise instead of running something else."""
+    scheduler (item 9) run now, and the fused engine is the default
+    training engine, as in the reference; what stays unported, the mesh
+    paths (item 11), raises instead of running something else."""
+    from repro_torch.serving import cluster as tcluster
     cfg = tscen.get_scenario("smoke")
     monkeypatch.delenv("REPRO_BENCH_ENGINE", raising=False)
-    assert texp.bench_engine() == "vectorized"
-    assert jexp.bench_engine() == "fused"
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        texp.train_variant(cfg, "learn-gdm", 2, engine="fused", num_envs=2,
-                           device="cpu")
-    monkeypatch.setenv("REPRO_BENCH_ENGINE", "fused")
-    assert texp.bench_engine() == "fused"
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        texp.train_variant(cfg, "learn-gdm", 2, num_envs=2, device="cpu")
-    _, tagent = _agents(jscen.get_scenario("smoke"))
-    ctrl = tlg.LearnGDMController(tenv.EdgeSimulator(cfg), agent=tagent)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        ctrl.evaluate(2, engine="fused")
+    assert texp.bench_engine() == jexp.bench_engine() == "fused"
+    ctrl = texp.train_variant(cfg, "learn-gdm", 8, num_envs=4, device="cpu")
+    assert ctrl.agent.steps > 0 and len(ctrl.agent.memory) == 0
+    assert set(ctrl.evaluate(2, engine="fused")) == set(
+        ctrl.evaluate(2, engine="vectorized"))
+    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
+        ctrl.train_fused(2, num_envs=2, mesh=object())
     services = {s: LinearService() for s in range(cfg.num_services)}
-    for kw in (dict(scheduling="continuous"), dict(sched=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-            texp.serve_policy(cfg, tpol.GreedyPoAPolicy(), 4,
-                              services=services, **kw)
-        with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-            texp.serve_variant(cfg, train_eps=2, frames=4, services=services,
-                               device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
+        tcluster.cluster_from_scenario(cfg, 2, services, mesh=object())
+    got = texp.serve_policy(cfg, tpol.GreedyPoAPolicy(), 6,
+                            services=services, scheduling="continuous")
+    want = jexp.serve_policy(
+        jscen.get_scenario("smoke"), jpol.GreedyPoAPolicy(), 6,
+        services={s: LinearService() for s in range(cfg.num_services)},
+        scheduling="continuous")
+    assert got == want and got["completed"] > 0

@@ -44,12 +44,14 @@ def test_port_imports_with_jax_and_the_reference_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 62                       # every submodule imported
-    # the closed loop's modules among them
+    assert len(names) >= 66                       # every submodule imported
+    # the closed loop's modules among them, the fused engine's and the
+    # fleet layer's
     assert {f"repro_torch.{m}" for m in (
         "experiments", "core.baselines", "core.constraints", "core.learn_gdm",
         "core.mac", "core.policy", "nn.recurrent", "rl.d3ql", "rl.networks",
-        "rl.replay", "sim.vec_env", "sim.workloads")} <= names
+        "rl.replay", "sim.vec_env", "sim.workloads", "sim.torch_env",
+        "sim.faults", "serving.scheduler", "serving.cluster")} <= names
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -62,7 +64,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.core import LearnGDMController
     from repro_torch.rl import D3QLAgent, D3QLConfig, qnet_init
     from repro_torch.serving import GDMService, make_gdm_services
-    from repro_torch.sim import EdgeSimulator, get_scenario
+    from repro_torch.core.policy import GreedyPoAPolicy, evaluate_fused
+    from repro_torch.sim import EdgeSimulator, get_scenario, torch_env
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     smoke = get_scenario("smoke")
     cfg = get_config("gdm-dit").reduced()
@@ -84,7 +87,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: experiments.run_suite(smoke, train_eps=1,
                                                eval_eps=1),
                  lambda: experiments.serve_variant(smoke, train_eps=1,
-                                                   frames=1)):
+                                                   frames=1),
+                 lambda: experiments.serve_fleet_variant(
+                     smoke, train_eps=1, frames=1, cells=2),
+                 lambda: torch_env.world_from_sim(EdgeSimulator(smoke), 2),
+                 lambda: evaluate_fused(GreedyPoAPolicy(),
+                                        EdgeSimulator(smoke), 1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 

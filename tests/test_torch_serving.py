@@ -211,12 +211,20 @@ def test_sim_copies_equal_reference(name):
 
 
 def test_engine_copy_constants_and_continuous_mode():
+    """The fault-leg order is the reference's, and the continuous mode
+    dispatches to the carried scheduler: idle quanta give the reference's
+    stats."""
+    from repro.serving import engine as jengine
     assert tengine.FAULT_LEGS == J_FAULT_LEGS
-    engine, _ = tbridge.engine_from_scenario(
+    t_eng, _ = tbridge.engine_from_scenario(
         tscen.get_scenario("smoke"), {},
         engine_cfg=tengine.EngineConfig(scheduling="continuous"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.step()
+    j_eng, _ = jbridge.engine_from_scenario(
+        jscen.get_scenario("smoke"), {},
+        engine_cfg=jengine.EngineConfig(scheduling="continuous"))
+    for _ in range(3):
+        assert t_eng.step() == j_eng.step()
+    assert t_eng.frame == j_eng.frame == 3
 
 
 def test_link_scale_array_follows_fault_leg_order():
