@@ -81,7 +81,32 @@ non-zero before the result line):
     clock; then the trained agent serves the continuous scheduler without
     early exit (every chain all B blocks), each ``SlotBatch`` step held
     against ``run_batch`` bit for bit, and node churn without early exit,
-    which must fail over; both must keep rows resident between steps.
+    which must fail over; both must keep rows resident between steps;
+16. granite-moe-1b-a400m at full width, card vs CPU: ``moe_apply`` alone
+    on the train shape (B=8, S=128: 1024 tokens, 32 experts top-8,
+    capacity 320, with drops) from the same input, then two full-width
+    layers carried from JAX-layout numpy (``lm_from_jax``): a prefill,
+    four greedy decode steps and six train steps through the trainer on
+    the same batches.  Every MoE call's routing is recorded on both
+    sides; an expert set that differs must be a near-tie (the k-th and
+    (k+1)-th probabilities within ROUTE_TIE_TOL of the row's largest),
+    outputs are held at phase 7's tolerance where the routing agreed, and
+    a call with a differing token is re-run on the CPU from the card's
+    input;
+17. serve the edge launcher with full-width granite (24 layers, 5.34 GB)
+    and full-width gdm-dit: launch counts exactly what the launcher's
+    token and forward counts imply, the decode step's device and host ms
+    beside its byte bound, peak memory; and granite's shapes of
+    ``flash_attention``, ``decode_attention`` and ``rmsnorm`` timed;
+18. train full-width granite six steps through
+    ``repro_torch.launch.train.run`` (batch 8, seq 128, AdamW 3e-4): every
+    loss, the exact launches of every step, device ms per phase, host ms
+    per step, peak memory; then a two-layer full-width granite trained
+    six steps straight and again with checkpoints at 3 and 6, the step-6
+    checkpoint removed and the run resumed from step 3 (steps 4-6 must
+    equal the straight run's, bit for bit where two straight runs are),
+    with the bytes and seconds of the save and the restore; and
+    ``compress_grads`` on one step's gradients card vs CPU.
 
 Phase 3 also holds the selective scan (forward and backward kernels)
 against its plain version and autograd (and both against themselves: two
@@ -159,6 +184,13 @@ TRAIN_LEAF_TOL = 0.1
 AGENT_Q_TOL = 1e-5
 AGENT_LOSS_TOL = 1e-4
 AGENT_TIE_TOL = 1e-5
+# granite's routing, card vs CPU: a token's expert set may differ only
+# where its k-th and (k+1)-th router probabilities lie within
+# ROUTE_TIE_TOL of its largest, a near-tie that the float32 rounding of
+# the router's input and product orders either way; the two sides' layer
+# inputs may drift apart up to phase 7's LM_TOL (1e-4 relative), and a
+# probability moves by about as much, relative
+ROUTE_TIE_TOL = 1e-4
 TIMED_RUNS = 25
 
 
@@ -310,6 +342,7 @@ ATTN_CASES = [
     (2, 48, 112, 4, 2, 16, True, 24, 64),       # D=16, window + q_offset
     (1, 70, 90, 4, 4, 64, True, 0, -20),        # rows with every key masked
     (2, 40, 50, 2, 2, 32, False, 8, 30),        # window: late rows see none
+    (8, 128, 128, 16, 8, 64, True, 0, 0),       # granite train / prefill
 ]
 
 
@@ -349,6 +382,8 @@ DECODE_CASES = [
     (3, 65, 32, 4, 128, [0, 64, 65]),               # a last tile of 1 key
     (4, 129, 32, 4, 128, [64, 65, 66, 129]),        # split edge at 65
     (3, 200, 8, 2, 64, [67, 134, 135]),             # 3 splits x 4 groups
+    (1, 24, 16, 8, 64, [9]),                        # granite's decode
+    (1, 24, 16, 8, 64, [24]),
 ]
 
 
@@ -380,11 +415,12 @@ def check_decode(gen):
 # (rows, d, offset of x in floats): the decode row and the trainer's rows
 # of yi-6b and Jamba (d = 4096), qwen1.5-4b's width, the widest row, rows
 # of a few floats; x a view one float into its buffer (single floats, also
-# four and eight a thread), and d = 99 (no multiple of 4)
+# four and eight a thread), and d = 99 (no multiple of 4); granite's decode
+# row and trainer's rows (d = 1024)
 RMS_CASES = [(1, 4096, 0), (8192, 4096, 0), (1024, 4096, 0), (1, 2560, 0),
              (8192, 2560, 0), (1000, 4096, 0), (24, 64, 0), (7, 8192, 0),
              (5, 100, 0), (1, 4096, 1), (1024, 4096, 1), (3, 8192, 1),
-             (5, 99, 0)]
+             (5, 99, 0), (1, 1024, 0), (1024, 1024, 0)]
 
 
 def check_rmsnorm(gen):
@@ -610,8 +646,9 @@ def _print_times(what, t):
           f"bound {t['bound_ms']:.7f} ms ({t['bound_by']}), library {lib}")
 
 
-def time_decode(gen, b, s, length, cold=False):
-    """decode_attention at yi-6b's heads, every row ``length`` long, against
+def time_decode(gen, b, s, length, cold=False, heads=(32, 4, 128)):
+    """decode_attention at ``heads`` (H, KH, D; yi-6b's by default), every
+    row ``length`` long, against
     ``scaled_dot_product_attention`` (GQA, boolean length mask).  The bound
     counts the cache rows these lengths read.  With ``cold``, one call is
     also timed with L2 flushed before it by a 64 MB write (the served step
@@ -620,7 +657,7 @@ def time_decode(gen, b, s, length, cold=False):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    h, kh, d = 32, 4, 128
+    h, kh, d = heads
     q = _randn(gen, b, h, d)
     k = _randn(gen, b, s, kh, d)
     v = _randn(gen, b, s, kh, d)
@@ -786,11 +823,12 @@ def time_mamba_block():
     return t
 
 
-def time_training_kernels(gen):
-    """flash_attention and rmsnorm at the training shapes, forward."""
+def time_training_kernels(gen, shape=(8, 128, 32, 8, 128), d_model=4096):
+    """flash_attention and rmsnorm at a training shape (B, S, H, KH, D;
+    Jamba's by default) and width, forward."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    b, s, h, kh, d = 8, 128, 32, 8, 128
+    b, s, h, kh, d = shape
     q = _randn(gen, b, s, h, d)
     k, v = _randn(gen, b, s, kh, d), _randn(gen, b, s, kh, d)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -807,7 +845,7 @@ def time_training_kernels(gen):
     _print_times(f"flash_attention B={b} S={s} H={h} KH={kh} D={d} causal",
                  attn)
     return {"flash_attention": attn, "rmsnorm": time_rmsnorm(gen, b * s,
-                                                              4096)}
+                                                              d_model)}
 
 
 def time_block_call(cfg, model):
@@ -926,11 +964,16 @@ def _state_tensors(state):
             for t in slot[key]]
 
 
-def lm_vs_cpu(cfg, prompt_len: int = 16, steps: int = 4, model=None):
+def lm_vs_cpu(cfg, prompt_len: int = 16, steps: int = 4, model=None,
+              route=None):
     """One prefill and ``steps`` greedy decode steps of ``cfg`` on the card
     and on the CPU from the same weights (``model``'s, or drawn from a
     seed): the largest gaps in logits and in the decode state, relative to
-    the largest |logit| and |state value|, and the token streams."""
+    the largest |logit| and |state value|, and the token streams.  With
+    ``route`` (a ``RouteCheck`` in force), the MoE calls are held as it
+    holds them; a token routed to another expert set at a near-tie changes
+    everything after it, so the logits, state and tokens are then left to
+    the per-layer comparison."""
     import torch
     from repro_torch.models.lm import (LM, init_lm, lm_decode_step,
                                        lm_prefill)
@@ -972,6 +1015,13 @@ def lm_vs_cpu(cfg, prompt_len: int = 16, steps: int = 4, model=None):
           f"{st_scale:.3f}, relative {st_gap / st_scale:.3e}); tolerance "
           f"{LM_TOL} relative")
     print(f"greedy tokens: card {g_tok}, cpu {c_tok}")
+    if route is not None:
+        route.report(f"{cfg.name} prefill + decode")
+        if route.swaps:
+            print("a near-tie routed a token to another expert set: the "
+                  "logits, state and tokens after it are held by the "
+                  "per-layer comparison above")
+            return
     assert gap / scale <= LM_TOL, "logits on the card disagree with the CPU"
     assert st_gap / st_scale <= LM_TOL, "decode state on the card disagrees"
     assert g_tok == c_tok, "greedy tokens differ between card and CPU"
@@ -1026,8 +1076,12 @@ def serve_launcher(lm_cfg, gdm_cfg):
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     weights = sum(p.numel() * p.element_size() for p in lm.parameters())
-    # a decode step reads every weight but the embedding table (one row)
-    step_bytes = weights - lm.embed.table.numel() * 4
+    # a decode step reads every weight but the embedding table (one row),
+    # unless the head is tied to it; an MoE layer computes every expert on
+    # its mostly empty (E, C, d) buffer, as the reference does, so it
+    # reads them all
+    step_bytes = weights - (0 if lm_cfg.tie_embeddings
+                            else lm.embed.table.numel() * 4)
     counters = serve.Counters(step_events=[])
     frames, requests = 24, 16
     reset_launches()
@@ -1044,7 +1098,7 @@ def serve_launcher(lm_cfg, gdm_cfg):
     peak = torch.cuda.max_memory_allocated()
     done = {svc: [r for r in engine.completed if r.service == svc]
             for svc in (0, 1)}
-    print(f"yi-6b: {lm_cfg.num_layers} layers, {weights / 1e9:.2f} GB of "
+    print(f"{lm_cfg.name}: {lm_cfg.num_layers} layers, {weights / 1e9:.2f} GB of "
           f"weights on the card; gdm-dit: {gdm_cfg.num_layers} layers; "
           f"built in {t_build:.2f} s")
     print(f"served {stats['completed']} / {requests} (GDM "
@@ -1060,6 +1114,7 @@ def serve_launcher(lm_cfg, gdm_cfg):
           f"{step_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms (all weights "
           f"{weights / PEAK_BYTES_PER_S * 1e3:.4f} ms)")
     print(f"peak device memory {peak / 2**30:.3f} GiB")
+    assert step_ms > 0
     assert done[0] and done[1], "the launcher completed no request of a service"
     for req in done[1]:
         text = req.state["text"]
@@ -1094,20 +1149,26 @@ def _ratio(num: float, den: float) -> float:
     return num / max(den, 1e-30)
 
 
-def train_vs_cpu(cfg, tcfg, batch_size: int = 2, seq_len: int = 64):
+def train_vs_cpu(cfg, tcfg, batch_size: int = 2, seq_len: int = 64,
+                 model=None, route=None):
     """``tcfg.total_steps`` train steps of ``cfg`` through
     ``repro_torch.launch.train.run`` on the card and on the CPU, from the
-    same weights on the same batches.  Checks the first batch's loss and
-    every gradient (autograd of ``lm_loss``), the first step's gradient
-    norm and update, every step's loss and the final parameters.  Returns
-    the card's model, trained."""
+    same weights (``model``'s, or drawn from a seed) on the same batches.
+    Checks the first batch's loss and every gradient (autograd of
+    ``lm_loss``), the first step's gradient norm and update, every step's
+    loss and the final parameters.  With ``route`` (a ``RouteCheck`` in
+    force) the MoE calls are held as it holds them, and if the first
+    batch routed a token to another expert set at a near-tie, the expert
+    leaves' first gradients and updates are left out.  Returns the card's
+    model, trained."""
     import torch
     from repro_torch.data import DataConfig, TokenDataset
     from repro_torch.launch import train
     from repro_torch.launch.steps import trainable
     from repro_torch.models.lm import LM, init_lm, lm_loss
     from repro_torch.optim.schedules import cosine_decay
-    model = init_lm(cfg, seed=11, device="cuda")
+    model = model if model is not None else init_lm(cfg, seed=11,
+                                                    device="cuda")
     cpu_model = LM(cfg, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
     models = {"card": model, "cpu": cpu_model}
@@ -1124,6 +1185,13 @@ def train_vs_cpu(cfg, tcfg, batch_size: int = 2, seq_len: int = 64):
         g = torch.autograd.grad(total, list(params.values()))
         loss0[side] = float(total.detach())
         grads[side] = {k: x.cpu() for k, x in zip(params, g)}
+    if route is not None and route.swaps:
+        print(f"the first batch routed {route.swaps} token(s) to another "
+              "expert set at a near-tie: its expert leaves' gradients and "
+              "first updates are left out")
+        for side in grads:
+            grads[side] = {k: x for k, x in grads[side].items()
+                           if ".moe." not in k}
     gerr = {k: float((grads["card"][k] - gc).abs().max())
             for k, gc in grads["cpu"].items()}
     grad_rel = {k: _ratio(gerr[k], float(gc.abs().max()))
@@ -1200,6 +1268,8 @@ def train_vs_cpu(cfg, tcfg, batch_size: int = 2, seq_len: int = 64):
     print("losses, cpu:  " + ", ".join(f"{x:.6f}" for x in loss_c))
     print("relative gap per step: " + ", ".join(f"{x:.2e}" for x in loss_rel)
           + f" (tolerance {TRAIN_TOL})")
+    if route is not None:
+        route.report(f"{cfg.name} train steps")
     print(f"final parameters: |card - cpu| / |cpu - start| = "
           f"{_ratio(gap_all, moved_all):.3e} over the model (tolerance "
           f"{TRAIN_PARAM_TOL}), worst leaf {worst_leaf} "
@@ -1249,9 +1319,12 @@ def train_period(cfg, tcfg, kernel_ms, global_batch: int = 8,
     model = init_lm(cfg, seed=tcfg.seed, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
+    experts = (f"{cfg.num_experts} experts top-{cfg.experts_per_token} of "
+               f"width {cfg.moe_d_ff} every {cfg.moe_every}" if cfg.is_moe
+               else "no experts")
     print(f"{cfg.name}: {cfg.num_layers} layers {[s.mixer for s in pattern]}, "
-          f"d={cfg.d_model}, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, no "
-          f"experts: {n_params / 1e9:.3f} B parameters ({n_params * 4 / 1e9:.2f} "
+          f"d={cfg.d_model}, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{experts}: {n_params / 1e9:.3f} B parameters ({n_params * 4 / 1e9:.2f} "
           f"GB), drawn in {time.perf_counter() - t0:.2f} s")
     per_step, last = [], {}
     host = []
@@ -1283,8 +1356,7 @@ def train_period(cfg, tcfg, kernel_ms, global_batch: int = 8,
           f"{out['peak_bytes'] / 2**30:.3f} GiB")
     step_ms = sorted(ph["step"] for ph in out["phase_ms"][1:])
     med = step_ms[len(step_ms) // 2]
-    for name in ("ssm_scan", "ssm_scan_backward", "flash_attention",
-                 "rmsnorm"):
+    for name in kernel_ms:
         t = kernel_ms[name]
         print(f"  {name:18s} {expected[name]:3d} launches x {t['ms']:.5f} ms "
               f"= {expected[name] * t['ms']:.4f} ms a step (bound "
@@ -2146,6 +2218,300 @@ def full_chains(ctrl, record, kept, results, scen, services, cells, frames,
     return seen
 
 
+# -- phase 16: full-width granite, card vs CPU, routing near-ties ---------------------
+
+def _routing_sets(r, k):
+    """Each token's expert ids in ascending order and whether each of them
+    kept its capacity row, on the CPU."""
+    import torch
+    t = r.ids.shape[0]
+    keep = torch.empty(t * k, dtype=torch.bool, device=r.keep.device)
+    keep[r.order] = r.keep
+    ids, perm = r.ids.sort(dim=1)
+    return ids.cpu(), keep.reshape(t, k).gather(1, perm).cpu()
+
+
+class RouteCheck:
+    """Stands in for ``models.lm.moe_apply`` while ``card`` (a model or an
+    MoE layer on the card) runs and then its CPU copy from the same
+    weights: each call of a layer of ``card`` queues its input, output and
+    routing, and the CPU's matching call (the same layer of the same step:
+    both sides call in the same order) is compared with it.  A token whose expert set differs must be a near-tie: its CPU
+    probabilities of rank k and k+1 within ROUTE_TIE_TOL of its largest.
+    Outputs are held where the routing agreed; a call with a token routed
+    otherwise is re-run on the CPU from the card's input, and its other
+    tokens compared."""
+
+    def __init__(self, card):
+        from repro_torch.models import lm
+        self.lm, self.apply, self.queue = lm, lm.moe_apply, []
+        self.card = {id(m) for m in card.modules()}
+        self.calls = self.tokens = self.swaps = self.reruns = 0
+        self.dropped = 0
+        self.worst_tie = self.prob_gap = self.out_gap = 0.0
+
+    def __enter__(self):
+        self.lm.moe_apply = self
+        return self
+
+    def __exit__(self, kind, *_):
+        self.lm.moe_apply = self.apply
+        if kind is None:
+            assert not self.queue, "a card MoE call has no CPU counterpart"
+
+    def __call__(self, module, x, **kw):
+        import torch
+        from repro_torch.nn.moe import capacity, route
+        y, aux = self.apply(module, x, **kw)
+        with torch.no_grad():
+            xf = x.detach().reshape(-1, x.shape[-1])
+            cap = capacity(module, xf.shape[0], kw.get("capacity_factor"))
+            r = route(module, xf, cap)
+            ids, keep = _routing_sets(r, module.k)
+            yf = y.detach().reshape(xf.shape)
+            if id(module) in self.card:
+                self.queue.append((xf.cpu(), yf.cpu(), r.probs.cpu(), ids,
+                                   keep))
+            else:
+                self.compare(module, cap, (yf, r.probs, ids, keep),
+                             self.queue.pop(0))
+        return y, aux
+
+    def compare(self, module, cap, cpu, card):
+        from repro_torch.nn.moe import route
+        y_c, probs_c, ids_c, keep_c = cpu
+        x_g, y_g, probs_g, ids_g, keep_g = card
+        k = module.k
+        self.calls += 1
+        self.tokens += ids_c.shape[0]
+        self.dropped += int((~keep_g).sum())
+        self.prob_gap = max(self.prob_gap, float(
+            ((probs_g - probs_c).abs().max(1).values
+             / probs_c.max(1).values).max()))
+        swapped = (ids_g != ids_c).any(1)
+        if swapped.any():
+            top = probs_c[swapped].sort(dim=1, descending=True).values
+            tie = (top[:, k - 1] - top[:, k]) / top[:, 0]
+            self.worst_tie = max(self.worst_tie, float(tie.max()))
+            self.swaps += int(swapped.sum())
+            assert float(tie.max()) <= ROUTE_TIE_TOL, \
+                "a card-vs-CPU routing difference is not a near-tie"
+            # the same layer on the CPU from the card's input
+            self.reruns += 1
+            y_c = self.apply(module, x_g[None])[0][0]
+            ids_c, keep_c = _routing_sets(route(module, x_g, cap), k)
+        agree = (ids_g == ids_c).all(1) & (keep_g == keep_c).all(1)
+        assert agree.any(), "no token routed alike on the card and the CPU"
+        gap = float((y_g - y_c).abs()[agree].max())
+        self.out_gap = max(self.out_gap,
+                           gap / max(float(y_c.abs().max()), 1e-30))
+
+    def report(self, what):
+        print(f"{what}: {self.calls} MoE calls, {self.tokens} tokens "
+              f"routed, {self.dropped} (token, expert) pairs dropped at "
+              f"capacity on the card; max|p card - p cpu| / max p = "
+              f"{self.prob_gap:.3e}; {self.swaps} token(s) routed to another "
+              f"expert set (each a near-tie: worst (p_k - p_k+1) / p_1 = "
+              f"{self.worst_tie:.3e}, tolerance {ROUTE_TIE_TOL}), "
+              f"{self.reruns} call(s) re-run from the card's input; outputs "
+              f"where the routing agreed: max gap / max|y| = "
+              f"{self.out_gap:.3e} (tolerance {LM_TOL})")
+        assert self.out_gap <= LM_TOL, \
+            "MoE outputs on the card disagree with the CPU"
+
+
+def moe_alone(cfg, b: int = 8, s: int = 128):
+    """One full-width MoE layer of ``cfg`` on the train shape, card vs CPU
+    from the same weights and input.  The input has a common component (as
+    hidden states do), so the router loads experts unevenly and the
+    capacity drops pairs.  Also: a second call on the card bit-identical,
+    and the layer's device time beside its bound."""
+    import torch
+    from repro_torch.nn.moe import MoE, capacity, moe_apply
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    cpu = MoE(cfg, device="cpu")
+    cpu.reset_parameters(gen)
+    card = MoE(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(b, s, cfg.d_model, generator=gen) \
+        + torch.randn(cfg.d_model, generator=gen)
+    cap = capacity(card, b * s)
+    route = RouteCheck(card)
+    with torch.no_grad():
+        route(card, x.cuda())
+        y, aux = moe_apply(card, x.cuda())
+        again, _ = moe_apply(card, x.cuda())
+        y_c, aux_c = route(cpu, x)
+    same = torch.equal(y, again)
+    aux_rel = abs(float(aux) - float(aux_c)) / float(aux_c)
+    print(f"moe_apply B={b} S={s} d={cfg.d_model}: {cfg.num_experts} experts "
+          f"top-{cfg.experts_per_token}, width {cfg.moe_d_ff}, capacity "
+          f"{cap}; aux card {float(aux):.7f} cpu {float(aux_c):.7f} "
+          f"(relative {aux_rel:.3e}); a second call on the card "
+          f"bit-identical: {same}")
+    route.report("moe_apply alone")
+    assert route.dropped > 0, "the capacity dropped nothing"
+    assert aux_rel <= LM_TOL, "the aux loss differs"
+    assert same, "moe_apply is not deterministic on the card"
+    xg = x.cuda()
+    f = cfg.moe_d_ff
+    flops = 3 * 2 * cfg.num_experts * cap * cfg.d_model * f
+    nbytes = 4 * (3 * cfg.num_experts * cfg.d_model * f
+                  + cfg.d_model * cfg.num_experts + 2 * x.numel())
+    t_bound, by = bound_ms(nbytes, flops)
+    with torch.no_grad():
+        ms = device_ms(lambda: moe_apply(card, xg), runs=5, reps=1,
+                       sleep_cycles=20_000_000)
+    print(f"moe_apply on the card: {ms:.4f} ms (bound {t_bound:.4f} ms, "
+          f"{by}: the three expert products {flops / 1e9:.2f} GFLOP on the "
+          f"(E, C, d) buffer at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)")
+
+
+def granite_kernels(gen, cfg):
+    """flash_attention, decode_attention and rmsnorm at granite's shapes:
+    the train step and prefill (B=8, S=128, causal), the launcher's decode
+    step (B=1 against a full 24-row cache) and rows of d=1024."""
+    h, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    out = time_training_kernels(gen, (8, 128, h, kh, d), cfg.d_model)
+    out["decode_attention"] = time_decode(gen, 1, 24, 24, cold=True,
+                                          heads=(h, kh, d))
+    out["rmsnorm decode row"] = time_rmsnorm(gen, 1, cfg.d_model, cold=True)
+    return out
+
+
+# -- phase 18: resume from a checkpoint, and the compressed gradients ---------------
+
+def _params_of(model):
+    from repro_torch.launch.steps import trainable
+    return {k: p.detach().clone() for k, p in trainable(model).items()}
+
+
+def resume(cfg, tcfg, global_batch: int = 8, seq_len: int = 128):
+    """``cfg`` trained ``tcfg.total_steps`` steps straight, then again
+    with a checkpoint every half of them into a temporary directory under
+    ``build/``; the last checkpoint removed, a fresh model resumes from the
+    middle one.  The resumed steps must equal the straight run's: bit for
+    bit where the two straight runs are, else within phase 9's tolerances.
+    Returns the resumed model and the batches' source."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch import train
+    from repro_torch.models.lm import init_lm
+    half = tcfg.total_steps // 2
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(ROOT, "build"))
+    kw = dict(global_batch=global_batch, seq_len=seq_len, log_every=0)
+    start = init_lm(cfg, seed=tcfg.seed, device="cuda")
+    p0 = _params_of(start)
+    straight = train.run(cfg, tcfg, model=start, **kw)
+    want = _params_of(start)
+    del start
+    m = init_lm(cfg, seed=tcfg.seed, device="cuda")
+    saved = train.run(cfg, tcfg, model=m, ckpt_dir=tmp, ckpt_every=half,
+                      **kw)
+    again = _params_of(m)
+    del m
+    assert latest_step(tmp) == tcfg.total_steps
+    mid = os.path.join(tmp, f"step_{half:010d}")
+    nbytes = sum(os.path.getsize(os.path.join(mid, f))
+                 for f in os.listdir(mid))
+    shutil.rmtree(os.path.join(tmp, f"step_{tcfg.total_steps:010d}"))
+    model = init_lm(cfg, seed=tcfg.seed, device="cuda")
+    resumed = train.run(cfg, tcfg, model=model, ckpt_dir=tmp,
+                        ckpt_every=half, **kw)
+    shutil.rmtree(tmp)
+    got = _params_of(model)
+    deterministic = saved["losses"] == straight["losses"] and all(
+        torch.equal(again[k], w) for k, w in want.items())
+    exact = resumed["losses"] == straight["losses"][half:] and all(
+        torch.equal(got[k], w) for k, w in want.items())
+    gap = math.sqrt(sum(float((got[k] - w).square().sum())
+                        for k, w in want.items()))
+    moved = math.sqrt(sum(float((w - p0[k]).square().sum())
+                          for k, w in want.items()))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(resumed["losses"], straight["losses"][half:]))
+    print(f"{cfg.name}, {cfg.num_layers} layers: straight losses "
+          + ", ".join(f"{x:.7f}" for x in straight["losses"]))
+    print(f"with checkpoints every {half} steps: the same losses and "
+          f"parameters bit for bit: {deterministic}")
+    print(f"resumed from step {resumed['start_step']}: losses "
+          + ", ".join(f"{x:.7f}" for x in resumed["losses"])
+          + f"; equal to the straight run's steps {half + 1}-"
+          f"{tcfg.total_steps} and final parameters bit for bit: {exact} "
+          f"(largest loss gap {loss_rel:.3e}, parameters |resumed - "
+          f"straight| / |straight - start| = {_ratio(gap, moved):.3e})")
+    print(f"checkpoint at step {half}: {nbytes / 1e9:.3f} GB written "
+          f"(parameters and AdamW moments, float32); the save at step "
+          f"{tcfg.total_steps} took {saved['last_save_s']:.2f} s in the "
+          f"background, the restore {resumed['restore_s']:.2f} s")
+    assert resumed["start_step"] == half and resumed["steps"] == half
+    if deterministic:
+        assert exact, "the resumed run differs from the straight one"
+    else:
+        assert loss_rel <= TRAIN_TOL and _ratio(gap, moved) \
+            <= TRAIN_PARAM_TOL, "the resumed run differs from the straight one"
+    return model
+
+
+def compress_vs_cpu(model, batch_size: int = 8, seq_len: int = 128):
+    """``compress_grads`` on one step's gradients of ``model``, card vs CPU
+    on the same values: per reference leaf (the per-period tensors of a
+    layer's leaf share one scale) the int8 payloads equal except where
+    x / scale lies within an ulp of a .5 boundary (counted), the scales
+    within 1 ulp, and the dequantized gradients and residuals equal where
+    the payloads are."""
+    import torch
+    from repro_torch.data import DataConfig, TokenDataset
+    from repro_torch.launch.steps import _leaf_groups, trainable
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.optim import (compress_grads, init_error_feedback,
+                                   quantize_int8)
+    cfg = model.cfg
+    batch = TokenDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=seq_len,
+                                    global_batch=batch_size)).batch_at(0)
+    params = trainable(model)
+    total, _ = lm_loss(model, {k: torch.from_numpy(v).cuda()
+                               for k, v in batch.items()})
+    grads = dict(zip(params, torch.autograd.grad(total,
+                                                 list(params.values()))))
+    cpu = {k: g.cpu() for k, g in grads.items()}
+    groups = _leaf_groups(grads)
+    flips, worst_ulps, elements = 0, 0, 0
+    for names in groups:
+        xg = torch.cat([grads[n].flatten() for n in names])
+        xc = torch.cat([cpu[n].flatten() for n in names])
+        qg, sg = quantize_int8(xg)
+        qc, sc = quantize_int8(xc)
+        ulps = abs(int(sg.cpu().view(torch.int32)) - int(sc.view(torch.int32)))
+        worst_ulps = max(worst_ulps, ulps)
+        differ = qg.cpu() != qc
+        if differ.any():
+            r = (xc / sc)[differ].abs()
+            edge = ((r - r.floor()) - 0.5).abs()
+            assert bool((edge <= torch.finfo(torch.float32).eps * r).all()), \
+                "an int8 payload differs away from a .5 boundary"
+            flips += int(differ.sum())
+        elements += xc.numel()
+    new_g, ef_g = compress_grads(grads, init_error_feedback(grads), groups)
+    new_c, ef_c = compress_grads(cpu, init_error_feedback(cpu), groups)
+    gap = max(float((new_g[k].cpu() - new_c[k]).abs().max()) for k in cpu)
+    rgap = max(float((ef_g.residual[k].cpu() - ef_c.residual[k]).abs().max())
+               for k in cpu)
+    print(f"compress_grads on one step's gradients ({len(groups)} leaves, "
+          f"{elements} elements): {flips} int8 payload(s) differ card vs "
+          f"CPU, each within an ulp of a .5 boundary; scales within "
+          f"{worst_ulps} ulp; dequantized gradients max|card - cpu| "
+          f"{gap:.3e}, residuals {rgap:.3e}")
+    assert worst_ulps <= 1, "the scales differ by more than an ulp"
+    if flips == 0 and worst_ulps == 0:
+        assert gap == 0.0 and rgap == 0.0, \
+            "equal payloads dequantize differently"
+
+
 def print_occupancy(lib):
     """Resident blocks per SM of the kernels redesigned for Hopper
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at the blocks their
@@ -2286,6 +2652,8 @@ def main(argv) -> int:
     card = card_info()
     import torch
     from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models.convert import lm_from_jax, lm_to_jax
+    from repro_torch.models.lm import init_lm
 
     phase("2. build")
     print_occupancy(build_kernels())
@@ -2393,6 +2761,40 @@ def main(argv) -> int:
     # path (phases 6 and 13 checked their own counts)
     for name in ("adaln_norm", "adaln_norm_epilogue", "flash_attention"):
         launches[name] = fleet_launches[name]
+
+    granite = get_config("granite-moe-1b-a400m")
+    pair = dataclasses.replace(granite, num_layers=2)
+    phase("16. granite-moe-1b-a400m at full width, card vs CPU: moe_apply "
+          "alone on the train shape; two layers from JAX-layout numpy: "
+          "prefill + 4 decode steps, six train steps; routing near-ties")
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 is on"
+    moe_alone(granite)
+    model = lm_from_jax(lm_to_jax(init_lm(pair, seed=11, device="cpu")),
+                        pair, device="cuda")
+    with RouteCheck(model) as route:
+        lm_vs_cpu(pair, model=model, route=route)
+    with RouteCheck(model) as route:
+        train_vs_cpu(pair, tcfg, model=model, route=route)
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 is on"
+    del model
+    torch.cuda.empty_cache()
+
+    phase("17. serve the edge launcher: full granite-moe-1b-a400m + full "
+          "gdm-dit; granite's shapes of flash_attention, decode_attention "
+          "and rmsnorm")
+    serve_launcher(granite, full)
+    granite_ms = granite_kernels(gen, granite)
+
+    phase("18. train full-width granite-moe-1b-a400m (24 layers), global "
+          "batch 8, seq 128, six steps; resume two layers from a "
+          "checkpoint; compress_grads card vs CPU")
+    train_period(granite, tcfg, {k: granite_ms[k] for k in (
+        "flash_attention", "rmsnorm")})
+    torch.cuda.empty_cache()
+    model = resume(pair, tcfg)
+    compress_vs_cpu(model)
+    del model
+    torch.cuda.empty_cache()
 
     replaces = {
         "adaln_norm": "src/repro/kernels/adaln_norm.py:76",

@@ -3,7 +3,8 @@ JAX reference it is tested against).
 
 Subpackages mirror ``repro``: ``configs``, ``kernels`` (hand-written CUDA
 kernels for Hopper and their plain PyTorch versions), ``nn``, ``models``,
-``sim`` and ``serving``.  The package imports ``torch`` and numpy, never
+``data``, ``optim``, ``checkpoint``, ``launch``, ``sim``, ``rl``, ``core``
+and ``serving``.  The package imports ``torch`` and numpy, never
 ``jax`` and nothing of ``repro``.
 
 Entry points run on the card by default: with ``device=None`` they use

@@ -1,14 +1,13 @@
 """Model configuration for the port.
 
 A copy of the fields of ``repro.configs.base.ModelConfig`` that the DiT,
-the dense LM and the hybrid (Jamba) LM read, with the same defaults,
+the dense, MoE and hybrid (Jamba) LMs read, with the same defaults,
 derived properties and ``reduced()`` rule, so a config built here equals
 the reference's field for field; ``MambaConfig`` and ``TrainConfig`` are
 copies too.  The port is float32 throughout, so the reference's ``dtype``
 and ``gdm_impl`` fields have no counterpart: the dtype is fixed, and the
-kernel follows the tensor's device.  The MoE fields are carried so the
-hybrid configs copy whole, but no MoE layer runs yet; the xLSTM and
-enc-dec fields come with the slices that port those families.
+kernel follows the tensor's device.  The xLSTM and enc-dec fields come
+with the slices that port those families.
 """
 from __future__ import annotations
 
@@ -33,7 +32,7 @@ class MambaConfig:
 class ModelConfig:
     # identity ----------------------------------------------------------
     name: str = "model"
-    family: str = "dense"         # "dense", "hybrid" (LM) and "gdm" run in the port
+    family: str = "dense"         # "dense", "moe", "hybrid" (LM) and "gdm" run in the port
     # transformer core ----------------------------------------------------
     num_layers: int = 2
     d_model: int = 128
@@ -86,7 +85,7 @@ class ModelConfig:
     # -- reduced smoke-test variant -----------------------------------------
     def reduced(self) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's rule for
-        a dense, hybrid or GDM config)."""
+        a dense, MoE, hybrid or GDM config)."""
         kw: Dict = dict(
             name=self.name + "-reduced",
             num_layers=min(self.num_layers,

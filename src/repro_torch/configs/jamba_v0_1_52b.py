@@ -4,8 +4,9 @@
 one attention layer per 8 (attn_every=8), the other seven Mamba
 selective-SSM blocks (d_state 16, d_conv 4, expand 2: d_in 8192, dt_rank
 256); MoE MLP on every second layer (moe_every=2), dense SwiGLU on the
-rest.  The port runs it without experts (``num_experts=0``: a dense SwiGLU
-in every slot) until ``nn/moe`` is ported.
+rest.  A full-width period with its experts fits no card, so the card
+trains a period without them (``num_experts=0``: a dense SwiGLU in every
+slot); the reduced config runs with its experts.
 """
 from repro_torch.configs.base import MambaConfig, ModelConfig
 

@@ -5,9 +5,10 @@ two service kinds behind one :class:`~repro_torch.serving.ServingEngine`:
 
 * service 0, the GDM service: the DiT denoiser, B blocks, adaptive chain
   length, quality by the SSIM proxy against the chain's final x0;
-* service 1, an LM decode service: a dense LM (``--lm-arch``, yi-6b by
-  default), one block = ``tokens_per_block`` greedy decode steps, quality
-  the fraction of the chain done.
+* service 1, an LM decode service: a dense, MoE or hybrid LM
+  (``--lm-arch``, yi-6b by default; granite-moe-1b-a400m runs its experts
+  on every decode step), one block = ``tokens_per_block`` greedy decode
+  steps, quality the fraction of the chain done.
 
 Placement is the engine's built-in locality-greedy rule.  A request's
 payload is its live state on the card (the GDM latent, or the LM's stacked

@@ -5,23 +5,25 @@ loss and its gradients (``torch.autograd`` through the model; on the card
 the kernels' own backward), global-norm clipping, AdamW on the cosine
 schedule with weight decay on matrices only, applied to the model's
 parameters in place.  ``StepOptions`` keeps the reference's levers that
-change what a step computes on one card: the chunked cross-entropy and
-gradient accumulation over microbatches.  Int8 gradient compression and
-the all-to-all MoE dispatch raise until their modules are ported; the
-sharding levers (sequence-parallel carries, sharded decode) belong to the
-mesh paths, and ``remat`` and ``impl`` have no counterpart (PyTorch runs
-eagerly and the kernel follows the device).
+change what a step computes on one card: the chunked cross-entropy,
+gradient accumulation over microbatches and int8 error-feedback gradient
+compression (applied when the step is given an error-feedback state, as
+in the reference).  The all-to-all MoE dispatch raises: it needs a mesh
+(ROADMAP Queue 1 item 11), as do the other sharding levers
+(sequence-parallel carries, sharded decode); ``remat`` and ``impl`` have
+no counterpart (PyTorch runs eagerly and the kernel follows the device).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.models.lm import LM, lm_loss
-from repro_torch.optim import (adamw, apply_updates, clip_by_global_norm,
+from repro_torch.models.lm import LM, lm_loss, reference_leaf
+from repro_torch.optim import (EFState, adamw, apply_updates,
+                               clip_by_global_norm, compress_grads,
                                cosine_decay)
 
 Mark = Optional[Callable[[str], None]]
@@ -46,19 +48,19 @@ def trainable(model: LM) -> Dict[str, torch.Tensor]:
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
                     opts: StepOptions = StepOptions()):
-    """Returns ``train_step(model, opt_state, batch, mark=None) -> (model,
-    opt_state, metrics)``.  batch: {"tokens", "labels"} (B, S) int tensors
-    on the model's device.  ``mark``, if given, is called with "forward",
+    """Returns ``train_step(model, opt_state, batch, ef_state=None,
+    mark=None) -> (model, opt_state, metrics)``, or ``(model, opt_state,
+    metrics, ef_state)`` when ``opts.grad_compression`` is on and an
+    ``ef_state`` is given: then the gradients pass through
+    :func:`~repro_torch.optim.compress_grads` before clipping, as in the
+    reference.  batch: {"tokens", "labels"} (B, S) int tensors on the
+    model's device.  ``mark``, if given, is called with "forward",
     "backward", "optimizer" and "end" as the step reaches each phase (once
     per microbatch for the first two)."""
-    if opts.grad_compression:
-        raise NotImplementedError(
-            "int8 gradient compression is not ported yet (ROADMAP Queue 1 "
-            "item 12: optim/compression)")
     if opts.moe_a2a:
         raise NotImplementedError(
-            "the all-to-all MoE dispatch is not ported yet (ROADMAP Queue 1 "
-            "item 12: nn/moe_sharded)")
+            "the all-to-all MoE dispatch needs a mesh, which is not ported "
+            "yet (ROADMAP Queue 1 item 11: nn/moe_sharded)")
     lr = cosine_decay(tcfg.learning_rate, tcfg.warmup_steps, tcfg.total_steps)
     _, opt_update = adamw(lr, b1=tcfg.b1, b2=tcfg.b2,
                           weight_decay=tcfg.weight_decay, wd_mask=_wd_mask)
@@ -92,11 +94,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
             g_acc = {k: g_acc[k] + g[k].float() for k in names}
         return metrics, {k: g / nmb for k, g in g_acc.items()}
 
-    def train_step(model: LM, opt_state, batch, mark: Mark = None):
+    def train_step(model: LM, opt_state, batch,
+                   ef_state: Optional[EFState] = None, mark: Mark = None):
         mark = mark or (lambda _: None)
         params = trainable(model)
         metrics, grads = compute_grads(model, params, batch, mark)
         mark("optimizer")
+        compress = opts.grad_compression and ef_state is not None
+        if compress:
+            grads, ef_state = compress_grads(grads, ef_state,
+                                             _leaf_groups(grads))
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
         updates, opt_state = opt_update(grads, opt_state, params)
         del grads
@@ -104,9 +111,20 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
         mark("end")
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
+        if compress:
+            return model, opt_state, metrics, ef_state
         return model, opt_state, metrics
 
     return train_step
+
+
+def _leaf_groups(params: Dict[str, torch.Tensor]) -> List[List[str]]:
+    """The port's names grouped by the reference leaf they make up (a
+    layer's leaf is stacked over the periods there), in period order."""
+    groups: Dict[tuple, List[str]] = {}
+    for name in params:
+        groups.setdefault(reference_leaf(name)[0], []).append(name)
+    return list(groups.values())
 
 
 def _wd_mask(params: Dict[str, torch.Tensor]) -> Dict[str, bool]:
@@ -117,11 +135,8 @@ def _wd_mask(params: Dict[str, torch.Tensor]) -> Dict[str, bool]:
     layer (Mamba's ``d`` and ``conv_b``) are decayed there, and here."""
     mask = {}
     for name, p in params.items():
-        parts = name.split(".")
-        ndim = p.dim()
-        if parts[0] == "layers":
-            parts = ["layers"] + parts[2:]
-            ndim += 1
+        parts, period = reference_leaf(name)
+        ndim = p.dim() + (period is not None)
         path = "/".join(parts)
         mask[name] = (ndim >= 2 and "norm" not in path
                       and not path.endswith("/b") and "embed" not in path)

@@ -3,10 +3,17 @@
 ``python -m repro_torch.launch.train --arch yi-6b --steps 200`` trains the
 reduced config on the card (``--device cpu`` on the CPU); as in the
 reference, ``--reduced`` is a flag that defaults to on, so the CLI always
-trains the reduced config.  :func:`run` takes any config, full width
-included (``chip_smoke.py`` trains one full-width Jamba period through
-it).  Checkpointing (``--ckpt-dir``) and int8 gradient compression wait
-for their modules and raise.
+trains the reduced config (``--arch granite-moe-1b-a400m`` and
+``jamba-v0.1-52b`` with their experts).  :func:`run` takes any config,
+full width included (``chip_smoke.py`` trains one full-width Jamba period
+and full-width granite through it).
+
+``--ckpt-dir`` saves the model and the AdamW state every ``--ckpt-every``
+steps in the background (:mod:`repro_torch.checkpoint`, the reference's
+format) and resumes from the newest complete step.  ``--grad-compression``
+sets the step option as the reference's CLI does; like the reference's
+loop, the CLI passes the step no error-feedback state, so the option
+changes no number there (``make_train_step`` compresses when given one).
 """
 from __future__ import annotations
 
@@ -17,6 +24,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
+                                    restore_train_state, train_state)
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import DataConfig, TokenDataset
@@ -50,12 +59,18 @@ class _PhaseEvents:
 def run(cfg: ModelConfig, tcfg: TrainConfig, *, global_batch: int = 8,
         seq_len: int = 128, opts: StepOptions = StepOptions(),
         model: Optional[LM] = None, device=None, log_every: int = 20,
+        ckpt_dir: str = "", ckpt_every: int = 50,
         on_step: Optional[Callable[[int, Dict], None]] = None) -> Dict:
-    """Train ``cfg`` for ``tcfg.total_steps`` steps on ``TokenDataset``
+    """Train ``cfg`` up to step ``tcfg.total_steps`` on ``TokenDataset``
     batches (seed ``tcfg.seed``), from ``model`` or weights drawn from
-    ``tcfg.seed``.  Returns first/last loss, steps, every loss and, on the
-    card, each step's device ms by phase (CUDA events) and the peak device
-    memory.  ``on_step(step, metrics)`` is called after each step."""
+    ``tcfg.seed``.  With ``ckpt_dir`` the model and optimizer state are
+    saved there every ``ckpt_every`` steps, and a run that finds a
+    complete checkpoint there resumes from its step.  Returns first/last
+    loss, the steps run, every loss and MoE aux loss, the step resumed
+    from (with a checkpoint directory, the seconds of the restore and of
+    the last save) and, on the card, each step's device ms by phase (CUDA
+    events) and the peak device memory.  ``on_step(step, metrics)`` is called
+    after each step."""
     device = model.embed.table.device if model is not None \
         else resolve_device(device)
     if model is None:
@@ -66,32 +81,52 @@ def run(cfg: ModelConfig, tcfg: TrainConfig, *, global_batch: int = 8,
     data = TokenDataset(DataConfig(vocab_size=cfg.vocab_size,
                                    seq_len=seq_len, global_batch=global_batch,
                                    seed=tcfg.seed))
+    start, ckpt, restore_s = 0, None, None
+    if ckpt_dir:
+        ckpt = AsyncCheckpointer(ckpt_dir, every=ckpt_every)
+        if latest_step(ckpt_dir) is not None:
+            t0 = time.perf_counter()
+            opt_state, start = restore_train_state(ckpt_dir, model,
+                                                   opt_state)
+            restore_s = time.perf_counter() - t0
+            print(f"[train] resumed from step {start}")
     step_fn = make_train_step(cfg, tcfg, opts=opts)
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    losses, phase_ms = [], []
+    losses, auxes, phase_ms = [], [], []
     t0 = time.time()
-    for step in range(tcfg.total_steps):
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in data.batch_at(step).items()}
-        marks = _PhaseEvents() if cuda else None
-        model, opt_state, metrics = step_fn(model, opt_state, batch,
-                                            mark=marks)
-        losses.append(float(metrics["loss"]))
-        if cuda:
-            torch.cuda.synchronize(device)
-            phase_ms.append(marks.ms())
-        if on_step is not None:
-            on_step(step, metrics)
-        if log_every and (step + 1) % log_every == 0:
-            dt = (time.time() - t0) / (step + 1)
-            print(f"[train] step {step + 1:5d} loss={losses[-1]:.4f} "
-                  f"ppl={float(metrics['perplexity']):.1f} "
-                  f"{dt * 1e3:.0f} ms/step")
+    try:
+        for step in range(start, tcfg.total_steps):
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in data.batch_at(step).items()}
+            marks = _PhaseEvents() if cuda else None
+            model, opt_state, metrics = step_fn(model, opt_state, batch,
+                                                mark=marks)
+            losses.append(float(metrics["loss"]))
+            auxes.append(float(metrics["aux"]))
+            if cuda:
+                torch.cuda.synchronize(device)
+                phase_ms.append(marks.ms())
+            if ckpt and (step + 1) % ckpt.every == 0:
+                ckpt.maybe_save(step + 1, train_state(model, opt_state))
+            if on_step is not None:
+                on_step(step, metrics)
+            if log_every and (step + 1) % log_every == 0:
+                dt = (time.time() - t0) / (step + 1 - start)
+                aux = f" aux={auxes[-1]:.4f}" if cfg.is_moe else ""
+                print(f"[train] step {step + 1:5d} loss={losses[-1]:.4f}"
+                      f"{aux} ppl={float(metrics['perplexity']):.1f} "
+                      f"{dt * 1e3:.0f} ms/step")
+    finally:
+        if ckpt:
+            ckpt.wait()      # a checkpoint started is a checkpoint written
     result = {"first_loss": losses[0] if losses else float("nan"),
               "last_loss": losses[-1] if losses else float("nan"),
-              "steps": len(losses), "losses": losses}
+              "steps": len(losses), "losses": losses, "aux": auxes,
+              "start_step": start}
+    if ckpt:
+        result.update(restore_s=restore_s, last_save_s=ckpt.last_seconds)
     if cuda:
         result["phase_ms"] = phase_ms
         result["peak_bytes"] = torch.cuda.max_memory_allocated(device)
@@ -118,10 +153,6 @@ def main(argv=None) -> dict:
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP Queue 1 item 12: "
-            "checkpoint)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -132,7 +163,8 @@ def main(argv=None) -> dict:
                        grad_compression=args.grad_compression)
     return run(cfg, tcfg, global_batch=args.global_batch,
                seq_len=args.seq_len, opts=opts, device=args.device,
-               log_every=args.log_every)
+               log_every=args.log_every, ckpt_dir=args.ckpt_dir,
+               ckpt_every=args.ckpt_every)
 
 
 if __name__ == "__main__":

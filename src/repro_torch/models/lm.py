@@ -1,11 +1,15 @@
-"""The LM stack of the edge launcher and the trainer: the dense and the
-hybrid (Jamba) families.
+"""The LM stack of the edge launcher and the trainer: the dense, the MoE
+and the hybrid (Jamba) families.
 
 Port of ``repro.models.lm``: token embedding, periods of pre-norm blocks
-(RMSNorm, a mixer, RMSNorm, SwiGLU), a final RMSNorm and an untied (or
+(RMSNorm, a mixer, RMSNorm, an MLP), a final RMSNorm and an untied (or
 tied) head whose padded-vocab columns are -1e9.  The mixer is GQA
-attention with RoPE (dense: every block; hybrid: the first block of each
-period of ``attn_every``) or a Mamba selective-SSM block (the others).
+attention with RoPE (dense and MoE: every block; hybrid: the first block
+of each period of ``attn_every``) or a Mamba selective-SSM block (the
+others).  The MLP is SwiGLU, or a mixture of SwiGLU experts
+(:mod:`repro_torch.nn.moe`) in every block of the MoE family and in every
+``moe_every``-th block of a hybrid with experts; ``lm_forward`` sums their
+load-balancing losses.
 The reference expresses depth as a periodic layer pattern with
 period-stacked parameters; the port keeps that structure by name —
 ``layers.{p}.{j}`` is slot j of period p, the reference's
@@ -21,13 +25,13 @@ reference's stacked layout, one entry per pattern slot:
 ``{"kv": KVCache(k, v, length)}`` with k, v (P, B, S, KH, D) float32 and
 length (P, B) int32, or ``{"mamba": MambaState(conv, ssm)}`` with conv
 (P, B, K-1, d_in) and ssm (P, B, d_in, N) float32, so a request's payload
-has the reference's bytes.  MoE layers (``num_experts > 0``), xLSTM and
-enc-dec wait for later slices.
+has the reference's bytes.  The xLSTM (``ssm``) and enc-dec families
+wait for later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -40,6 +44,7 @@ from repro_torch.nn import (Attention, Dense, Embedding, Mamba, MambaState,
                             mamba_init_state, rmsnorm_apply, swiglu_apply)
 from repro_torch.nn.attention import (KVCache, attention_apply,
                                       attention_decode, prefill_kv_cache)
+from repro_torch.nn.moe import MoE, moe_apply
 
 PAD_LOGIT = -1e9          # logits of the padded-vocab columns
 
@@ -47,36 +52,32 @@ PAD_LOGIT = -1e9          # logits of the padded-vocab columns
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     mixer: str          # attn | mamba (mlstm | slstm in later slices)
-    mlp: str            # swiglu | moe (moe raises; gelu | none later)
+    mlp: str            # swiglu | moe (gelu | none in later slices)
 
 
 def layer_pattern(cfg: ModelConfig) -> List[LayerSpec]:
-    """The repeating per-period layer pattern for ``cfg``: one attention +
-    SwiGLU sub-layer (dense), or ``attn_every`` sub-layers, attention first
-    and Mamba after, with MoE on every ``moe_every``-th (hybrid)."""
+    """The repeating per-period layer pattern for ``cfg``: one attention
+    sub-layer with SwiGLU (dense) or experts (MoE, or dense with experts),
+    or ``attn_every`` sub-layers, attention first and Mamba after, with
+    experts on every ``moe_every``-th (hybrid)."""
     if cfg.family == "hybrid":
         specs = [LayerSpec("attn" if j == 0 else "mamba",
                            "moe" if cfg.is_moe and j % cfg.moe_every
                            == cfg.moe_every - 1 else "swiglu")
                  for j in range(cfg.attn_every)]
-    elif cfg.family == "dense":
+    elif cfg.family in ("dense", "moe"):
         specs = [LayerSpec("attn", "moe" if cfg.is_moe else "swiglu")]
     else:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: MoE, xLSTM and "
-            "enc-dec follow (ROADMAP Queue 1 item 12)")
-    if any(s.mlp == "moe" for s in specs):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
-            "item 12: nn/moe); num_experts=0 puts a dense SwiGLU in every "
-            "slot")
+            f"family {cfg.family!r} is not ported yet: xLSTM and enc-dec "
+            "follow (ROADMAP Queue 1 item 12)")
     return specs
 
 
 class Block(nn.Module):
     """One sub-layer's parameters (the reference's ``layers[j]`` at one
     period): ``norm1``, the mixer (``attn`` or ``mamba``), ``norm2`` and
-    ``mlp``."""
+    ``mlp`` (SwiGLU) or ``moe`` (experts)."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, *, device=None):
         super().__init__()
@@ -86,8 +87,11 @@ class Block(nn.Module):
         else:
             self.mamba = Mamba(cfg, device=device)
         self.norm2 = RMSNorm(cfg.d_model, device=device)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, num_layers=cfg.num_layers,
-                          device=device)
+        if spec.mlp == "moe":
+            self.moe = MoE(cfg, device=device)
+        else:
+            self.mlp = SwiGLU(cfg.d_model, cfg.d_ff,
+                              num_layers=cfg.num_layers, device=device)
 
 
 class LM(nn.Module):
@@ -123,6 +127,17 @@ class LM(nn.Module):
                 m.reset_parameters(generator)
 
 
+def reference_leaf(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """The path of a parameter's leaf in the reference's params tree and
+    the parameter's index on that leaf's stacked period axis (None outside
+    ``layers``): the port's ``layers.{p}.{j}.<rest>`` is the reference's
+    ``params["layers"][j][<rest>][p]``."""
+    parts = tuple(name.split("."))
+    if parts[0] == "layers":
+        return ("layers", parts[2]) + parts[3:], int(parts[1])
+    return parts, None
+
+
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> LM:
     """An LM with weights drawn from ``torch.Generator(device).manual_seed(
     seed)``.  The draws follow the reference's distributions, not its
@@ -145,17 +160,23 @@ def _lm_head(model: LM, x):
     return logits
 
 
-def _mlp(block: Block, x, cfg: ModelConfig):
-    return x + swiglu_apply(block.mlp, rmsnorm_apply(block.norm2, x,
-                                                     eps=cfg.norm_eps))
+def _mlp(block: Block, spec: LayerSpec, x, cfg: ModelConfig):
+    """``x`` plus the sub-layer's MLP of its norm, and the MoE's
+    load-balancing loss (None for SwiGLU)."""
+    h = rmsnorm_apply(block.norm2, x, eps=cfg.norm_eps)
+    if spec.mlp == "moe":
+        h, aux = moe_apply(block.moe, h)
+        return x + h, aux
+    return x + swiglu_apply(block.mlp, h), None
 
 
 def lm_forward(model: LM, tokens):
     """Full-sequence forward.  tokens: (B, S) int -> (logits (B, S,
-    padded_vocab), aux), aux the MoE load-balancing loss: a float32 zero,
-    since no ported family has experts yet."""
+    padded_vocab), aux), aux the float32 sum of the MoE layers'
+    load-balancing losses (zero without experts)."""
     cfg = model.cfg
     x = embedding_apply(model.embed, tokens)
+    aux = torch.zeros((), device=x.device)
     for period in model.layers:
         for spec, block in zip(model.pattern, period):
             h = rmsnorm_apply(block.norm1, x, eps=cfg.norm_eps)
@@ -163,9 +184,11 @@ def lm_forward(model: LM, tokens):
                 h = attention_apply(block.attn, h, cfg=cfg)
             else:
                 h = mamba_apply(block.mamba, h, cfg=cfg)
-            x = _mlp(block, x + h, cfg)
+            x, a = _mlp(block, spec, x + h, cfg)
+            if a is not None:
+                aux = aux + a
     x = rmsnorm_apply(model.final_norm, x, eps=cfg.norm_eps)
-    return _lm_head(model, x), torch.zeros((), device=x.device)
+    return _lm_head(model, x), aux
 
 
 def lm_loss(model: LM, batch, *, aux_weight: float = 0.01,
@@ -241,7 +264,7 @@ def lm_prefill(model: LM, tokens, *, max_seq: int):
                 h, ms = mamba_apply(block.mamba, h, cfg=cfg,
                                     return_state=True)
                 slots[j].append(ms)
-            x = _mlp(block, x + h, cfg)
+            x, _ = _mlp(block, spec, x + h, cfg)
     x = rmsnorm_apply(model.final_norm, x, eps=cfg.norm_eps)
     state = tuple(
         {"kv": KVCache(*(torch.stack(t) for t in zip(*slot)))}
@@ -277,6 +300,6 @@ def lm_decode_step(model: LM, token, state, *, fused_position: bool = True):
                                       cfg=cfg)
                 ms.conv[p] = new.conv
                 ms.ssm[p] = new.ssm
-            x = _mlp(block, x + h, cfg)
+            x, _ = _mlp(block, spec, x + h, cfg)
     x = rmsnorm_apply(model.final_norm, x, eps=cfg.norm_eps)
     return _lm_head(model, x)[:, 0], state

@@ -81,6 +81,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: init_decode_state(jamba, 1, 8),
                  lambda: train.run(jamba, TrainConfig(total_steps=1)),
                  lambda: train.main(["--steps", "1"]),
+                 lambda: init_lm(get_config("granite-moe-1b-a400m")
+                                 .reduced()),
+                 lambda: train.main(["--steps", "1", "--arch",
+                                     "granite-moe-1b-a400m"]),
+                 lambda: serve.run(requests=1,
+                                   lm_arch="granite-moe-1b-a400m"),
                  lambda: D3QLAgent(D3QLConfig()), lambda: qnet_init(8, 2, 3),
                  lambda: LearnGDMController(EdgeSimulator(smoke)),
                  lambda: experiments.train_variant(smoke, "learn-gdm", 1),

@@ -122,16 +122,22 @@ def test_convert_rejects_a_mismatched_tree(reduced):
 
 
 def test_other_families_wait_for_their_slice():
-    """The hybrid family is ported (``test_torch_train.py``); MoE layers,
-    xLSTM and enc-dec are not."""
-    yi = get_config("yi-6b")
-    for cfg in (dataclasses.replace(yi, family="ssm"),
-                dataclasses.replace(yi, family="moe", num_experts=4),
-                dataclasses.replace(yi, num_experts=4),
-                dataclasses.replace(yi, family="hybrid", attn_every=2,
-                                    moe_every=2, num_experts=4)):
+    """The hybrid family is ported (``test_torch_train.py``), and so are
+    experts in every family that has them (``test_torch_moe.py``): their
+    patterns are the reference's.  xLSTM (``ssm``) and enc-dec are not."""
+    yi, jyi = get_config("yi-6b"), jax_get_config("yi-6b")
+    for kw in (dict(family="moe", num_experts=4, experts_per_token=2),
+               dict(num_experts=4, experts_per_token=2),
+               dict(family="hybrid", attn_every=2, moe_every=2,
+                    num_experts=4, experts_per_token=2)):
+        got = tlm.layer_pattern(dataclasses.replace(yi, **kw))
+        want = jlm.layer_pattern(dataclasses.replace(jyi, **kw))
+        assert [(s.mixer, s.mlp) for s in got] == \
+            [(s.mixer, s.mlp) for s in want]
+        assert "moe" in [s.mlp for s in got]
+    for family in ("ssm", "encdec"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.layer_pattern(cfg)
+            tlm.layer_pattern(dataclasses.replace(yi, family=family))
 
 
 # -- rope -----------------------------------------------------------------------------
