@@ -106,14 +106,40 @@ non-zero before the result line):
     checkpoint removed and the run resumed from step 3 (steps 4-6 must
     equal the straight run's, bit for bit where two straight runs are),
     with the bytes and seconds of the save and the restore; and
-    ``compress_grads`` on one step's gradients card vs CPU.
+    ``compress_grads`` on one step's gradients card vs CPU;
+19. the zoo's last three families at full width, depth cut, card vs CPU
+    from the same weights: seamless-m4t-large-v2 with 2 encoder and 2
+    decoder layers over 1024 audio frames, one xlstm-1.3b period (1 sLSTM
+    + 7 mLSTM), llava-next-34b with 2 layers and 8 patches; a prefill (B=2,
+    16 tokens) and four greedy decode steps (seamless cross-attending to
+    its memory) held as phase 7 holds them, then six train steps with the
+    stubs (``make_train_step``) held as phase 9 holds them, the xLSTM's
+    step by step from a shared state, each step's gradients within what
+    one ulp on every weight moves them on the card, beside six free steps
+    card vs CPU and the card's own drift from one ulp;
+20. seamless-m4t-large-v2 whole (24 + 24 layers, 2.04 B parameters):
+    ``make_prefill_step`` over 1024 frames and 32 steps of
+    ``make_serve_step`` with the memory, launches exact (72
+    ``flash_attention`` a prefill, 48 ``decode_attention`` a step), the
+    decode step's device ms (CUDA graph), served ms and bound; six train
+    steps at B=8, S=128 with frame stubs: launches, device ms per phase,
+    peak memory;
+21. xlstm-1.3b whole (48 layers): served by the edge launcher beside full
+    gdm-dit (49 ``rmsnorm`` a decode step, no attention kernel), six train
+    steps at B=8, S=128 and one more profiled (kernels and device time
+    against the host's); llava-next-34b at full width, 2 of 60 layers: a
+    prefill of 2880 patches and 128 tokens and 16 served decode steps,
+    launches exact, the step's device ms against its bound.
 
 Phase 3 also holds the selective scan (forward and backward kernels)
 against its plain version and autograd (and both against themselves: two
 calls give the same bits), and the gradients that
-``flash_attention`` and ``rmsnorm`` carry on the card against autograd of
-their plain versions; phase 4 times both scan kernels at the training
-shape.
+``flash_attention`` (causal, and non-causal with 128 queries against 1024
+keys) and ``rmsnorm`` carry on the card against autograd of their plain
+versions; phase 4 times both scan kernels at the training shape, and the
+attention and norm kernels at the shapes of phases 19–21 (seamless's
+encoder and cross-attention, llava's prefill and G=7 decode, deepseek's
+G=8 decode, rows of 2048, 7168 and 8192).
 
 Then it prints one JSON line describing the kernels (each kernel's
 launches from the path that carries it: the DiT kernels from the fleet of
@@ -343,6 +369,11 @@ ATTN_CASES = [
     (1, 70, 90, 4, 4, 64, True, 0, -20),        # rows with every key masked
     (2, 40, 50, 2, 2, 32, False, 8, 30),        # window: late rows see none
     (8, 128, 128, 16, 8, 64, True, 0, 0),       # granite train / prefill
+    (8, 1024, 1024, 16, 16, 64, False, 0, 0),   # seamless encoder
+    (8, 128, 1024, 16, 16, 64, False, 0, 0),    # seamless cross, Sq < Sk
+    (8, 128, 1000, 16, 16, 64, False, 0, 0),    # cross, ragged Sk
+    (2, 16, 1024, 16, 16, 64, False, 0, 0),     # cross at phase 19's prompt
+    (1, 3008, 3008, 56, 8, 128, True, 0, 0),    # llava prefill, G=7
 ]
 
 
@@ -384,6 +415,13 @@ DECODE_CASES = [
     (3, 200, 8, 2, 64, [67, 134, 135]),             # 3 splits x 4 groups
     (1, 24, 16, 8, 64, [9]),                        # granite's decode
     (1, 24, 16, 8, 64, [24]),
+    (1, 1024, 16, 16, 64, [1024]),                  # seamless cross decode
+    (2, 1024, 16, 16, 64, [1024, 1024]),
+    (1, 48, 16, 16, 64, [17]),                      # seamless self decode
+    (1, 3024, 56, 8, 128, [3009]),                  # llava, G=7
+    (1, 3024, 56, 8, 128, [3024]),
+    (1, 4096, 64, 8, 128, [4096]),                  # deepseek, G=8
+    (2, 4096, 64, 8, 128, [1, 3000]),
 ]
 
 
@@ -416,11 +454,14 @@ def check_decode(gen):
 # of yi-6b and Jamba (d = 4096), qwen1.5-4b's width, the widest row, rows
 # of a few floats; x a view one float into its buffer (single floats, also
 # four and eight a thread), and d = 99 (no multiple of 4); granite's decode
-# row and trainer's rows (d = 1024)
+# row and trainer's rows (d = 1024); xlstm-1.3b's (d = 2048), llava's
+# (d = 7168: its prefill's 3008 rows) and deepseek's (d = 8192)
 RMS_CASES = [(1, 4096, 0), (8192, 4096, 0), (1024, 4096, 0), (1, 2560, 0),
              (8192, 2560, 0), (1000, 4096, 0), (24, 64, 0), (7, 8192, 0),
              (5, 100, 0), (1, 4096, 1), (1024, 4096, 1), (3, 8192, 1),
-             (5, 99, 0), (1, 1024, 0), (1024, 1024, 0)]
+             (5, 99, 0), (1, 1024, 0), (1024, 1024, 0), (1, 2048, 0),
+             (1024, 2048, 0), (1, 7168, 0), (3008, 7168, 0), (1, 8192, 0),
+             (1024, 8192, 0)]
 
 
 def check_rmsnorm(gen):
@@ -536,6 +577,16 @@ def check_kernel_grads(gen):
     got = torch.autograd.grad(ops.flash_attention(q, k, v), (q, k, v), do)
     want = torch.autograd.grad(ref.attention(q, k, v), (q, k, v), do)
     errs = [_rel(g, w)[1] for g, w in zip(got, want)]
+    # seamless's cross-attention in training: 128 queries, 1024 memory rows
+    q = _randn(gen, 8, 128, 16, 64).requires_grad_()
+    k = _randn(gen, 8, 1024, 16, 64).requires_grad_()
+    v = _randn(gen, 8, 1024, 16, 64).requires_grad_()
+    do = _randn(gen, 8, 128, 16, 64)
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, causal=False),
+                              (q, k, v), do)
+    want = torch.autograd.grad(ref.attention(q, k, v, causal=False),
+                               (q, k, v), do)
+    errs_x = [_rel(g, w)[1] for g, w in zip(got, want)]
     x = _randn(gen, 8, 128, 4096).requires_grad_()
     w = (1.0 + _randn(gen, 4096, scale=0.1)).requires_grad_()
     dy = _randn(gen, 8, 128, 4096)
@@ -545,9 +596,12 @@ def check_kernel_grads(gen):
     print("flash_attention gradients (B=8, S=128, H=32, KH=8, D=128, causal) "
           "vs autograd of the plain version, rel: dq {:.2e}, dk {:.2e}, dv "
           "{:.2e}".format(*errs))
+    print("flash_attention gradients (B=8, Sq=128, Sk=1024, H=16, D=64, "
+          "non-causal: seamless's cross-attention) vs autograd of the plain "
+          "version, rel: dq {:.2e}, dk {:.2e}, dv {:.2e}".format(*errs_x))
     print("rmsnorm gradients (1024 x 4096) vs autograd of the plain "
           "version, rel: dx {:.2e}, dscale {:.2e}".format(*errs_rms))
-    assert max(errs + errs_rms) <= GRAD_TOL, \
+    assert max(errs + errs_x + errs_rms) <= GRAD_TOL, \
         "a kernel's gradient disagrees with autograd of its plain version"
 
 
@@ -826,26 +880,62 @@ def time_mamba_block():
 def time_training_kernels(gen, shape=(8, 128, 32, 8, 128), d_model=4096):
     """flash_attention and rmsnorm at a training shape (B, S, H, KH, D;
     Jamba's by default) and width, forward."""
+    b, s, h, kh, d = shape
+    return {"flash_attention": time_flash(gen, b, s, s, h, kh, d, True),
+            "rmsnorm": time_rmsnorm(gen, b * s, d_model)}
+
+
+def time_flash(gen, b, sq, sk, h, kh, d, causal, runs=TIMED_RUNS, reps=10):
+    """flash_attention at (B, Sq, Sk, H over KH, D), causal or not,
+    against its plain version and ``scaled_dot_product_attention``, with
+    its bound from the unmasked (query, key) pairs this call computes."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    b, s, h, kh, d = shape
-    q = _randn(gen, b, s, h, d)
-    k, v = _randn(gen, b, s, kh, d), _randn(gen, b, s, kh, d)
+    q = _randn(gen, b, sq, h, d)
+    k, v = _randn(gen, b, sk, kh, d), _randn(gen, b, sk, kh, d)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    pairs = s * (s + 1) // 2                   # causal (query, key) pairs
-    t_bound, by = flash_bound(4 * 2 * (b * s * h * d + b * s * kh * d),
-                              b * h * pairs, d,
-                              f"flash_attention B={b} S={s} H={h} KH={kh} "
-                              f"D={d} causal")
-    attn = dict(ms=device_ms(lambda: ops.flash_attention(q, k, v)),
-                plain_ms=device_ms(lambda: ref.attention(q, k, v)),
-                bound_ms=t_bound, bound_by=by,
-                library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)))
-    _print_times(f"flash_attention B={b} S={s} H={h} KH={kh} D={d} causal",
-                 attn)
-    return {"flash_attention": attn, "rmsnorm": time_rmsnorm(gen, b * s,
-                                                              d_model)}
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    what = (f"flash_attention B={b} Sq={sq} Sk={sk} H={h} KH={kh} D={d} "
+            f"{'causal' if causal else 'non-causal'}")
+    t_bound, by = flash_bound(4 * 2 * (b * sq * h * d + b * sk * kh * d),
+                              b * h * pairs, d, what)
+    kw = dict(runs=runs, reps=reps)
+    t = dict(ms=device_ms(lambda: ops.flash_attention(q, k, v,
+                                                      causal=causal), **kw),
+             plain_ms=device_ms(lambda: ref.attention(q, k, v,
+                                                      causal=causal), **kw),
+             bound_ms=t_bound, bound_by=by,
+             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=causal, enable_gqa=True), **kw))
+    _print_times(what, t)
+    return t
+
+
+def zoo_kernels(gen):
+    """The three kernels at the shapes the zoo's last families give them:
+    seamless's encoder (B=8, 1024 frames) and cross-attention (128 queries
+    against 1024 memory rows; one decode token against them), llava's
+    prefill (S=3008, 56 heads over 8, D=128) and decode (G=7), deepseek's
+    decode (G=8), and rmsnorm on xlstm-1.3b's, llava's and deepseek's
+    rows."""
+    out = {
+        "flash_attention encoder": time_flash(gen, 8, 1024, 1024, 16, 16,
+                                              64, False),
+        "flash_attention cross": time_flash(gen, 8, 128, 1024, 16, 16, 64,
+                                            False),
+        "flash_attention llava prefill": time_flash(
+            gen, 1, 3008, 3008, 56, 8, 128, True, runs=10, reps=2),
+        "decode_attention cross": time_decode(gen, 1, 1024, 1024, cold=True,
+                                              heads=(16, 16, 64)),
+        "decode_attention llava": time_decode(gen, 1, 3024, 3009,
+                                              heads=(56, 8, 128)),
+        "decode_attention deepseek": time_decode(gen, 1, 4096, 4096,
+                                                 heads=(64, 8, 128)),
+    }
+    for rows, d in ((1, 2048), (1024, 2048), (1, 7168), (3008, 7168),
+                    (1, 8192)):
+        out[f"rmsnorm {rows}x{d}"] = time_rmsnorm(gen, rows, d)
+    return out
 
 
 def time_block_call(cfg, model):
@@ -959,21 +1049,25 @@ def serve(cfg, frames_min: int = 16):
 
 def _state_tensors(state):
     """Every tensor of a decode state, slot by slot (KV caches and their
-    lengths, Mamba conv tails and SSM states), on the CPU."""
+    lengths, Mamba conv tails and SSM states, mLSTM and sLSTM states and
+    conv tails), on the CPU."""
     return [t.cpu() for slot in state for key in sorted(slot)
-            for t in slot[key]]
+            for t in (slot[key] if isinstance(slot[key], tuple)
+                      else (slot[key],))]
 
 
 def lm_vs_cpu(cfg, prompt_len: int = 16, steps: int = 4, model=None,
-              route=None):
+              route=None, batch: int = 1, stubs=None):
     """One prefill and ``steps`` greedy decode steps of ``cfg`` on the card
     and on the CPU from the same weights (``model``'s, or drawn from a
-    seed): the largest gaps in logits and in the decode state, relative to
-    the largest |logit| and |state value|, and the token streams.  With
-    ``route`` (a ``RouteCheck`` in force), the MoE calls are held as it
-    holds them; a token routed to another expert set at a near-tie changes
-    everything after it, so the logits, state and tokens are then left to
-    the per-layer comparison."""
+    seed): the largest gaps in logits and in the decode state (and in the
+    enc-dec encoder's memory), relative to the largest |logit| and |state
+    value|, and the token streams.  ``stubs`` (CPU tensors) are the
+    family's "patch_embeds" or "enc_frames"; decode cross-attends to the
+    prefill's memory.  With ``route`` (a ``RouteCheck`` in force), the MoE
+    calls are held as it holds them; a token routed to another expert set
+    at a near-tie changes everything after it, so the logits, state and
+    tokens are then left to the per-layer comparison."""
     import torch
     from repro_torch.models.lm import (LM, init_lm, lm_decode_step,
                                        lm_prefill)
@@ -982,24 +1076,32 @@ def lm_vs_cpu(cfg, prompt_len: int = 16, steps: int = 4, model=None,
     cpu_model = LM(cfg, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
     gen = torch.Generator().manual_seed(5)
-    prompt = torch.randint(2, cfg.vocab_size, (1, prompt_len), generator=gen,
-                           dtype=torch.int32)
+    prompt = torch.randint(2, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen, dtype=torch.int32)
     runs = {}
     with torch.no_grad():
         for dev, m in (("cuda", model), ("cpu", cpu_model)):
-            logits, state = lm_prefill(m, prompt.to(dev),
-                                       max_seq=prompt_len + steps + 4)
+            kw = {k: v.to(dev) for k, v in (stubs or {}).items()}
+            logits, state, memory = lm_prefill(
+                m, prompt.to(dev), max_seq=prompt_len + steps + 4, **kw)
             outs, tokens = [logits[:, -1]], []
             for _ in range(steps):
                 tok = outs[-1][:, :cfg.vocab_size].argmax(-1).to(torch.int32)
-                tokens.append(int(tok[0]))
-                logits, state = lm_decode_step(m, tok, state)
+                tokens.append(tok.tolist())
+                logits, state = lm_decode_step(m, tok, state, memory=memory)
                 outs.append(logits)
             runs[dev] = ([o.cpu() for o in outs], tokens,
-                         _state_tensors(state))
+                         _state_tensors(state),
+                         None if memory is None else memory.cpu())
     del cpu_model
-    (g_out, g_tok, g_state), (c_out, c_tok, c_state) = \
+    (g_out, g_tok, g_state, g_mem), (c_out, c_tok, c_state, c_mem) = \
         runs["cuda"], runs["cpu"]
+    if c_mem is not None:
+        assert torch.isfinite(g_mem).all(), "non-finite memory on the card"
+        mem_rel = _rel(g_mem, c_mem)[1]
+        print(f"encoder memory {tuple(c_mem.shape)}: max|card - cpu| / "
+              f"max|cpu| = {mem_rel:.3e} (tolerance {LM_TOL})")
+        assert mem_rel <= LM_TOL, "the encoder's memory differs"
     for o in g_out:
         assert torch.isfinite(o).all(), "non-finite logits on the card"
     scale = max(float(o[:, :cfg.vocab_size].abs().max()) for o in c_out)
@@ -1009,7 +1111,8 @@ def lm_vs_cpu(cfg, prompt_len: int = 16, steps: int = 4, model=None,
     st_scale = max(float(c.abs().max()) for _, c in floats)
     st_gap = max(float((g - c).abs().max()) for g, c in floats)
     print(f"{cfg.name}, {cfg.num_layers} layers, vocab {cfg.vocab_size}: "
-          f"prefill {prompt_len} + {steps} decode steps; max|card - cpu| "
+          f"B={batch}, prefill {prompt_len} + {steps} decode steps"
+          f"{' with ' + ', '.join(stubs) if stubs else ''}; max|card - cpu| "
           f"logits {gap:.3e} (max|logit| {scale:.3f}, relative "
           f"{gap / scale:.3e}), decode state {st_gap:.3e} (max "
           f"{st_scale:.3f}, relative {st_gap / st_scale:.3e}); tolerance "
@@ -1032,32 +1135,38 @@ def lm_vs_cpu(cfg, prompt_len: int = 16, steps: int = 4, model=None,
 
 # -- phase 8: serve the edge launcher at full width --------------------------------
 
-def time_decode_step(lm):
-    """The two sides of one decode step (B=1): the host's time to enqueue
-    it, from an idle card (median of 5), and the card's time to run it
-    with no host in the way, as a replay of a CUDA graph of the step
-    (``device_ms``).  The graph is a measuring device only: the launcher
-    runs the step eagerly."""
+def time_decode_step(lm, state=None, memory=None):
+    """The two sides of one decode step (B=1; from ``state``, an empty
+    64-row state by default, cross-attending to ``memory`` where given):
+    the host's time to enqueue it, from an idle card (median of 5), and
+    the card's time to run it with no host in the way, as a replay of a
+    CUDA graph of the step (``device_ms``).  The graph is a measuring
+    device only: the launcher and the serve step run eagerly."""
     import torch
     from repro_torch.models.lm import init_decode_state, lm_decode_step
-    state = init_decode_state(lm.cfg, 1, 64, device="cuda")
+    if state is None:
+        state = init_decode_state(lm.cfg, 1, 64, device="cuda")
     tok = torch.full((1,), 7, dtype=torch.int32, device="cuda")
+
+    def step():
+        lm_decode_step(lm, tok, state, memory=memory)
+
     host = []
     with torch.no_grad():
         for _ in range(8):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lm_decode_step(lm, tok, state)
+            step()
             host.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            lm_decode_step(lm, tok, state)
+            step()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            lm_decode_step(lm, tok, state)
+            step()
         dev = device_ms(graph.replay, runs=5, reps=1, sleep_cycles=2_000_000)
     return dev, statistics.median(host[3:]) * 1e3
 
@@ -1076,12 +1185,9 @@ def serve_launcher(lm_cfg, gdm_cfg):
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     weights = sum(p.numel() * p.element_size() for p in lm.parameters())
-    # a decode step reads every weight but the embedding table (one row),
-    # unless the head is tied to it; an MoE layer computes every expert on
-    # its mostly empty (E, C, d) buffer, as the reference does, so it
-    # reads them all
-    step_bytes = weights - (0 if lm_cfg.tie_embeddings
-                            else lm.embed.table.numel() * 4)
+    # an MoE layer computes every expert on its mostly empty (E, C, d)
+    # buffer, as the reference does, so a step reads them all
+    step_bytes = _decode_weight_bytes(lm)
     counters = serve.Counters(step_events=[])
     frames, requests = 24, 16
     reset_launches()
@@ -1125,12 +1231,14 @@ def serve_launcher(lm_cfg, gdm_cfg):
         assert torch.isfinite(req.state["x0"]).all(), "non-finite x0 served"
     assert len(counters.step_events) == counters.lm_tokens
     per_fwd = gdm_cfg.num_layers * counters.dit_forwards
+    # the launcher decodes without an encoder memory, as the reference's
+    per_step = decode_launches(lm_cfg)
     expected = dict.fromkeys(LAUNCHES, 0)
     expected.update(
         adaln_norm=per_fwd, adaln_norm_epilogue=per_fwd,
         flash_attention=per_fwd,
-        decode_attention=lm_cfg.num_layers * counters.lm_tokens,
-        rmsnorm=(2 * lm_cfg.num_layers + 1) * counters.lm_tokens)
+        decode_attention=per_step["decode_attention"] * counters.lm_tokens,
+        rmsnorm=per_step["rmsnorm"] * counters.lm_tokens)
     print(f"kernel launches {launches}; expected {expected}")
     assert launches == expected, "the launcher did not run the kernels " \
         "exactly as its tokens and forwards imply"
@@ -1150,7 +1258,7 @@ def _ratio(num: float, den: float) -> float:
 
 
 def train_vs_cpu(cfg, tcfg, batch_size: int = 2, seq_len: int = 64,
-                 model=None, route=None):
+                 model=None, route=None, stubs_fn=None):
     """``tcfg.total_steps`` train steps of ``cfg`` through
     ``repro_torch.launch.train.run`` on the card and on the CPU, from the
     same weights (``model``'s, or drawn from a seed) on the same batches.
@@ -1159,11 +1267,11 @@ def train_vs_cpu(cfg, tcfg, batch_size: int = 2, seq_len: int = 64,
     loss and the final parameters.  With ``route`` (a ``RouteCheck`` in
     force) the MoE calls are held as it holds them, and if the first
     batch routed a token to another expert set at a near-tie, the expert
-    leaves' first gradients and updates are left out.  Returns the card's
-    model, trained."""
+    leaves' first gradients and updates are left out.  With ``stubs_fn``
+    the batches carry the family's stubs (``train_run``).  Returns the
+    card's model, trained."""
     import torch
     from repro_torch.data import DataConfig, TokenDataset
-    from repro_torch.launch import train
     from repro_torch.launch.steps import trainable
     from repro_torch.models.lm import LM, init_lm, lm_loss
     from repro_torch.optim.schedules import cosine_decay
@@ -1172,19 +1280,23 @@ def train_vs_cpu(cfg, tcfg, batch_size: int = 2, seq_len: int = 64,
     cpu_model = LM(cfg, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
     models = {"card": model, "cpu": cpu_model}
-    p0 = {k: p.detach().clone() for k, p in trainable(cpu_model).items()}
+    # the comparisons run on the card, where the bulk arithmetic is cheap
+    cmp = model.embed.table.device
+    p0 = {k: p.detach().clone() for k, p in trainable(model).items()}
     # run's first batch
-    batch = TokenDataset(DataConfig(vocab_size=cfg.vocab_size,
-                                    seq_len=seq_len, global_batch=batch_size,
-                                    seed=tcfg.seed)).batch_at(0)
+    batch = {k: torch.from_numpy(v) for k, v in TokenDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=batch_size,
+        seed=tcfg.seed)).batch_at(0).items()}
+    if stubs_fn is not None:
+        batch.update(stubs_fn(0))
     loss0, grads = {}, {}
     for side, m in models.items():
         params = trainable(m)
-        total, _ = lm_loss(m, {k: torch.from_numpy(v).to(m.embed.table.device)
+        total, _ = lm_loss(m, {k: v.to(m.embed.table.device)
                                for k, v in batch.items()})
         g = torch.autograd.grad(total, list(params.values()))
         loss0[side] = float(total.detach())
-        grads[side] = {k: x.cpu() for k, x in zip(params, g)}
+        grads[side] = {k: x.to(cmp) for k, x in zip(params, g)}
     if route is not None and route.swaps:
         print(f"the first batch routed {route.swaps} token(s) to another "
               "expert set at a near-tie: its expert leaves' gradients and "
@@ -1208,14 +1320,14 @@ def train_vs_cpu(cfg, tcfg, batch_size: int = 2, seq_len: int = 64,
     for side, m in models.items():
         def on_step(step, metrics, side=side, m=m):
             if step == 0:
-                after1[side] = {k: p.detach().to("cpu", copy=True)
+                after1[side] = {k: p.detach().to(cmp, copy=True)
                                 for k, p in trainable(m).items()}
                 norm1[side] = float(metrics["grad_norm"])
-        print(f"train.run on the {side}:")
+        print(f"train.run on the {side}:" if stubs_fn is None else
+              f"make_train_step with stubs on the {side}:")
         t0 = time.perf_counter()
-        runs[side] = train.run(cfg, tcfg, global_batch=batch_size,
-                              seq_len=seq_len, model=m, log_every=1,
-                              on_step=on_step)
+        runs[side] = train_run(cfg, tcfg, m, batch_size, seq_len,
+                               stubs_fn=stubs_fn, on_step=on_step)
         secs[side] = time.perf_counter() - t0
 
     lr1 = cosine_decay(tcfg.learning_rate, tcfg.warmup_steps,
@@ -1237,7 +1349,7 @@ def train_vs_cpu(cfg, tcfg, batch_size: int = 2, seq_len: int = 64,
         n_all += mask.numel()
         n_unit += int(((d_cpu.abs() - lr1).abs() <= 0.1 * lr1).sum())
     del settled, after1
-    finals = {side: {k: p.detach().cpu() for k, p in trainable(m).items()}
+    finals = {side: {k: p.detach().to(cmp) for k, p in trainable(m).items()}
               for side, m in models.items()}
     moved_rel = {k: _ratio(float((finals["card"][k] - pc).norm()),
                            float((pc - p0[k]).norm()))
@@ -1293,27 +1405,321 @@ def train_vs_cpu(cfg, tcfg, batch_size: int = 2, seq_len: int = 64,
     return model
 
 
+def train_lockstep_vs_cpu(cfg, tcfg, model, batch_size: int = 2,
+                          seq_len: int = 16, nudge: str = ""):
+    """``tcfg.total_steps`` train steps card vs CPU in lockstep: before
+    each step the CPU copy takes the card's parameters and AdamW state, so
+    both sides take every step from the same state on the same batch.
+    For a model whose training amplifies rounding (the xLSTM at full
+    width: two float32 runs apart by one ulp drift past phase 9's loss
+    tolerance within six steps), this holds every step to phase 9's
+    tolerances for one step: the loss within TRAIN_TOL, the gradient norm
+    within LM_TOL, and the update, on the elements whose update cannot
+    hinge on rounding (a new first moment the same on both sides, or 1000
+    times the leaf's largest gap), within 1e-2 of the CPU's plus 2 ulp.
+    Every leaf's clipped gradient (as ``make_train_step`` hands it to
+    AdamW) is held within LM_TOL of the leaf's largest at step 1, as phase
+    9 holds the first batch's, and at every step within the larger of
+    LM_TOL and the gap that one ulp up on every weight opens on the card
+    itself: the CPU may be no farther from the card than rounding moves
+    the card.  Then six free steps from the initial weights on the card,
+    on the CPU, and on the card with leaf ``nudge`` one ulp up: the free
+    card-vs-CPU loss gap is printed beside the card's own one-ulp gap,
+    and the card's own gap has to pass TRAIN_TOL, or the model does not
+    amplify rounding and the lockstep stands in for the free check
+    without cause."""
+    import torch
+    from repro_torch.data import DataConfig, TokenDataset
+    from repro_torch.launch import steps
+    from repro_torch.launch.steps import make_train_step, trainable
+    from repro_torch.models.lm import LM, lm_loss
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedules import cosine_decay
+    start = {k: p.detach().clone() for k, p in trainable(model).items()}
+    assert nudge in start, f"no parameter {nudge!r} to nudge"
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    models = {"card": model, "cpu": cpu}
+    data = TokenDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                                   global_batch=batch_size, seed=tcfg.seed))
+    step_fn = make_train_step(cfg, tcfg)
+    init = adamw(tcfg.learning_rate)[0]
+    opt = {side: init(trainable(m)) for side, m in models.items()}
+    lr_fn = cosine_decay(tcfg.learning_rate, tcfg.warmup_steps,
+                         tcfg.total_steps)
+    eps = torch.finfo(torch.float32).eps
+    # the clipped gradients as the step hands them to AdamW, which only
+    # reads them
+    clip, clipped = steps.clip_by_global_norm, []
+
+    def clip_and_keep(grads, max_norm):
+        out = clip(grads, max_norm)
+        clipped.append(dict(out[0]))
+        return out
+
+    steps.clip_by_global_norm = clip_and_keep
+    t0 = time.perf_counter()
+    card_params, cpu_params = trainable(model), trainable(cpu)
+
+    def nudged_grads(batch, before):
+        # the step's clipped gradients on the card from its weights, every
+        # one one ulp up
+        with torch.no_grad():
+            for p in card_params.values():
+                p.copy_(torch.nextafter(p, torch.full_like(p, math.inf)))
+        total, _ = lm_loss(model, batch)
+        g = torch.autograd.grad(total, list(card_params.values()))
+        with torch.no_grad():
+            for k, p in card_params.items():
+                p.copy_(before[k])
+        return clip(dict(zip(card_params, g)), tcfg.grad_clip)[0]
+
+    worst = []
+    for step in range(tcfg.total_steps):
+        with torch.no_grad():
+            for k, p in card_params.items():
+                cpu_params[k].copy_(p)
+            for f in ("mu", "nu"):
+                for k, t in getattr(opt["card"], f).items():
+                    getattr(opt["cpu"], f)[k].copy_(t)
+        opt["cpu"] = opt["cpu"]._replace(step=opt["card"].step)
+        # the step's start, kept on the card, where the sides are compared
+        before = {k: p.detach().clone() for k, p in card_params.items()}
+        batch = {k: torch.from_numpy(v) for k, v in
+                 data.batch_at(step).items()}
+        g_wit = nudged_grads({k: v.to(model.embed.table.device)
+                              for k, v in batch.items()}, before)
+        met = {}
+        for side, m in models.items():
+            dev = m.embed.table.device
+            _, opt[side], met[side] = step_fn(
+                m, opt[side], {k: v.to(dev) for k, v in batch.items()})
+        lr = lr_fn(step + 1)
+        loss = {side: float(x["loss"]) for side, x in met.items()}
+        norm = {side: float(x["grad_norm"]) for side, x in met.items()}
+        g = dict(zip(models, clipped))
+        grad_rel, upd_worst, free_gap = {}, 0.0, 0.0
+        wit_rel = 0.0
+        n_settled = n_all = 0
+        with torch.no_grad():
+            for k, old in before.items():
+                wit_rel = max(wit_rel, _ratio(
+                    float((g["card"][k] - g_wit[k]).abs().max()),
+                    float(g["card"][k].abs().max())))
+                g_cpu = g["cpu"][k].to(old.device)
+                grad_rel[k] = _ratio(
+                    float((g["card"][k] - g_cpu).abs().max()),
+                    float(g_cpu.abs().max()))
+                del g_cpu
+                # Adam steps along mu / sqrt(nu): an element is settled
+                # where its new first moment is the same on both sides or
+                # 1000 times the leaf's largest gap (at step 1, mu = 0.1 g)
+                mu = {"card": opt["card"].mu[k],
+                      "cpu": opt["cpu"].mu[k].to(old.device)}
+                gap = float((mu["card"] - mu["cpu"]).abs().max())
+                settled = (mu["card"] == mu["cpu"]) | \
+                    (mu["cpu"].abs() > 1e3 * gap)
+                new_cpu = cpu_params[k].detach().to(old.device)
+                d_cpu = new_cpu - old
+                upd = (card_params[k].detach() - new_cpu).abs()
+                slack = 1e-2 * d_cpu.abs() + 2 * eps * new_cpu.abs()
+                if settled.any():
+                    upd_worst = max(upd_worst, float(
+                        (upd[settled] / slack[settled].clamp_min(1e-30))
+                        .max()))
+                if (~settled).any():
+                    free_gap = max(free_gap, float(upd[~settled].max()))
+                n_settled += int(settled.sum())
+                n_all += settled.numel()
+        clipped.clear()
+        del g, g_wit
+        leaf = max(grad_rel, key=grad_rel.get)
+        loss_rel = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+        norm_rel = abs(norm["card"] - norm["cpu"]) / norm["cpu"]
+        worst.append((loss_rel, norm_rel, grad_rel[leaf], upd_worst,
+                      max(LM_TOL, wit_rel)))
+        print(f"lockstep step {step + 1} (lr {lr:.3e}): loss card "
+              f"{loss['card']:.7f} cpu {loss['cpu']:.7f} (relative "
+              f"{loss_rel:.2e}, tolerance {TRAIN_TOL}); grad norm relative "
+              f"{norm_rel:.2e} (tolerance {LM_TOL}); clipped gradients' worst "
+              f"leaf {leaf} max|card - cpu| / max|cpu| = {grad_rel[leaf]:.2e}, "
+              f"the card's own with every weight one ulp up {wit_rel:.2e} "
+              f"(tolerance the larger with {LM_TOL}, and {LM_TOL} at step "
+              f"1); on the {n_settled} of {n_all} "
+              f"settled elements the update's worst gap is {upd_worst:.3e} of "
+              f"its allowance, the others differ by at most {free_gap:.3e} "
+              f"({free_gap / lr:.3f} lr)", flush=True)
+        del before
+    steps.clip_by_global_norm = clip
+    print(f"{cfg.name}, {cfg.num_layers} layers, B={batch_size} "
+          f"S={seq_len}: {tcfg.total_steps} lockstep steps card vs CPU in "
+          f"{time.perf_counter() - t0:.2f} s")
+    del opt
+    curves = {}
+    for side, bump in (("card", False), ("cpu", False), ("card", True)):
+        with torch.no_grad():
+            for k, p in trainable(models[side]).items():
+                p.copy_(start[k])
+                if bump and k == nudge:
+                    p.copy_(torch.nextafter(p, torch.full_like(p, math.inf)))
+        curves[side, bump] = train_run(cfg, tcfg, models[side], batch_size,
+                                       seq_len, log_every=0)["losses"]
+    del cpu, models
+
+    def gaps(other):
+        return [abs(a - b) / abs(a)
+                for a, b in zip(curves["card", False], curves[other])]
+
+    print("six free steps from the same weights, loss gap per step, "
+          "relative: card vs CPU "
+          + ", ".join(f"{x:.2e}" for x in gaps(("cpu", False)))
+          + f"; the card vs the card from {nudge} one ulp up "
+          + ", ".join(f"{x:.2e}" for x in gaps(("card", True))))
+    assert all(x[0] <= TRAIN_TOL for x in worst), \
+        "a lockstep step's loss differs"
+    assert all(x[1] <= LM_TOL for x in worst), \
+        "a lockstep step's gradient norm differs"
+    assert worst[0][2] <= LM_TOL, \
+        "the first step's gradients differ (phase 9's first-batch check)"
+    assert all(x[2] <= x[4] for x in worst), \
+        "a lockstep step's gradients differ by more than rounding moves them"
+    assert all(x[3] <= 1.0 for x in worst), "a lockstep step's update differs"
+    assert max(gaps(("card", True))) > TRAIN_TOL, \
+        "one ulp does not move the card's own run past TRAIN_TOL: hold " \
+        "this model free-running"
+    return model
+
+
 def step_pattern(cfg):
     from repro_torch.models.lm import layer_pattern
     return layer_pattern(cfg) * (cfg.num_layers // len(layer_pattern(cfg)))
 
 
+def _rmsnorms(cfg) -> int:
+    """RMSNorm launches of one forward or decode step: a norm before each
+    mixer and each MLP, and the final norm (none in an enc-dec model, which
+    takes LayerNorm)."""
+    if cfg.is_encdec:
+        return 0
+    return sum(1 + (s.mlp != "none") for s in step_pattern(cfg)) + 1
+
+
+def forward_launches(cfg):
+    """Each kernel's launches in one full-sequence forward (a prefill, or a
+    train step's forward; the backward of attention and rmsnorm is torch
+    ops, the scan's its own kernel): ``flash_attention`` once per decoder
+    attention layer, encoder layer and cross-attention, ``ssm_scan`` once
+    per Mamba layer, ``rmsnorm`` once per norm."""
+    from repro_torch.kernels import LAUNCHES
+    pattern = step_pattern(cfg)
+    out = dict.fromkeys(LAUNCHES, 0)
+    out.update(
+        flash_attention=sum(s.mixer == "attn" for s in pattern)
+        + sum(s.cross for s in pattern) + cfg.encoder_layers,
+        ssm_scan=sum(s.mixer == "mamba" for s in pattern),
+        rmsnorm=_rmsnorms(cfg))
+    return out
+
+
+def decode_launches(cfg, memory: bool = False):
+    """Each kernel's launches in one decode step: ``decode_attention``
+    once per attention layer, and per cross-attention when the step has
+    an encoder memory; ``rmsnorm`` once per norm."""
+    from repro_torch.kernels import LAUNCHES
+    pattern = step_pattern(cfg)
+    out = dict.fromkeys(LAUNCHES, 0)
+    out.update(decode_attention=sum(s.mixer == "attn" for s in pattern)
+               + (sum(s.cross for s in pattern) if memory else 0),
+               rmsnorm=_rmsnorms(cfg))
+    return out
+
+
+def zoo_stubs(cfg, batch: int, seed: int, patches: int = 8):
+    """A family's stub inputs on the CPU, N(0, 1) from ``seed``:
+    ``patches`` patch embeddings (VLM) or ``encoder_seq_len`` audio frames
+    (enc-dec); none for another family."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.num_patch_tokens:
+        out["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, patches, cfg.d_model), dtype=np.float32))
+    if cfg.is_encdec:
+        out["enc_frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.encoder_seq_len, cfg.d_model), dtype=np.float32))
+    return out
+
+
+def train_run(cfg, tcfg, model, global_batch: int, seq_len: int,
+              stubs_fn=None, on_step=None, log_every: int = 1):
+    """``tcfg.total_steps`` train steps of ``model``: through
+    ``repro_torch.launch.train.run`` (the trainer's ``TokenDataset``
+    batches), or, with ``stubs_fn(step)`` (CPU tensors of the family's
+    stubs), through ``make_train_step`` on the same batches with the stubs
+    added, as the trainer's CLI cannot (its batches carry none).  Returns
+    run's keys: the losses, and on the card each step's device ms by phase
+    and the peak memory."""
+    import torch
+    from repro_torch.data import DataConfig, TokenDataset
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step, trainable
+    from repro_torch.optim import adamw
+    if stubs_fn is None:
+        return train.run(cfg, tcfg, global_batch=global_batch,
+                         seq_len=seq_len, model=model, log_every=log_every,
+                         on_step=on_step)
+    dev = model.embed.table.device
+    cuda = dev.type == "cuda"
+    data = TokenDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=seq_len, global_batch=global_batch,
+                                   seed=tcfg.seed))
+    opt_state = adamw(tcfg.learning_rate)[0](trainable(model))
+    step_fn = make_train_step(cfg, tcfg)
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, phase_ms = [], []
+    for step in range(tcfg.total_steps):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch_at(step).items()}
+        batch.update({k: v.to(dev) for k, v in stubs_fn(step).items()})
+        marks = train._PhaseEvents() if cuda else None
+        model, opt_state, metrics = step_fn(model, opt_state, batch,
+                                            mark=marks)
+        losses.append(float(metrics["loss"]))
+        if cuda:
+            torch.cuda.synchronize(dev)
+            phase_ms.append(marks.ms())
+        if on_step is not None:
+            on_step(step, metrics)
+        if log_every and (step + 1) % log_every == 0:
+            print(f"[train] step {step + 1:5d} loss={losses[-1]:.4f} (with "
+                  f"{', '.join(stubs_fn(step))})")
+    out = {"losses": losses, "steps": len(losses),
+           "first_loss": losses[0], "last_loss": losses[-1]}
+    if cuda:
+        out.update(phase_ms=phase_ms,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev))
+    return out
+
+
 # -- phase 10: train one full-width Jamba period -----------------------------------
 
 def train_period(cfg, tcfg, kernel_ms, global_batch: int = 8,
-                 seq_len: int = 128):
-    """``run`` trains ``cfg`` on the card; every step must launch each
-    kernel exactly as the layer pattern implies."""
+                 seq_len: int = 128, stubs_fn=None, profile: bool = False):
+    """``run`` trains ``cfg`` on the card (``train_run``: with the family's
+    stubs where ``stubs_fn`` gives them); every step must launch each
+    kernel exactly as the layer pattern implies.  With ``profile``, one
+    more step is profiled (``torch.profiler``): its kernels and their
+    summed device time against the step's host time, the card's idle
+    share of a step whose launches outnumber what a sleep can cover."""
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.launch import train
     from repro_torch.models.lm import init_lm
     pattern = step_pattern(cfg)
-    mamba = sum(s.mixer == "mamba" for s in pattern)
-    attn = len(pattern) - mamba
-    expected = dict.fromkeys(LAUNCHES, 0)
-    expected.update(ssm_scan=mamba, ssm_scan_backward=mamba,
-                    flash_attention=attn, rmsnorm=2 * len(pattern) + 1)
+    expected = forward_launches(cfg)
+    expected["ssm_scan_backward"] = expected["ssm_scan"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = init_lm(cfg, seed=tcfg.seed, device="cuda")
@@ -1322,8 +1728,10 @@ def train_period(cfg, tcfg, kernel_ms, global_batch: int = 8,
     experts = (f"{cfg.num_experts} experts top-{cfg.experts_per_token} of "
                f"width {cfg.moe_d_ff} every {cfg.moe_every}" if cfg.is_moe
                else "no experts")
-    print(f"{cfg.name}: {cfg.num_layers} layers {[s.mixer for s in pattern]}, "
-          f"d={cfg.d_model}, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, "
+    enc = (f" + {cfg.encoder_layers} encoder layers over "
+           f"{cfg.encoder_seq_len} frames" if cfg.is_encdec else "")
+    print(f"{cfg.name}: {cfg.num_layers} layers {[s.mixer for s in pattern]}"
+          f"{enc}, d={cfg.d_model}, d_ff={cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{experts}: {n_params / 1e9:.3f} B parameters ({n_params * 4 / 1e9:.2f} "
           f"GB), drawn in {time.perf_counter() - t0:.2f} s")
     per_step, last = [], {}
@@ -1338,8 +1746,8 @@ def train_period(cfg, tcfg, kernel_ms, global_batch: int = 8,
 
     reset_launches()
     t0 = time.perf_counter()
-    out = train.run(cfg, tcfg, global_batch=global_batch, seq_len=seq_len,
-                    model=model, log_every=1, on_step=on_step)
+    out = train_run(cfg, tcfg, model, global_batch, seq_len,
+                    stubs_fn=stubs_fn, on_step=on_step)
     wall = time.perf_counter() - t0
     steps = [b - a for a, b in zip([t0] + host, host)]
     print(f"expected launches per step {expected}")
@@ -1362,12 +1770,51 @@ def train_period(cfg, tcfg, kernel_ms, global_batch: int = 8,
               f"= {expected[name] * t['ms']:.4f} ms a step (bound "
               f"{t['bound_ms']:.5f} ms a launch, {t['bound_by']})")
     total = sum(expected[k] * kernel_ms[k]["ms"] for k in kernel_ms)
-    print(f"  the kernels take {total:.3f} ms of a {med:.3f} ms step "
-          f"(median of steps 2-{out['steps']}, device time)")
+    print(f"  the timed kernels take {total:.3f} ms of a {med:.3f} ms step "
+          f"(median of steps 2-{out['steps']}, device time between the "
+          f"step's CUDA events)")
+    if profile:
+        profile_train_step(cfg, tcfg, model, global_batch, seq_len, stubs_fn)
     assert out["peak_bytes"] < torch.cuda.get_device_properties(0).total_memory
     del model
     torch.cuda.empty_cache()
-    return per_step
+    return per_step, out
+
+
+def profile_train_step(cfg, tcfg, model, global_batch, seq_len, stubs_fn):
+    """One more train step of ``model`` (a fresh AdamW state) under
+    ``torch.profiler``: the kernels it launches and their summed device
+    time, beside the step's host time (median of three unprofiled steps,
+    each from an idle card)."""
+    import torch
+    from repro_torch.data import DataConfig, TokenDataset
+    from repro_torch.launch.steps import make_train_step, trainable
+    from repro_torch.optim import adamw
+    batch = {k: torch.from_numpy(v).cuda() for k, v in TokenDataset(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                   global_batch=global_batch, seed=tcfg.seed)).batch_at(
+        0).items()}
+    if stubs_fn is not None:
+        batch.update({k: v.cuda() for k, v in stubs_fn(0).items()})
+    step_fn = make_train_step(cfg, tcfg)
+    state = [adamw(tcfg.learning_rate)[0](trainable(model))]
+
+    def step():
+        _, state[0], _ = step_fn(model, state[0], batch)
+
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    kernels, dev = profile_kernels(step)
+    wall = statistics.median(host) * 1e3
+    print(f"one train step profiled: {kernels} kernels summing to "
+          f"{dev:.3f} ms of device time; the host enqueues the step in "
+          f"{wall:.3f} ms (median of 3, from an idle card), so the card "
+          f"idles {100 * (1 - dev / wall):.1f}% of it")
 
 
 # -- phase 11: the D3QL agent, card vs CPU ----------------------------------------------
@@ -2512,6 +2959,199 @@ def compress_vs_cpu(model, batch_size: int = 8, seq_len: int = 128):
             "equal payloads dequantize differently"
 
 
+# -- phases 19-21: the zoo's last three families ------------------------------------------
+
+def zoo_vs_cpu(tcfg, prompt_batch: int = 2, train_batch: int = 2,
+               train_seq: int = 16):
+    """Each of phase 19's configurations card vs CPU from the same weights:
+    a prefill of 16 tokens (B=2; seamless over 1024 frames, llava with 8
+    patches in its first positions) and four greedy decode steps (seamless
+    cross-attending to its memory), held as phase 7 holds them; then six
+    train steps on the same batches with the stubs, held as phase 9 holds
+    them (the xLSTM's in lockstep: ``train_lockstep_vs_cpu``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_lm
+    for cfg in (dataclasses.replace(get_config("seamless-m4t-large-v2"),
+                                    num_layers=2, encoder_layers=2),
+                dataclasses.replace(get_config("xlstm-1.3b"), num_layers=8),
+                dataclasses.replace(get_config("llava-next-34b"),
+                                    num_layers=2)):
+        t0 = time.perf_counter()
+        model = init_lm(cfg, seed=11, device="cuda")
+        n = sum(p.numel() for p in model.parameters())
+        print(f"-- {cfg.name} cut to {cfg.num_layers} layers"
+              + (f" + {cfg.encoder_layers} encoder layers" if cfg.is_encdec
+                 else "") + f": {n / 1e9:.3f} B parameters")
+        lm_vs_cpu(cfg, model=model, batch=prompt_batch,
+                  stubs=zoo_stubs(cfg, prompt_batch, seed=99))
+        if cfg.xlstm is not None:
+            train_lockstep_vs_cpu(cfg, tcfg, model, train_batch, train_seq,
+                                  nudge="layers.0.1.mlstm.wq.w")
+        else:
+            train_vs_cpu(cfg, tcfg, batch_size=train_batch, seq_len=train_seq,
+                         model=model, stubs_fn=lambda step, cfg=cfg:
+                         zoo_stubs(cfg, train_batch, seed=1000 + step))
+        print(f"{cfg.name} card vs CPU took {time.perf_counter() - t0:.2f} s")
+        del model
+        torch.cuda.empty_cache()
+
+
+def serve_steps(cfg, model, batch, steps: int, what: str):
+    """``make_prefill_step`` on ``batch`` and ``steps`` greedy steps of
+    ``make_serve_step`` (cross-attending to the prefill's memory), on the
+    card, with each kernel's launches held exactly to the layer pattern:
+    the prefill's, then every step's.  Prints the prefill's and each
+    step's device time (CUDA events around each, the step served eagerly)
+    and returns the prefill's output and the served ms per step."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    s = batch["tokens"].shape[1]
+    prefill = make_prefill_step(cfg, max_seq=s + steps)
+    serve = make_serve_step(cfg)
+    torch.cuda.synchronize()
+    reset_launches()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = prefill(model, batch)
+    ev[1].record()
+    torch.cuda.synchronize()
+    pre_launches, want = dict(LAUNCHES), forward_launches(cfg)
+    print(f"{what}: prefill of {s} positions at B={batch['tokens'].shape[0]}"
+          f" {ev[0].elapsed_time(ev[1]):.3f} ms of device time (CUDA "
+          f"events); launches {pre_launches}, expected {want}")
+    assert pre_launches == want, "the prefill did not run the kernels " \
+        "exactly as the layer pattern implies"
+    memory = out.get("memory")
+    state, logits = out["state"], out["logits"]
+    assert torch.isfinite(logits).all(), "non-finite prefill logits"
+    reset_launches()
+    pairs, tokens = [], []
+    for _ in range(steps):
+        tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+        tokens.append(tok.tolist())
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        logits, state = serve(model, tok, state, memory)
+        pair[1].record()
+        pairs.append(pair)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    want = {k: steps * v for k, v in decode_launches(
+        cfg, memory is not None).items()}
+    served = statistics.median(a.elapsed_time(b) for a, b in pairs)
+    print(f"{steps} decode steps: tokens {[t[0] for t in tokens]}; served "
+          f"{served:.4f} ms a step (CUDA events around each, median); "
+          f"launches {launches}, expected {want}")
+    assert torch.isfinite(logits).all(), "non-finite decode logits"
+    assert all(0 <= t[0] < cfg.vocab_size for t in tokens)
+    assert launches == want, "the decode steps did not run the kernels " \
+        "exactly as the layer pattern implies"
+    return out, state, memory, served
+
+
+def _decode_weight_bytes(model) -> int:
+    """The bytes of the weights a decode step reads: every parameter but
+    the embedding table (one row, unless the head is tied to it), the
+    enc-dec encoder and the frontends' projections, which run only in the
+    prefill."""
+    skip = ("embed.", "encoder.", "frame_proj.", "patch_proj.")
+    return sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters()
+               if not name.startswith(skip) or (
+                   name == "embed.table" and model.cfg.tie_embeddings))
+
+
+def seamless_whole(cfg, tcfg, prompt: int = 16, steps: int = 32,
+                   train_batch: int = 8):
+    """Phase 20: seamless-m4t-large-v2 whole (24 + 24 layers).  A prefill
+    of 16 tokens over 1024 frames at B=1 and 32 served decode steps with
+    the memory (exact launches: 72 ``flash_attention`` per prefill, 48
+    ``decode_attention`` per step); the decode step's device time as a
+    CUDA graph, its host time and its bound (the weights it reads and the
+    memory's re-projection in every layer); then six train steps at B=8,
+    S=128 with frame stubs: exact launches, device ms per phase, peak
+    memory."""
+    import torch
+    from repro_torch.models.lm import init_lm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name}: {cfg.encoder_layers} encoder + {cfg.num_layers} "
+          f"decoder layers, d={cfg.d_model}, vocab {cfg.vocab_size} (padded "
+          f"{cfg.padded_vocab()}): {n / 1e9:.3f} B parameters "
+          f"({n * 4 / 1e9:.2f} GB), drawn in {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator().manual_seed(8)
+    batch = {"tokens": torch.randint(2, cfg.vocab_size, (1, prompt),
+                                     generator=gen, dtype=torch.int32).cuda(),
+             "enc_frames": zoo_stubs(cfg, 1, seed=8)["enc_frames"].cuda()}
+    out, state, memory, served = serve_steps(cfg, model, batch, steps,
+                                             cfg.name)
+    dev_ms, host_ms = time_decode_step(model, state=state, memory=memory)
+    # the bound: the weights a step reads and the memory (S_mem x d) read
+    # once, and in each of the L layers the memory projected to k and v
+    # again: 2 S_mem d kv_dim multiply-adds
+    s_mem, d, layers = cfg.encoder_seq_len, cfg.d_model, cfg.num_layers
+    weights = _decode_weight_bytes(model)
+    nbytes = weights + 4 * s_mem * d
+    reproject = layers * 2 * 2 * s_mem * d * cfg.kv_dim
+    flops = reproject + 2 * weights / 4
+    t_bound, by = bound_ms(nbytes, flops)
+    print(f"decode step (B=1, {s_mem}-row memory): {dev_ms:.4f} ms of device "
+          f"time (CUDA graph replay, median of 5), {served:.4f} ms served, "
+          f"{host_ms:.4f} ms to enqueue from an idle card; bound "
+          f"{t_bound:.4f} ms ({by}: {weights / 1e9:.3f} GB of weights and "
+          f"{flops / 1e9:.1f} GFLOP, {reproject / 1e9:.1f} GFLOP of them "
+          f"the memory's re-projection)")
+    print(f"serving peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del model, out, state, memory
+    torch.cuda.empty_cache()
+    _, run = train_period(cfg, tcfg, {}, global_batch=train_batch,
+                          stubs_fn=lambda step: zoo_stubs(
+                              cfg, train_batch, seed=2000 + step))
+    return run
+
+
+def llava_cut(cfg, steps: int = 16, text: int = 128):
+    """llava-next-34b at its published widths, depth cut to ``cfg``'s
+    layers: a prefill of its 2880 patch embeddings and ``text`` tokens at
+    B=1 and ``steps`` served decode steps, launches exact; the decode
+    step's device time (CUDA graph) against its bound."""
+    import torch
+    from repro_torch.models.lm import init_lm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_lm(cfg, seed=3, device="cuda")
+    n = sum(p.numel() for p in model.parameters())
+    p = cfg.num_patch_tokens
+    print(f"{cfg.name}: {cfg.num_layers} of 60 layers, d={cfg.d_model}, "
+          f"{cfg.num_heads} heads over {cfg.num_kv_heads}, D="
+          f"{cfg.resolved_head_dim}: {n / 1e9:.3f} B parameters "
+          f"({n * 4 / 1e9:.2f} GB)")
+    gen = torch.Generator().manual_seed(9)
+    batch = {"tokens": torch.randint(2, cfg.vocab_size, (1, p + text),
+                                     generator=gen, dtype=torch.int32).cuda(),
+             "patch_embeds": zoo_stubs(cfg, 1, seed=9,
+                                       patches=p)["patch_embeds"].cuda()}
+    out, state, _, served = serve_steps(cfg, model, batch, steps, cfg.name)
+    dev_ms, host_ms = time_decode_step(model, state=state)
+    weights = _decode_weight_bytes(model)
+    rows = p + text + steps
+    nbytes = weights + cfg.num_layers * 2 * rows * cfg.kv_dim * 4
+    t_bound, by = bound_ms(nbytes, 2 * weights / 4)
+    print(f"decode step (B=1, {rows}-row cache): {dev_ms:.4f} ms of device "
+          f"time (CUDA graph replay, median of 5), {served:.4f} ms served, "
+          f"{host_ms:.4f} ms to enqueue; bound {t_bound:.4f} ms ({by}: "
+          f"{nbytes / 1e9:.3f} GB); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del model, out, state
+    torch.cuda.empty_cache()
+
+
 def print_occupancy(lib):
     """Resident blocks per SM of the kernels redesigned for Hopper
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at the blocks their
@@ -2683,6 +3323,7 @@ def main(argv) -> int:
     train_ms = time_ssm_scan(gen)
     times.update(train_ms)
     train_ms.update(time_training_kernels(gen))
+    zoo_ms = zoo_kernels(gen)
 
     phase("5. one block call, card vs CPU")
     model = step_vs_cpu(full)
@@ -2721,8 +3362,8 @@ def main(argv) -> int:
 
     phase("10. train one full-width Jamba period (8 layers, no experts), "
           "global batch 8, seq 128, six steps")
-    per_step = train_period(dataclasses.replace(jamba, num_layers=8), tcfg,
-                            train_ms)
+    per_step, _ = train_period(dataclasses.replace(jamba, num_layers=8),
+                               tcfg, train_ms)
     # the scan kernels' launches come from the training path
     for name in ("ssm_scan", "ssm_scan_backward"):
         launches[name] = sum(s[name] for s in per_step)
@@ -2795,6 +3436,34 @@ def main(argv) -> int:
     compress_vs_cpu(model)
     del model
     torch.cuda.empty_cache()
+
+    phase("19. the zoo's last families at full width, cut depth, card vs "
+          "CPU: seamless (2 + 2 layers, 1024 frames), one xLSTM period, "
+          "llava (2 layers, 8 patches); prefill + 4 decode steps, six "
+          "train steps")
+    t0 = time.perf_counter()
+    zoo_vs_cpu(tcfg)
+    print(f"phase 19 took {time.perf_counter() - t0:.1f} s")
+
+    phase("20. seamless-m4t-large-v2 whole (24 + 24 layers): prefill over "
+          "1024 frames + 32 served decode steps with the memory; six train "
+          "steps at B=8, S=128 with frame stubs")
+    t0 = time.perf_counter()
+    seamless_whole(get_config("seamless-m4t-large-v2"), tcfg)
+    print(f"phase 20 took {time.perf_counter() - t0:.1f} s")
+
+    xlstm = get_config("xlstm-1.3b")
+    phase("21. xlstm-1.3b whole (48 layers): served by the edge launcher "
+          "beside full gdm-dit; six train steps at B=8, S=128; llava-next-34b "
+          "at full width, 2 of 60 layers: prefill of 2880 patches + 128 "
+          "tokens, 16 served decode steps")
+    t0 = time.perf_counter()
+    serve_launcher(xlstm, full)
+    train_period(xlstm, tcfg, {"rmsnorm": zoo_ms["rmsnorm 1024x2048"]},
+                 profile=True)
+    torch.cuda.empty_cache()
+    llava_cut(dataclasses.replace(get_config("llava-next-34b"), num_layers=2))
+    print(f"phase 21 took {time.perf_counter() - t0:.1f} s")
 
     replaces = {
         "adaln_norm": "src/repro/kernels/adaln_norm.py:76",

@@ -19,7 +19,8 @@ reference's ``_path_str`` joins it: a dict key as itself, a sequence index
 as ``[i]``, a NamedTuple field by name.  The trainer's state is the
 reference's ``(params, OptState(step, mu, nu))``: :func:`train_state`
 flattens ``(model, opt_state)`` under those keys (``[0]/layers/[0]/attn/
-wq/w`` stacked over the periods, ``[1]/step`` int32, ``[1]/mu/...``) and
+wq/w`` stacked over the periods, an enc-dec encoder's ``[0]/encoder/
+layers/[0]/...`` over its layers, ``[1]/step`` int32, ``[1]/mu/...``) and
 :func:`load_train_state` reads them back into the model and the moments in
 place.
 
@@ -198,7 +199,8 @@ def _ref_key(name: str) -> Tuple[str, Optional[int]]:
     params tree, its period on the stacked layer axis, or None)."""
     parts, period = reference_leaf(name)
     if period is not None:        # the slot indexes the tuple of layers
-        parts = (parts[0], f"[{parts[1]}]") + parts[2:]
+        i = parts.index("layers") + 1
+        parts = parts[:i] + (f"[{parts[i]}]",) + parts[i + 1:]
     return "/".join(parts), period
 
 

@@ -1,13 +1,12 @@
-"""Model configuration for the port.
+"""Model and input-shape configuration for the port.
 
-A copy of the fields of ``repro.configs.base.ModelConfig`` that the DiT,
-the dense, MoE and hybrid (Jamba) LMs read, with the same defaults,
-derived properties and ``reduced()`` rule, so a config built here equals
-the reference's field for field; ``MambaConfig`` and ``TrainConfig`` are
-copies too.  The port is float32 throughout, so the reference's ``dtype``
-and ``gdm_impl`` fields have no counterpart: the dtype is fixed, and the
-kernel follows the tensor's device.  The xLSTM and enc-dec fields come
-with the slices that port those families.
+A copy of the fields of ``repro.configs.base.ModelConfig`` with the same
+defaults, derived properties and ``reduced()`` rule, so a config built here
+equals the reference's field for field; ``MambaConfig``, ``XLSTMConfig``,
+``ShapeConfig`` (with the four assigned shapes in ``SHAPES``) and
+``TrainConfig`` are copies too.  The port is float32 throughout, so the
+reference's ``dtype`` and ``gdm_impl`` fields have no counterpart: the
+dtype is fixed, and the kernel follows the tensor's device.
 """
 from __future__ import annotations
 
@@ -29,10 +28,18 @@ class MambaConfig:
 
 
 @dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block mix: ratio of mLSTM to sLSTM blocks (paper: 7:1)."""
+    slstm_every: int = 8          # one sLSTM block every N blocks
+    proj_factor: float = 2.0      # mLSTM up-projection factor
+    conv_kernel: int = 4
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     # identity ----------------------------------------------------------
     name: str = "model"
-    family: str = "dense"         # "dense", "moe", "hybrid" (LM) and "gdm" run in the port
+    family: str = "dense"         # dense | moe | hybrid | ssm | vlm | audio | gdm
     # transformer core ----------------------------------------------------
     num_layers: int = 2
     d_model: int = 128
@@ -54,8 +61,18 @@ class ModelConfig:
     # hybrid (jamba) -------------------------------------------------------
     attn_every: int = 1           # attention layer every N layers (jamba: 8)
     mamba: Optional[MambaConfig] = None
+    # ssm (xlstm) ----------------------------------------------------------
+    xlstm: Optional[XLSTMConfig] = None
+    # encoder-decoder ------------------------------------------------------
+    encoder_layers: int = 0       # >0 -> encoder-decoder model
+    cross_attention: bool = False
+    encoder_seq_len: int = 0      # stub modality memory length
+    # multimodal stubs -----------------------------------------------------
+    num_patch_tokens: int = 0     # vlm: precomputed patch embeddings prepended
+    frontend: str = "none"        # none | audio_frames | image_patches
     # long context ---------------------------------------------------------
     attention_window: int = 0     # 0 -> full attention; >0 sliding window
+    subquadratic: bool = False    # True for ssm/hybrid (eligible for long_500k)
     # GDM service ----------------------------------------------------------
     gdm_blocks: int = 0           # B in the paper; >0 marks a GDM service
     latent_hw: int = 0            # latent spatial size (patch grid)
@@ -77,6 +94,10 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
     def padded_vocab(self, multiple: int = 256) -> int:
         """Vocab padded to a multiple of ``multiple`` (the reference pads
         for even sharding; the port keeps the shapes)."""
@@ -84,8 +105,7 @@ class ModelConfig:
 
     # -- reduced smoke-test variant -----------------------------------------
     def reduced(self) -> "ModelConfig":
-        """A tiny same-family config for CPU tests (the reference's rule for
-        a dense, MoE, hybrid or GDM config)."""
+        """A tiny same-family config for CPU tests (the reference's rule)."""
         kw: Dict = dict(
             name=self.name + "-reduced",
             num_layers=min(self.num_layers,
@@ -105,9 +125,38 @@ class ModelConfig:
             kw.update(num_layers=8, attn_every=min(self.attn_every, 8),
                       moe_every=self.moe_every,
                       mamba=MambaConfig(d_state=8, d_conv=4, expand=2))
+        if self.family == "ssm" and self.xlstm is not None:
+            kw.update(num_layers=4, d_ff=0, xlstm=XLSTMConfig(slstm_every=2))
+        if self.is_encdec:
+            kw.update(encoder_layers=2, cross_attention=True,
+                      encoder_seq_len=16)
+        if self.num_patch_tokens:
+            kw.update(num_patch_tokens=8)
         if self.gdm_blocks:
             kw.update(gdm_blocks=min(self.gdm_blocks, 4), latent_hw=4)
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str                     # train | prefill | decode | long_decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind in ("decode", "long_decode")
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4_096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeConfig("long_500k", "long_decode", 524_288, 1)
+
+SHAPES: Dict[str, ShapeConfig] = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}
 
 
 @dataclass(frozen=True)

@@ -26,4 +26,5 @@ CONFIG = ModelConfig(
     moe_every=2,
     attn_every=8,
     mamba=MambaConfig(d_state=16, d_conv=4, expand=2),
+    subquadratic=True,
 )

@@ -5,14 +5,17 @@ two service kinds behind one :class:`~repro_torch.serving.ServingEngine`:
 
 * service 0, the GDM service: the DiT denoiser, B blocks, adaptive chain
   length, quality by the SSIM proxy against the chain's final x0;
-* service 1, an LM decode service: a dense, MoE or hybrid LM
-  (``--lm-arch``, yi-6b by default; granite-moe-1b-a400m runs its experts
-  on every decode step), one block = ``tokens_per_block`` greedy decode
-  steps, quality the fraction of the chain done.
+* service 1, an LM decode service: any LM of the zoo (``--lm-arch``,
+  yi-6b by default; granite-moe-1b-a400m runs its experts on every decode
+  step, xlstm-1.3b its recurrent cells), one block = ``tokens_per_block``
+  greedy decode steps, quality the fraction of the chain done.  As in the
+  reference, a decode step gets no encoder memory, so an enc-dec model
+  (seamless-m4t-large-v2) decodes with its cross-attention skipped, and a
+  VLM without patches.
 
 Placement is the engine's built-in locality-greedy rule.  A request's
 payload is its live state on the card (the GDM latent, or the LM's stacked
-KV cache), whose bytes the engine charges for every hop.
+decode state), whose bytes the engine charges for every hop.
 
 ``python -m repro_torch.launch.serve --frames 24 --requests 16`` serves the
 reduced models on the card; ``--device cpu`` runs the plain PyTorch path.

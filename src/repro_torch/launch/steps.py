@@ -1,17 +1,25 @@
-"""The train step, as ``repro.launch.steps.make_train_step``.
+"""Train / prefill / serve step factories and abstract input specs, as
+``repro.launch.steps``.
 
 ``make_train_step`` returns ``train_step(model, opt_state, batch)``: the
 loss and its gradients (``torch.autograd`` through the model; on the card
 the kernels' own backward), global-norm clipping, AdamW on the cosine
 schedule with weight decay on matrices only, applied to the model's
-parameters in place.  ``StepOptions`` keeps the reference's levers that
-change what a step computes on one card: the chunked cross-entropy,
-gradient accumulation over microbatches and int8 error-feedback gradient
-compression (applied when the step is given an error-feedback state, as
-in the reference).  The all-to-all MoE dispatch raises: it needs a mesh
-(ROADMAP Queue 1 item 11), as do the other sharding levers
-(sequence-parallel carries, sharded decode); ``remat`` and ``impl`` have
-no counterpart (PyTorch runs eagerly and the kernel follows the device).
+parameters in place.  ``make_prefill_step`` and ``make_serve_step`` are
+the serving path: a prompt's prefill (with the enc-dec encoder's memory
+and the VLM's patches) and one decode step (cross-attending to that
+memory).  ``input_specs`` gives every model input of an (arch, shape) cell
+as meta-device tensors, never allocated.
+
+``StepOptions`` keeps the reference's levers that change what a step
+computes on one card: the chunked cross-entropy, gradient accumulation
+over microbatches and int8 error-feedback gradient compression (applied
+when the step is given an error-feedback state, as in the reference); the
+decode step inserts into the cache at one position for every row, the
+reference's default.  The levers that need a mesh raise (ROADMAP
+Queue 1 item 11): the all-to-all MoE dispatch, the sharded split-K decode
+and ``mesh=``; ``remat`` and ``impl`` have no counterpart (PyTorch runs
+eagerly and the kernel follows the device).
 """
 from __future__ import annotations
 
@@ -20,8 +28,9 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.models.lm import LM, lm_loss, reference_leaf
+from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.models.lm import (LM, init_decode_state, lm_decode_step,
+                                   lm_loss, lm_prefill, reference_leaf)
 from repro_torch.optim import (EFState, adamw, apply_updates,
                                clip_by_global_norm, compress_grads,
                                cosine_decay)
@@ -34,7 +43,42 @@ class StepOptions:
     loss_chunk: int = 0              # chunked CE (0 = off)
     microbatch: int = 0              # gradient accumulation chunks (0 = off)
     grad_compression: bool = False   # int8 error-feedback DP all-reduce
+    sharded_decode: bool = False     # split-K flash-decoding over a mesh
     moe_a2a: bool = False            # all-to-all EP dispatch
+
+
+def _no_mesh(what: str):
+    return NotImplementedError(
+        f"{what} needs a mesh, which is not ported yet (ROADMAP Queue 1 "
+        "item 11)")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    """Stand-ins on the meta device for every model input of the (arch,
+    shape) cell: int32 tokens and labels (train; tokens alone for prefill)
+    with the float32 stubs the family takes (``patch_embeds``,
+    ``enc_frames``), or for decode one token, the decode state at
+    ``shape.seq_len`` and the enc-dec encoder's ``memory``."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": torch.empty(b, s, dtype=torch.int32, device=meta)}
+        if shape.kind == "train":
+            specs["labels"] = torch.empty(b, s, dtype=torch.int32,
+                                          device=meta)
+        if cfg.num_patch_tokens:
+            specs["patch_embeds"] = torch.empty(
+                b, cfg.num_patch_tokens, cfg.d_model, device=meta)
+        if cfg.is_encdec:
+            specs["enc_frames"] = torch.empty(
+                b, cfg.encoder_seq_len, cfg.d_model, device=meta)
+        return specs
+    specs = {"token": torch.empty(b, dtype=torch.int32, device=meta),
+             "state": init_decode_state(cfg, b, s, device=meta)}
+    if cfg.is_encdec:
+        specs["memory"] = torch.empty(b, cfg.encoder_seq_len, cfg.d_model,
+                                      device=meta)
+    return specs
 
 
 def trainable(model: LM) -> Dict[str, torch.Tensor]:
@@ -47,7 +91,7 @@ def trainable(model: LM) -> Dict[str, torch.Tensor]:
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
-                    opts: StepOptions = StepOptions()):
+                    opts: StepOptions = StepOptions(), mesh=None):
     """Returns ``train_step(model, opt_state, batch, ef_state=None,
     mark=None) -> (model, opt_state, metrics)``, or ``(model, opt_state,
     metrics, ef_state)`` when ``opts.grad_compression`` is on and an
@@ -58,9 +102,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
     "backward", "optimizer" and "end" as the step reaches each phase (once
     per microbatch for the first two)."""
     if opts.moe_a2a:
-        raise NotImplementedError(
-            "the all-to-all MoE dispatch needs a mesh, which is not ported "
-            "yet (ROADMAP Queue 1 item 11: nn/moe_sharded)")
+        raise _no_mesh("the all-to-all MoE dispatch (nn/moe_sharded)")
+    if mesh is not None:
+        raise _no_mesh("a sharded train step")
     lr = cosine_decay(tcfg.learning_rate, tcfg.warmup_steps, tcfg.total_steps)
     _, opt_update = adamw(lr, b1=tcfg.b1, b2=tcfg.b2,
                           weight_decay=tcfg.weight_decay, wd_mask=_wd_mask)
@@ -116,6 +160,50 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
         return model, opt_state, metrics
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, *, max_seq: Optional[int] = None,
+                      mesh=None):
+    """Returns ``prefill_step(model, batch) -> {"logits", "state"(,
+    "memory")}``: the prompt's prefill without a graph, the logits of its
+    last position (B, padded_vocab), the decode state for ``max_seq``
+    positions (the prompt's length by default) and, for an enc-dec model,
+    the encoder's memory.  batch: "tokens" (B, S) with the family's stubs
+    ("patch_embeds", "enc_frames")."""
+    if mesh is not None:
+        raise _no_mesh("a sharded prefill")
+
+    @torch.no_grad()
+    def prefill_step(model: LM, batch) -> Dict:
+        logits, state, memory = lm_prefill(
+            model, batch["tokens"],
+            max_seq=max_seq or batch["tokens"].shape[1],
+            patch_embeds=batch.get("patch_embeds"),
+            enc_frames=batch.get("enc_frames"))
+        out = {"logits": logits[:, -1], "state": state}
+        if memory is not None:
+            out["memory"] = memory
+        return out
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, *, opts: StepOptions = StepOptions(),
+                    mesh=None):
+    """Returns ``serve_step(model, token, state, memory=None) -> (logits
+    (B, padded_vocab), state)``: one decode step without a graph (the
+    state updated in place, as :func:`~repro_torch.models.lm.
+    lm_decode_step` does), cross-attending to ``memory`` where given."""
+    if opts.sharded_decode:
+        raise _no_mesh("the sharded split-K decode")
+    if mesh is not None:
+        raise _no_mesh("a sharded decode step")
+
+    @torch.no_grad()
+    def serve_step(model: LM, token, state, memory=None):
+        return lm_decode_step(model, token, state, memory=memory)
+
+    return serve_step
 
 
 def _leaf_groups(params: Dict[str, torch.Tensor]) -> List[List[str]]:

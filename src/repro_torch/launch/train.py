@@ -3,10 +3,16 @@
 ``python -m repro_torch.launch.train --arch yi-6b --steps 200`` trains the
 reduced config on the card (``--device cpu`` on the CPU); as in the
 reference, ``--reduced`` is a flag that defaults to on, so the CLI always
-trains the reduced config (``--arch granite-moe-1b-a400m`` and
-``jamba-v0.1-52b`` with their experts).  :func:`run` takes any config,
-full width included (``chip_smoke.py`` trains one full-width Jamba period
-and full-width granite through it).
+trains the reduced config of any arch of the zoo (``--arch
+granite-moe-1b-a400m`` and ``jamba-v0.1-52b`` with their experts,
+``xlstm-1.3b`` with its recurrent cells).  Its ``TokenDataset`` batches
+carry no stubs, as the reference's: an enc-dec arch
+(``seamless-m4t-large-v2``) cannot train through the CLI (its forward
+raises for want of ``enc_frames``), and a VLM trains without patches.
+:func:`run` takes any config, full width included (``chip_smoke.py``
+trains one full-width Jamba period, full-width granite and full-width
+xlstm-1.3b through it); ``launch.steps.make_train_step`` takes batches
+with the stubs.
 
 ``--ckpt-dir`` saves the model and the AdamW state every ``--ckpt-every``
 steps in the background (:mod:`repro_torch.checkpoint`, the reference's

@@ -14,7 +14,9 @@ reference's ``(in, out)`` layout.
   with one dict per pattern slot, each leaf stacked over the periods:
   :func:`lm_from_jax` returns a :class:`~repro_torch.models.lm.LM` whose
   ``layers.{p}.{j}.attn.wq.w`` is ``params["layers"][j]["attn"]["wq"]["w"]
-  [p]``.
+  [p]``; an enc-dec encoder's ``params["encoder"]["layers"]`` (a tuple of
+  one slot, stacked over ``encoder_layers``) goes to
+  ``encoder.layers.{i}.0``.
 
 * The D3QL Q-net params (``repro.rl.networks.qnet_init``) are a flat
   dict of layers: :func:`qnet_from_jax` returns a
@@ -50,22 +52,32 @@ def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...
         yield prefix, tree
 
 
+_STACKS = (("layers",), ("encoder", "layers"))   # layer stacks, by path
+
+
+def _stack_root(path: Tuple[str, ...]) -> Optional[Tuple[str, ...]]:
+    return next((r for r in _STACKS if path[:len(r)] == r), None)
+
+
 @torch.no_grad()
-def _fill(model, params: Dict, stacked: int) -> None:
-    """Copy every leaf of ``params`` into ``model``.  A ``layers`` leaf is
-    stacked along its first axis over ``stacked`` entries: entry i of
-    ``layers/<rest>`` goes in at ``layers.{i}.<rest>``.  Raises on a
-    missing, extra or misshapen parameter."""
+def _fill(model, params: Dict, stacked: Dict[Tuple[str, ...], int]) -> None:
+    """Copy every leaf of ``params`` into ``model``.  A leaf under a layer
+    stack (``layers``, ``encoder/layers``) is stacked along its first axis
+    over ``stacked[root]`` entries: entry i of ``<root>/<rest>`` goes in at
+    ``<root>.{i}.<rest>``.  Raises on a missing, extra or misshapen
+    parameter."""
     targets = dict(model.named_parameters())
     filled = set()
     for path, leaf in _leaves(params):
         arr = np.asarray(leaf, dtype=np.float32)
-        if path[0] == "layers":
-            if arr.shape[0] != stacked:
+        root = _stack_root(path)
+        if root is not None:
+            n = stacked.get(root, 0)
+            if arr.shape[0] != n:
                 raise ValueError(f"{'/'.join(path)}: {arr.shape[0]} stacked "
-                                 f"layers, the config makes {stacked}")
-            items = [(".".join(("layers", str(i)) + path[1:]), arr[i])
-                     for i in range(stacked)]
+                                 f"layers, the config makes {n}")
+            items = [(".".join(root + (str(i),) + path[len(root):]), arr[i])
+                     for i in range(n)]
         else:
             items = [(".".join(path), arr)]
         for name, value in items:
@@ -84,30 +96,37 @@ def _fill(model, params: Dict, stacked: int) -> None:
 
 
 def _to_tree(model, slots: bool) -> Dict:
-    """The reference's nested param tree as numpy arrays, ``layers``
+    """The reference's nested param tree as numpy arrays, each layer stack
     stacked along a leading axis (a tuple over pattern slots with
     ``slots``)."""
     tree: Dict = {}
     stacked: Dict[Tuple[str, ...], list] = {}
     for name, p in model.named_parameters():
-        parts = name.split(".")
+        parts = tuple(name.split("."))
         value = p.detach().cpu().numpy().copy()
-        if parts[0] == "layers":
-            stacked.setdefault(tuple(parts[2:]), []).append(value)
+        root = _stack_root(parts)
+        if root is not None:
+            rest = parts[len(root) + 1:]
+            stacked.setdefault(root + rest, []).append(value)
         else:
             _put(tree, parts, value)
     for path, values in stacked.items():
-        _put(tree, ["layers", *path], np.stack(values))
+        _put(tree, path, np.stack(values))
     if slots:
-        tree["layers"] = tuple(tree["layers"][str(j)]
-                               for j in range(len(tree["layers"])))
+        for root in _STACKS:
+            sub = tree
+            for key in root[:-1]:
+                sub = sub.get(key, {})
+            if root[-1] in sub:
+                sub[root[-1]] = tuple(sub[root[-1]][str(j)]
+                                      for j in range(len(sub[root[-1]])))
     return tree
 
 
 def dit_from_jax(params: Dict, cfg: ModelConfig, *, device=None) -> DiT:
     """The port's DiT holding the reference's ``params`` (stacked layout)."""
     model = DiT(cfg, device=resolve_device(device))
-    _fill(model, params, cfg.num_layers)
+    _fill(model, params, {("layers",): cfg.num_layers})
     return model
 
 
@@ -120,7 +139,8 @@ def lm_from_jax(params: Dict, cfg: ModelConfig, *, device=None) -> LM:
     """The port's LM holding the reference's ``params`` (a tuple over
     pattern slots in ``layers``, each stacked over the periods)."""
     model = LM(cfg, device=resolve_device(device))
-    _fill(model, params, len(model.layers))
+    _fill(model, params, {("layers",): len(model.layers),
+                          ("encoder", "layers"): cfg.encoder_layers})
     return model
 
 
@@ -135,7 +155,7 @@ def qnet_from_jax(params: Dict, cfg, *, device=None) -> QNet:
     model = QNet(cfg.obs_dim, cfg.num_ues, cfg.num_actions,
                  lstm_units=cfg.lstm_units, fc=cfg.fc,
                  device=resolve_device(device))
-    _fill(model, params, 0)
+    _fill(model, params, {})
     return model
 
 

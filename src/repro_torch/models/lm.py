@@ -1,32 +1,49 @@
-"""The LM stack of the edge launcher and the trainer: the dense, the MoE
-and the hybrid (Jamba) families.
+"""The LM stack of the edge launcher and the trainer: every family of the
+reference's zoo.
 
 Port of ``repro.models.lm``: token embedding, periods of pre-norm blocks
-(RMSNorm, a mixer, RMSNorm, an MLP), a final RMSNorm and an untied (or
-tied) head whose padded-vocab columns are -1e9.  The mixer is GQA
-attention with RoPE (dense and MoE: every block; hybrid: the first block
-of each period of ``attn_every``) or a Mamba selective-SSM block (the
-others).  The MLP is SwiGLU, or a mixture of SwiGLU experts
-(:mod:`repro_torch.nn.moe`) in every block of the MoE family and in every
-``moe_every``-th block of a hybrid with experts; ``lm_forward`` sums their
-load-balancing losses.
+(a norm, a mixer, a norm, an MLP), a final norm and an untied (or tied)
+head whose padded-vocab columns are -1e9.  The families, by their
+periodic layer pattern (:func:`layer_pattern`):
+
+* dense and MoE (and the VLM and the enc-dec decoder): GQA attention with
+  RoPE in every block; SwiGLU, or a mixture of SwiGLU experts
+  (:mod:`repro_torch.nn.moe`) whose load-balancing losses ``lm_forward``
+  sums;
+* hybrid (Jamba): attention first in each period of ``attn_every``, Mamba
+  selective-SSM blocks after, experts on every ``moe_every``-th;
+* xLSTM (``ssm`` with an ``XLSTMConfig``): one sLSTM block, then mLSTM
+  blocks, per period of ``slstm_every``, no MLP (:mod:`repro_torch.nn.
+  xlstm`);
+* enc-dec (``encoder_layers`` > 0): LayerNorm (eps 1e-5) everywhere,
+  GELU MLPs, a bidirectional encoder over the ``frame_proj``-ected audio
+  frames, and cross-attention to its memory in every decoder block;
+* VLM (``frontend="image_patches"``): ``patch_proj``-ected patch
+  embeddings replace the first P token embeddings (the sequence keeps its
+  length).
+
 The reference expresses depth as a periodic layer pattern with
 period-stacked parameters; the port keeps that structure by name —
 ``layers.{p}.{j}`` is slot j of period p, the reference's
-``params["layers"][j]`` at index p — so :mod:`repro_torch.models.convert`
-carries weights across.
+``params["layers"][j]`` at index p, and ``encoder.layers.{i}.0`` the
+encoder's layer i — so :mod:`repro_torch.models.convert` carries weights
+across.
 
-Every norm runs the ``rmsnorm`` kernel (2L + 1 launches a forward or a
-decode step), every Mamba block the ``ssm_scan`` kernel on a full
-sequence (training and prefill; its backward kernel in training);
-decode attention runs ``decode_attention``, prefill and the full forward
-``flash_attention`` (causal, rope).  The decode state keeps the
-reference's stacked layout, one entry per pattern slot:
-``{"kv": KVCache(k, v, length)}`` with k, v (P, B, S, KH, D) float32 and
-length (P, B) int32, or ``{"mamba": MambaState(conv, ssm)}`` with conv
-(P, B, K-1, d_in) and ssm (P, B, d_in, N) float32, so a request's payload
-has the reference's bytes.  The xLSTM (``ssm``) and enc-dec families
-wait for later slices.
+Every RMSNorm runs the ``rmsnorm`` kernel (2L + 1 launches a forward or a
+decode step of an attention or Mamba stack, L + 1 of an xLSTM stack),
+every Mamba block the ``ssm_scan`` kernel on a full sequence; decode
+attention (self and cross) runs ``decode_attention``, prefill and the full
+forward ``flash_attention`` (causal with rope; non-causal in the encoder
+and against the memory).  LayerNorm, the xLSTM cells and the GELU MLP are
+torch ops, as they are XLA ops in the reference.
+
+The decode state keeps the reference's stacked layout, one entry per
+pattern slot, each tensor with a leading period axis: ``{"kv":
+KVCache(k, v, length)}``, ``{"mamba": MambaState(conv, ssm)}``,
+``{"mlstm": MLSTMState(c, n, m), "conv_tail": ...}`` or ``{"slstm":
+SLSTMState(h, c, n, m)}``, so a request's payload has the reference's
+bytes.  Every state is float32: the launcher and the tests pass float32
+to the reference, whose own default is bfloat16.
 """
 from __future__ import annotations
 
@@ -38,65 +55,109 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.nn import (Attention, Dense, Embedding, Mamba, MambaState,
-                            RMSNorm, SwiGLU, dense_apply, embedding_apply,
-                            embedding_attend, mamba_apply, mamba_decode,
+from repro_torch.nn import (Attention, Dense, Embedding, GeluMLP, LayerNorm,
+                            Mamba, MambaState, RMSNorm, SwiGLU, dense_apply,
+                            embedding_apply, embedding_attend, gelu_mlp_apply,
+                            layernorm_apply, mamba_apply, mamba_decode,
                             mamba_init_state, rmsnorm_apply, swiglu_apply)
 from repro_torch.nn.attention import (KVCache, attention_apply,
-                                      attention_decode, prefill_kv_cache)
+                                      attention_decode,
+                                      cross_attention_decode,
+                                      prefill_kv_cache)
 from repro_torch.nn.moe import MoE, moe_apply
+from repro_torch.nn.xlstm import (MLSTM, SLSTM, MLSTMState, SLSTMState,
+                                  mlstm_apply, mlstm_apply_with_state,
+                                  mlstm_decode, mlstm_init_state,
+                                  slstm_apply, slstm_decode,
+                                  slstm_init_state)
 
 PAD_LOGIT = -1e9          # logits of the padded-vocab columns
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str          # attn | mamba (mlstm | slstm in later slices)
-    mlp: str            # swiglu | moe (gelu | none in later slices)
+    mixer: str          # attn | mamba | mlstm | slstm
+    mlp: str            # swiglu | moe | gelu | none
+    cross: bool = False  # decoder cross-attention (enc-dec)
 
 
-def layer_pattern(cfg: ModelConfig) -> List[LayerSpec]:
-    """The repeating per-period layer pattern for ``cfg``: one attention
-    sub-layer with SwiGLU (dense) or experts (MoE, or dense with experts),
-    or ``attn_every`` sub-layers, attention first and Mamba after, with
-    experts on every ``moe_every``-th (hybrid)."""
+def layer_pattern(cfg: ModelConfig, *, decoder: bool = True
+                  ) -> List[LayerSpec]:
+    """The repeating per-period layer pattern for ``cfg`` (the decoder's,
+    or with ``decoder=False`` the enc-dec encoder's)."""
+    if not decoder:
+        return [LayerSpec("attn", "gelu")]
+    if cfg.family == "ssm" and cfg.xlstm is not None:
+        return [LayerSpec("slstm" if j == 0 else "mlstm", "none")
+                for j in range(cfg.xlstm.slstm_every)]
     if cfg.family == "hybrid":
-        specs = [LayerSpec("attn" if j == 0 else "mamba",
-                           "moe" if cfg.is_moe and j % cfg.moe_every
-                           == cfg.moe_every - 1 else "swiglu")
-                 for j in range(cfg.attn_every)]
-    elif cfg.family in ("dense", "moe"):
-        specs = [LayerSpec("attn", "moe" if cfg.is_moe else "swiglu")]
-    else:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: xLSTM and enc-dec "
-            "follow (ROADMAP Queue 1 item 12)")
-    return specs
+        return [LayerSpec("attn" if j == 0 else "mamba",
+                          "moe" if cfg.is_moe and j % cfg.moe_every
+                          == cfg.moe_every - 1 else "swiglu")
+                for j in range(cfg.attn_every)]
+    mlp = "moe" if cfg.is_moe else ("gelu" if cfg.is_encdec else "swiglu")
+    return [LayerSpec("attn", mlp, cross=cfg.is_encdec)]
+
+
+def _norm_module(cfg: ModelConfig, device):
+    return (LayerNorm if cfg.is_encdec else RMSNorm)(cfg.d_model,
+                                                      device=device)
+
+
+def _norm(cfg: ModelConfig, params, x):
+    if cfg.is_encdec:
+        return layernorm_apply(params, x)
+    return rmsnorm_apply(params, x, eps=cfg.norm_eps)
 
 
 class Block(nn.Module):
     """One sub-layer's parameters (the reference's ``layers[j]`` at one
-    period): ``norm1``, the mixer (``attn`` or ``mamba``), ``norm2`` and
-    ``mlp`` (SwiGLU) or ``moe`` (experts)."""
+    period): ``norm1``, the mixer (``attn``, ``mamba``, ``mlstm`` or
+    ``slstm``), ``cross_norm`` and ``cross`` (enc-dec decoder), ``norm2``
+    and ``mlp`` (SwiGLU or GELU) or ``moe`` (experts); no MLP in an xLSTM
+    block."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, *, device=None):
         super().__init__()
-        self.norm1 = RMSNorm(cfg.d_model, device=device)
-        if spec.mixer == "attn":
-            self.attn = Attention(cfg, device=device)
-        else:
-            self.mamba = Mamba(cfg, device=device)
-        self.norm2 = RMSNorm(cfg.d_model, device=device)
+        self.norm1 = _norm_module(cfg, device)
+        mixer = {"attn": Attention, "mamba": Mamba, "mlstm": MLSTM,
+                 "slstm": SLSTM}[spec.mixer]
+        setattr(self, spec.mixer, mixer(cfg, device=device))
+        if spec.cross:
+            self.cross_norm = _norm_module(cfg, device)
+            self.cross = Attention(cfg, device=device)
+        if spec.mlp == "none":
+            return
+        self.norm2 = _norm_module(cfg, device)
         if spec.mlp == "moe":
             self.moe = MoE(cfg, device=device)
         else:
-            self.mlp = SwiGLU(cfg.d_model, cfg.d_ff,
-                              num_layers=cfg.num_layers, device=device)
+            mlp = GeluMLP if spec.mlp == "gelu" else SwiGLU
+            self.mlp = mlp(cfg.d_model, cfg.d_ff, num_layers=cfg.num_layers,
+                           device=device)
+
+
+def _stack(cfg: ModelConfig, pattern, periods: int, device):
+    return nn.ModuleList(
+        nn.ModuleList(Block(cfg, spec, device=device) for spec in pattern)
+        for _ in range(periods))
+
+
+class Encoder(nn.Module):
+    """The enc-dec encoder: ``encoder_layers`` blocks of the encoder
+    pattern and a final norm (the reference's ``params["encoder"]``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        self.layers = _stack(cfg, layer_pattern(cfg, decoder=False),
+                             cfg.encoder_layers, device)
+        self.final_norm = _norm_module(cfg, device)
 
 
 class LM(nn.Module):
-    """Embedding, ``num_layers / period`` periods of blocks, final norm
-    and (unless tied) the head."""
+    """Embedding, ``num_layers / period`` periods of blocks, final norm,
+    (unless tied) the head, and the family's extras: the ``encoder`` and
+    ``frame_proj`` (audio frames) or ``patch_proj`` (image patches)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -108,15 +169,20 @@ class LM(nn.Module):
         self.pattern = pattern
         vpad = cfg.padded_vocab()
         self.embed = Embedding(vpad, cfg.d_model, device=device)
-        self.final_norm = RMSNorm(cfg.d_model, device=device)
-        self.layers = nn.ModuleList(
-            nn.ModuleList(Block(cfg, spec, device=device) for spec in pattern)
-            for _ in range(cfg.num_layers // len(pattern)))
+        self.final_norm = _norm_module(cfg, device)
+        self.layers = _stack(cfg, pattern, cfg.num_layers // len(pattern),
+                             device)
         if cfg.tie_embeddings:
             self.register_module("head", None)
         else:
             self.head = Dense(cfg.d_model, vpad, stddev=cfg.d_model ** -0.5,
                               device=device)
+        if cfg.is_encdec:
+            self.encoder = Encoder(cfg, device=device)
+        if cfg.frontend == "image_patches":
+            self.patch_proj = Dense(cfg.d_model, cfg.d_model, device=device)
+        if cfg.frontend == "audio_frames":
+            self.frame_proj = Dense(cfg.d_model, cfg.d_model, device=device)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -129,12 +195,15 @@ class LM(nn.Module):
 
 def reference_leaf(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
     """The path of a parameter's leaf in the reference's params tree and
-    the parameter's index on that leaf's stacked period axis (None outside
-    ``layers``): the port's ``layers.{p}.{j}.<rest>`` is the reference's
-    ``params["layers"][j][<rest>][p]``."""
+    the parameter's index on that leaf's stacked axis (None outside the
+    layer stacks): the port's ``layers.{p}.{j}.<rest>`` is the reference's
+    ``params["layers"][j][<rest>][p]``, and ``encoder.layers.{i}.{j}.
+    <rest>`` is ``params["encoder"]["layers"][j][<rest>][i]``."""
     parts = tuple(name.split("."))
     if parts[0] == "layers":
         return ("layers", parts[2]) + parts[3:], int(parts[1])
+    if parts[:2] == ("encoder", "layers"):
+        return ("encoder", "layers", parts[3]) + parts[4:], int(parts[2])
     return parts, None
 
 
@@ -149,6 +218,35 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> LM:
     return model
 
 
+def _embed(model: LM, tokens, patch_embeds):
+    """Token embeddings, the first P replaced by the projected patch
+    embeddings (B, P, d) where given."""
+    x = embedding_apply(model.embed, tokens)
+    if patch_embeds is None:
+        return x
+    proj = dense_apply(model.patch_proj, patch_embeds.to(x.dtype))
+    return torch.cat([proj, x[:, patch_embeds.shape[1]:]], dim=1)
+
+
+def _encode(model: LM, enc_frames, dtype):
+    """The enc-dec encoder's memory (B, L_enc, d) over the audio frames
+    (None for another family).  Bidirectional attention, GELU MLPs."""
+    cfg = model.cfg
+    if not cfg.is_encdec:
+        return None
+    if enc_frames is None:
+        raise ValueError("enc-dec arch needs enc_frames")
+    enc = model.encoder
+    x = enc_frames.to(dtype)
+    if cfg.frontend == "audio_frames":
+        x = dense_apply(model.frame_proj, x)
+    for (block,) in enc.layers:
+        h = _norm(cfg, block.norm1, x)
+        x = x + attention_apply(block.attn, h, cfg=cfg, causal=False)
+        x = x + gelu_mlp_apply(block.mlp, _norm(cfg, block.norm2, x))
+    return _norm(cfg, enc.final_norm, x)
+
+
 def _lm_head(model: LM, x):
     cfg = model.cfg
     if cfg.tie_embeddings:
@@ -160,47 +258,68 @@ def _lm_head(model: LM, x):
     return logits
 
 
-def _mlp(block: Block, spec: LayerSpec, x, cfg: ModelConfig):
-    """``x`` plus the sub-layer's MLP of its norm, and the MoE's
-    load-balancing loss (None for SwiGLU)."""
-    h = rmsnorm_apply(block.norm2, x, eps=cfg.norm_eps)
+def _cross_and_mlp(block: Block, spec: LayerSpec, x, cfg: ModelConfig,
+                   memory, decode: bool):
+    """After the mixer's residual: the cross-attention to ``memory``
+    (enc-dec, when a memory is given) and the MLP, each with its norm and
+    residual.  Returns (x, the MoE's load-balancing loss or None)."""
+    if spec.cross and memory is not None:
+        h = _norm(cfg, block.cross_norm, x)
+        x = x + (cross_attention_decode(block.cross, h, memory, cfg=cfg)
+                 if decode else
+                 attention_apply(block.cross, h, cfg=cfg, memory=memory))
+    if spec.mlp == "none":
+        return x, None
+    h = _norm(cfg, block.norm2, x)
     if spec.mlp == "moe":
         h, aux = moe_apply(block.moe, h)
         return x + h, aux
+    if spec.mlp == "gelu":
+        return x + gelu_mlp_apply(block.mlp, h), None
     return x + swiglu_apply(block.mlp, h), None
 
 
-def lm_forward(model: LM, tokens):
+def lm_forward(model: LM, tokens, *, patch_embeds=None, enc_frames=None):
     """Full-sequence forward.  tokens: (B, S) int -> (logits (B, S,
     padded_vocab), aux), aux the float32 sum of the MoE layers'
-    load-balancing losses (zero without experts)."""
+    load-balancing losses (zero without experts).  ``patch_embeds`` (B, P,
+    d) fill the first P positions (VLM); ``enc_frames`` (B, L_enc, d) are
+    the encoder's input, which an enc-dec model requires."""
     cfg = model.cfg
-    x = embedding_apply(model.embed, tokens)
+    x = _embed(model, tokens, patch_embeds)
+    memory = _encode(model, enc_frames, x.dtype)
     aux = torch.zeros((), device=x.device)
     for period in model.layers:
         for spec, block in zip(model.pattern, period):
-            h = rmsnorm_apply(block.norm1, x, eps=cfg.norm_eps)
+            h = _norm(cfg, block.norm1, x)
             if spec.mixer == "attn":
                 h = attention_apply(block.attn, h, cfg=cfg)
-            else:
+            elif spec.mixer == "mamba":
                 h = mamba_apply(block.mamba, h, cfg=cfg)
-            x, a = _mlp(block, spec, x + h, cfg)
+            elif spec.mixer == "mlstm":
+                h = mlstm_apply(block.mlstm, h, cfg=cfg)
+            else:
+                h = slstm_apply(block.slstm, h, cfg=cfg)
+            x, a = _cross_and_mlp(block, spec, x + h, cfg, memory, False)
             if a is not None:
                 aux = aux + a
-    x = rmsnorm_apply(model.final_norm, x, eps=cfg.norm_eps)
+    x = _norm(cfg, model.final_norm, x)
     return _lm_head(model, x), aux
 
 
 def lm_loss(model: LM, batch, *, aux_weight: float = 0.01,
             loss_chunk: int = 0):
     """Causal LM cross-entropy + MoE aux loss, as the reference's
-    ``lm_loss``.  batch: {"tokens", "labels"} (B, S) int.  Log-softmax in
-    float32 over the padded vocab (its columns at -1e9).
+    ``lm_loss``.  batch: {"tokens", "labels"} (B, S) int, with the stubs
+    "patch_embeds" and "enc_frames" where the family takes them.
+    Log-softmax in float32 over the padded vocab (its columns at -1e9).
 
     ``loss_chunk`` > 0 (and dividing S) sums the log-likelihood chunk by
     chunk along the sequence, never holding the whole (B, S, V)
     log-softmax.  Returns (total, {"loss", "aux", "perplexity"})."""
-    logits, aux = lm_forward(model, batch["tokens"])
+    logits, aux = lm_forward(model, batch["tokens"],
+                             patch_embeds=batch.get("patch_embeds"),
+                             enc_frames=batch.get("enc_frames"))
     labels = batch["labels"].long()
     b, s = labels.shape
     if loss_chunk and s % loss_chunk == 0:
@@ -219,87 +338,134 @@ def lm_loss(model: LM, batch, *, aux_weight: float = 0.01,
                    "perplexity": torch.exp(loss.clamp(max=20.0))}
 
 
+def _stacked(per_period: List[Dict]) -> Dict:
+    """One slot's per-period states stacked on a leading period axis."""
+    out = {}
+    for key, first in per_period[0].items():
+        values = [s[key] for s in per_period]
+        out[key] = (type(first)(*(torch.stack(t) for t in zip(*values)))
+                    if isinstance(first, tuple) else torch.stack(values))
+    return out
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
                       device=None) -> Tuple[Dict, ...]:
     """Stacked (num_periods, ...) float32 decode state, one entry per
     pattern slot: an empty KV cache (every length 0) for attention, zero
-    conv tail and SSM state for Mamba."""
+    conv tail and SSM state for Mamba, the mLSTM's and sLSTM's initial
+    states (stabiliser at ``NEG_INF``) and a zero conv tail."""
     device = resolve_device(device)
     pattern = layer_pattern(cfg)
     n_periods = cfg.num_layers // len(pattern)
-    state = []
-    for spec in pattern:
+    hd = cfg.resolved_head_dim
+
+    def one(spec) -> Dict:
         if spec.mixer == "attn":
-            shape = (n_periods, batch, max_seq, cfg.num_kv_heads,
-                     cfg.resolved_head_dim)
-            state.append({"kv": KVCache(
+            shape = (batch, max_seq, cfg.num_kv_heads, hd)
+            return {"kv": KVCache(
                 torch.zeros(shape, device=device),
                 torch.zeros(shape, device=device),
-                torch.zeros((n_periods, batch), dtype=torch.int32,
-                            device=device))})
-        else:
-            state.append({"mamba": MambaState(*(
-                torch.stack([t] * n_periods)
-                for t in mamba_init_state(cfg, batch, device=device)))})
-    return tuple(state)
+                torch.zeros(batch, dtype=torch.int32, device=device))}
+        if spec.mixer == "mamba":
+            return {"mamba": mamba_init_state(cfg, batch, device=device)}
+        if spec.mixer == "mlstm":
+            xc = cfg.xlstm
+            d_in = int(xc.proj_factor * cfg.d_model)
+            return {"mlstm": mlstm_init_state(cfg, batch, device=device),
+                    "conv_tail": torch.zeros(batch, xc.conv_kernel - 1, d_in,
+                                             device=device)}
+        return {"slstm": slstm_init_state(cfg, batch, device=device)}
+
+    return tuple(_stacked([one(spec) for _ in range(n_periods)])
+                 for spec in pattern)
 
 
-def lm_prefill(model: LM, tokens, *, max_seq: int):
+def lm_prefill(model: LM, tokens, *, max_seq: int, patch_embeds=None,
+               enc_frames=None):
     """Prompt prefill: the full forward that also builds the decode state.
 
-    Returns (logits (B, S, padded_vocab), state) — ``state`` laid out as
-    :func:`init_decode_state` with every length S (and each Mamba slot's
-    conv tail and final scan state), so decode continues from it."""
+    Returns (logits (B, S, padded_vocab), state, memory) — ``state`` laid
+    out as :func:`init_decode_state` with every length S (each Mamba
+    slot's conv tail and final scan state, each mLSTM's closed-form final
+    state and conv tail, each sLSTM's last state), and ``memory`` the
+    enc-dec encoder's output (None for another family), which decode
+    steps take for their cross-attention."""
     cfg = model.cfg
-    x = embedding_apply(model.embed, tokens)
-    slots: List[list] = [[] for _ in model.pattern]
+    x = _embed(model, tokens, patch_embeds)
+    memory = _encode(model, enc_frames, x.dtype)
+    slots: List[List[Dict]] = [[] for _ in model.pattern]
     for period in model.layers:
         for j, (spec, block) in enumerate(zip(model.pattern, period)):
-            h = rmsnorm_apply(block.norm1, x, eps=cfg.norm_eps)
+            h = _norm(cfg, block.norm1, x)
             if spec.mixer == "attn":
-                slots[j].append(prefill_kv_cache(block.attn, h, cfg=cfg,
-                                                 max_seq=max_seq))
+                slots[j].append({"kv": prefill_kv_cache(
+                    block.attn, h, cfg=cfg, max_seq=max_seq)})
                 h = attention_apply(block.attn, h, cfg=cfg)
-            else:
+            elif spec.mixer == "mamba":
                 h, ms = mamba_apply(block.mamba, h, cfg=cfg,
                                     return_state=True)
-                slots[j].append(ms)
-            x, _ = _mlp(block, spec, x + h, cfg)
-    x = rmsnorm_apply(model.final_norm, x, eps=cfg.norm_eps)
-    state = tuple(
-        {"kv": KVCache(*(torch.stack(t) for t in zip(*slot)))}
-        if spec.mixer == "attn" else
-        {"mamba": MambaState(*(torch.stack(t) for t in zip(*slot)))}
-        for spec, slot in zip(model.pattern, slots))
-    return _lm_head(model, x), state
+                slots[j].append({"mamba": ms})
+            elif spec.mixer == "mlstm":
+                h, mls, tail = mlstm_apply_with_state(block.mlstm, h,
+                                                      cfg=cfg)
+                slots[j].append({"mlstm": mls, "conv_tail": tail})
+            else:
+                h, sls = slstm_apply(block.slstm, h, cfg=cfg,
+                                     return_state=True)
+                slots[j].append({"slstm": sls})
+            x, _ = _cross_and_mlp(block, spec, x + h, cfg, memory, False)
+    x = _norm(cfg, model.final_norm, x)
+    return _lm_head(model, x), tuple(map(_stacked, slots)), memory
 
 
-def lm_decode_step(model: LM, token, state, *, fused_position: bool = True):
+def _write(stacked: tuple, p: int, new: tuple) -> None:
+    """Period p of a stacked NamedTuple state, overwritten in place."""
+    for buf, value in zip(stacked, new):
+        buf[p] = value
+
+
+def lm_decode_step(model: LM, token, state, *, memory=None,
+                   fused_position: bool = True):
     """One decode step.  token: (B,) int -> (logits (B, padded_vocab),
-    state).
+    state).  ``memory`` (B, L_enc, d) is the enc-dec encoder's output
+    (from :func:`lm_prefill`); without it the decoder's cross-attention is
+    skipped, as in the reference.
 
     The state is updated in place and returned: each attention layer
     writes its new key/value row into its slice of the stacked cache and
-    advances its lengths, each Mamba layer overwrites its slice of the conv
-    tail and SSM state.  Clone the state first to keep the old one."""
+    advances its lengths, each recurrent layer overwrites its slice of its
+    state (and conv tail).  Clone the state first to keep the old one."""
     cfg = model.cfg
     x = embedding_apply(model.embed, token[:, None])               # (B,1,d)
     for p, period in enumerate(model.layers):
         for j, (spec, block) in enumerate(zip(model.pattern, period)):
-            h = rmsnorm_apply(block.norm1, x, eps=cfg.norm_eps)
+            h = _norm(cfg, block.norm1, x)
+            st = state[j]
             if spec.mixer == "attn":
-                kv = state[j]["kv"]
+                kv = st["kv"]
                 h, new = attention_decode(
                     block.attn, h, KVCache(kv.k[p], kv.v[p], kv.length[p]),
                     cfg=cfg, fused_position=fused_position)
                 kv.length[p] = new.length
-            else:
-                ms = state[j]["mamba"]
+            elif spec.mixer == "mamba":
+                ms = st["mamba"]
                 h, new = mamba_decode(block.mamba, h,
                                       MambaState(ms.conv[p], ms.ssm[p]),
                                       cfg=cfg)
-                ms.conv[p] = new.conv
-                ms.ssm[p] = new.ssm
-            x, _ = _mlp(block, spec, x + h, cfg)
-    x = rmsnorm_apply(model.final_norm, x, eps=cfg.norm_eps)
+                _write(ms, p, new)
+            elif spec.mixer == "mlstm":
+                mls = st["mlstm"]
+                h, new, tail = mlstm_decode(
+                    block.mlstm, h, MLSTMState(*(t[p] for t in mls)),
+                    cfg=cfg, conv_tail=st["conv_tail"][p])
+                _write(mls, p, new)
+                st["conv_tail"][p] = tail
+            else:
+                sls = st["slstm"]
+                h, new = slstm_decode(block.slstm, h,
+                                      SLSTMState(*(t[p] for t in sls)),
+                                      cfg=cfg)
+                _write(sls, p, new)
+            x, _ = _cross_and_mlp(block, spec, x + h, cfg, memory, True)
+    x = _norm(cfg, model.final_norm, x)
     return _lm_head(model, x)[:, 0], state

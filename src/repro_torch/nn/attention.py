@@ -5,8 +5,10 @@ The attention math is :func:`repro_torch.kernels.ops.flash_attention` for a
 full sequence and :func:`repro_torch.kernels.ops.decode_attention` for one
 decode token (the CUDA kernels on the card, their plain versions on the
 CPU); this module owns the projections, the rotary embedding and the cache
-insert.  Cross-attention (enc-dec) and the sharded split-K decode wait for
-their slices.
+insert.  Cross-attention (the enc-dec family) takes its keys and values
+from the encoder's memory: ``attention_apply(memory=)`` over a full
+sequence, :func:`cross_attention_decode` for one decode token.  The sharded
+split-K decode waits for the mesh.
 """
 from __future__ import annotations
 
@@ -51,25 +53,28 @@ def _split_heads(x, n_heads, head_dim):
 
 def attention_apply(params: Attention, x, *, cfg: ModelConfig,
                     positions=None, causal: bool = True, window: int = 0,
-                    q_offset: int = 0, rope: bool = True):
-    """Full-sequence (train / prefill) self-attention.  x: (B, S, d_model).
+                    q_offset: int = 0, memory=None, rope: bool = True):
+    """Full-sequence (train / prefill) attention.  x: (B, S, d_model).
 
     With ``rope`` the queries rotate by ``positions`` (default ``arange(S)
     + q_offset``) and the keys by ``arange(S)``, as in the reference; the
-    DiT calls it with ``rope=False``."""
+    DiT calls it with ``rope=False``.  ``memory`` (B, S_mem, d_model)
+    switches to cross-attention: keys and values from the memory, no rope
+    and no causal mask."""
     hd = cfg.resolved_head_dim
     b, s, _ = x.shape
+    kv_src = memory if memory is not None else x
     q = _split_heads(dense_apply(params.wq, x), cfg.num_heads, hd)
-    k = _split_heads(dense_apply(params.wk, x), cfg.num_kv_heads, hd)
-    v = _split_heads(dense_apply(params.wv, x), cfg.num_kv_heads, hd)
-    if rope:
+    k = _split_heads(dense_apply(params.wk, kv_src), cfg.num_kv_heads, hd)
+    v = _split_heads(dense_apply(params.wv, kv_src), cfg.num_kv_heads, hd)
+    if rope and memory is None:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :] + q_offset
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, torch.arange(s, device=x.device)[None, :],
                        cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              q_offset=q_offset)
+    out = ops.flash_attention(q, k, v, causal=causal and memory is None,
+                              window=window, q_offset=q_offset)
     return dense_apply(params.wo, out.reshape(b, s, cfg.q_dim))
 
 
@@ -120,10 +125,21 @@ def attention_decode(params: Attention, x, cache: KVCache, *,
     return y, KVCache(cache.k, cache.v, new_len)
 
 
-def cross_attention_decode(*args, **kwargs):
-    raise NotImplementedError(
-        "decode-time cross-attention is not ported yet (ROADMAP Queue 1 "
-        "item 12: the enc-dec family)")
+def cross_attention_decode(params: Attention, x, memory, *,
+                           cfg: ModelConfig):
+    """Decode-time cross-attention of x (B, 1, d_model) against a fixed
+    encoder memory (B, S_mem, d_model).  As in the reference, the memory's
+    keys and values are projected again at every call (nothing is cached),
+    and every row attends to all S_mem of them."""
+    hd = cfg.resolved_head_dim
+    b = x.shape[0]
+    q = _split_heads(dense_apply(params.wq, x), cfg.num_heads, hd)
+    k = _split_heads(dense_apply(params.wk, memory), cfg.num_kv_heads, hd)
+    v = _split_heads(dense_apply(params.wv, memory), cfg.num_kv_heads, hd)
+    lens = torch.full((b,), memory.shape[1], dtype=torch.int32,
+                      device=x.device)
+    out = ops.decode_attention(q[:, 0], k, v, lens)
+    return dense_apply(params.wo, out.reshape(b, 1, cfg.q_dim))
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, *,

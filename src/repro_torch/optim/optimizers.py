@@ -7,8 +7,9 @@ AdamW keeps float32 first and second moments and applies
 the reference is pure, the port updates in place to save a copy of the
 model: ``clip_by_global_norm`` scales the gradients in place,
 ``update_fn`` advances the moments in ``state`` in place and returns the
-updates, and ``apply_updates`` adds them into the parameters in place.  The step counter stays a host integer, so no update reads the
-card back.
+updates, and ``apply_updates`` adds them into the parameters in place.
+Every parameter and gradient of the port is float32.  The step counter
+stays a host integer, so no update reads the card back.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ def clip_by_global_norm(grads: Params, max_norm: float):
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in grads.values():
-        g.copy_((g.float() * scale).to(g.dtype))
+        g.mul_(scale)
     return grads, norm
 
 
@@ -72,6 +73,7 @@ def adamw(learning_rate: Callable[[int], float] | float,
                         nu={k: torch.zeros_like(p, dtype=torch.float32)
                             for k, p in params.items()})
 
+    @torch.no_grad()
     def update_fn(grads: Params, state: OptState, params: Params):
         step = state.step + 1
         lr = lr_fn(step)
@@ -81,12 +83,16 @@ def adamw(learning_rate: Callable[[int], float] | float,
         for k, g in grads.items():
             g32 = g.float()
             m, v, p = state.mu[k], state.nu[k], params[k]
-            m.mul_(b1).add_((1 - b1) * g32)
-            v.mul_(b2).add_((1 - b2) * g32 * g32)
-            u = (m / b1c) / (torch.sqrt(v / b2c) + eps)
+            # the reference's expressions op for op, through one scratch
+            # buffer: a fresh tensor per op costs the CPU more than the op
+            t = torch.mul(g32, 1 - b1)
+            m.mul_(b1).add_(t)
+            v.mul_(b2).add_(torch.mul(g32, 1 - b2, out=t).mul_(g32))
+            u = torch.div(m, b1c)
+            u.div_(torch.div(v, b2c, out=t).sqrt_().add_(eps))
             if weight_decay and mask.get(k, True):
-                u = u + weight_decay * p.float()
-            updates[k] = (u * -lr).to(p.dtype)
+                u.add_(torch.mul(p.float(), weight_decay, out=t))
+            updates[k] = u.mul_(-lr).to(p.dtype)
         return updates, OptState(step, state.mu, state.nu)
 
     return init_fn, update_fn
@@ -119,8 +125,7 @@ def sgd(learning_rate: Callable[[int], float] | float,
 
 @torch.no_grad()
 def apply_updates(params: Params, updates: Params) -> Params:
-    """``p + u`` in float32, written into each parameter in place."""
+    """``p + u``, written into each (float32) parameter in place."""
     for k, u in updates.items():
-        p = params[k]
-        p.copy_((p.float() + u.float()).to(p.dtype))
+        params[k].add_(u)
     return params

@@ -45,13 +45,15 @@ def test_port_imports_with_jax_and_the_reference_blocked():
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 66                       # every submodule imported
-    # the closed loop's modules among them, the fused engine's and the
-    # fleet layer's
+    # the closed loop's modules among them, the fused engine's, the fleet
+    # layer's and the zoo's last families' with the registry
     assert {f"repro_torch.{m}" for m in (
         "experiments", "core.baselines", "core.constraints", "core.learn_gdm",
         "core.mac", "core.policy", "nn.recurrent", "rl.d3ql", "rl.networks",
         "rl.replay", "sim.vec_env", "sim.workloads", "sim.torch_env",
-        "sim.faults", "serving.scheduler", "serving.cluster")} <= names
+        "sim.faults", "serving.scheduler", "serving.cluster", "nn.xlstm",
+        "configs.registry", "configs.seamless_m4t_large_v2",
+        "configs.xlstm_1_3b", "configs.llava_next_34b")} <= names
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -87,6 +89,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                      "granite-moe-1b-a400m"]),
                  lambda: serve.run(requests=1,
                                    lm_arch="granite-moe-1b-a400m"),
+                 lambda: init_lm(get_config("xlstm-1.3b").reduced()),
+                 lambda: init_decode_state(
+                     get_config("seamless-m4t-large-v2").reduced(), 1, 8),
+                 lambda: train.main(["--steps", "1", "--arch",
+                                     "xlstm-1.3b"]),
+                 lambda: serve.run(requests=1, lm_arch="xlstm-1.3b"),
                  lambda: D3QLAgent(D3QLConfig()), lambda: qnet_init(8, 2, 3),
                  lambda: LearnGDMController(EdgeSimulator(smoke)),
                  lambda: experiments.train_variant(smoke, "learn-gdm", 1),

@@ -122,22 +122,33 @@ def test_convert_rejects_a_mismatched_tree(reduced):
 
 
 def test_other_families_wait_for_their_slice():
-    """The hybrid family is ported (``test_torch_train.py``), and so are
-    experts in every family that has them (``test_torch_moe.py``): their
-    patterns are the reference's.  xLSTM (``ssm``) and enc-dec are not."""
+    """Every family of the zoo is ported: the hybrid family
+    (``test_torch_train.py``), experts in every family that has them
+    (``test_torch_moe.py``), xLSTM, enc-dec and the VLM
+    (``test_torch_zoo.py``).  Their patterns are the reference's, the
+    enc-dec encoder's too, and no family waits for a later slice: a
+    family name the reference treats as dense (``ssm`` without an xLSTM
+    config, ``encdec`` without encoder layers) is dense here as well."""
     yi, jyi = get_config("yi-6b"), jax_get_config("yi-6b")
+    xl, jxl = get_config("xlstm-1.3b").xlstm, jax_get_config("xlstm-1.3b").xlstm
     for kw in (dict(family="moe", num_experts=4, experts_per_token=2),
                dict(num_experts=4, experts_per_token=2),
                dict(family="hybrid", attn_every=2, moe_every=2,
-                    num_experts=4, experts_per_token=2)):
-        got = tlm.layer_pattern(dataclasses.replace(yi, **kw))
-        want = jlm.layer_pattern(dataclasses.replace(jyi, **kw))
-        assert [(s.mixer, s.mlp) for s in got] == \
-            [(s.mixer, s.mlp) for s in want]
-        assert "moe" in [s.mlp for s in got]
-    for family in ("ssm", "encdec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.layer_pattern(dataclasses.replace(yi, family=family))
+                    num_experts=4, experts_per_token=2),
+               dict(family="ssm"), dict(family="encdec"),
+               dict(family="ssm", xlstm=(xl, jxl)),
+               dict(family="audio", encoder_layers=2, cross_attention=True),
+               dict(family="vlm", num_patch_tokens=8,
+                    frontend="image_patches")):
+        port = {k: v[0] if isinstance(v, tuple) else v for k, v in kw.items()}
+        ref = {k: v[1] if isinstance(v, tuple) else v for k, v in kw.items()}
+        for decoder in (True, False):
+            got = tlm.layer_pattern(dataclasses.replace(yi, **port),
+                                    decoder=decoder)
+            want = jlm.layer_pattern(dataclasses.replace(jyi, **ref),
+                                     decoder=decoder)
+            assert [(s.mixer, s.mlp, s.cross) for s in got] == \
+                [(s.mixer, s.mlp, s.cross) for s in want]
 
 
 # -- rope -----------------------------------------------------------------------------
@@ -190,7 +201,8 @@ def test_prefill_matches_reference(reduced):
     want, wstate, _ = jax.jit(lambda p, t: jlm.lm_prefill(
         p, t, jcfg, max_seq=10, impl="xla", state_dtype=jnp.float32))(
             params, toks)
-    got, state = tlm.lm_prefill(model, torch.from_numpy(toks), max_seq=10)
+    got, state, _ = tlm.lm_prefill(model, torch.from_numpy(toks),
+                                   max_seq=10)
     _close(got, want)
     _close_state(state, wstate)
 
@@ -242,7 +254,7 @@ def test_prefill_then_decode_matches_full_forward(reduced):
     toks = torch.from_numpy(_tokens(cfg, (2, 10), seed=5))
     s = 8
     full, _ = tlm.lm_forward(model, toks[:, :s + 1])
-    pre, state = tlm.lm_prefill(model, toks[:, :s], max_seq=s + 2)
+    pre, state, _ = tlm.lm_prefill(model, toks[:, :s], max_seq=s + 2)
     v = cfg.vocab_size
     _close(pre[:, -1, :v], full[:, s - 1, :v].numpy())
     nxt, _ = tlm.lm_decode_step(model, toks[:, s], state)
@@ -277,7 +289,7 @@ def test_padded_vocab_columns_are_masked():
     model = tlm.init_lm(cfg, seed=0, device="cpu")
     toks = torch.from_numpy(_tokens(cfg, (1, 4), seed=7))
     logits, _ = tlm.lm_forward(model, toks)
-    pre, state = tlm.lm_prefill(model, toks, max_seq=6)
+    pre, state, _ = tlm.lm_prefill(model, toks, max_seq=6)
     step, _ = tlm.lm_decode_step(model, toks[:, 0], state)
     for out in (logits, pre, step):
         assert bool((out[..., cfg.vocab_size:] == -1e9).all())
@@ -325,8 +337,8 @@ def test_full_width_layer_matches_reference():
     want, jstate, _ = jax.jit(lambda p, t: jlm.lm_prefill(
         p, t, jcfg, max_seq=8, impl="xla", state_dtype=jnp.float32))(
             params, toks[:, :6])
-    got, state = tlm.lm_prefill(model, torch.from_numpy(toks[:, :6]),
-                                max_seq=8)
+    got, state, _ = tlm.lm_prefill(model, torch.from_numpy(toks[:, :6]),
+                                   max_seq=8)
     _close(got, want, FULL_TOL)
     _close_state(state, jstate, FULL_TOL)
     step = jax.jit(lambda p, t, s: jlm.lm_decode_step(p, t, s, jcfg,

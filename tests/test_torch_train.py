@@ -162,8 +162,8 @@ def test_prefill_and_decode_match_reference(hybrid):
     toks = _tokens(cfg, (2, 10), seed=2)
     want, jstate, _ = jlm.lm_prefill(params, toks[:, :7], jcfg, max_seq=10,
                                      impl="xla", state_dtype=jnp.float32)
-    got, state = tlm.lm_prefill(model, torch.from_numpy(toks[:, :7]),
-                                max_seq=10)
+    got, state, _ = tlm.lm_prefill(model, torch.from_numpy(toks[:, :7]),
+                                   max_seq=10)
     _close(got, want)
     _close_state(state, jstate)
     assert isinstance(state[1]["mamba"], MambaState)
@@ -194,7 +194,7 @@ def test_prefill_then_decode_matches_full_forward(hybrid):
     toks = torch.from_numpy(_tokens(cfg, (2, 9), seed=3))
     full, _ = tlm.lm_forward(model, toks)
     v = cfg.vocab_size
-    pre, state = tlm.lm_prefill(model, toks[:, :6], max_seq=9)
+    pre, state, _ = tlm.lm_prefill(model, toks[:, :6], max_seq=9)
     _close(pre[:, -1, :v], full[:, 5, :v].detach().numpy())
     for t in range(6, 9):
         nxt, state = tlm.lm_decode_step(model, toks[:, t], state)
