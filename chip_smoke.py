@@ -129,7 +129,19 @@ non-zero before the result line):
     steps at B=8, S=128 and one more profiled (kernels and device time
     against the host's); llava-next-34b at full width, 2 of 60 layers: a
     prefill of 2880 patches and 128 tokens and 16 served decode steps,
-    launches exact, the step's device ms against its bound.
+    launches exact, the step's device ms against its bound;
+22. the closed loop on a mesh: ``make_env_mesh`` over ``cuda:0`` repeated
+    1, 2 and 4 times (the number of distinct devices printed beside each
+    size) and its degrade-to-divisor rule; ``train_fused`` on paper-fig3
+    at E=8 for two rounds and the trained agent's ``evaluate_fused`` at
+    each size, bit for bit and exactly equal to the unsharded run of the
+    same seed; a 4-cell paper-fig3 fleet with three full-width gdm-dit
+    services built on a mesh of 2, served quantum by ``serve_fleet``
+    under the trained agent, equal to the unsharded fleet frame for
+    frame, latents within 1e-5, one ``"shard"`` ledger row per handover
+    of latents between mesh positions, the DiT kernels launched block
+    calls x shards x L times; ``SlotBatch``'s per-shard resident rows
+    against ``run_batch`` bit for bit; the phase's seconds.
 
 Phase 3 also holds the selective scan (forward and backward kernels)
 against its plain version and autograd (and both against themselves: two
@@ -2665,6 +2677,215 @@ def full_chains(ctrl, record, kept, results, scen, services, cells, frames,
     return seen
 
 
+# -- phase 22: the closed loop on a mesh ------------------------------------------
+
+def _same_history(got, want, what):
+    import numpy as np
+    for k in ("reward", "delivered", "loss"):
+        a, b = np.asarray(got[k]), np.asarray(want[k])
+        assert a.shape == b.shape and np.array_equal(a, b, equal_nan=True), \
+            f"{what}: {k} differs from the unsharded run"
+
+
+def mesh_loop(cfg, card: str, sizes=(1, 2, 4), train_eps: int = 16,
+              num_envs: int = 8, cells: int = 4, frames: int = 40,
+              seed: int = 0):
+    """The closed loop's mesh paths on meshes over the card's devices
+    (``cuda:0`` repeated on a one-card host), each held to the
+    unsharded run of the same seed: ``make_env_mesh`` and its degrade rule;
+    ``train_fused`` on paper-fig3 at E=8, two rounds, epsilon calibrated to
+    reach 1e-2 (so the second round acts mostly greedily), bit for bit
+    (rewards, deliveries, losses, both nets, epsilon, steps); the trained
+    agent's ``evaluate_fused`` summary exactly; then a 4-cell paper-fig3
+    fleet (diurnal, handover 0.1, early exit off so chains run all B blocks
+    and in-flight latents change cells) with three full-width gdm-dit
+    services built on a mesh of 2, served quantum by ``serve_fleet`` under
+    the trained agent: the same Omega, every frame's step stats and the
+    summary equal to the unsharded fleet's, latents within TOL, one
+    ``"shard"`` row per handover of latents between cells on different
+    mesh positions, the DiT kernels launched exactly (block calls x
+    shards x L) times; and ``SlotBatch`` on the mesh against ``run_batch``
+    bit for bit.  Returns the phase's seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.core import LearnGDMController
+    from repro_torch.core.policy import LearnedPolicy, evaluate_fused
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_env_mesh
+    from repro_torch.serving import (TransferLedger, cluster_from_scenario,
+                                     make_gdm_services, serve_fleet)
+    from repro_torch.sim import EdgeSimulator, get_scenario
+    from repro_torch.sim.workloads import fleet_trace
+    t_phase = time.perf_counter()
+    scen = get_scenario("paper-fig3")
+    count = torch.cuda.device_count()
+
+    def on_card(d, axis="env"):
+        return make_env_mesh(d, axis=axis, devices=("cuda:0",) * d)
+
+    for d in sizes:
+        mesh = on_card(d)
+        assert mesh.shape == {"env": d}
+        print(f"mesh of {d}: {len(set(mesh.devices))} distinct device(s) "
+              f"({', '.join(str(x) for x in mesh.devices)})")
+    cards = make_env_mesh()
+    assert cards.shape == {"env": count} and len(set(cards.devices)) == count
+    assert make_env_mesh(4, divides=6, devices=("cuda:0",) * 4).shape == \
+        {"env": 3}
+    assert make_env_mesh(4, divides=7, devices=("cuda:0",) * 4).shape == \
+        {"env": 1}
+    print(f"make_env_mesh() takes the {count} card(s); over cuda:0 x 4 it "
+          f"degrades to 3 for divides=6 and to 1 for divides=7")
+
+    def controller():
+        ctrl = LearnGDMController(EdgeSimulator(scen), seed=seed,
+                                  device="cuda")
+        ctrl.calibrate_epsilon(train_eps, num_envs=num_envs, final=1e-2)
+        return ctrl
+
+    walls = {}
+    ref = controller()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ref.train_fused(train_eps, num_envs=num_envs, seed=seed)
+    torch.cuda.synchronize()
+    walls["none"] = time.perf_counter() - t0
+    ev_want = evaluate_fused(LearnedPolicy(ref.agent), ref.env, 16,
+                             num_envs=num_envs, seed=seed + 1)
+    for d in sizes:
+        got = controller()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = got.train_fused(train_eps, num_envs=num_envs, seed=seed,
+                               mesh=on_card(d))
+        torch.cuda.synchronize()
+        walls[d] = time.perf_counter() - t0
+        _same_history(hist, want, f"train_fused on a mesh of {d}")
+        for net in ("net", "target_net"):
+            for (name, a), b in zip(
+                    getattr(ref.agent, net).named_parameters(),
+                    getattr(got.agent, net).parameters()):
+                assert torch.equal(a, b), (d, net, name)
+        assert (got.agent.epsilon, got.agent.steps) == \
+            (ref.agent.epsilon, ref.agent.steps), d
+        ev = evaluate_fused(LearnedPolicy(got.agent), got.env, 16,
+                            num_envs=num_envs, seed=seed + 1,
+                            mesh=on_card(d))
+        assert ev == ev_want, (d, ev, ev_want)
+    print(f"train_fused, {train_eps} episodes at E={num_envs}: "
+          f"{ref.agent.steps} updates, epsilon {ref.agent.epsilon:.6f}, "
+          f"rewards {np.round(want['reward'], 4).tolist()}; bit for bit at "
+          f"mesh sizes {list(sizes)}; evaluate_fused (16 episodes, "
+          f"learned) equal: reward {ev_want['reward']:.6f}, delivered "
+          f"{ev_want['delivered_quality']:.6f}")
+    # the unsharded run again, warm, for the wall clocks' comparison (the
+    # first run pays the first calls of every op)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _same_history(controller().train_fused(train_eps, num_envs=num_envs,
+                                           seed=seed), want, "train_fused")
+    torch.cuda.synchronize()
+    walls["warm"] = time.perf_counter() - t0
+    print(f"{card}: train_fused wall clock unsharded {walls['none']:.2f} s "
+          f"(first) and {walls['warm']:.2f} s (last), "
+          + ", ".join(f"mesh of {d} {walls[d]:.2f} s" for d in sizes))
+
+    # the fleet, on services built on a mesh of two, against the same
+    # services without one
+    mesh2 = on_card(2, "batch")
+    plain, omega = make_gdm_services(scen.num_services, seed,
+                                     num_blocks=scen.max_blocks,
+                                     model_cfg=cfg, device="cuda")
+    sharded, omega2 = make_gdm_services(scen.num_services, seed,
+                                        num_blocks=scen.max_blocks,
+                                        model_cfg=cfg, mesh=mesh2)
+    assert np.array_equal(omega, omega2), "Omega differs under a mesh"
+    fleet = fleet_trace(scen, frames, cells, workload="diurnal", seed=seed,
+                        handover_rate=0.1)
+    runs = {}
+    for name, services, mesh in (("unsharded", plain, None),
+                                 ("mesh of 2", sharded, mesh2)):
+        ledger = TransferLedger()
+        cluster = cluster_from_scenario(
+            scen, cells, services, ledger=ledger, mesh=mesh,
+            early_exit=False,
+            policy_factory=lambda c: LearnedPolicy(ref.agent, "learn-gdm"))
+        calls0 = sum(s.batch_calls for s in services.values())
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = serve_fleet(cluster, fleet, services, seed=seed,
+                            collect_steps=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = dict(LAUNCHES)
+        calls = sum(s.batch_calls for s in services.values()) - calls0
+        shards = 1 if mesh is None else 2
+        expect = dict.fromkeys(LAUNCHES, 0)
+        expect.update(adaln_norm=calls * shards * cfg.num_layers,
+                      adaln_norm_epilogue=calls * shards * cfg.num_layers,
+                      flash_attention=calls * shards * cfg.num_layers)
+        assert launched == expect, (name, launched, expect)
+        runs[name] = (stats, ledger, cluster)
+        print(f"fleet {name}: {stats['completed']}/{stats['submitted']} "
+              f"completed, quality {stats['mean_quality']:.6f}, latency "
+              f"mean {stats['mean_latency_frames']:.3f} p95 "
+              f"{stats['p95_latency_frames']:.3f} frames, objective "
+              f"{stats['objective']:.4f}, handovers {stats['handovers']}; "
+              f"{calls} block calls, launches {launched} = {calls} x "
+              f"{shards} x {cfg.num_layers}; {wall:.2f} s on {card}")
+    (want_s, _, want_c), (got_s, ledger, got_c) = \
+        runs["unsharded"], runs["mesh of 2"]
+    assert len(got_s["steps"]) == frames
+    for t, (a, b) in enumerate(zip(got_s["steps"], want_s["steps"])):
+        assert a == b, f"fleet frame {t} differs on the mesh"
+    assert got_s == want_s, "the sharded fleet's summary differs"
+    assert got_s["completed"] > 0
+    err, n = 0.0, 0
+    for e_got, e_want in zip(got_c.engines, want_c.engines):
+        assert [r.rid for r in e_got.completed] == \
+            [r.rid for r in e_want.completed]
+        for a, b in zip(e_got.completed, e_want.completed):
+            for key in ("latent", "x0"):
+                assert np.isfinite(a.state[key]).all()
+                err = max(err, float(np.abs(a.state[key]
+                                            - b.state[key]).max()))
+            n += 1
+    assert err <= TOL, err
+    shard = [e for e in ledger.events if e.kind == "shard"]
+    cross = [e for e in ledger.events if e.kind == "handover"
+             and e.nbytes > 0 and e.src % 2 != e.dst % 2]
+    assert [(e.rid, e.src % 2, e.dst % 2, e.nbytes) for e in cross] == \
+        [(e.rid, e.src, e.dst, e.nbytes) for e in shard]
+    assert got_c.device_of_cell == [c % 2 for c in range(cells)]
+    print(f"sharded fleet equal to the unsharded frame for frame over "
+          f"{frames} frames; {n} served latents, max |diff| {err:.3e} "
+          f"(tolerance {TOL}); {len(shard)} shard rows = handovers of "
+          f"latents between mesh positions ({len(cross)})")
+
+    # SlotBatch's per-shard resident rows against run_batch, bit for bit
+    svc = sharded[0]
+    rng = np.random.default_rng(seed)
+    states = [svc.init_state(rng) for _ in range(7)]
+    items = [(i, st, i % scen.max_blocks) for i, st in enumerate(states)]
+    for _ in range(3):
+        want_b, want_q = svc.run_batch([st for _, st, _ in items],
+                                       np.asarray([k for *_, k in items]))
+        got_b, got_q = svc.slot_batch().step(items)
+        assert np.array_equal(got_q, want_q)
+        for a, b in zip(got_b, want_b):
+            for key in ("latent", "x0"):
+                assert np.array_equal(a[key], b[key]), "SlotBatch differs"
+        items = [(rid, st, k) for (rid, _, k), st in zip(items, got_b)]
+    lat, *_ = svc.slot_batch()._buffers[8]
+    assert [t.shape[0] for t in lat] == [4, 4]
+    seconds = time.perf_counter() - t_phase
+    print(f"SlotBatch on the mesh of 2 (two resident shards of 4 rows) "
+          f"equals run_batch bit for bit over 3 steps; phase 22 took "
+          f"{seconds:.1f} s")
+    return seconds
+
+
 # -- phase 16: full-width granite, card vs CPU, routing near-ties ---------------------
 
 def _routing_sets(r, k):
@@ -3464,6 +3685,12 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     llava_cut(dataclasses.replace(get_config("llava-next-34b"), num_layers=2))
     print(f"phase 21 took {time.perf_counter() - t0:.1f} s")
+
+    phase("22. the closed loop on a mesh over cuda:0 (sizes 1, 2, 4): "
+          "make_env_mesh, train_fused and evaluate_fused on paper-fig3 at "
+          "E=8 bit for bit with the unsharded run; a 4-cell fleet with three "
+          "full-width gdm-dit services on a mesh of 2 frame for frame")
+    mesh_loop(full, card)
 
     replaces = {
         "adaln_norm": "src/repro/kernels/adaln_norm.py:76",

@@ -8,10 +8,13 @@ through :mod:`repro_torch.configs.registry`, which also enumerates the
 from repro_torch.configs.base import (  # noqa: F401
     DECODE_32K,
     LONG_500K,
+    MULTI_POD,
     PREFILL_32K,
     SHAPES,
+    SINGLE_POD,
     TRAIN_4K,
     MambaConfig,
+    MeshConfig,
     ModelConfig,
     ShapeConfig,
     TrainConfig,

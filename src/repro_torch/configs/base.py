@@ -3,8 +3,9 @@
 A copy of the fields of ``repro.configs.base.ModelConfig`` with the same
 defaults, derived properties and ``reduced()`` rule, so a config built here
 equals the reference's field for field; ``MambaConfig``, ``XLSTMConfig``,
-``ShapeConfig`` (with the four assigned shapes in ``SHAPES``) and
-``TrainConfig`` are copies too.  The port is float32 throughout, so the
+``ShapeConfig`` (with the four assigned shapes in ``SHAPES``),
+``MeshConfig`` (with ``SINGLE_POD`` / ``MULTI_POD``) and ``TrainConfig``
+are copies too.  The port is float32 throughout, so the
 reference's ``dtype`` and ``gdm_impl`` fields have no counterpart: the
 dtype is fixed, and the kernel follows the tensor's device.
 """
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -157,6 +158,34 @@ LONG_500K = ShapeConfig("long_500k", "long_decode", 524_288, 1)
 SHAPES: Dict[str, ShapeConfig] = {
     s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 }
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def tp(self) -> int:
+        return self.shape[self.axes.index("model")] if "model" in self.axes else 1
+
+    @property
+    def dp(self) -> int:
+        d = self.shape[self.axes.index("data")] if "data" in self.axes else 1
+        if "pod" in self.axes:
+            d *= self.shape[self.axes.index("pod")]
+        return d
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
 
 
 @dataclass(frozen=True)

@@ -21,7 +21,8 @@ the simulator, masks, MAC and replay stay numpy, as in the reference
 ``device``, the card unless the caller asks for another.
 ``train_fused`` runs the whole round on that device instead: the tensor
 env (:mod:`repro_torch.sim.torch_env`), the device replay, the acting and
-the update, with nothing read back inside a round.
+the update, with nothing read back inside a round; with a mesh, the env
+math of each env slice runs on its own device.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import torch
 from repro_torch.core.constraints import TraceRecorder
 from repro_torch.core.mac import (greedy_mac, random_access, vec_greedy_mac,
                                   vec_random_access)
+from repro_torch.distributed.sharding import P, gather, split
 from repro_torch.optim import OptState
 from repro_torch.rl.d3ql import D3QLAgent, D3QLConfig, d3ql_update, fused_act
 from repro_torch.rl.networks import QNet
@@ -290,19 +292,17 @@ class LearnGDMController:
     # -- fused (device-resident) training --------------------------------------
 
     def _build_fused_round(self, world: torch_env.TorchWorld, num_envs: int,
-                           replay: DeviceReplay, mesh=None) -> "FusedRound":
+                           replay: DeviceReplay, mesh=None,
+                           axis: str = "env") -> "FusedRound":
         """One training round on the device: reset, then the episode's
         frames of act → env step → replay push → D3QL update (see
-        :class:`FusedRound`)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "train_fused(mesh=...) shards the round over devices, which "
-                "the port has not built yet (ROADMAP Queue 1, item 11)")
-        return FusedRound(self, world, num_envs, replay)
+        :class:`FusedRound`); ``mesh`` splits the env math over its
+        devices."""
+        return FusedRound(self, world, num_envs, replay, mesh=mesh, axis=axis)
 
     def train_fused(self, episodes: int, *, num_envs: int = 8,
                     log_every: int = 0, seed: int = 0,
-                    mesh=None) -> Dict[str, list]:
+                    mesh=None, mesh_axis: str = "env") -> Dict[str, list]:
         """Algorithm 1 with each round on the agent's device: the tensor env
         reset, then every frame's epsilon-greedy act, env step, device
         replay push and D3QL update, with no read back inside the round;
@@ -319,8 +319,12 @@ class LearnGDMController:
         parameters, target, optimizer state, epsilon and steps are written
         back, so :meth:`evaluate` and further training see the progress.
         Returns the same history dict as :meth:`train` (one entry per
-        episode, trimmed to ``episodes``).  ``mesh`` raises (ROADMAP Queue
-        1, item 11).
+        episode, trimmed to ``episodes``).
+
+        ``mesh`` (e.g. ``repro_torch.launch.mesh.make_env_mesh``) splits the
+        round's env math over the env dim, EXACTLY equal to the unsharded
+        round under the same seed (see :class:`FusedRound`); ``num_envs``
+        must be divisible by the mesh size.
         """
         agent = self.agent
         acfg = agent.cfg
@@ -330,7 +334,8 @@ class LearnGDMController:
                               obs_shape=(acfg.history, self.env.obs_dim),
                               action_shape=(acfg.num_ues,),
                               device=agent.device)
-        fused = self._build_fused_round(world, num_envs, replay, mesh)
+        fused = self._build_fused_round(world, num_envs, replay, mesh,
+                                        mesh_axis)
         carry = fused.init_carry()
         rounds = -(-episodes // num_envs)
         hist = {"reward": [], "loss": [], "delivered": []}
@@ -354,7 +359,7 @@ class LearnGDMController:
     def evaluate(self, episodes: int, *, seed0: int = 9_000,
                  engine: str = "vectorized",
                  num_envs: Optional[int] = None,
-                 seed: int = 0) -> Dict[str, float]:
+                 seed: int = 0, mesh=None) -> Dict[str, float]:
         """Greedy-policy evaluation through the unified policy/engine seam.
 
         engine: "vectorized" (default — batched numpy rollout; per-episode
@@ -362,15 +367,15 @@ class LearnGDMController:
         ``num_envs``, since each stacked env replays the scalar stream),
         "scalar" (the original ``run_episode`` loop, kept as the reference
         implementation) or "fused" (the eval round on the tensor env, on
-        the agent's device; episode randomness from a generator seeded by
-        ``seed``).
+        the agent's device, split over ``mesh`` when one is given; episode
+        randomness from a generator seeded by ``seed``).
         """
         # policy imports learn_gdm for EpisodeStats — import at call time
         from repro_torch.core.policy import LearnedPolicy, evaluate_policy
         return evaluate_policy(
             LearnedPolicy(self.agent, self.variant), self.env, episodes,
             engine=engine, num_envs=num_envs, seed0=seed0, seed=seed,
-            mac_scheme=self.mac_scheme,
+            mac_scheme=self.mac_scheme, mesh=mesh,
             scalar_episode=lambda s: self.run_episode(train=False, seed=s))
 
 
@@ -428,14 +433,39 @@ class FusedRound:
     place.  Whether a frame trains, when the target syncs and each frame's
     epsilon follow from the count of pushes, on the host, so nothing is
     read back inside a round.
+
+    With ``mesh`` (1-D, axis ``axis``) the env math runs per shard, and the
+    round stays EXACTLY the unsharded one:
+
+    * the round's draws are made whole on the world's device, and each
+      shard takes its env slice of the reset and env draws, so sharded and
+      unsharded rounds consume one stream;
+    * the env math (reset, MAC, masks, env step, observation) is strictly
+      per env, so each shard evolves its slice on its device;
+    * each frame's observations, masks and rewards are gathered in global
+      env order on the world's device, where the agent acts on the whole
+      batch, as without a mesh (a Q-net run on E/d rows may round
+      differently from one on E rows and flip an argmax on a near-tie),
+      and the replay push and the D3QL update run once on the identical
+      replay.
     """
 
+    ENV_DRAWS = ("arrival", "waypoint", "mac_attempt", "mac_channel")
+
     def __init__(self, ctrl: LearnGDMController, world: torch_env.TorchWorld,
-                 num_envs: int, replay: DeviceReplay):
+                 num_envs: int, replay: DeviceReplay, mesh=None,
+                 axis: str = "env"):
         self.agent = ctrl.agent
         self.cfg = ctrl.env.cfg
         self.variant, self.mac_scheme = ctrl.variant, ctrl.mac_scheme
         self.world, self.num_envs, self.replay = world, num_envs, replay
+        self.mesh, self.axis = mesh, axis
+        if mesh is None:
+            self.worlds = [world]
+        else:
+            shards = mesh.shape[axis]
+            assert num_envs % shards == 0, (num_envs, shards)
+            self.worlds = torch_env.split_world(world, mesh, axis)
 
     def init_carry(self) -> FusedCarry:
         agent = self.agent
@@ -474,16 +504,38 @@ class FusedRound:
                  "mac_channel": rand((t, e, u))}
         return reset_draws, draws
 
+    def _per_shard(self, draws: Dict[str, torch.Tensor],
+                   env_dim: int) -> List[Dict[str, torch.Tensor]]:
+        """Each shard's env slice of ``draws``."""
+        if self.mesh is None:
+            return [draws]
+        return torch_env.split_draws(draws, self.mesh, self.axis, env_dim)
+
+    def _whole(self, shards: List[torch.Tensor]) -> torch.Tensor:
+        """Per-shard (E/d, ...) tensors in env order on the world's
+        device."""
+        if self.mesh is None:
+            return shards[0]
+        return gather(shards, P(self.axis), self.world.qbar.device)
+
+    def _shards(self, x: torch.Tensor) -> List[torch.Tensor]:
+        return [x] if self.mesh is None else split(x, self.mesh, P(self.axis))
+
     def run_round(self, carry: FusedCarry, reset_draws: Dict[str, torch.Tensor],
                   draws: Dict[str, torch.Tensor]):
-        agent, cfg, world = self.agent, self.cfg, self.world
+        agent, cfg, worlds = self.agent, self.cfg, self.worlds
         acfg = agent.cfg
-        e, dev = self.num_envs, world.qbar.device
+        e, dev = self.num_envs, self.world.qbar.device
         horizon = draws["explore"].shape[0]
-        state = torch_env.reset_env(cfg, world, pos_draws=reset_draws["pos"],
-                                    dest_draws=reset_draws["dest"],
-                                    req_draws=reset_draws["req"])
-        obs0 = torch_env.observe(cfg, world, state)
+        resets = self._per_shard(reset_draws, env_dim=0)
+        frames = self._per_shard({k: draws[k] for k in self.ENV_DRAWS
+                                  if k in draws}, env_dim=1)
+        states = [torch_env.reset_env(cfg, w, pos_draws=r["pos"],
+                                      dest_draws=r["dest"],
+                                      req_draws=r["req"])
+                  for w, r in zip(worlds, resets)]
+        obs0 = self._whole([torch_env.observe(cfg, w, s)
+                            for w, s in zip(worlds, states)])
         obs_hist = obs0[:, None].repeat(1, acfg.history, 1)    # (E, H, obs)
         replay, epsilon, steps = carry.replay, carry.epsilon, carry.steps
         opt_state = carry.opt_state
@@ -491,25 +543,34 @@ class FusedRound:
         rewards = []
         for t in range(horizon):
             if self.mac_scheme == "greedy":
-                mac = torch_env.greedy_mac(cfg, world, state)
+                macs = [torch_env.greedy_mac(cfg, w, s)
+                        for w, s in zip(worlds, states)]
             else:
-                mac = torch_env.random_access(
-                    cfg, state, attempt_draws=draws["mac_attempt"][t],
-                    channel_draws=draws["mac_channel"][t])
-            mask = torch_env.action_mask(cfg, state, self.variant)
+                macs = [torch_env.random_access(
+                    cfg, s, attempt_draws=f["mac_attempt"][t],
+                    channel_draws=f["mac_channel"][t])
+                    for s, f in zip(states, frames)]
+            mask = self._whole([torch_env.action_mask(cfg, s, self.variant)
+                                for s in states])
             actions = fused_act(carry.net, obs_hist, epsilon=epsilon,
                                 mask=mask, explore_draw=draws["explore"][t],
                                 q_rand=draws["q_rand"][t])
-            state, info = torch_env.env_step(
-                cfg, world, state, mac, actions - 1,
-                arrival_draws=draws["arrival"][t],
-                waypoint_draws=draws["waypoint"][t])
-            next_obs = torch_env.observe(cfg, world, state, info["bs_load"])
+            stepped = [torch_env.env_step(
+                cfg, w, s, m, a - 1, arrival_draws=f["arrival"][t],
+                waypoint_draws=f["waypoint"][t])
+                for w, s, m, a, f in zip(worlds, states, macs,
+                                         self._shards(actions), frames)]
+            states = [s for s, _ in stepped]
+            next_obs = self._whole([
+                torch_env.observe(cfg, w, s, info["bs_load"])
+                for w, s, (_, info) in zip(worlds, states, stepped)])
+            step_rewards = self._whole([info["rewards"]
+                                        for _, info in stepped])
             next_hist = torch.cat([obs_hist[:, 1:], next_obs[:, None]], dim=1)
-            done = torch.full((e,), float(state.frame >= cfg.horizon),
+            done = torch.full((e,), float(states[0].frame >= cfg.horizon),
                               device=dev)
             replay = self.replay.push(replay, obs_hist, actions,
-                                      info["rewards"], next_hist, done)
+                                      step_rewards, next_hist, done)
             if replay.size >= acfg.batch_size:
                 batch = self.replay.sample_from_uniforms(replay,
                                                          draws["sample"][t])
@@ -525,10 +586,11 @@ class FusedRound:
                                          carry.net.parameters()):
                             tp.copy_(p)
             epsilon = _decay_epsilon(epsilon, acfg)
-            rewards.append(info["rewards"])
+            rewards.append(step_rewards)
             obs_hist = next_hist
         carry = dataclasses.replace(carry, opt_state=opt_state,
                                     replay=replay, epsilon=epsilon,
                                     steps=steps)
+        total_delivered = self._whole([s.total_delivered for s in states])
         return carry, (torch.stack(rewards).sum(dim=0), losses,
-                       state.total_delivered)
+                       total_delivered)

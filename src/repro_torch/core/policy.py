@@ -38,6 +38,7 @@ from repro_torch import resolve_device
 from repro_torch.core.learn_gdm import (EpisodeStats, obs_history_window,
                                         summarize, variant_action_mask_vec)
 from repro_torch.core.mac import vec_greedy_mac, vec_random_access
+from repro_torch.distributed.sharding import mesh_devices
 from repro_torch.rl.d3ql import greedy_act, masked_argmax
 from repro_torch.sim import torch_env
 from repro_torch.sim.env import IDLE, EdgeSimulator, SimConfig
@@ -283,25 +284,37 @@ def make_eval_draws(cfg: SimConfig, num_envs: int,
 
 def evaluate_fused(policy: Policy, env: EdgeSimulator, episodes: int, *,
                    num_envs: Optional[int] = None, seed: int = 0,
-                   mac_scheme: str = "greedy",
-                   device=None) -> Dict[str, float]:
+                   mac_scheme: str = "greedy", mesh=None,
+                   mesh_axis: str = "env", device=None) -> Dict[str, float]:
     """Evaluate ``policy`` through one device round per ``num_envs``
     episodes on the tensor env, with nothing read back inside a round.
 
     The stacked envs share ``env``'s static world; the round's reset and
     draws come from a generator seeded by (``seed``, round), so per-episode
     trajectories are not numpy-matched.  A learned policy runs on its
-    agent's device; the others on ``device`` (the card by default).
+    agent's device; the others on ``device``, which defaults to the mesh's
+    first device under a mesh and to the card without one.
+
+    ``mesh`` (e.g. ``repro_torch.launch.mesh.make_env_mesh``) splits the
+    round over the env dim (:func:`repro_torch.sim.torch_env.
+    build_eval_round`).  ``state0`` and the draws are made whole either
+    way, so the sharded round consumes the same inputs as the unsharded one
+    and the results are identical; ``num_envs`` must divide evenly.
     """
     cfg = env.cfg
     e = num_envs or min(max(episodes, 1), 8)
     agent = getattr(policy, "agent", None)
-    device = agent.device if agent is not None else resolve_device(device)
+    if agent is not None:
+        device = agent.device
+    elif device is None and mesh is not None:
+        device = mesh_devices(mesh)[0]
+    else:
+        device = resolve_device(device)
     world = torch_env.world_from_sim(env, e, device=device)
     params, act_fn = policy.fused_spec(cfg)
     round_fn = torch_env.build_eval_round(
         cfg, act_fn, mac_scheme=mac_scheme, history=policy.history,
-        needs_obs=policy.needs_obs)
+        needs_obs=policy.needs_obs, mesh=mesh, axis=mesh_axis)
     stats: List[EpisodeStats] = []
     for rd in range(-(-episodes // e)):
         gen = torch_env.round_generator(seed, rd, device)
@@ -327,12 +340,13 @@ def evaluate_policy(policy: Policy, env: EdgeSimulator, episodes: int, *,
                     engine: str = "vectorized",
                     num_envs: Optional[int] = None, seed0: int = 9_000,
                     seed: int = 0, mac_scheme: str = "greedy",
-                    scalar_episode=None, device=None) -> Dict[str, float]:
+                    mesh=None, scalar_episode=None,
+                    device=None) -> Dict[str, float]:
     """The one engine dispatcher behind every controller's ``evaluate``.
 
     ``scalar_episode(seed) -> EpisodeStats`` is the controller's legacy
     reference loop, used when ``engine="scalar"``; "vectorized" and "fused"
-    route through the shared batched rollouts above (``seed`` and
+    route through the shared batched rollouts above (``seed``, ``mesh`` and
     ``device`` are the fused engine's).
     """
     if engine == "scalar":
@@ -342,7 +356,7 @@ def evaluate_policy(policy: Policy, env: EdgeSimulator, episodes: int, *,
                           for ep in range(episodes)])
     if engine == "fused":
         return evaluate_fused(policy, env, episodes, num_envs=num_envs,
-                              seed=seed, mac_scheme=mac_scheme,
+                              seed=seed, mac_scheme=mac_scheme, mesh=mesh,
                               device=device)
     assert engine == "vectorized", f"unknown eval engine {engine!r}"
     return evaluate_batched(policy, env, episodes, seed0=seed0,

@@ -1,0 +1,17 @@
+"""Distributed layer of the port (``repro.distributed`` in the reference):
+the sharding rules of the closed loop's mesh paths, and the split and
+gather that run them on a 1-D mesh of torch devices."""
+from repro_torch.distributed.sharding import (  # noqa: F401
+    NamedSharding,
+    P,
+    PartitionSpec,
+    batch_shardings,
+    batch_spec,
+    data_axes,
+    draw_specs,
+    gather,
+    leading_axis_spec,
+    mesh_devices,
+    spec_for_shape,
+    split,
+)

@@ -96,7 +96,7 @@ def attention_decode(params: Attention, x, cache: KVCache, *,
     if sharded_decode is not None:
         raise NotImplementedError(
             "sharded split-K decode is not ported yet (ROADMAP Queue 1 "
-            "item 12: distributed/flash_decode)")
+            "item 11: distributed/flash_decode)")
     hd = cfg.resolved_head_dim
     b = x.shape[0]
     s = cache.k.shape[1]

@@ -1,8 +1,8 @@
 """Fleet-scale serving: C cells under one clock with stacked execution.
 
 Carried copy of ``repro.serving.cluster``, pinned to it by
-``tests/test_torch_fleet.py``; only the mesh-sharded fleet is left out
-(``mesh`` raises: ROADMAP Queue 1, item 11).
+``tests/test_torch_fleet.py`` and, on a mesh, by
+``tests/test_torch_mesh.py``.
 
 A *cell* is one :class:`~repro_torch.serving.engine.ServingEngine` (one
 scenario-derived world + bridged policy); the :class:`ClusterEngine` runs C
@@ -77,7 +77,8 @@ class ClusterEngine:
                  services: Dict[int, object], *, stacked: bool = True,
                  handover_cost: float = 0.4,
                  ledger: Optional[TransferLedger] = None,
-                 mesh=None, tracer: Optional[Tracer] = None):
+                 mesh=None, batch_axis: str = "batch",
+                 tracer: Optional[Tracer] = None):
         assert engines, "a cluster needs at least one cell"
         self.engines = engines
         self.services = services
@@ -92,10 +93,16 @@ class ClusterEngine:
         self.tracer = tracer if tracer is not None else next(
             (e.tracer for e in engines if e.tracer is not None), None)
         self.handovers_applied = 0
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded fleet is not ported yet (ROADMAP Queue 1, "
-                "item 11)")
+        # mesh-sharded fleet: each cell has a home device (round-robin) and
+        # the stacked per-service batch is sharded over the batch axis by
+        # the services themselves (build them with the same mesh).  The
+        # bookkeeping here only adds accounting: a handover between cells
+        # on different home devices moves latents across shards and is
+        # recorded as a "shard" transfer (bytes real, cost 0.0 — the
+        # latency charge already rides the handover event itself).
+        self.mesh = mesh
+        ndev = 1 if mesh is None else mesh.shape[batch_axis]
+        self.device_of_cell = [c % ndev for c in range(len(engines))]
         # scalar fallbacks for services without a batch entry point
         self._block_fns = {
             s: (svc.block_fn if hasattr(svc, "block_fn") else svc)
@@ -192,6 +199,15 @@ class ClusterEngine:
         if self.ledger is not None and self.ledger is not dst.ledger:
             self.ledger.record(self.frame, req.rid, "handover", ev.src_cell,
                                ev.dst_cell, state_nbytes(req.state), cost)
+        src_dev = self.device_of_cell[ev.src_cell]
+        dst_dev = self.device_of_cell[ev.dst_cell]
+        if self.ledger is not None and src_dev != dst_dev:
+            self.ledger.record(self.frame, req.rid, "shard", src_dev,
+                               dst_dev, state_nbytes(req.state), 0.0)
+        if self.tracer is not None and src_dev != dst_dev:
+            self.tracer.on_transfer(req.rid, "shard", src_dev, dst_dev,
+                                    state_nbytes(req.state), 0.0, self.frame,
+                                    ev.dst_cell)
         req.origin = ev.dst_origin               # re-enter at the new PoA
         req.node = -1                            # placement restarts there
         dst.active.append(req)                   # admission carries over
@@ -293,7 +309,8 @@ def cluster_from_scenario(cfg: SimConfig, num_cells: int,
                           handover_cost: float = 0.4,
                           telemetry: Optional[TelemetryLog] = None,
                           ledger: Optional[TransferLedger] = None,
-                          mesh=None, recovery=None, sched=None,
+                          mesh=None, batch_axis: str = "batch",
+                          recovery=None, sched=None,
                           tracing: bool = False,
                           tracer: Optional[Tracer] = None) -> ClusterEngine:
     """Build a C-cell fleet for one named scenario.
@@ -306,8 +323,11 @@ def cluster_from_scenario(cfg: SimConfig, num_cells: int,
     stateful — histories and PoA streams must not be shared); ``None``
     leaves the engine's default locality-greedy placement.
 
-    ``mesh`` (the reference's sharded fleet) raises: ROADMAP Queue 1,
-    item 11.
+    ``mesh`` shards the stacked fleet batch across devices: build the
+    shared services with the SAME mesh (``make_gdm_services(mesh=...)``) so
+    their device calls split the batch over its devices; the cluster
+    itself only adds the cell→device map and cross-shard transfer
+    accounting.
 
     ``recovery`` (a :class:`repro_torch.serving.engine.RecoveryConfig`) arms
     every cell's failure-recovery machinery; ``None`` (the default) keeps
@@ -347,7 +367,7 @@ def cluster_from_scenario(cfg: SimConfig, num_cells: int,
         engines.append(engine)
     cluster = ClusterEngine(engines, services, stacked=stacked,
                             handover_cost=handover_cost, ledger=ledger,
-                            mesh=mesh, tracer=tracer)
+                            mesh=mesh, batch_axis=batch_axis, tracer=tracer)
     if sched is not None:
         from repro_torch.serving.scheduler import attach_scheduler
         attach_scheduler(cluster, sched)

@@ -20,11 +20,16 @@ Payloads stay numpy dicts (``{"latent", "prompt", "x0"}``), exactly as the
 reference's, so the engine, its ledger and its telemetry are unchanged.
 ``instrument`` attaches the tracer's metrics registry, under the
 reference's metric names.  :class:`SlotBatch` keeps the continuous
-scheduler's requests resident on the device between block steps.  The
-reference's mesh argument is not ported (ROADMAP Queue 1, item 11).
+scheduler's requests resident on the device between block steps.
+
+With a mesh, the stacked batch splits over its devices: buckets round up
+to a multiple of the mesh size, and each shard's rows run through a
+replica of the DiT on its device (the DiT is per-sample independent, so
+this is pure data parallelism).
 """
 from __future__ import annotations
 
+import copy
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -34,6 +39,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (batch_shardings, gather,
+                                              mesh_devices, split)
 from repro_torch.models.gdm import (LATENT_CHANNELS, DiT, init_gdm,
                                     make_schedule, quality_per_block,
                                     run_block_batched)
@@ -44,8 +51,10 @@ class GDMService:
 
     ``seed`` draws the weights (unless ``model`` is given) and Ω's reference
     prompts and noise (unless ``omega`` is given), on ``device`` — the card
-    by default.  ``model_cfg`` defaults to the reduced ``gdm-dit``, as in
-    the reference.
+    by default, the mesh's first device under a mesh.  ``model_cfg``
+    defaults to the reduced ``gdm-dit``, as in the reference.  ``mesh``
+    (1-D, axis ``batch_axis``) splits every device call's stacked batch
+    over its devices; Ω is measured on the first.
     """
 
     def __init__(self, seed: int = 0, *, num_blocks: int = 4,
@@ -53,9 +62,16 @@ class GDMService:
                  model_cfg: Optional[ModelConfig] = None, prompt_len: int = 8,
                  ref_prompts: int = 4, device=None,
                  model: Optional[DiT] = None,
-                 omega: Optional[np.ndarray] = None):
+                 omega: Optional[np.ndarray] = None, mesh=None,
+                 batch_axis: str = "batch"):
         init_seed, ref_seed = (int(x) for x in
                                np.random.SeedSequence(seed).generate_state(2))
+        if mesh is not None:
+            home = mesh_devices(mesh)[0]
+            if device is not None and torch.device(device) != home:
+                raise ValueError(f"the mesh's first device is {home}, not "
+                                 f"{device}")
+            device = home
         if model is None:
             self.device = resolve_device(device)
             self.cfg = model_cfg or get_config("gdm-dit").reduced()
@@ -74,6 +90,19 @@ class GDMService:
         self.schedule = make_schedule(num_blocks * steps_per_block,
                                       device=self.device)
         self.batch_calls = 0                       # device batch-call counter
+        # the mesh splits the stacked batch dim over its devices: each
+        # shard runs on a replica of the DiT on its device (one model per
+        # distinct device; shards on one device share it)
+        self.mesh = mesh
+        self._ndev = 1 if mesh is None else mesh.shape[batch_axis]
+        self._data, _ = batch_shardings(mesh, batch_axis)
+        replicas = {self.device: (self.model, self.schedule)}
+        for dev in ([] if mesh is None else mesh_devices(mesh)):
+            if dev not in replicas:
+                replicas[dev] = (
+                    copy.deepcopy(self.model).to(dev),
+                    {k: v.to(dev) for k, v in self.schedule.items()})
+        self._shard_models = [replicas[d] for d in self._devices()]
         # persistent per-bucket host staging buffers, pinned when the model
         # is on the card so the copies in are asynchronous (see run_batch)
         self._buffers: Dict[int, Tuple[Tuple[torch.Tensor, np.ndarray], ...]] = {}
@@ -128,26 +157,38 @@ class GDMService:
         self._sample_every = max(int(sample_every), 1)
         self._steady_calls = 0
 
-    def _call(self, lat_t, pr_t, idx_t, keep=None):
+    def _devices(self) -> List[torch.device]:
+        """The device of each shard, in row order."""
+        return [self.device] if self.mesh is None else \
+            mesh_devices(self.mesh)
+
+    def _split(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """``x``'s rows split over the shards, each on its device."""
+        if self.mesh is None:
+            return [x.to(self.device, non_blocking=True)]
+        return split(x, self.mesh, self._data.spec)
+
+    def _call(self, lat, pr, idx_t, keep=None):
         """The one device call both batch paths (:meth:`run_batch`,
-        :meth:`SlotBatch.step`) issue, on staged tensors, results copied
-        back to numpy; wall-clocked when instrumented.  With ``keep`` (a
+        :meth:`SlotBatch.step`) issue, on per-shard latents and prompts and
+        the (bucket,) host block indices, results copied back to numpy in
+        row order; wall-clocked when instrumented.  With ``keep`` (a
         (bucket,) bool tensor) the new latents are also written into
-        ``lat_t`` at the rows it marks, on the device (SlotBatch's masked
+        ``lat`` at the rows it marks, on the device (SlotBatch's masked
         write-back)."""
         if self.metrics is None:
-            return self._device_call(lat_t, pr_t, idx_t, keep)
+            return self._device_call(lat, pr, idx_t, keep)
         m = self.metrics
-        bucket = int(lat_t.shape[0])
+        bucket = int(idx_t.shape[0])
         first = bucket not in self._seen_buckets
         m.counter("gdm_runner_calls").inc()
         m.gauge("gdm_last_batch_rows").set(bucket)
         if not first:
             self._steady_calls += 1
             if self._steady_calls % self._sample_every:
-                return self._device_call(lat_t, pr_t, idx_t, keep)
+                return self._device_call(lat, pr, idx_t, keep)
         t0 = time.perf_counter()
-        out = self._device_call(lat_t, pr_t, idx_t, keep)
+        out = self._device_call(lat, pr, idx_t, keep)
         dt_ms = (time.perf_counter() - t0) * 1e3
         if first:
             self._seen_buckets.add(bucket)
@@ -157,32 +198,38 @@ class GDMService:
             m.histogram("gdm_run_batch_ms").observe(dt_ms)
         return out
 
-    def _device_call(self, lat_t, pr_t, idx_t, keep=None):
-        dev = self.device
+    def _device_call(self, lat, pr, idx_t, keep=None):
+        keeps = [None] * len(lat) if keep is None else self._split(keep)
+        outs = []
         with torch.no_grad():
-            latent, x0 = run_block_batched(
-                self.model, lat_t.to(dev, non_blocking=True),
-                pr_t.to(dev, non_blocking=True),
-                self.schedule, idx_t.to(dev, non_blocking=True),
-                steps_per_block=self.steps_per_block,
-                total_steps=self.num_blocks * self.steps_per_block)
-            if keep is not None:
-                keep = keep.to(dev, non_blocking=True)[:, None, None]
-                lat_t.copy_(torch.where(keep, latent, lat_t))
+            # every shard's work is enqueued before anything is read back
+            for (model, schedule), l, p, i, k in zip(
+                    self._shard_models, lat, pr, self._split(idx_t), keeps):
+                latent, x0 = run_block_batched(
+                    model, l, p, schedule, i,
+                    steps_per_block=self.steps_per_block,
+                    total_steps=self.num_blocks * self.steps_per_block)
+                if k is not None:
+                    l.copy_(torch.where(k[:, None, None], latent, l))
+                outs.append((latent, x0))
             # fresh host arrays every call: the returned states keep views
             # of them, and the synchronous copy back also means the staging
             # buffers are free again when this returns
-            return latent.cpu().numpy(), x0.cpu().numpy()
+            return tuple(gather([o[j] for o in outs], self._data.spec,
+                                "cpu").numpy() for j in (0, 1))
 
     # -- engine contracts -----------------------------------------------------
 
-    @staticmethod
-    def _bucket(b: int) -> int:
+    def _bucket(self, b: int) -> int:
         """Batch-size bucket for ``b`` live rows: pow2 up to 8, then
         multiples of 8 — the reference's rule, so the kernels run at the
-        shapes it compiled for, with at most 7 wasted rows on big batches."""
+        shapes it compiled for, with at most 7 wasted rows on big batches;
+        rounded up so the mesh's batch axis always divides it."""
         assert b > 0
-        return (1 << (b - 1).bit_length()) if b <= 8 else -(-b // 8) * 8
+        bucket = (1 << (b - 1).bit_length()) if b <= 8 else -(-b // 8) * 8
+        if bucket % self._ndev:
+            bucket = -(-bucket // self._ndev) * self._ndev
+        return bucket
 
     def slot_batch(self) -> "SlotBatch":
         """The slot-resident batch view for the iteration-level scheduler
@@ -237,7 +284,7 @@ class GDMService:
             pr_np[i] = s["prompt"]
         idx_np[:b] = np.asarray(block_idxs, np.int32)
         idx_np[b:] = 0
-        latent, x0 = self._call(lat_t, pr_t, idx_t)
+        latent, x0 = self._call(self._split(lat_t), self._split(pr_t), idx_t)
         self.batch_calls += 1
         out = [dict(s, latent=latent[i], x0=x0[i])
                for i, s in enumerate(states)]
@@ -294,22 +341,23 @@ class SlotBatch:
         self.rows_staged = 0                       # rows written (joins etc.)
 
     def _buffers_for(self, bucket: int):
-        """(latent, prompt) resident on the device, and pinned host staging
-        (tensor, numpy view) for the block indices and the planned-row
-        mask, copied in with each call."""
+        """(latent, prompt) resident on the devices, one (bucket / shards)
+        block of rows per shard on the shard's device, and pinned host
+        staging (tensor, numpy view) for the block indices and the
+        planned-row mask, copied in with each call."""
         buf = self._buffers.get(bucket)
         if buf is None:
             svc = self.svc
-            dev = svc.device
-            pin = dev.type == "cuda"
+            pin = svc.device.type == "cuda"
+            rows = bucket // svc._ndev
             idx = torch.zeros((bucket,), dtype=torch.int32, pin_memory=pin)
             keep = torch.zeros((bucket,), dtype=torch.bool, pin_memory=pin)
             buf = self._buffers[bucket] = (
-                torch.zeros((bucket, svc.cfg.latent_hw ** 2,
-                             LATENT_CHANNELS), dtype=torch.float32,
-                            device=dev),
-                torch.zeros((bucket, svc.prompt_len), dtype=torch.int32,
-                            device=dev),
+                [torch.zeros((rows, svc.cfg.latent_hw ** 2, LATENT_CHANNELS),
+                             dtype=torch.float32, device=dev)
+                 for dev in svc._devices()],
+                [torch.zeros((rows, svc.prompt_len), dtype=torch.int32,
+                             device=dev) for dev in svc._devices()],
                 (idx, idx.numpy()), (keep, keep.numpy()))
         return buf
 
@@ -353,9 +401,12 @@ class SlotBatch:
                     next_row += 1
                 self.rows[rid] = row
             if not resident:
-                lat_d[row].copy_(torch.from_numpy(
+                # the row's shard holds it on the shard's device: a row
+                # that moves to another shard is copied in anew
+                shard, local = divmod(row, lat_d[0].shape[0])
+                lat_d[shard][local].copy_(torch.from_numpy(
                     np.asarray(state["latent"], np.float32)))
-                pr_d[row].copy_(torch.from_numpy(
+                pr_d[shard][local].copy_(torch.from_numpy(
                     np.asarray(state["prompt"], np.int32)))
                 self.rows_staged += 1
         idx_np[:] = 0                              # pad rows: valid block 0
@@ -379,18 +430,22 @@ class SlotBatch:
 def make_gdm_services(num_services: int, seed: int = 0, *,
                       num_blocks: int = 4, steps_per_block: int = 1,
                       model_cfg: Optional[ModelConfig] = None, device=None,
+                      mesh=None, batch_axis: str = "batch",
                       ) -> Tuple[Dict[int, GDMService], np.ndarray]:
     """One independent DiT per service + the stacked (S, B+1) Ω matrix.
 
     Service s draws from the s-th child of ``np.random.SeedSequence(seed)``.
     The Ω matrix is what the sim trains on and what the engine delivers
     against — the single source of quality truth for the closed loop.
+    ``mesh`` splits every service's device calls (:class:`GDMService`).
     """
-    device = resolve_device(device)
+    if mesh is None:
+        device = resolve_device(device)
     seeds = np.random.SeedSequence(seed).generate_state(num_services)
     services = {s: GDMService(int(seeds[s]), num_blocks=num_blocks,
                               steps_per_block=steps_per_block,
-                              model_cfg=model_cfg, device=device)
+                              model_cfg=model_cfg, device=device, mesh=mesh,
+                              batch_axis=batch_axis)
                 for s in range(num_services)}
     omega = np.stack([services[s].omega for s in range(num_services)])
     return services, omega

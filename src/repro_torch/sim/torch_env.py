@@ -25,6 +25,11 @@ Divisions by a constant go through a 0-dim tensor on the device: CUDA
 computes ``tensor / python_float`` as a product with the reciprocal, which
 can differ from numpy's quotient by an ulp and move a UE across a cell
 border.
+
+The frame math mixes no envs, so a mesh can split them over its devices:
+:func:`world_specs` / :func:`state_specs` say how each field splits,
+:func:`split_world` / :func:`split_state` / :func:`gather_state` move the
+per-shard slices, and :func:`build_eval_round` takes a ``mesh``.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import P, draw_specs, gather, split
 from repro_torch.sim.env import IDLE, PENDING, SimConfig
 
 
@@ -203,6 +209,75 @@ def reset_env(cfg: SimConfig, world: TorchWorld, *,
         num_collisions=torch.zeros((e,), dtype=torch.int32, device=dev),
         frame=0,
     )
+
+
+# -- mesh partition specs and per-shard slices --------------------------------
+
+def state_specs(axis: str) -> EnvState:
+    """:class:`EnvState` of PartitionSpecs: every (E, ...) field is split
+    on its leading env dim; the shared episode clock is replicated."""
+    sh = P(axis)
+    return EnvState(
+        pos=sh, dest=sh, pause_left=sh, poa=sh, prev_poa=sh,
+        blocks_done=sh, chain_state=sh, cur_node=sh, has_request=sh,
+        uploaded=sh, delivered_quality=sh, quality_now=sh,
+        total_delivered=sh, num_delivered=sh, num_collisions=sh,
+        frame=P())
+
+
+def world_specs(axis: str) -> TorchWorld:
+    """:class:`TorchWorld` specs: the (E, ...) Table II stacks split with
+    the envs; ``y_hat`` (N, N) is the one env-independent table —
+    replicated."""
+    sh = P(axis)
+    return TorchWorld(w_hat=sh, eps=sh, qbar=sh, service_of=sh, omega=sh,
+                      omega_ue=sh, y_hat=P())
+
+
+def _split_fields(obj, specs, mesh) -> list:
+    """One ``type(obj)`` per mesh device, each tensor field split by its
+    spec; non-tensor fields (the clock) are shared."""
+    n = mesh.devices.size
+    parts = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        parts[f.name] = (split(v, mesh, getattr(specs, f.name))
+                         if isinstance(v, torch.Tensor) else [v] * n)
+    return [type(obj)(**{k: v[i] for k, v in parts.items()})
+            for i in range(n)]
+
+
+def split_world(world: TorchWorld, mesh, axis: str = "env") -> list:
+    """The per-shard worlds of a 1-D mesh, each on its device: every (E,
+    ...) stack sliced along E, ``y_hat`` on every device."""
+    return _split_fields(world, world_specs(axis), mesh)
+
+
+def split_state(state: EnvState, mesh, axis: str = "env") -> list:
+    """The per-shard states of a 1-D mesh, each on its device."""
+    return _split_fields(state, state_specs(axis), mesh)
+
+
+def split_draws(draws: Dict[str, torch.Tensor], mesh, axis: str = "env",
+                env_dim: int = 1) -> list:
+    """Each shard's env slice of a draws dict, on its device: frame draws
+    are (T, E, ...) (``env_dim=1``), reset draws (E, ...) (0)."""
+    specs = draw_specs(draws, axis, env_dim=env_dim)
+    parts = {k: split(v, mesh, specs[k]) for k, v in draws.items()}
+    return [{k: v[i] for k, v in parts.items()}
+            for i in range(mesh.devices.size)]
+
+
+def gather_state(states, device, axis: str = "env") -> EnvState:
+    """The global state of per-shard ``states``, in env order on
+    ``device``."""
+    specs = state_specs(axis)
+    out = {}
+    for f in dataclasses.fields(EnvState):
+        vals = [getattr(s, f.name) for s in states]
+        out[f.name] = (gather(vals, getattr(specs, f.name), device)
+                       if isinstance(vals[0], torch.Tensor) else vals[0])
+    return EnvState(**out)
 
 
 # -- primitives ---------------------------------------------------------------
@@ -507,7 +582,7 @@ def action_mask(cfg: SimConfig, state: EnvState, variant: str) -> torch.Tensor:
 
 def build_eval_round(cfg: SimConfig, act_fn: Callable, *,
                      mac_scheme: str = "greedy", history: int = 1,
-                     needs_obs: bool = True):
+                     needs_obs: bool = True, mesh=None, axis: str = "env"):
     """One evaluation round — the episode's frames running MAC → policy act
     → :func:`env_step` on the device — as one function.
 
@@ -523,37 +598,74 @@ def build_eval_round(cfg: SimConfig, act_fn: Callable, *,
     ``"policy"`` plus, for ``mac_scheme="random"``, ``"mac_attempt"`` /
     ``"mac_channel"`` (T, E, U).  ``state0`` must carry zeroed episode
     counters; the stats are tensors on the device (nothing is read back).
+
+    ``mesh`` (a 1-D mesh with axis ``axis``, e.g.
+    ``repro_torch.launch.mesh.make_env_mesh``) splits the round over the
+    env dim: each shard's MAC, env step and observation run on its device
+    on its slice of ``world``, ``state0`` and the draws, and each frame's
+    actions come from one ``act_fn`` call on the state and history
+    gathered in env order on ``world``'s device, which also holds the
+    outputs.  The env math is strictly per env and the policy sees the
+    whole batch as without a mesh, so the round equals the unsharded one
+    exactly.  E must be divisible by the mesh size.
     """
     assert mac_scheme in ("greedy", "random")
 
     def round_fn(params, world: TorchWorld, state0: EnvState, draws):
-        state = state0
+        dev = world.qbar.device
+        if mesh is None:
+            worlds, states, shard_draws = [world], [state0], [draws]
+        else:
+            worlds = split_world(world, mesh, axis)
+            states = split_state(state0, mesh, axis)
+            shard_draws = split_draws({k: v for k, v in draws.items()
+                                       if k != "policy"}, mesh, axis)
+
+        def whole(xs):
+            return xs[0] if mesh is None else gather(xs, P(axis), dev)
+
+        def whole_state():
+            return states[0] if mesh is None else \
+                gather_state(states, dev, axis)
+
+        def per_shard(x):
+            return [x] if mesh is None else split(x, mesh, P(axis))
+
         if needs_obs:
-            obs0 = observe(cfg, world, state0)
+            obs0 = whole([observe(cfg, w, s) for w, s in zip(worlds, states)])
             obs_hist = obs0[:, None].repeat(1, history, 1)   # (E, H, obs)
         else:
             obs_hist = None
         sums = []
         for t in range(draws["arrival"].shape[0]):
             if mac_scheme == "greedy":
-                mac = greedy_mac(cfg, world, state)
+                macs = [greedy_mac(cfg, w, s) for w, s in zip(worlds, states)]
             else:
-                mac = random_access(cfg, state,
-                                    attempt_draws=draws["mac_attempt"][t],
-                                    channel_draws=draws["mac_channel"][t])
+                macs = [random_access(cfg, s,
+                                      attempt_draws=d["mac_attempt"][t],
+                                      channel_draws=d["mac_channel"][t])
+                        for s, d in zip(states, shard_draws)]
             pol = draws.get("policy")
-            actions = act_fn(params, state, obs_hist,
-                             None if pol is None else pol[t])
-            state, info = env_step(cfg, world, state, mac, actions - 1,
-                                   arrival_draws=draws["arrival"][t],
-                                   waypoint_draws=draws["waypoint"][t])
+            actions = per_shard(act_fn(params, whole_state(), obs_hist,
+                                       None if pol is None else pol[t]))
+            stepped = [env_step(cfg, w, s, m, a - 1,
+                                arrival_draws=d["arrival"][t],
+                                waypoint_draws=d["waypoint"][t])
+                       for w, s, m, a, d in zip(worlds, states, macs,
+                                                actions, shard_draws)]
+            states = [s for s, _ in stepped]
+            infos = [info for _, info in stepped]
             if needs_obs:
-                next_obs = observe(cfg, world, state, info["bs_load"])
+                next_obs = whole([observe(cfg, w, s, info["bs_load"])
+                                  for w, s, info in zip(worlds, states,
+                                                        infos)])
                 obs_hist = torch.cat([obs_hist[:, 1:], next_obs[:, None]],
                                      dim=1)
-            sums.append(torch.stack([info["rewards"], info["quality_gain"],
-                                     info["exec_cost"], info["trans_cost"]]))
+            sums.append(torch.stack([whole([info[k] for info in infos])
+                                     for k in ("rewards", "quality_gain",
+                                               "exec_cost", "trans_cost")]))
         rew, qg, ec, tc = torch.stack(sums).sum(dim=0)
+        state = whole_state()
         stats = {
             "reward": rew,
             "quality_gain": qg,

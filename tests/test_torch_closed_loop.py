@@ -34,6 +34,7 @@ from repro_torch import experiments as texp
 from repro_torch.configs import get_config
 from repro_torch.core import learn_gdm as tlg
 from repro_torch.core import policy as tpol
+from repro_torch.launch.mesh import make_env_mesh
 from repro_torch.models.convert import service_from_jax
 from repro_torch.rl import d3ql as td3ql
 from repro_torch.serving import policy_bridge as tbridge
@@ -337,10 +338,11 @@ def test_run_suite_on_the_cpu():
 
 
 def test_unported_engines_raise(monkeypatch):
-    """The fused engine (ROADMAP Queue 1 item 8) and the continuous
-    scheduler (item 9) run now, and the fused engine is the default
-    training engine, as in the reference; what stays unported, the mesh
-    paths (item 11), raises instead of running something else."""
+    """The fused engine (ROADMAP Queue 1 item 8), the continuous
+    scheduler (item 9) and the closed loop's mesh paths (item 11) run now,
+    and the fused engine is the default training engine, as in the
+    reference; a mesh gives the unsharded run's numbers
+    (``tests/test_torch_mesh.py`` holds them bit for bit)."""
     from repro_torch.serving import cluster as tcluster
     cfg = tscen.get_scenario("smoke")
     monkeypatch.delenv("REPRO_BENCH_ENGINE", raising=False)
@@ -349,11 +351,14 @@ def test_unported_engines_raise(monkeypatch):
     assert ctrl.agent.steps > 0 and len(ctrl.agent.memory) == 0
     assert set(ctrl.evaluate(2, engine="fused")) == set(
         ctrl.evaluate(2, engine="vectorized"))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-        ctrl.train_fused(2, num_envs=2, mesh=object())
+    mesh = make_env_mesh(2, devices=("cpu", "cpu"))
+    assert set(ctrl.train_fused(2, num_envs=2, mesh=mesh)) == \
+        {"reward", "loss", "delivered"}
     services = {s: LinearService() for s in range(cfg.num_services)}
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-        tcluster.cluster_from_scenario(cfg, 2, services, mesh=object())
+    cluster = tcluster.cluster_from_scenario(
+        cfg, 3, services, mesh=make_env_mesh(2, axis="batch",
+                                             devices=("cpu", "cpu")))
+    assert cluster.device_of_cell == [0, 1, 0]
     got = texp.serve_policy(cfg, tpol.GreedyPoAPolicy(), 6,
                             services=services, scheduling="continuous")
     want = jexp.serve_policy(

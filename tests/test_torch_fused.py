@@ -33,6 +33,7 @@ from repro_torch import experiments as texp
 from repro_torch.core import learn_gdm as tlg
 from repro_torch.core import policy as tpol
 from repro_torch.core.mac import vec_greedy_mac
+from repro_torch.launch.mesh import make_env_mesh
 from repro_torch.models.convert import qnet_to_jax
 from repro_torch.rl import d3ql as td3ql
 from repro_torch.rl import replay as treplay
@@ -559,8 +560,16 @@ def test_draw_round_matches_the_reference_draws():
                     assert got[k].dtype == _t(want[k]).dtype, k
                 high = tcfg.side if k in ("pos", "dest", "waypoint") else 1
                 assert 0 <= got[k].min() and got[k].max() < high, k
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-        ctrl._build_fused_round(world, 3, replay, mesh=object())
+    # on a mesh the round keeps its whole draws and splits the world
+    mesh = make_env_mesh(3, devices=(CPU,) * 3)
+    fused = ctrl._build_fused_round(world, 3, replay, mesh=mesh)
+    assert [w.qbar.shape[0] for w in fused.worlds] == [1, 1, 1]
+    assert all(torch.equal(w.y_hat, world.y_hat) for w in fused.worlds)
+    reset, draws = fused.draw_round(torch.Generator().manual_seed(0))
+    assert draws["q_rand"].shape[1] == reset["pos"].shape[0] == 3
+    with pytest.raises(AssertionError):
+        ctrl._build_fused_round(world, 3, replay, mesh=make_env_mesh(
+            2, devices=(CPU,) * 2))
 
 
 def test_train_fused_writes_back_params_epsilon_and_steps():
@@ -598,8 +607,13 @@ def test_train_fused_writes_back_params_epsilon_and_steps():
             acfg, epsilon_decay=agent.cfg.epsilon_decay), device=CPU))
     assert again.train_fused(10, num_envs=4, seed=3)["reward"] == \
         hist["reward"]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-        ctrl.train_fused(4, num_envs=4, mesh=object())
+    # a mesh changes where the env math runs, not what is computed
+    sharded = tlg.LearnGDMController(
+        env, agent=td3ql.D3QLAgent(dataclasses.replace(
+            acfg, epsilon_decay=agent.cfg.epsilon_decay), device=CPU))
+    assert sharded.train_fused(10, num_envs=4, seed=3, mesh=make_env_mesh(
+        2, devices=(CPU,) * 2))["reward"] == hist["reward"]
+    assert sharded.agent.steps == agent.steps
 
 
 # -- the fused evaluation -------------------------------------------------------------
