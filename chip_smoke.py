@@ -141,7 +141,19 @@ non-zero before the result line):
     frame, latents within 1e-5, one ``"shard"`` ledger row per handover
     of latents between mesh positions, the DiT kernels launched block
     calls x shards x L times; ``SlotBatch``'s per-shard resident rows
-    against ``run_batch`` bit for bit; the phase's seconds.
+    against ``run_batch`` bit for bit; the phase's seconds;
+23. the LM on ("data", "model") meshes over ``cuda:0``: full yi-6b's
+    prefill and 32 serve steps at B=8 into a 512-row cache on (2, 8),
+    whose model axis does not divide the 4 kv heads (the split-K decode:
+    no ``decode_attention`` launch), and on (1, 4), whose does (32
+    launches a step), each against the unsharded serve step (logits
+    within LM_TOL of the largest, the first layer's cache bit for bit,
+    the rest within LM_TOL); granite-moe's all-to-all MoE (two layers)
+    card vs CPU on (1, 4) and (2, 4): loss, aux, every gradient and one
+    step's update, routing differences near-ties; three whole train steps
+    on (2, 4) twice, bit for bit, with exact launches, beside the
+    unsharded step; two layers data parallel on (2, 1) within LM_TOL and
+    on (1, 1) bit for bit with no mesh; ms per step and peak memory.
 
 Phase 3 also holds the selective scan (forward and backward kernels)
 against its plain version and autograd (and both against themselves: two
@@ -2886,6 +2898,378 @@ def mesh_loop(cfg, card: str, sizes=(1, 2, 4), train_eps: int = 16,
     return seconds
 
 
+# -- phase 23: the LM on a mesh --------------------------------------------------------
+
+def _lm_mesh(shape, dev):
+    """A ("data", "model") mesh of ``shape`` over ``dev`` (the first card
+    for "cuda") repeated."""
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = "cuda:0" if dev == "cuda" else dev
+    return make_host_mesh(shape, ("data", "model"),
+                          devices=(dev,) * math.prod(shape))
+
+
+def _clone_state(state):
+    return tuple({k: type(v)(*(t.clone() for t in v)) if isinstance(v, tuple)
+                  else v.clone() for k, v in slot.items()} for slot in state)
+
+
+class _Clock:
+    """Device ms between ``start()`` and ``stop()`` (CUDA events on the
+    card, the host's clock elsewhere) and the peak device memory."""
+
+    def __init__(self, dev: str):
+        import torch
+        self.cuda = dev.startswith("cuda")
+        if self.cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.a = torch.cuda.Event(enable_timing=True)
+            self.b = torch.cuda.Event(enable_timing=True)
+            self.a.record()
+        self.t0 = time.perf_counter()
+
+    def stop(self):
+        import torch
+        wall = (time.perf_counter() - self.t0) * 1e3
+        if not self.cuda:
+            return wall, wall, 0
+        self.b.record()
+        self.b.synchronize()
+        return (self.a.elapsed_time(self.b), (time.perf_counter() - self.t0)
+                * 1e3, torch.cuda.max_memory_allocated())
+
+
+def split_k_decode(cfg, card: str, dev: str = "cuda", batch: int = 8,
+                   prompt: int = 16, cache: int = 512, steps: int = 32):
+    """``cfg``'s prefill at B=``batch`` into a cache of ``cache`` rows,
+    then ``steps`` serve steps on the same tokens: unsharded, on a (2, 8)
+    ("data", "model") mesh whose model axis does not divide the kv heads
+    (the split-K decode, no ``decode_attention`` launch) and on (1, 4),
+    whose does (the kernel, once per layer and step).  The logits within
+    LM_TOL of the unsharded step's, relative to the largest; the first
+    layer's cache bit for bit (its rows come from the same embeddings; the
+    insert is a copy), every cache within LM_TOL; launches exact; ms per
+    step and peak memory."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import (StepOptions, make_prefill_step,
+                                          make_serve_step)
+    from repro_torch.models.lm import init_lm
+    model = init_lm(cfg, seed=11, device=dev)
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(2, cfg.vocab_size, (steps + 1, batch, prompt),
+                         generator=gen, dtype=torch.int32).to(dev)
+    pre = make_prefill_step(cfg, max_seq=cache)(model,
+                                                {"tokens": toks[0]})
+    per_step = decode_launches(cfg)
+    runs = {}
+    for name, shape in (("unsharded", None), ("(2, 8)", (2, 8)),
+                        ("(1, 4)", (1, 4))):
+        mesh = None if shape is None else _lm_mesh(shape, dev)
+        serve = make_serve_step(cfg, opts=StepOptions(sharded_decode=True),
+                                mesh=mesh, global_batch=batch if mesh else 0)
+        state = _clone_state(pre["state"])
+        reset_launches()
+        clock = _Clock(dev)
+        logits = [serve(model, toks[1 + t, :, 0], state)[0]
+                  for t in range(steps)]
+        ms, wall, peak = clock.stop()
+        launched = dict(LAUNCHES)
+        split_k = shape is not None and cfg.num_kv_heads % shape[1] != 0
+        shards = 1 if shape is None else shape[0]
+        expect = dict.fromkeys(LAUNCHES, 0)
+        expect.update(rmsnorm=per_step["rmsnorm"] * shards * steps,
+                      decode_attention=0 if split_k else
+                      per_step["decode_attention"] * shards * steps)
+        assert launched == expect, (name, launched, expect)
+        runs[name] = (logits, state)
+        print(f"{card}: {cfg.name} serve step {name}"
+              f"{' split-K' if split_k else ''}: {ms / steps:.3f} ms a step "
+              f"(device, {wall / steps:.3f} ms host), peak "
+              f"{peak / 2**30:.3f} GiB; launches over {steps} steps "
+              f"{ {k: v for k, v in launched.items() if v} }")
+    want, want_state = runs.pop("unsharded")
+    scale = max(float(lg[:, :cfg.vocab_size].abs().max()) for lg in want)
+    for name, (logits, state) in runs.items():
+        gap = max(float((a - b)[:, :cfg.vocab_size].abs().max())
+                  for a, b in zip(logits, want))
+        leaves = list(zip(_state_tensors(state), _state_tensors(want_state)))
+        first = all(torch.equal(a[0], b[0]) for a, b in leaves)
+        st_gap = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-30)
+                     for a, b in leaves if b.is_floating_point())
+        lengths = all(torch.equal(a, b) for a, b in leaves
+                      if not b.is_floating_point())
+        print(f"{card}: {name} vs unsharded over {steps} steps: logits max "
+              f"gap {gap:.3e} (max|logit| {scale:.3f}, relative "
+              f"{gap / scale:.3e}, tolerance {LM_TOL}); first layer's cache "
+              f"bit for bit: {first}; caches relative gap {st_gap:.3e}; "
+              f"lengths equal: {lengths}")
+        assert gap / scale <= LM_TOL, f"{name}: logits differ"
+        assert first and lengths and st_gap <= LM_TOL, \
+            f"{name}: the caches differ"
+    del model, pre, runs
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _record_routing(log):
+    """``nn.moe_sharded``'s router wrapped: each call's probabilities and
+    top-k ids appended to ``log`` (on the CPU); returns the undo."""
+    from repro_torch.nn import moe_sharded
+    real = moe_sharded.top_k_gates
+
+    def top_k_gates(router, xf, k):
+        out = real(router, xf, k)
+        log.append((out[0].detach().cpu(), out[2].cpu()))
+        return out
+
+    moe_sharded.top_k_gates = top_k_gates
+    return lambda: setattr(moe_sharded, "top_k_gates", real)
+
+
+def _near_ties(card_log, cpu_log, k):
+    """Tokens routed to another expert set, card vs CPU (in call order),
+    each of which must be a near-tie; returns (swaps, worst tie)."""
+    assert len(card_log) == len(cpu_log) > 0
+    swaps, worst = 0, 0.0
+    for (_, ids_g), (probs_c, ids_c) in zip(card_log, cpu_log):
+        swapped = (ids_g.sort(1).values != ids_c.sort(1).values).any(1)
+        if swapped.any():
+            top = probs_c[swapped].sort(dim=1, descending=True).values
+            tie = float(((top[:, k - 1] - top[:, k]) / top[:, 0]).max())
+            worst = max(worst, tie)
+            swaps += int(swapped.sum())
+            assert tie <= ROUTE_TIE_TOL, \
+                "an all-to-all routing difference is not a near-tie"
+    return swaps, worst
+
+
+def a2a_vs_cpu(cfg, tcfg, card: str, dev: str = "cuda",
+               shapes=((1, 4), (2, 4)), batch: int = 4, seq: int = 64):
+    """``cfg`` (two layers at full width) through the all-to-all MoE
+    dispatch on the card and on the CPU, on the same meshes: the loss,
+    ``aux`` and every gradient of ``lm_loss(moe_sharded_ctx=)`` per leaf,
+    then one ``make_train_step(moe_a2a)`` step's loss, aux, gradient norm
+    and update; every routing difference a near-tie (the expert leaves
+    are left out where one occurred)."""
+    import torch
+    from repro_torch.data import DataConfig, TokenDataset
+    from repro_torch.distributed.sharding import _axes, batch_spec
+    from repro_torch.launch.steps import StepOptions, make_train_step, \
+        trainable
+    from repro_torch.models.lm import LM, init_lm, lm_loss
+    from repro_torch.optim import adamw
+    host = {k: torch.from_numpy(v) for k, v in TokenDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+        seed=tcfg.seed)).batch_at(0).items()}
+    k = cfg.experts_per_token
+    for shape in shapes:
+        out, logs = {}, {}
+        for side, d in (("card", dev), ("cpu", "cpu")):
+            m = init_lm(cfg, seed=11, device="cpu")
+            if side == "card":
+                m = m.to(d)
+            mesh = _lm_mesh(shape, d)
+            axes = _axes(batch_spec(mesh, batch, 0)[0])
+            b = {kk: v.to(d) for kk, v in host.items()}
+            logs[side] = []
+            undo = _record_routing(logs[side])
+            try:
+                params = trainable(m)
+                total, met = lm_loss(m, b, moe_sharded_ctx=(mesh, axes))
+                grads = torch.autograd.grad(total, list(params.values()))
+                step = make_train_step(cfg, tcfg, opts=StepOptions(
+                    moe_a2a=True), mesh=mesh, global_batch=batch)
+                p0 = {kk: p.detach().clone() for kk, p in params.items()}
+                _, _, smet = step(m, adamw(tcfg.learning_rate)[0](params), b)
+            finally:
+                undo()
+            out[side] = dict(
+                loss=float(met["loss"].detach()),
+                aux=float(met["aux"].detach()),
+                norm=float(smet["grad_norm"]),
+                step_loss=float(smet["loss"]), step_aux=float(smet["aux"]),
+                grads={kk: g.cpu() for kk, g in zip(params, grads)},
+                upd={kk: (p.detach() - p0[kk]).cpu()
+                     for kk, p in params.items()})
+        g, c = out["card"], out["cpu"]
+        swaps, worst = _near_ties(logs["card"], logs["cpu"], k)
+        skip = (lambda n: ".moe." in n) if swaps else (lambda n: False)
+        grad_rel = max(_ratio(float((g["grads"][n] - x).abs().max()),
+                              float(x.abs().max()))
+                       for n, x in c["grads"].items() if not skip(n))
+        gap = math.sqrt(sum(float((g["upd"][n] - x).square().sum())
+                            for n, x in c["upd"].items() if not skip(n)))
+        moved = math.sqrt(sum(float(x.square().sum())
+                              for n, x in c["upd"].items() if not skip(n)))
+        rel = {key: abs(g[key] - c[key]) / abs(c[key]) for key in (
+            "loss", "aux", "norm", "step_loss", "step_aux")}
+        print(f"{card}: {cfg.name} {cfg.num_layers} layers, all-to-all MoE "
+              f"on {shape} (B={batch} S={seq}, {len(logs['cpu'])} routing "
+              f"calls): loss card {g['loss']:.7f} cpu {c['loss']:.7f}, aux "
+              f"card {g['aux']:.7f} cpu {c['aux']:.7f}; relative gaps "
+              + ", ".join(f"{kk} {v:.2e}" for kk, v in rel.items())
+              + f"; gradients worst leaf {grad_rel:.3e} (tolerance {LM_TOL}); "
+              f"the step's update |card - cpu| / |cpu| {_ratio(gap, moved):.3e}"
+              f" (tolerance {TRAIN_PARAM_TOL}); {swaps} token(s) routed to "
+              f"another expert set (worst near-tie {worst:.3e}, tolerance "
+              f"{ROUTE_TIE_TOL})")
+        assert max(rel.values()) <= LM_TOL, "a2a: the step's numbers differ"
+        assert grad_rel <= LM_TOL, "a2a: the gradients differ"
+        assert _ratio(gap, moved) <= TRAIN_PARAM_TOL, "a2a: the update differs"
+
+
+def _train_steps(cfg, tcfg, dev, mesh, batch, seq, opts, seed=11):
+    """``tcfg.total_steps`` steps of ``make_train_step`` from ``cfg``'s
+    weights of ``seed``: (losses, auxes, final parameters, launches per
+    step, device ms per step, peak bytes)."""
+    import torch
+    from repro_torch.data import DataConfig, TokenDataset
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import make_train_step, trainable
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim import adamw
+    model = init_lm(cfg, seed=seed, device=dev)
+    state = adamw(tcfg.learning_rate)[0](trainable(model))
+    step = make_train_step(cfg, tcfg, opts=opts, mesh=mesh,
+                           global_batch=batch if mesh else 0)
+    data = TokenDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=batch, seed=tcfg.seed))
+    losses, auxes, launches, ms = [], [], [], []
+    peak = 0
+    for s in range(tcfg.total_steps):
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(s).items()}
+        reset_launches()
+        clock = _Clock(dev)
+        model, state, met = step(model, state, b)
+        t, _, p = clock.stop()
+        ms.append(t)
+        peak = max(peak, p)
+        launches.append(dict(LAUNCHES))
+        losses.append(float(met["loss"]))
+        auxes.append(float(met["aux"]))
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    return losses, auxes, params, launches, ms, peak
+
+
+def a2a_full(cfg, tcfg, card: str, dev: str = "cuda", shape=(2, 4),
+             batch: int = 8, seq: int = 128):
+    """``cfg`` at full width, ``tcfg.total_steps`` train steps with
+    ``moe_a2a`` on ``shape``, twice (bit for bit) and unsharded (the
+    einsum dispatch) for the times: every loss finite, each step's
+    launches exactly the data shards' forwards."""
+    from repro_torch.launch.steps import StepOptions
+    mesh = _lm_mesh(shape, dev)
+    a2a = StepOptions(moe_a2a=True)
+    runs = [_train_steps(cfg, tcfg, dev, mesh, batch, seq, a2a)
+            for _ in range(2)]
+    plain = _train_steps(cfg, tcfg, dev, None, batch, seq, StepOptions())
+    expect = {k: v * shape[0] for k, v in forward_launches(cfg).items()}
+    for name, (losses, auxes, _, launches, ms, peak) in (
+            (f"{shape} all-to-all", runs[0]),
+            (f"{shape} all-to-all again", runs[1]),
+            ("unsharded einsum", plain)):
+        print(f"{card}: {cfg.name} {cfg.num_layers} layers B={batch} "
+              f"S={seq} {name}: losses "
+              + ", ".join(f"{x:.7f}" for x in losses) + "; aux "
+              + ", ".join(f"{x:.6f}" for x in auxes)
+              + f"; ms a step (device) " + ", ".join(f"{x:.2f}" for x in ms)
+              + f"; peak {peak / 2**30:.3f} GiB")
+        assert all(math.isfinite(x) for x in losses + auxes), name
+    for launches in runs[0][3] + runs[1][3]:
+        assert launches == expect, (launches, expect)
+    same = runs[0][0] == runs[1][0] and runs[0][1] == runs[1][1] and all(
+        (runs[0][2][k] == v).all() for k, v in runs[1][2].items())
+    print(f"{card}: two all-to-all runs bit for bit: {same}; launches a "
+          f"step { {k: v for k, v in expect.items() if v} } (the forward of "
+          f"{shape[0]} data shards)")
+    assert same, "two all-to-all runs differ"
+
+
+def dp_steps(cfg, tcfg, card: str, dev: str = "cuda", batch: int = 8,
+             seq: int = 128):
+    """``cfg`` (einsum MoE) on ("data", "model") meshes of (2, 1) and
+    (1, 1) against no mesh: the prefill's logits and state, and
+    ``tcfg.total_steps`` train steps' losses, aux and parameters: within
+    LM_TOL on (2, 1) (the parameters within TRAIN_PARAM_TOL of how far
+    they moved), bit for bit on (1, 1)."""
+    import torch
+    from repro_torch.launch.steps import StepOptions, make_prefill_step
+    from repro_torch.models.lm import init_lm
+    gen = torch.Generator().manual_seed(6)
+    prompt = torch.randint(2, cfg.vocab_size, (batch, seq), generator=gen,
+                           dtype=torch.int32).to(dev)
+    model = init_lm(cfg, seed=11, device=dev)
+    p0 = {k: p.detach().clone() for k, p in model.named_parameters()}
+    pre, train = {}, {}
+    for name, shape in (("none", None), ("(2, 1)", (2, 1)),
+                        ("(1, 1)", (1, 1))):
+        mesh = None if shape is None else _lm_mesh(shape, dev)
+        clock = _Clock(dev)
+        pre[name] = make_prefill_step(cfg, mesh=mesh, global_batch=batch
+                                      if mesh else 0)(model,
+                                                      {"tokens": prompt})
+        ms, _, _ = clock.stop()
+        train[name] = _train_steps(cfg, tcfg, dev, mesh, batch, seq,
+                                   StepOptions())
+        print(f"{card}: {cfg.name} {cfg.num_layers} layers, data mesh "
+              f"{name}: prefill B={batch} S={seq} {ms:.2f} ms; train ms a "
+              f"step " + ", ".join(f"{x:.2f}" for x in train[name][4]))
+    want = pre["none"]
+    for name in ("(2, 1)", "(1, 1)"):
+        got = pre[name]
+        v = cfg.vocab_size                  # the padded columns hold -1e9
+        scale = float(want["logits"][:, :v].abs().max())
+        gap = float((got["logits"] - want["logits"])[:, :v].abs().max())
+        leaves = list(zip(_state_tensors(got["state"]),
+                          _state_tensors(want["state"])))
+        st_gap = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-30)
+                     for a, b in leaves if b.is_floating_point())
+        (l1, a1, p1, *_), (l0, a0, p0f, *_) = train[name], train["none"]
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(l1 + a1, l0 + a0))
+        gap_p = math.sqrt(sum(float((p1[k] - v).square().sum())
+                              for k, v in p0f.items()))
+        moved = math.sqrt(sum(float((v - p0[k]).square().sum())
+                              for k, v in p0f.items()))
+        exact = gap == 0 and st_gap == 0 and loss_rel == 0 and gap_p == 0
+        print(f"{card}: data mesh {name} vs none: prefill logits relative "
+              f"gap {gap / scale:.3e}, state {st_gap:.3e}; train losses and "
+              f"aux relative {loss_rel:.3e}; parameters |sharded - none| / "
+              f"|none - start| {_ratio(gap_p, moved):.3e}; bit for bit: "
+              f"{exact}")
+        if name == "(1, 1)":
+            assert exact, "a mesh of one differs from no mesh"
+        assert gap / scale <= LM_TOL and st_gap <= LM_TOL, name
+        assert loss_rel <= LM_TOL and _ratio(gap_p, moved) \
+            <= TRAIN_PARAM_TOL, name
+    del model, pre, train
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def lm_mesh(card: str, dev: str = "cuda", yi=None, granite=None,
+            steps: int = 32):
+    """Phase 23; returns its seconds."""
+    from repro_torch.configs import TrainConfig, get_config
+    t0 = time.perf_counter()
+    yi = yi or get_config("yi-6b")
+    granite = granite or get_config("granite-moe-1b-a400m")
+    split_k_decode(yi, card, dev, steps=steps)
+    tcfg = TrainConfig(learning_rate=3e-4, total_steps=3, warmup_steps=5)
+    pair = dataclasses.replace(granite, num_layers=2)
+    a2a_vs_cpu(pair, tcfg, card, dev)
+    a2a_full(granite, tcfg, card, dev)
+    dp_steps(pair, TrainConfig(learning_rate=3e-4, total_steps=1,
+                               warmup_steps=5), card, dev)
+    seconds = time.perf_counter() - t0
+    print(f"phase 23 took {seconds:.1f} s")
+    return seconds
+
+
 # -- phase 16: full-width granite, card vs CPU, routing near-ties ---------------------
 
 def _routing_sets(r, k):
@@ -3691,6 +4075,14 @@ def main(argv) -> int:
           "E=8 bit for bit with the unsharded run; a 4-cell fleet with three "
           "full-width gdm-dit services on a mesh of 2 frame for frame")
     mesh_loop(full, card)
+
+    phase("23. the LM on a mesh over cuda:0: yi-6b's split-K decode on "
+          "(2, 8) and the decode kernel on (1, 4) against the unsharded "
+          "serve step (B=8, cache 512, 32 steps); granite's all-to-all MoE "
+          "card vs CPU on (1, 4) and (2, 4), three full-width train steps "
+          "on (2, 4) twice; data-parallel prefill and train on (2, 1) and "
+          "(1, 1)")
+    lm_mesh(card)
 
     replaces = {
         "adaln_norm": "src/repro/kernels/adaln_norm.py:76",

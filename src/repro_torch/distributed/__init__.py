@@ -1,6 +1,7 @@
 """Distributed layer of the port (``repro.distributed`` in the reference):
-the sharding rules of the closed loop's mesh paths, and the split and
-gather that run them on a 1-D mesh of torch devices."""
+the sharding rules of the closed loop's and the LM's mesh paths, the split
+and gather that run the closed loop on a 1-D mesh of torch devices, and
+the LM's split-K decode (:mod:`repro_torch.distributed.flash_decode`)."""
 from repro_torch.distributed.sharding import (  # noqa: F401
     NamedSharding,
     P,

@@ -1,4 +1,4 @@
-"""Device meshes for the mesh paths of the closed loop.
+"""Device meshes for the mesh paths of the closed loop and the LM.
 
 Port of ``repro.launch.mesh``.  A :class:`Mesh` holds torch devices in the
 mesh's shape with one name per axis, as ``jax.sharding.Mesh`` does, and the
@@ -13,8 +13,13 @@ one device, every split and gather runs, and the shards run one after the
 other (``("cpu",) * 4`` in the CPU tests, ``cuda:0`` twice or four times on
 a one-card host).
 
-``make_production_mesh`` and ``make_mesh_from_config`` serve only the
-reference's dry run and wait for it (ROADMAP Queue 1, item 11).
+``make_production_mesh`` and ``make_mesh_from_config`` build the
+reference's production topologies, (16, 16) ``("data", "model")`` and
+(2, 16, 16) ``("pod", "data", "model")``, over 256 or 512 devices: the
+tests pass ``("meta",) * 512``, whose rules read only the mesh's shape and
+names.  Only meshes whose devices repeat one device (the CPU, or
+``cuda:0``) are checked; a mesh over distinct cards runs the same code
+with copies between them, unchecked.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import MeshConfig
+from repro_torch.configs.base import MULTI_POD, SINGLE_POD, MeshConfig
 
 
 class Mesh:
@@ -63,6 +68,19 @@ def _mesh(devices: list, shape: Tuple[int, ...], axes: Tuple[str, ...]):
     grid = np.empty(len(devices), dtype=object)
     grid[:] = devices
     return Mesh(grid.reshape(shape), axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence] = None) -> Mesh:
+    """(16, 16) ("data", "model") single pod; (2, 16, 16) ("pod", "data",
+    "model") across two pods: 256 devices a pod, 512 in all."""
+    return make_mesh_from_config(MULTI_POD if multi_pod else SINGLE_POD,
+                                 devices=devices)
+
+
+def make_mesh_from_config(cfg: MeshConfig, *,
+                          devices: Optional[Sequence] = None) -> Mesh:
+    return make_host_mesh(cfg.shape, cfg.axes, devices=devices)
 
 
 def make_host_mesh(shape: Tuple[int, ...] = (1,),

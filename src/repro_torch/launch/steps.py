@@ -12,25 +12,49 @@ memory).  ``input_specs`` gives every model input of an (arch, shape) cell
 as meta-device tensors, never allocated.
 
 ``StepOptions`` keeps the reference's levers that change what a step
-computes on one card: the chunked cross-entropy, gradient accumulation
-over microbatches and int8 error-feedback gradient compression (applied
-when the step is given an error-feedback state, as in the reference); the
-decode step inserts into the cache at one position for every row, the
-reference's default.  The levers that need a mesh raise (ROADMAP
-Queue 1 item 11): the all-to-all MoE dispatch, the sharded split-K decode
-and ``mesh=``; ``remat`` and ``impl`` have no counterpart (PyTorch runs
-eagerly and the kernel follows the device).
+computes: the chunked cross-entropy, gradient accumulation over
+microbatches, int8 error-feedback gradient compression (applied when the
+step is given an error-feedback state, as in the reference), the
+all-to-all MoE dispatch and the split-K decode; the decode step inserts
+into the cache at one position for every row, the reference's default.
+``remat`` and ``impl`` have no counterpart (PyTorch runs eagerly and the
+kernel follows the device), nor has ``seq_shard_carry`` (the port keeps
+no activation sharding between layers).
+
+Each factory takes ``mesh=`` and ``global_batch=``, as the reference's.
+With both, the batch splits over the mesh's data axes by
+:func:`~repro_torch.distributed.sharding.batch_spec` (which degrades for
+an indivisible batch), and each data shard runs on the first device of
+its row of the mesh, with the model there (a copy made for the step
+where that device is not the model's).  Layer by layer every shard runs
+before the next layer starts, since the einsum MoE dispatch routes the
+whole batch, as the reference's GSPMD does.  The train step sums the
+shards' losses, weighted by their rows, and their gradients into the
+global ones on the model's device, where clipping, compression and AdamW
+run once.  ``moe_a2a`` runs the MoE layers over the mesh's model axis
+(:mod:`repro_torch.nn.moe_sharded`) when the model axis divides the
+experts, and ``sharded_decode`` the split-K decode
+(:mod:`repro_torch.distributed.flash_decode`) when it does not divide
+the kv heads; otherwise the model axis computes what one device does.
+Without ``global_batch`` the batch stays whole, as the reference's
+activations then carry no constraint.  A mesh of one device gives the
+bits of no mesh.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
-from repro_torch.models.lm import (LM, init_decode_state, lm_decode_step,
-                                   lm_loss, lm_prefill, reference_leaf)
+from repro_torch.distributed.sharding import (NamedSharding, _axes,
+                                              batch_spec, shard_rows,
+                                              sub_mesh)
+from repro_torch.models.lm import (LM, decode_shards, init_decode_state,
+                                   loss_shards, prefill_shards,
+                                   reference_leaf)
 from repro_torch.optim import (EFState, adamw, apply_updates,
                                clip_by_global_norm, compress_grads,
                                cosine_decay)
@@ -45,12 +69,6 @@ class StepOptions:
     grad_compression: bool = False   # int8 error-feedback DP all-reduce
     sharded_decode: bool = False     # split-K flash-decoding over a mesh
     moe_a2a: bool = False            # all-to-all EP dispatch
-
-
-def _no_mesh(what: str):
-    return NotImplementedError(
-        f"{what} needs a mesh, which is not ported yet (ROADMAP Queue 1 "
-        "item 11)")
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
@@ -90,8 +108,62 @@ def trainable(model: LM) -> Dict[str, torch.Tensor]:
     return params
 
 
+class _Shards:
+    """Where a step's data shards run: ``homes[i]`` is the first device of
+    data shard i's row of the mesh (batch rows ``i·B/n`` on), ``models[i]``
+    the model there, and ``batch_axes`` the mesh axes the batch splits
+    over.  Without a mesh, one shard on the model's device.  A copy of the
+    model is made for each home that is not the model's device, so it
+    holds the model's current parameters."""
+
+    def __init__(self, model: LM, mesh, global_batch: int):
+        device = model.embed.table.device
+        act_sh = _act_sharding(mesh, global_batch)
+        self.batch_axes = _axes(act_sh.spec[0]) if act_sh else ()
+        self.homes = [torch.device(r[0]) for r in shard_rows(
+            mesh, self.batch_axes)] if mesh is not None else [device]
+        copies: Dict[torch.device, LM] = {device: model}
+        for home in self.homes:
+            if home not in copies:
+                copies[home] = copy.deepcopy(model).to(home)
+        self.models = [copies[h] for h in self.homes]
+        self.replicas = list(copies.values())
+
+    def rows(self, n: int) -> List[slice]:
+        k = len(self.homes)
+        if n % k:
+            raise ValueError(f"a batch of {n} does not split over {k} data "
+                             "shards")
+        return [slice(i * n // k, (i + 1) * n // k) for i in range(k)]
+
+    def split(self, batch: Dict) -> List[Dict]:
+        """The batch dict's rows, shard by shard, each on its home."""
+        rows = self.rows(next(iter(batch.values())).shape[0])
+        return [{k: v[r].to(h) for k, v in batch.items()}
+                for r, h in zip(rows, self.homes)]
+
+
+def _gather(ts: Sequence[torch.Tensor], dim: int = 0) -> torch.Tensor:
+    """The shards' tensors concatenated along ``dim`` on the first one's
+    device."""
+    if len(ts) == 1:
+        return ts[0]
+    return torch.cat([t.to(ts[0].device) for t in ts], dim)
+
+
+def _state_leaves(state) -> List[torch.Tensor]:
+    return [t for slot in state for v in slot.values()
+            for t in (v if isinstance(v, tuple) else (v,))]
+
+
+def _map_state(fn, state):
+    return tuple({k: type(v)(*map(fn, v)) if isinstance(v, tuple) else fn(v)
+                  for k, v in slot.items()} for slot in state)
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
-                    opts: StepOptions = StepOptions(), mesh=None):
+                    opts: StepOptions = StepOptions(), mesh=None,
+                    global_batch: int = 0):
     """Returns ``train_step(model, opt_state, batch, ef_state=None,
     mark=None) -> (model, opt_state, metrics)``, or ``(model, opt_state,
     metrics, ef_state)`` when ``opts.grad_compression`` is on and an
@@ -100,27 +172,40 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
     reference.  batch: {"tokens", "labels"} (B, S) int tensors on the
     model's device.  ``mark``, if given, is called with "forward",
     "backward", "optimizer" and "end" as the step reaches each phase (once
-    per microbatch for the first two)."""
-    if opts.moe_a2a:
-        raise _no_mesh("the all-to-all MoE dispatch (nn/moe_sharded)")
-    if mesh is not None:
-        raise _no_mesh("a sharded train step")
+    per microbatch for the first two).  With ``mesh`` and
+    ``global_batch`` the batch splits over the data axes (module
+    docstring); ``opts.moe_a2a`` runs the MoE layers through the
+    all-to-all dispatch when the mesh has a model axis that divides the
+    experts, as the reference decides."""
     lr = cosine_decay(tcfg.learning_rate, tcfg.warmup_steps, tcfg.total_steps)
     _, opt_update = adamw(lr, b1=tcfg.b1, b2=tcfg.b2,
                           weight_decay=tcfg.weight_decay, wd_mask=_wd_mask)
+    a2a = (opts.moe_a2a and cfg.is_moe and mesh is not None
+           and "model" in mesh.axis_names
+           and cfg.num_experts % mesh.shape["model"] == 0)
 
-    def compute_grads(model, params, batch, mark):
+    def compute_grads(shards: _Shards, params, batch, mark):
         names = list(params)
+        moe_ctx = (mesh, shards.batch_axes) if a2a else None
+        leaves = [dict(m.named_parameters()) for m in shards.replicas]
 
         def metrics_and_grads(mb):
             mark("forward")
-            total, metrics = lm_loss(model, mb, loss_chunk=opts.loss_chunk)
+            total, metrics = loss_shards(shards.models, shards.split(mb),
+                                         loss_chunk=opts.loss_chunk,
+                                         moe_sharded_ctx=moe_ctx)
             mark("backward")
-            grads = torch.autograd.grad(total, [params[k] for k in names],
-                                        allow_unused=True,
+            flat = [rep[k] for rep in leaves for k in names]
+            grads = torch.autograd.grad(total, flat, allow_unused=True,
                                         materialize_grads=True)
+            # each copy's gradients summed onto the model's device
+            n = len(names)
+            summed = list(grads[:n])
+            for r in range(1, len(leaves)):
+                summed = [g + h.to(g.device) for g, h in
+                          zip(summed, grads[r * n:(r + 1) * n])]
             return ({k: v.detach() for k, v in metrics.items()},
-                    dict(zip(names, grads)))
+                    dict(zip(names, summed)))
 
         b = batch["tokens"].shape[0]
         if not (opts.microbatch and b % opts.microbatch == 0):
@@ -142,7 +227,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
                    ef_state: Optional[EFState] = None, mark: Mark = None):
         mark = mark or (lambda _: None)
         params = trainable(model)
-        metrics, grads = compute_grads(model, params, batch, mark)
+        shards = _Shards(model, mesh, global_batch)
+        metrics, grads = compute_grads(shards, params, batch, mark)
         mark("optimizer")
         compress = opts.grad_compression and ef_state is not None
         if compress:
@@ -163,47 +249,78 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
 
 
 def make_prefill_step(cfg: ModelConfig, *, max_seq: Optional[int] = None,
-                      mesh=None):
+                      mesh=None, global_batch: int = 0):
     """Returns ``prefill_step(model, batch) -> {"logits", "state"(,
     "memory")}``: the prompt's prefill without a graph, the logits of its
     last position (B, padded_vocab), the decode state for ``max_seq``
     positions (the prompt's length by default) and, for an enc-dec model,
     the encoder's memory.  batch: "tokens" (B, S) with the family's stubs
-    ("patch_embeds", "enc_frames")."""
-    if mesh is not None:
-        raise _no_mesh("a sharded prefill")
+    ("patch_embeds", "enc_frames").  On a mesh the data shards' logits,
+    states and memories are gathered on the first shard's device."""
 
     @torch.no_grad()
     def prefill_step(model: LM, batch) -> Dict:
-        logits, state, memory = lm_prefill(
-            model, batch["tokens"],
-            max_seq=max_seq or batch["tokens"].shape[1],
-            patch_embeds=batch.get("patch_embeds"),
-            enc_frames=batch.get("enc_frames"))
-        out = {"logits": logits[:, -1], "state": state}
-        if memory is not None:
-            out["memory"] = memory
+        shards = _Shards(model, mesh, global_batch)
+        logits, states, mems = prefill_shards(
+            shards.models, shards.split(batch),
+            max_seq=max_seq or batch["tokens"].shape[1])
+        leaves = [_state_leaves(s) for s in states]
+        it = iter([_gather(ts, 1) for ts in zip(*leaves)])
+        out = {"logits": _gather([lg[:, -1] for lg in logits]),
+               "state": _map_state(lambda _: next(it), states[0])}
+        if mems[0] is not None:
+            out["memory"] = _gather(mems)
         return out
 
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig, *, opts: StepOptions = StepOptions(),
-                    mesh=None):
+                    mesh=None, global_batch: int = 0):
     """Returns ``serve_step(model, token, state, memory=None) -> (logits
     (B, padded_vocab), state)``: one decode step without a graph (the
     state updated in place, as :func:`~repro_torch.models.lm.
-    lm_decode_step` does), cross-attending to ``memory`` where given."""
-    if opts.sharded_decode:
-        raise _no_mesh("the sharded split-K decode")
-    if mesh is not None:
-        raise _no_mesh("a sharded decode step")
+    lm_decode_step` does), cross-attending to ``memory`` where given.  On
+    a mesh each data shard decodes its rows of the state (a view of
+    them, or a copy written back on another device);
+    ``opts.sharded_decode`` engages the split-K decode only when the model
+    axis does not divide the kv heads, as in the reference (the
+    ``decode_attention`` kernel runs otherwise)."""
+    split_k = (opts.sharded_decode and mesh is not None
+               and "model" in mesh.axis_names
+               and cfg.num_kv_heads % mesh.shape["model"] != 0)
 
     @torch.no_grad()
     def serve_step(model: LM, token, state, memory=None):
-        return lm_decode_step(model, token, state, memory=memory)
+        shards = _Shards(model, mesh, global_batch)
+        rows = shards.rows(token.shape[0])
+        views = [_map_state(lambda t: t[:, r], state) for r in rows]
+        states = [_map_state(lambda t: t.to(h), v)
+                  for v, h in zip(views, shards.homes)]
+        sd = [(shards.batch_axes, "model",
+               sub_mesh(mesh, shards.batch_axes, i))
+              for i in range(len(rows))] if split_k else None
+        logits = decode_shards(
+            shards.models, [token[r].to(h) for r, h in
+                            zip(rows, shards.homes)], states,
+            memories=[None if memory is None else memory[r].to(h)
+                      for r, h in zip(rows, shards.homes)],
+            sharded_decode=sd)
+        for v, st in zip(views, states):
+            for a, b in zip(_state_leaves(v), _state_leaves(st)):
+                if a is not b:          # a copy on another device
+                    a.copy_(b)
+        return _gather(logits), state
 
     return serve_step
+
+
+def _act_sharding(mesh, global_batch: int) -> Optional[NamedSharding]:
+    """(B, S, d) activations: batch over dp, as the reference's without
+    its sequence-parallel option."""
+    if mesh is None or not global_batch:
+        return None
+    return NamedSharding(mesh, batch_spec(mesh, global_batch, extra_dims=2))
 
 
 def _leaf_groups(params: Dict[str, torch.Tensor]) -> List[List[str]]:

@@ -14,6 +14,12 @@ trains one full-width Jamba period, full-width granite and full-width
 xlstm-1.3b through it); ``launch.steps.make_train_step`` takes batches
 with the stubs.
 
+As the reference's trainer, :func:`run` builds a ``("data",)`` mesh
+over every CUDA device (over ``devices`` when given: ``("cpu",) * n``
+runs it on the CPU) and passes it with the global batch to
+``make_train_step``, so the batch splits over the data shards; on one
+card the mesh has one device and changes no bit.
+
 ``--ckpt-dir`` saves the model and the AdamW state every ``--ckpt-every``
 steps in the background (:mod:`repro_torch.checkpoint`, the reference's
 format) and resumes from the newest complete step.  ``--grad-compression``
@@ -25,7 +31,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -35,6 +41,7 @@ from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import DataConfig, TokenDataset
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import StepOptions, make_train_step, trainable
 from repro_torch.models.lm import LM, init_lm
 from repro_torch.optim import adamw
@@ -66,7 +73,8 @@ def run(cfg: ModelConfig, tcfg: TrainConfig, *, global_batch: int = 8,
         seq_len: int = 128, opts: StepOptions = StepOptions(),
         model: Optional[LM] = None, device=None, log_every: int = 20,
         ckpt_dir: str = "", ckpt_every: int = 50,
-        on_step: Optional[Callable[[int, Dict], None]] = None) -> Dict:
+        on_step: Optional[Callable[[int, Dict], None]] = None,
+        devices: Optional[Sequence] = None) -> Dict:
     """Train ``cfg`` up to step ``tcfg.total_steps`` on ``TokenDataset``
     batches (seed ``tcfg.seed``), from ``model`` or weights drawn from
     ``tcfg.seed``.  With ``ckpt_dir`` the model and optimizer state are
@@ -76,7 +84,9 @@ def run(cfg: ModelConfig, tcfg: TrainConfig, *, global_batch: int = 8,
     from (with a checkpoint directory, the seconds of the restore and of
     the last save) and, on the card, each step's device ms by phase (CUDA
     events) and the peak device memory.  ``on_step(step, metrics)`` is called
-    after each step."""
+    after each step.  The step runs over a ``("data",)`` mesh of
+    ``devices``: by default every CUDA device on the card, the model's
+    device alone elsewhere."""
     device = model.embed.table.device if model is not None \
         else resolve_device(device)
     if model is None:
@@ -96,7 +106,12 @@ def run(cfg: ModelConfig, tcfg: TrainConfig, *, global_batch: int = 8,
                                                    opt_state)
             restore_s = time.perf_counter() - t0
             print(f"[train] resumed from step {start}")
-    step_fn = make_train_step(cfg, tcfg, opts=opts)
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(
+            torch.cuda.device_count())] if cuda else [device]
+    mesh = make_host_mesh((len(devices),), ("data",), devices=devices)
+    step_fn = make_train_step(cfg, tcfg, opts=opts, mesh=mesh,
+                              global_batch=global_batch)
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)

@@ -37,6 +37,15 @@ forward ``flash_attention`` (causal with rope; non-causal in the encoder
 and against the memory).  LayerNorm, the xLSTM cells and the GELU MLP are
 torch ops, as they are XLA ops in the reference.
 
+On a mesh, :func:`forward_shards`, :func:`loss_shards`,
+:func:`prefill_shards` and :func:`decode_shards` run the same layers over
+a list of data shards (a model replica and a slice of the batch rows
+each), layer by layer; ``lm_forward`` and the others are the one-shard
+case.  ``moe_sharded_ctx`` = (mesh, batch_axes) sends the MoE layers
+through the all-to-all dispatch (:mod:`repro_torch.nn.moe_sharded`), as
+the reference's hook does, and ``sharded_decode`` the attention layers'
+decode through the split-K decode.
+
 The decode state keeps the reference's stacked layout, one entry per
 pattern slot, each tensor with a leading period axis: ``{"kv":
 KVCache(k, v, length)}``, ``{"mamba": MambaState(conv, ssm)}``,
@@ -48,13 +57,14 @@ to the reference, whose own default is bfloat16.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import sub_mesh
 from repro_torch.nn import (Attention, Dense, Embedding, GeluMLP, LayerNorm,
                             Mamba, MambaState, RMSNorm, SwiGLU, dense_apply,
                             embedding_apply, embedding_attend, gelu_mlp_apply,
@@ -65,6 +75,7 @@ from repro_torch.nn.attention import (KVCache, attention_apply,
                                       cross_attention_decode,
                                       prefill_kv_cache)
 from repro_torch.nn.moe import MoE, moe_apply
+from repro_torch.nn.moe_sharded import data_shard_aux, moe_apply_sharded
 from repro_torch.nn.xlstm import (MLSTM, SLSTM, MLSTMState, SLSTMState,
                                   mlstm_apply, mlstm_apply_with_state,
                                   mlstm_decode, mlstm_init_state,
@@ -258,69 +269,143 @@ def _lm_head(model: LM, x):
     return logits
 
 
-def _cross_and_mlp(block: Block, spec: LayerSpec, x, cfg: ModelConfig,
-                   memory, decode: bool):
-    """After the mixer's residual: the cross-attention to ``memory``
+# -- data shards ---------------------------------------------------------------------------
+#
+# Every function below runs over a list of data shards: one model replica,
+# one slice of the batch rows and one state each, on the replica's device.
+# Without a mesh the list holds the one shard.  Each layer runs on every
+# shard before the next layer starts, because the einsum MoE dispatch
+# routes the whole batch at once, as the reference's GSPMD does: its
+# capacity counts every token of the batch.
+
+MoeFn = Callable[[List[MoE], List[torch.Tensor]],
+                 Tuple[List[torch.Tensor], torch.Tensor]]
+
+
+def _moe_einsum(mods: List[MoE], hs: List[torch.Tensor]):
+    """The einsum dispatch over the whole batch: the data shards' rows
+    gathered on the first shard's device, the outputs sent back."""
+    if len(hs) == 1:
+        y, aux = moe_apply(mods[0], hs[0])
+        return [y], aux
+    home = hs[0].device
+    y, aux = moe_apply(mods[0], torch.cat([h.to(home) for h in hs]))
+    return [c.to(h.device) for c, h in
+            zip(y.split([h.shape[0] for h in hs]), hs)], aux
+
+
+def _moe_a2a(cfg: ModelConfig, moe_sharded_ctx) -> MoeFn:
+    """The all-to-all dispatch over ``moe_sharded_ctx`` = (mesh,
+    batch_axes): the whole batch split by ``batch_axes``, or each data
+    shard over its own row of the mesh."""
+    mesh, batch_axes = moe_sharded_ctx
+
+    def moe(mods, hs):
+        if len(hs) == 1:
+            y, aux = moe_apply_sharded(mods[0], hs[0], cfg=cfg, mesh=mesh,
+                                       batch_axes=batch_axes)
+            return [y], aux
+        outs = [moe_apply_sharded(m, h, cfg=cfg,
+                                  mesh=sub_mesh(mesh, batch_axes, i),
+                                  batch_axes=batch_axes)
+                for i, (m, h) in enumerate(zip(mods, hs))]
+        return [y for y, _ in outs], data_shard_aux([a for _, a in outs])
+
+    return moe
+
+
+def _cross_and_mlp(blocks: List[Block], spec: LayerSpec, xs, cfg: ModelConfig,
+                   memories, decode: bool, moe: MoeFn = _moe_einsum):
+    """After the mixer's residual: the cross-attention to the memory
     (enc-dec, when a memory is given) and the MLP, each with its norm and
-    residual.  Returns (x, the MoE's load-balancing loss or None)."""
-    if spec.cross and memory is not None:
-        h = _norm(cfg, block.cross_norm, x)
-        x = x + (cross_attention_decode(block.cross, h, memory, cfg=cfg)
-                 if decode else
-                 attention_apply(block.cross, h, cfg=cfg, memory=memory))
+    residual, on every shard.  Returns (xs, the MoE's load-balancing loss
+    or None)."""
+    if spec.cross and memories[0] is not None:
+        def cross(block, x, memory):
+            h = _norm(cfg, block.cross_norm, x)
+            return x + (cross_attention_decode(block.cross, h, memory,
+                                               cfg=cfg)
+                        if decode else
+                        attention_apply(block.cross, h, cfg=cfg,
+                                        memory=memory))
+        xs = [cross(*a) for a in zip(blocks, xs, memories)]
     if spec.mlp == "none":
-        return x, None
-    h = _norm(cfg, block.norm2, x)
+        return xs, None
+    hs = [_norm(cfg, b.norm2, x) for b, x in zip(blocks, xs)]
     if spec.mlp == "moe":
-        h, aux = moe_apply(block.moe, h)
-        return x + h, aux
-    if spec.mlp == "gelu":
-        return x + gelu_mlp_apply(block.mlp, h), None
-    return x + swiglu_apply(block.mlp, h), None
+        ys, aux = moe([b.moe for b in blocks], hs)
+        return [x + y for x, y in zip(xs, ys)], aux
+    mlp = gelu_mlp_apply if spec.mlp == "gelu" else swiglu_apply
+    return [x + mlp(b.mlp, h) for b, x, h in zip(blocks, xs, hs)], None
 
 
-def lm_forward(model: LM, tokens, *, patch_embeds=None, enc_frames=None):
+def _mixer(spec: LayerSpec, block: Block, h, cfg: ModelConfig):
+    """The full-sequence mixer of one block."""
+    if spec.mixer == "attn":
+        return attention_apply(block.attn, h, cfg=cfg)
+    if spec.mixer == "mamba":
+        return mamba_apply(block.mamba, h, cfg=cfg)
+    if spec.mixer == "mlstm":
+        return mlstm_apply(block.mlstm, h, cfg=cfg)
+    return slstm_apply(block.slstm, h, cfg=cfg)
+
+
+def _embed_all(models: List[LM], batches: List[Dict]):
+    """Each shard's embeddings and (enc-dec) encoder memory."""
+    xs = [_embed(m, b["tokens"], b.get("patch_embeds"))
+          for m, b in zip(models, batches)]
+    mems = [_encode(m, b.get("enc_frames"), x.dtype)
+            for m, b, x in zip(models, batches, xs)]
+    return xs, mems
+
+
+def _blocks(models: List[LM], p: int):
+    """Period p's blocks, slot by slot, one per shard."""
+    return list(zip(*(m.layers[p] for m in models)))
+
+
+def forward_shards(models: List[LM], batches: List[Dict], *,
+                   moe_sharded_ctx=None):
+    """:func:`lm_forward` over data shards: ``batches[i]`` ("tokens" and
+    the family's stubs) on ``models[i]``'s device.  Returns (the shards'
+    logits, aux) with aux on the first shard's device."""
+    cfg = models[0].cfg
+    moe = _moe_einsum if moe_sharded_ctx is None \
+        else _moe_a2a(cfg, moe_sharded_ctx)
+    xs, mems = _embed_all(models, batches)
+    aux = torch.zeros((), device=xs[0].device)
+    for p in range(len(models[0].layers)):
+        for spec, blocks in zip(models[0].pattern, _blocks(models, p)):
+            xs = [x + _mixer(spec, b, _norm(cfg, b.norm1, x), cfg)
+                  for b, x in zip(blocks, xs)]
+            xs, a = _cross_and_mlp(blocks, spec, xs, cfg, mems, False, moe)
+            if a is not None:
+                aux = aux + a
+    return [_lm_head(m, _norm(cfg, m.final_norm, x))
+            for m, x in zip(models, xs)], aux
+
+
+def lm_forward(model: LM, tokens, *, patch_embeds=None, enc_frames=None,
+               moe_sharded_ctx=None):
     """Full-sequence forward.  tokens: (B, S) int -> (logits (B, S,
     padded_vocab), aux), aux the float32 sum of the MoE layers'
     load-balancing losses (zero without experts).  ``patch_embeds`` (B, P,
     d) fill the first P positions (VLM); ``enc_frames`` (B, L_enc, d) are
-    the encoder's input, which an enc-dec model requires."""
-    cfg = model.cfg
-    x = _embed(model, tokens, patch_embeds)
-    memory = _encode(model, enc_frames, x.dtype)
-    aux = torch.zeros((), device=x.device)
-    for period in model.layers:
-        for spec, block in zip(model.pattern, period):
-            h = _norm(cfg, block.norm1, x)
-            if spec.mixer == "attn":
-                h = attention_apply(block.attn, h, cfg=cfg)
-            elif spec.mixer == "mamba":
-                h = mamba_apply(block.mamba, h, cfg=cfg)
-            elif spec.mixer == "mlstm":
-                h = mlstm_apply(block.mlstm, h, cfg=cfg)
-            else:
-                h = slstm_apply(block.slstm, h, cfg=cfg)
-            x, a = _cross_and_mlp(block, spec, x + h, cfg, memory, False)
-            if a is not None:
-                aux = aux + a
-    x = _norm(cfg, model.final_norm, x)
-    return _lm_head(model, x), aux
+    the encoder's input, which an enc-dec model requires.
+    ``moe_sharded_ctx`` = (mesh, batch_axes) runs every MoE layer through
+    the all-to-all dispatch (:mod:`repro_torch.nn.moe_sharded`)."""
+    logits, aux = forward_shards(
+        [model], [dict(tokens=tokens, patch_embeds=patch_embeds,
+                       enc_frames=enc_frames)],
+        moe_sharded_ctx=moe_sharded_ctx)
+    return logits[0], aux
 
 
-def lm_loss(model: LM, batch, *, aux_weight: float = 0.01,
-            loss_chunk: int = 0):
-    """Causal LM cross-entropy + MoE aux loss, as the reference's
-    ``lm_loss``.  batch: {"tokens", "labels"} (B, S) int, with the stubs
-    "patch_embeds" and "enc_frames" where the family takes them.
-    Log-softmax in float32 over the padded vocab (its columns at -1e9).
-
-    ``loss_chunk`` > 0 (and dividing S) sums the log-likelihood chunk by
-    chunk along the sequence, never holding the whole (B, S, V)
-    log-softmax.  Returns (total, {"loss", "aux", "perplexity"})."""
-    logits, aux = lm_forward(model, batch["tokens"],
-                             patch_embeds=batch.get("patch_embeds"),
-                             enc_frames=batch.get("enc_frames"))
-    labels = batch["labels"].long()
+def _nll(logits, labels, loss_chunk: int):
+    """Mean negative log-likelihood of ``labels`` (B, S) under ``logits``;
+    log-softmax in float32, chunk by chunk along the sequence where
+    ``loss_chunk`` divides S."""
+    labels = labels.long()
     b, s = labels.shape
     if loss_chunk and s % loss_chunk == 0:
         total_ll = torch.zeros((), device=logits.device)
@@ -329,13 +414,45 @@ def lm_loss(model: LM, batch, *, aux_weight: float = 0.01,
                                      dim=-1)
             ll = logp.gather(-1, labels[:, c:c + loss_chunk, None])[..., 0]
             total_ll = total_ll + ll.sum()
-        loss = -total_ll / (b * s)
-    else:
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        loss = -logp.gather(-1, labels[..., None])[..., 0].mean()
+        return -total_ll / (b * s)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels[..., None])[..., 0].mean()
+
+
+def loss_shards(models: List[LM], batches: List[Dict], *,
+                aux_weight: float = 0.01, loss_chunk: int = 0,
+                moe_sharded_ctx=None):
+    """:func:`lm_loss` over data shards: each shard's mean
+    log-likelihood, weighted by its share of the rows, summed on the first
+    shard's device into the global mean."""
+    logits, aux = forward_shards(models, batches,
+                                 moe_sharded_ctx=moe_sharded_ctx)
+    losses = [_nll(lg, b["labels"], loss_chunk)
+              for lg, b in zip(logits, batches)]
+    loss = losses[0]
+    if len(losses) > 1:
+        rows = [b["labels"].shape[0] for b in batches]
+        home = losses[0].device
+        loss = sum(l.to(home) * (r / sum(rows))
+                   for l, r in zip(losses, rows))
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux": aux,
                    "perplexity": torch.exp(loss.clamp(max=20.0))}
+
+
+def lm_loss(model: LM, batch, *, aux_weight: float = 0.01,
+            loss_chunk: int = 0, moe_sharded_ctx=None):
+    """Causal LM cross-entropy + MoE aux loss, as the reference's
+    ``lm_loss``.  batch: {"tokens", "labels"} (B, S) int, with the stubs
+    "patch_embeds" and "enc_frames" where the family takes them.
+    Log-softmax in float32 over the padded vocab (its columns at -1e9).
+
+    ``loss_chunk`` > 0 (and dividing S) sums the log-likelihood chunk by
+    chunk along the sequence, never holding the whole (B, S, V)
+    log-softmax.  Returns (total, {"loss", "aux", "perplexity"})."""
+    return loss_shards([model], [batch], aux_weight=aux_weight,
+                       loss_chunk=loss_chunk,
+                       moe_sharded_ctx=moe_sharded_ctx)
 
 
 def _stacked(per_period: List[Dict]) -> Dict:
@@ -380,6 +497,43 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
                  for spec in pattern)
 
 
+def _prefill_mixer(spec: LayerSpec, block: Block, h, cfg: ModelConfig,
+                   max_seq: int):
+    """The full-sequence mixer of one block and the decode state it
+    leaves."""
+    if spec.mixer == "attn":
+        kv = prefill_kv_cache(block.attn, h, cfg=cfg, max_seq=max_seq)
+        return attention_apply(block.attn, h, cfg=cfg), {"kv": kv}
+    if spec.mixer == "mamba":
+        h, ms = mamba_apply(block.mamba, h, cfg=cfg, return_state=True)
+        return h, {"mamba": ms}
+    if spec.mixer == "mlstm":
+        h, mls, tail = mlstm_apply_with_state(block.mlstm, h, cfg=cfg)
+        return h, {"mlstm": mls, "conv_tail": tail}
+    h, sls = slstm_apply(block.slstm, h, cfg=cfg, return_state=True)
+    return h, {"slstm": sls}
+
+
+def prefill_shards(models: List[LM], batches: List[Dict], *, max_seq: int):
+    """:func:`lm_prefill` over data shards; returns the shards' logits,
+    states and memories."""
+    cfg = models[0].cfg
+    xs, mems = _embed_all(models, batches)
+    slots = [[[] for _ in models[0].pattern] for _ in models]
+    for p in range(len(models[0].layers)):
+        for j, (spec, blocks) in enumerate(zip(models[0].pattern,
+                                               _blocks(models, p))):
+            for i, (b, x) in enumerate(zip(blocks, xs)):
+                h, st = _prefill_mixer(spec, b, _norm(cfg, b.norm1, x), cfg,
+                                       max_seq)
+                slots[i][j].append(st)
+                xs[i] = x + h
+            xs, _ = _cross_and_mlp(blocks, spec, xs, cfg, mems, False)
+    logits = [_lm_head(m, _norm(cfg, m.final_norm, x))
+              for m, x in zip(models, xs)]
+    return logits, [tuple(map(_stacked, s)) for s in slots], mems
+
+
 def lm_prefill(model: LM, tokens, *, max_seq: int, patch_embeds=None,
                enc_frames=None):
     """Prompt prefill: the full forward that also builds the decode state.
@@ -390,32 +544,10 @@ def lm_prefill(model: LM, tokens, *, max_seq: int, patch_embeds=None,
     state and conv tail, each sLSTM's last state), and ``memory`` the
     enc-dec encoder's output (None for another family), which decode
     steps take for their cross-attention."""
-    cfg = model.cfg
-    x = _embed(model, tokens, patch_embeds)
-    memory = _encode(model, enc_frames, x.dtype)
-    slots: List[List[Dict]] = [[] for _ in model.pattern]
-    for period in model.layers:
-        for j, (spec, block) in enumerate(zip(model.pattern, period)):
-            h = _norm(cfg, block.norm1, x)
-            if spec.mixer == "attn":
-                slots[j].append({"kv": prefill_kv_cache(
-                    block.attn, h, cfg=cfg, max_seq=max_seq)})
-                h = attention_apply(block.attn, h, cfg=cfg)
-            elif spec.mixer == "mamba":
-                h, ms = mamba_apply(block.mamba, h, cfg=cfg,
-                                    return_state=True)
-                slots[j].append({"mamba": ms})
-            elif spec.mixer == "mlstm":
-                h, mls, tail = mlstm_apply_with_state(block.mlstm, h,
-                                                      cfg=cfg)
-                slots[j].append({"mlstm": mls, "conv_tail": tail})
-            else:
-                h, sls = slstm_apply(block.slstm, h, cfg=cfg,
-                                     return_state=True)
-                slots[j].append({"slstm": sls})
-            x, _ = _cross_and_mlp(block, spec, x + h, cfg, memory, False)
-    x = _norm(cfg, model.final_norm, x)
-    return _lm_head(model, x), tuple(map(_stacked, slots)), memory
+    logits, states, mems = prefill_shards(
+        [model], [dict(tokens=tokens, patch_embeds=patch_embeds,
+                       enc_frames=enc_frames)], max_seq=max_seq)
+    return logits[0], states[0], mems[0]
 
 
 def _write(stacked: tuple, p: int, new: tuple) -> None:
@@ -424,48 +556,75 @@ def _write(stacked: tuple, p: int, new: tuple) -> None:
         buf[p] = value
 
 
+def _decode_mixer(spec: LayerSpec, block: Block, h, st: Dict, p: int,
+                  cfg: ModelConfig, fused_position: bool, sharded_decode):
+    """One block's mixer for one decode token, period p of the slot's
+    stacked state ``st`` updated in place."""
+    if spec.mixer == "attn":
+        kv = st["kv"]
+        h, new = attention_decode(
+            block.attn, h, KVCache(kv.k[p], kv.v[p], kv.length[p]),
+            cfg=cfg, fused_position=fused_position,
+            sharded_decode=sharded_decode)
+        kv.length[p] = new.length
+    elif spec.mixer == "mamba":
+        ms = st["mamba"]
+        h, new = mamba_decode(block.mamba, h,
+                              MambaState(ms.conv[p], ms.ssm[p]), cfg=cfg)
+        _write(ms, p, new)
+    elif spec.mixer == "mlstm":
+        mls = st["mlstm"]
+        h, new, tail = mlstm_decode(
+            block.mlstm, h, MLSTMState(*(t[p] for t in mls)), cfg=cfg,
+            conv_tail=st["conv_tail"][p])
+        _write(mls, p, new)
+        st["conv_tail"][p] = tail
+    else:
+        sls = st["slstm"]
+        h, new = slstm_decode(block.slstm, h,
+                              SLSTMState(*(t[p] for t in sls)), cfg=cfg)
+        _write(sls, p, new)
+    return h
+
+
+def decode_shards(models: List[LM], tokens, states, *, memories=None,
+                  fused_position: bool = True, sharded_decode=None):
+    """:func:`lm_decode_step` over data shards: ``tokens[i]`` (B_i,) and
+    ``states[i]`` on ``models[i]``'s device, ``sharded_decode[i]`` the
+    split-K context of shard i (or None).  Returns the shards' logits;
+    the states are updated in place."""
+    cfg = models[0].cfg
+    n = len(models)
+    memories = memories or [None] * n
+    sharded_decode = sharded_decode or [None] * n
+    xs = [embedding_apply(m.embed, t[:, None])                    # (B,1,d)
+          for m, t in zip(models, tokens)]
+    for p in range(len(models[0].layers)):
+        for j, (spec, blocks) in enumerate(zip(models[0].pattern,
+                                               _blocks(models, p))):
+            xs = [x + _decode_mixer(spec, b, _norm(cfg, b.norm1, x),
+                                    st[j], p, cfg, fused_position, sd)
+                  for b, x, st, sd in zip(blocks, xs, states,
+                                          sharded_decode)]
+            xs, _ = _cross_and_mlp(blocks, spec, xs, cfg, memories, True)
+    return [_lm_head(m, _norm(cfg, m.final_norm, x))[:, 0]
+            for m, x in zip(models, xs)]
+
+
 def lm_decode_step(model: LM, token, state, *, memory=None,
-                   fused_position: bool = True):
+                   fused_position: bool = True, sharded_decode=None):
     """One decode step.  token: (B,) int -> (logits (B, padded_vocab),
     state).  ``memory`` (B, L_enc, d) is the enc-dec encoder's output
     (from :func:`lm_prefill`); without it the decoder's cross-attention is
-    skipped, as in the reference.
+    skipped, as in the reference.  ``sharded_decode`` = (batch_axes,
+    model_axis, mesh) runs every attention layer's split-K decode over
+    the mesh (:func:`repro_torch.nn.attention.attention_decode`).
 
     The state is updated in place and returned: each attention layer
     writes its new key/value row into its slice of the stacked cache and
     advances its lengths, each recurrent layer overwrites its slice of its
     state (and conv tail).  Clone the state first to keep the old one."""
-    cfg = model.cfg
-    x = embedding_apply(model.embed, token[:, None])               # (B,1,d)
-    for p, period in enumerate(model.layers):
-        for j, (spec, block) in enumerate(zip(model.pattern, period)):
-            h = _norm(cfg, block.norm1, x)
-            st = state[j]
-            if spec.mixer == "attn":
-                kv = st["kv"]
-                h, new = attention_decode(
-                    block.attn, h, KVCache(kv.k[p], kv.v[p], kv.length[p]),
-                    cfg=cfg, fused_position=fused_position)
-                kv.length[p] = new.length
-            elif spec.mixer == "mamba":
-                ms = st["mamba"]
-                h, new = mamba_decode(block.mamba, h,
-                                      MambaState(ms.conv[p], ms.ssm[p]),
-                                      cfg=cfg)
-                _write(ms, p, new)
-            elif spec.mixer == "mlstm":
-                mls = st["mlstm"]
-                h, new, tail = mlstm_decode(
-                    block.mlstm, h, MLSTMState(*(t[p] for t in mls)),
-                    cfg=cfg, conv_tail=st["conv_tail"][p])
-                _write(mls, p, new)
-                st["conv_tail"][p] = tail
-            else:
-                sls = st["slstm"]
-                h, new = slstm_decode(block.slstm, h,
-                                      SLSTMState(*(t[p] for t in sls)),
-                                      cfg=cfg)
-                _write(sls, p, new)
-            x, _ = _cross_and_mlp(block, spec, x + h, cfg, memory, True)
-    x = _norm(cfg, model.final_norm, x)
-    return _lm_head(model, x)[:, 0], state
+    logits = decode_shards([model], [token], [state], memories=[memory],
+                           fused_position=fused_position,
+                           sharded_decode=[sharded_decode])
+    return logits[0], state

@@ -7,8 +7,10 @@ decode token (the CUDA kernels on the card, their plain versions on the
 CPU); this module owns the projections, the rotary embedding and the cache
 insert.  Cross-attention (the enc-dec family) takes its keys and values
 from the encoder's memory: ``attention_apply(memory=)`` over a full
-sequence, :func:`cross_attention_decode` for one decode token.  The sharded
-split-K decode waits for the mesh.
+sequence, :func:`cross_attention_decode` for one decode token.  With
+``sharded_decode`` a decode step runs the split-K decode over a mesh's
+model axis (:mod:`repro_torch.distributed.flash_decode`), which inserts
+the new row on the shard that owns its position.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.flash_decode import sharded_decode_attention
 from repro_torch.kernels import ops
 from repro_torch.nn.linear import Dense, dense_apply
 from repro_torch.nn.rope import apply_rope
@@ -92,11 +95,13 @@ def attention_decode(params: Attention, x, cache: KVCache, *,
     reference's one-hot blend does for a finite cache: a row whose length
     is outside ``[0, S)`` is left unwritten.  Neither reads the lengths on
     the host.
+
+    ``sharded_decode``: (batch_axes, model_axis, mesh) runs the split-K
+    decode over ``model_axis`` instead of the ``decode_attention`` kernel,
+    the cache split along the sequence; every row inserts at
+    ``cache.length[0]`` on the shard that owns it, whatever
+    ``fused_position`` says, and nowhere when that is outside ``[0, S)``.
     """
-    if sharded_decode is not None:
-        raise NotImplementedError(
-            "sharded split-K decode is not ported yet (ROADMAP Queue 1 "
-            "item 11: distributed/flash_decode)")
     hd = cfg.resolved_head_dim
     b = x.shape[0]
     s = cache.k.shape[1]
@@ -109,6 +114,13 @@ def attention_decode(params: Attention, x, cache: KVCache, *,
     k = apply_rope(k, pos, cfg.rope_theta)
     new_len = cache.length + 1
 
+    if sharded_decode is not None:
+        batch_axes, model_axis, mesh = sharded_decode
+        out, _, _ = sharded_decode_attention(
+            q[:, 0], cache.k, cache.v, new_len, axis=model_axis,
+            batch_axes=batch_axes, mesh=mesh, k_new=k[:, 0], v_new=v[:, 0])
+        y = dense_apply(params.wo, out.reshape(b, 1, cfg.q_dim))
+        return y, KVCache(cache.k, cache.v, new_len)
     if fused_position:
         idx = cache.length[:1].clamp(0, s - 1).long()
         cache.k.index_copy_(1, idx, k.to(cache.k.dtype))

@@ -10,6 +10,7 @@ them from an explicit generator with the reference's distributions.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -59,7 +60,10 @@ class Embedding(nn.Module):
 
 
 def embedding_apply(params: Embedding, ids):
-    return params.table[ids]
+    """The rows of ``ids``.  ``F.embedding``'s gradient sums a table row's
+    repeats in the same order every run on the CPU, where indexing's
+    (an accumulating ``index_put_``) does not when threads split it."""
+    return F.embedding(ids, params.table)
 
 
 def embedding_attend(params: Embedding, x):

@@ -85,15 +85,42 @@ def capacity(module: MoE, tokens: int,
     return int(max(module.k, cf * tokens * module.k / e))
 
 
+def top_k_gates(router, xf, k: int):
+    """The router's float32 softmax over the rows of ``xf`` (T, d) and
+    each row's top ``k`` (a stable descending sort, lower index first on
+    a tie, as ``jax.lax.top_k``): (probs (T, E), gates renormalised over
+    ``max(sum, 1e-9)``, expert ids), the last two (T, k)."""
+    probs = torch.softmax(xf.float() @ router, dim=-1)             # (T, E)
+    top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, ids = top[:, :k], idx[:, :k]
+    return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), ids
+
+
+def load_balance_loss(probs, ids):
+    """The Switch load-balancing loss ``E * sum_e mean(probs)_e *
+    count_e / (T k)`` of T tokens' router ``probs`` (T, E) and top-k
+    ``ids`` (T, k).
+
+    The counts are sums of ones (exact in any order; ``bincount`` would
+    read the card back for its length), divided by a 0-dim tensor filled
+    on the device (CUDA turns a division by a Python number into a
+    product with its reciprocal; a filled tensor, unlike a copied one,
+    keeps the step capturable in a CUDA graph)."""
+    e = probs.shape[1]
+    n = ids.numel()
+    me = probs.mean(dim=0)
+    counts = probs.new_zeros(e).index_add_(0, ids.reshape(-1),
+                                           probs.new_ones(n))
+    ce = counts / probs.new_full((), float(n))
+    return e * torch.sum(me * ce)
+
+
 def route(module: MoE, xf, cap: int) -> Routing:
     """Route the rows of ``xf`` (T, d) to ``module``'s experts with
     ``cap`` rows per expert."""
     k, e = module.k, module.router.shape[1]
     t = xf.shape[0]
-    probs = torch.softmax(xf.float() @ module.router, dim=-1)       # (T, E)
-    top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, ids = top[:, :k], idx[:, :k]
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    probs, gates, ids = top_k_gates(module.router, xf, k)
     flat_ids = ids.reshape(-1)
     order = torch.argsort(flat_ids, stable=True)
     sorted_ids = flat_ids[order]
@@ -114,17 +141,7 @@ def moe_apply(module: MoE, x, *, capacity_factor: Optional[float] = None
     cap = capacity(module, t, capacity_factor)
     r = route(module, xf, cap)
 
-    # load-balance aux loss (Switch): E * sum_e f_e * P_e.  The counts are
-    # sums of ones (exact in any order; ``bincount`` would read the card
-    # back for its length), divided by a 0-dim tensor filled on the device
-    # (CUDA turns a division by a Python number into a product with its
-    # reciprocal; a filled tensor, unlike a copied one, keeps the step
-    # capturable in a CUDA graph)
-    me = r.probs.mean(dim=0)
-    counts = r.probs.new_zeros(e).index_add_(
-        0, r.ids.reshape(-1), r.probs.new_ones(t * k))
-    ce = counts / r.probs.new_full((), float(t * k))
-    aux = e * torch.sum(me * ce)
+    aux = load_balance_loss(r.probs, r.ids)
 
     keep = r.keep.to(xf.dtype)
     pos_c = r.pos.clamp(max=cap - 1)

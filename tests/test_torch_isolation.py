@@ -44,16 +44,18 @@ def test_port_imports_with_jax_and_the_reference_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 66                       # every submodule imported
+    assert len(names) >= 68                       # every submodule imported
     # the closed loop's modules among them, the fused engine's, the fleet
-    # layer's and the zoo's last families' with the registry
+    # layer's, the zoo's last families' with the registry and the LM's
+    # mesh paths
     assert {f"repro_torch.{m}" for m in (
         "experiments", "core.baselines", "core.constraints", "core.learn_gdm",
         "core.mac", "core.policy", "nn.recurrent", "rl.d3ql", "rl.networks",
         "rl.replay", "sim.vec_env", "sim.workloads", "sim.torch_env",
         "sim.faults", "serving.scheduler", "serving.cluster", "nn.xlstm",
         "configs.registry", "configs.seamless_m4t_large_v2",
-        "configs.xlstm_1_3b", "configs.llava_next_34b")} <= names
+        "configs.xlstm_1_3b", "configs.llava_next_34b", "nn.moe_sharded",
+        "distributed.flash_decode")} <= names
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -489,12 +489,43 @@ def test_step_marks_its_phases_in_order():
 
 @pytest.mark.parametrize("arch", ["yi-6b", "granite-moe-1b-a400m"])
 def test_unported_step_levers_raise(arch):
-    """The all-to-all MoE dispatch needs a mesh (ROADMAP Queue 1 item
-    11); int8 gradient compression is ported (``test_torch_moe.py``)."""
-    cfg, _ = _configs(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_train_step(cfg, TrainConfig(),
-                               opts=tsteps.StepOptions(moe_a2a=True))
+    """The mesh levers of the train step, once refused, now run: two
+    steps with ``moe_a2a`` on a (1, 1) ("data", "model") mesh with the
+    global batch, against the reference's on its own (1, 1) mesh (granite
+    through the all-to-all dispatch at capacity factor 1.25; yi-6b has no
+    experts, so the lever leaves the einsum path, as in the
+    reference), within the step's 1e-5."""
+    from repro.launch.mesh import make_host_mesh as jmake_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg, jcfg = _configs(arch, **({"moe_capacity_factor": 1.25}
+                                  if arch != "yi-6b" else {}))
+    params = jlm.init_lm(jax.random.PRNGKey(0), jcfg)
+    model = lm_from_jax(_np_tree(params), cfg, device="cpu")
+    tc = dict(total_steps=2, warmup_steps=5)
+    jstep = jax.jit(jsteps.make_train_step(
+        jcfg, JTrainConfig(**tc),
+        opts=jsteps.StepOptions(remat=False, impl="xla", moe_a2a=True),
+        mesh=jmake_host_mesh((1, 1), ("data", "model")), global_batch=4))
+    tstep = tsteps.make_train_step(
+        cfg, TrainConfig(**tc), opts=tsteps.StepOptions(moe_a2a=True),
+        mesh=make_host_mesh((1, 1), ("data", "model"), devices=("cpu",)),
+        global_batch=4)
+    jstate = jopt.adamw(3e-4)[0](params)
+    tstate = topt.adamw(3e-4)[0](tsteps.trainable(model))
+    data = TokenDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                   global_batch=4))
+    for step in range(2):
+        batch = data.batch_at(step)
+        params, jstate, jmet = jstep(params, jstate,
+                                     {k: jnp.asarray(v)
+                                      for k, v in batch.items()})
+        model, tstate, tmet = tstep(model, tstate, _torch_batch(batch))
+        for key in ("loss", "aux", "grad_norm"):
+            _close(tmet[key], jmet[key])
+    got = lm_to_jax(model)
+    for want, leaf in zip(jax.tree_util.tree_leaves(params),
+                          jax.tree_util.tree_leaves(got)):
+        _close(leaf, want)
 
 
 # -- the CLI ---------------------------------------------------------------------------------

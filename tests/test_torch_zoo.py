@@ -365,10 +365,42 @@ def test_train_step_with_stubs_matches_reference(family):
 
 
 def test_unported_serving_levers_raise():
-    cfg = get_config("seamless-m4t-large-v2").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_serve_step(cfg, opts=tsteps.StepOptions(
-            sharded_decode=True))
-    for make in (tsteps.make_serve_step, tsteps.make_prefill_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make(cfg, mesh=object())
+    """The serving levers, once refused, now run: the enc-dec's prefill
+    and two decode steps with ``sharded_decode`` on a (1, 1) ("data",
+    "model") mesh with the global batch, against the reference's steps on
+    its own (1, 1) mesh, within 1e-5 (the split-K decode itself, which a
+    model axis of one never engages, is held to the reference's at sizes
+    2 and 4 in ``test_torch_lm_mesh.py``)."""
+    from repro.launch.mesh import make_host_mesh as jmake_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    arch = "seamless-m4t-large-v2"
+    cfg, jcfg = get_config(arch).reduced(), jax_get_config(arch).reduced()
+    params = jlm.init_lm(jax.random.PRNGKey(3), jcfg)
+    model = lm_from_jax(_np_tree(params), cfg, device="cpu")
+    jmesh = jmake_host_mesh((1, 1), ("data", "model"))
+    mesh = make_host_mesh((1, 1), ("data", "model"), devices=("cpu",))
+    jopts = jsteps.StepOptions(impl="xla", sharded_decode=True)
+    opts = tsteps.StepOptions(sharded_decode=True)
+    batch = _batch(cfg, 2, 6, seed=4)
+    del batch["labels"]
+    want = jsteps.make_prefill_step(jcfg, max_seq=9, state_dtype=jnp.float32,
+                                    opts=jopts, mesh=jmesh,
+                                    global_batch=2)(params, batch)
+    got = tsteps.make_prefill_step(cfg, max_seq=9, mesh=mesh,
+                                   global_batch=2)(model, _torch(batch))
+    _close(got["logits"], want["logits"])
+    _close_state(got["state"], want["state"])
+    _close(got["memory"], want["memory"])
+    jserve = jax.jit(jsteps.make_serve_step(jcfg, opts=jopts, mesh=jmesh,
+                                            global_batch=2))
+    serve = tsteps.make_serve_step(cfg, opts=opts, mesh=mesh, global_batch=2)
+    tok = np.asarray(want["logits"])[:, :cfg.vocab_size].argmax(-1)
+    jstate, state = want["state"], got["state"]
+    for _ in range(2):
+        tok = tok.astype(np.int32)
+        wl, jstate = jserve(params, tok, jstate, want["memory"])
+        gl, state = serve(model, torch.from_numpy(tok), state,
+                          got["memory"])
+        _close(gl, wl)
+        _close_state(state, jstate)
+        tok = np.asarray(wl)[:, :cfg.vocab_size].argmax(-1)
