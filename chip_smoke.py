@@ -153,14 +153,31 @@ non-zero before the result line):
     step's update, routing differences near-ties; three whole train steps
     on (2, 4) twice, bit for bit, with exact launches, beside the
     unsharded step; two layers data parallel on (2, 1) within LM_TOL and
-    on (1, 1) bit for bit with no mesh; ms per step and peak memory.
+    on (1, 1) bit for bit with no mesh; ms per step and peak memory;
+24. the DiT's training path at full width (gdm-dit: 12 layers, d=768,
+    S=256, 166 M parameters): ``gdm_loss`` on the card against the CPU
+    from one set of weights and the same injected timesteps and noise at
+    B=2 (the loss within STEP_TOL, every gradient leaf within 1e-4 of its
+    largest magnitude, three AdamW steps' losses within TRAIN_TOL); 300
+    AdamW steps on the card from ``LatentDataset`` through ``prefetch`` at
+    B=8, each launching exactly 12 of each adaLN form, of each adaLN
+    backward and of ``flash_attention``, the loss falling (the reference
+    test's criterion), with ms per step, one profiled step's device time
+    and the card's idle share, peak memory, and Omega(k) of the random and
+    the trained DiT (the reference's properties asserted); then
+    ``from_gdm_model`` on the card and ``python -m
+    repro_torch.examples.serve_gdm`` at small flags.
 
 Phase 3 also holds the selective scan (forward and backward kernels)
 against its plain version and autograd (and both against themselves: two
 calls give the same bits), and the gradients that
-``flash_attention`` (causal, and non-causal with 128 queries against 1024
-keys) and ``rmsnorm`` carry on the card against autograd of their plain
-versions; phase 4 times both scan kernels at the training shape, and the
+``flash_attention`` (causal, non-causal with 128 queries against 1024
+keys, and the DiT's training shape) and ``rmsnorm`` carry on the card
+against autograd of their plain versions, and the adaLN backward kernel in
+both forms (through ``ops.adaln_norm`` under autograd, at the adaLN
+shapes, r used and unused) against autograd of the plain version, a
+second call bit for bit; phase 4 times both scan kernels at the training
+shape, the adaLN backward at B=4 and B=8 beside its forward, and the
 attention and norm kernels at the shapes of phases 19–21 (seamless's
 encoder and cross-attention, llava's prefill and G=7 decode, deepseek's
 G=8 decode, rows of 2048, 7168 and 8192).
@@ -168,7 +185,8 @@ G=8 decode, rows of 2048, 7168 and 8192).
 Then it prints one JSON line describing the kernels (each kernel's
 launches from the path that carries it: the DiT kernels from the fleet of
 phase 15, decode and rmsnorm from phase 8, the scan kernels from phase
-10), and as its last line ``{"ok": true, "device": {...}}``.
+10, the adaLN backward from phase 24's training run), and as its last
+line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernel-times TREE`` builds the kernels of another
 checkout's ``TREE/src/repro_torch`` (a parent commit unpacked with ``git
@@ -588,10 +606,77 @@ def check_ssm_scan(gen):
     return worst
 
 
+def check_adaln_backward(gen):
+    """The adaLN backward kernel in both forms, through ``ops.adaln_norm``
+    under autograd (``AdaLNNormFn``, the training path), against autograd
+    of the plain version at phase 3's adaLN shapes: the modulation a
+    (B, 1, 6d) projection's chunks (a leaf whose gradient gathers shift,
+    scale and gate), aligned and one float off; the epilogue with r used
+    (dr given) and unused.  Relative to each gradient's largest magnitude,
+    within GRAD_TOL; the wrapper called twice gives the same bits.
+    Returns the largest absolute errors per form."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.adaln_norm import adaln_norm_backward_cuda
+    worst = {"adaln_norm_backward": 0.0, "adaln_norm_epilogue_backward": 0.0}
+    for (b, s, d, offset) in ADALN_CASES:
+        for epilogue, with_dr in ((False, False), (True, True),
+                                  (True, False)):
+            x = _randn(gen, b, s, d)
+            mods = _randn(gen, b, 1, 6 * d + offset, scale=0.1)
+            w = 1.0 + _randn(gen, d, scale=0.1)
+            bias = _randn(gen, d, scale=0.1)
+            res = _randn(gen, b, s, d) if epilogue else None
+            dy = _randn(gen, b, s, d)
+            dr = _randn(gen, b, s, d) if with_dr else None
+            leaves = [t.requires_grad_() for t in (x, mods, w, bias) + (
+                (res,) if epilogue else ())]
+
+            def operands():
+                """The forward's operands: shift, scale and gate as (B, d)
+                views of the projection, row stride 6d + offset."""
+                sh, sc, g = (t.reshape(b, d) for t in
+                             mods[..., offset:].chunk(6, dim=-1)[:3])
+                return (x, sh, sc, w, bias) + ((g, res) if epilogue else ())
+
+            def grads(fn):
+                out = fn(*operands())
+                outs = (out[0], out[1]) if epilogue else (out,)
+                cots = (dy, dr) if epilogue else (dy,)
+                if epilogue and dr is None:
+                    outs, cots = outs[:1], cots[:1]
+                return torch.autograd.grad(outs, leaves, cots)
+
+            got = grads(ops.adaln_norm)
+            want = grads(ref.adaln_norm)
+            rels = [_rel(g_, w_) for g_, w_ in zip(got, want)]
+            with torch.no_grad():
+                ins = operands()
+                call = lambda: adaln_norm_backward_cuda(  # noqa: E731
+                    *ins[:5], dy, *ins[5:], dr=dr)
+                same = all(torch.equal(p, q) for p, q in zip(call(), call()))
+            name = ("adaln_norm_epilogue_backward" if epilogue
+                    else "adaln_norm_backward")
+            names = ("dx", "dmods", "dw", "db") + (("dres",) if epilogue
+                                                  else ())
+            print(f"{name:28s} B={b} S={s} d={d} modulation offset {offset}"
+                  f"{', dr given' if with_dr else ''}: vs autograd of the "
+                  "plain version rel " + ", ".join(
+                      f"{n} {r:.2e}" for n, (_, r) in zip(names, rels))
+                  + f"; a second call bit-identical: {same}")
+            assert max(r for _, r in rels) <= GRAD_TOL, \
+                f"{name} disagrees with autograd of the plain version"
+            assert same, f"{name} is not deterministic"
+            worst[name] = max(worst[name], *(e for e, _ in rels))
+    return worst
+
+
 def check_kernel_grads(gen):
     """The gradients flash_attention and rmsnorm carry on the card (their
     autograd functions) against autograd of the plain versions, at the
-    training shapes (Jamba's heads at B=8, S=128; 1024 rows of 4096)."""
+    training shapes (Jamba's heads at B=8, S=128; the DiT's at B=8, S=256,
+    non-causal; 1024 rows of 4096), and the adaLN backward kernel
+    (``check_adaln_backward``, whose errors it returns)."""
     import torch
     from repro_torch.kernels import ops, ref
     q = _randn(gen, 8, 128, 32, 128).requires_grad_()
@@ -611,6 +696,15 @@ def check_kernel_grads(gen):
     want = torch.autograd.grad(ref.attention(q, k, v, causal=False),
                                (q, k, v), do)
     errs_x = [_rel(g, w)[1] for g, w in zip(got, want)]
+    # the DiT's training shape: B=8, S=256, 12 heads of 64, non-causal
+    q, k, v = (_randn(gen, 8, 256, 12, 64).requires_grad_()
+               for _ in range(3))
+    do = _randn(gen, 8, 256, 12, 64)
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, causal=False),
+                              (q, k, v), do)
+    want = torch.autograd.grad(ref.attention(q, k, v, causal=False),
+                               (q, k, v), do)
+    errs_dit = [_rel(g, w)[1] for g, w in zip(got, want)]
     x = _randn(gen, 8, 128, 4096).requires_grad_()
     w = (1.0 + _randn(gen, 4096, scale=0.1)).requires_grad_()
     dy = _randn(gen, 8, 128, 4096)
@@ -623,10 +717,14 @@ def check_kernel_grads(gen):
     print("flash_attention gradients (B=8, Sq=128, Sk=1024, H=16, D=64, "
           "non-causal: seamless's cross-attention) vs autograd of the plain "
           "version, rel: dq {:.2e}, dk {:.2e}, dv {:.2e}".format(*errs_x))
+    print("flash_attention gradients (B=8, S=256, H=12, D=64, non-causal: "
+          "the DiT's training shape) vs autograd of the plain version, rel: "
+          "dq {:.2e}, dk {:.2e}, dv {:.2e}".format(*errs_dit))
     print("rmsnorm gradients (1024 x 4096) vs autograd of the plain "
           "version, rel: dx {:.2e}, dscale {:.2e}".format(*errs_rms))
-    assert max(errs + errs_x + errs_rms) <= GRAD_TOL, \
+    assert max(errs + errs_x + errs_dit + errs_rms) <= GRAD_TOL, \
         "a kernel's gradient disagrees with autograd of its plain version"
+    return check_adaln_backward(gen)
 
 
 # -- phase 4: times -------------------------------------------------------------
@@ -676,6 +774,73 @@ def time_adaln(gen, b, s, d):
     print(f"F.layer_norm B={b} S={s} d={d} (the nearest PyTorch call, "
           f"without the modulation): {ln_ms:.7f} ms")
     return out
+
+
+def time_adaln_backward(gen, b, s, d):
+    """The adaLN backward kernel in both forms at (B, S, d), the epilogue
+    with dr (as the DiT's training step gives it), beside its plain
+    version and, from the same call, the forward kernel.  The bound counts
+    the rows it must move (x and dy read, dx written; the epilogue also
+    residual and dr read, dresidual written) and the d- and (B, d)-sized
+    operands and gradients once each."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.adaln_norm import adaln_norm_backward_cuda
+    out = {}
+    for epilogue in (False, True):
+        name = ("adaln_norm_epilogue_backward" if epilogue
+                else "adaln_norm_backward")
+        args = adaln_inputs(gen, b, s, d, epilogue)
+        flat = [a.reshape(b, d) if a.dim() == 3 and a.shape[1] == 1 else a
+                for a in args]
+        dy = _randn(gen, b, s, d)
+        dr = _randn(gen, b, s, d) if epilogue else None
+        rows = b * s * d
+        nbytes = 4 * ((6 if epilogue else 3) * rows
+                      + (5 if epilogue else 3) * b * d + 4 * d)
+        flops = (25 if epilogue else 20) * rows
+        t_bound, by = bound_ms(nbytes, flops)
+        out[name] = dict(
+            ms=device_ms(lambda: adaln_norm_backward_cuda(
+                *flat[:5], dy, *flat[5:], dr=dr)),
+            plain_ms=device_ms(lambda: ref.adaln_norm_backward(
+                *flat[:5], dy, *flat[5:], dr=dr)),
+            bound_ms=t_bound, bound_by=by, library_ms=None,
+            forward_ms=device_ms(lambda: ops.adaln_norm(*args)))
+        got = adaln_norm_backward_cuda(*flat[:5], dy, *flat[5:], dr=dr)
+        want = ref.adaln_norm_backward(*flat[:5], dy, *flat[5:], dr=dr)
+        out[name]["err"] = max(_rel(g, w)[0] for g, w in zip(got, want))
+        out[name]["mb"] = nbytes / 1e6
+        out[name]["split"] = kernel_split(lambda: adaln_norm_backward_cuda(
+            *flat[:5], dy, *flat[5:], dr=dr))
+    for name, t in out.items():
+        _print_times(f"{name:28s} B={b} S={s} d={d}", t)
+        print(f"  {t.pop('mb'):.2f} MB to move; the forward kernel of the "
+              f"same form {t.pop('forward_ms'):.7f} ms in this call; "
+              f"max|kernel - plain| of the timed call {t.pop('err'):.3e}; "
+              "profiled device ms by kernel (mean of 5 calls): " + ", ".join(
+                  f"{k} {v:.7f}" for k, v in t.pop("split").items()))
+    return out
+
+
+def kernel_split(fn, calls: int = 5):
+    """Device ms that one ``fn()`` spends in each kernel, by kernel name
+    (the part before its template arguments), summed over its launches
+    and averaged over ``calls`` calls under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("<")[0].split("::")[-1].split("(")[0]
+            times[name] = (times.get(name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3 / calls)
+    return times
 
 
 def time_kernels(gen, cfg):
@@ -3757,6 +3922,243 @@ def llava_cut(cfg, steps: int = 16, text: int = 128):
     torch.cuda.empty_cache()
 
 
+# -- phase 24: the DiT's training path ----------------------------------------------
+
+DIT_TRAIN_LR = 3e-4      # AdamW for the full-width DiT (the reference's test
+DIT_TRAIN_STEPS = 300    # trains the reduced one at 3e-3 for 30 steps)
+DIT_TRAIN_BATCH = 8
+
+
+def dit_train_flops(cfg, batch: int) -> float:
+    """Float32 operations of one DiT train step, products only: per token
+    the attention projections (4 d^2) and the MLP (2 d d_ff) multiply-add
+    in each layer, the scores and P V (4 S d per token and layer); the
+    backward takes twice the forward's.  The modulation (one row per
+    sample), the embeddings and the patch projections are left out."""
+    s, d = cfg.latent_hw ** 2, cfg.d_model
+    per_token = cfg.num_layers * (2 * (4 * d * d + 2 * d * cfg.d_ff)
+                                  + 4 * s * d)
+    return 3.0 * batch * s * per_token
+
+
+def dit_step_vs_cpu(cfg, batch: int = 2, steps: int = 3):
+    """``gdm_loss`` on the card against the CPU from one set of weights and
+    the same injected timesteps and noise: the loss within STEP_TOL
+    (relative), every gradient leaf within 1e-4 of that leaf's largest
+    magnitude (the products sum K up to 3072 in another order on each
+    side, through 12 layers and back), then ``steps`` AdamW steps whose
+    losses agree within TRAIN_TOL."""
+    import torch
+    from repro_torch.data import LatentDataset
+    from repro_torch.launch.steps import trainable
+    from repro_torch.models.gdm import DiT, gdm_loss, init_gdm
+    from repro_torch.optim import adamw, apply_updates
+    model = init_gdm(cfg, seed=13, device="cuda")
+    cpu_model = DiT(cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    sides = {"card": model, "cpu": cpu_model}
+    params = {side: trainable(m) for side, m in sides.items()}
+    init, update = adamw(DIT_TRAIN_LR)
+    states = {side: init(p) for side, p in params.items()}
+    data = LatentDataset(latent_hw=cfg.latent_hw, vocab_size=cfg.vocab_size)
+    gen = torch.Generator().manual_seed(5)
+    worst_leaf = 0.0
+    for step in range(steps):
+        raw = data.sample(batch, step)
+        t = torch.randint(0, 16, (batch,), generator=gen)
+        eps = torch.randn((batch, cfg.latent_hw ** 2, 4), generator=gen)
+        losses, grads = {}, {}
+        for side, m in sides.items():
+            dev = m.pos.device
+            loss, _ = gdm_loss(m, raw, t=t.to(dev), eps=eps.to(dev))
+            g = torch.autograd.grad(loss, list(params[side].values()))
+            losses[side] = loss.item()
+            grads[side] = dict(zip(params[side], g))
+            upd, states[side] = update(grads[side], states[side],
+                                       params[side])
+            apply_updates(params[side], upd)
+        rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+        print(f"step {step + 1}: loss card {losses['card']:.7f}, cpu "
+              f"{losses['cpu']:.7f}, rel {rel:.2e} (tolerance "
+              f"{STEP_TOL if step == 0 else TRAIN_TOL})")
+        assert math.isfinite(losses["card"]), "non-finite loss on the card"
+        assert rel <= (STEP_TOL if step == 0 else TRAIN_TOL), \
+            "gdm_loss on the card disagrees with the CPU"
+        if step == 0:
+            for name, want in grads["cpu"].items():
+                err = float((grads["card"][name].cpu() - want).abs().max())
+                leaf = err / max(float(want.abs().max()), 1e-30)
+                assert leaf <= 1e-4, f"gradient of {name} disagrees with " \
+                    f"the CPU: {leaf:.2e} of its largest magnitude"
+                worst_leaf = max(worst_leaf, leaf)
+            print(f"  first step's gradients: {len(grads['cpu'])} leaves, "
+                  f"the worst within {worst_leaf:.2e} of its largest "
+                  "magnitude (tolerance 1e-4)")
+    del model, cpu_model, sides, params, states
+    torch.cuda.empty_cache()
+
+
+def dit_omega(model, cfg, steps_per_block: int = 1, blocks: int = 4):
+    """Omega(k) of ``model``: ``quality_per_block`` over 4 prompts of 8
+    tokens and their noise, drawn on the card from seed 29, with the
+    reference's properties asserted (Omega(B) = 1 within 1e-5, every value
+    in [0, 1])."""
+    import torch
+    from repro_torch.models.gdm import LATENT_CHANNELS, quality_per_block
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    prompts = torch.randint(2, cfg.vocab_size, (4, 8), generator=gen,
+                            device="cuda")
+    noise = torch.randn((4, cfg.latent_hw ** 2, LATENT_CHANNELS),
+                        generator=gen, device="cuda")
+    with torch.no_grad():
+        q = quality_per_block(model, noise, prompts, num_blocks=blocks,
+                              steps_per_block=steps_per_block).cpu()
+    assert torch.isfinite(q).all(), "non-finite Omega"
+    assert abs(float(q[-1]) - 1.0) <= 1e-5, "Omega(B) is not 1"
+    assert bool(((q >= 0) & (q <= 1)).all()), "Omega outside [0, 1]"
+    return [float(v) for v in q]
+
+
+def dit_train(cfg, card: str, steps: int = DIT_TRAIN_STEPS,
+              batch: int = DIT_TRAIN_BATCH):
+    """Train the full-width DiT on the card from ``LatentDataset`` through
+    ``prefetch``: ``gdm_loss`` with t and eps from a card generator, AdamW
+    at DIT_TRAIN_LR.  Every step must launch 12 of each adaLN form, 12 of
+    each backward and 12 ``flash_attention`` (one a layer), and the loss
+    must fall (the reference test's criterion: the mean of the last 5
+    losses below the first 5).  Reports the wall clock per step, one
+    profiled step's kernels and device time against its host time (the
+    idle share), peak memory, and Omega before and after.  Returns the
+    launches of the run."""
+    import numpy as np
+    import torch
+    from repro_torch.data import LatentDataset, prefetch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.steps import trainable
+    from repro_torch.models.gdm import gdm_loss, init_gdm
+    from repro_torch.optim import adamw, apply_updates
+    model = init_gdm(cfg, seed=17, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    params = trainable(model)
+    names = list(params)
+    init, update = adamw(DIT_TRAIN_LR)
+    state = [init(params)]
+    data = LatentDataset(latent_hw=cfg.latent_hw, vocab_size=cfg.vocab_size)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    omega = {"random": {spb: dit_omega(model, cfg, spb) for spb in (1, 4)}}
+    layers = cfg.num_layers
+    expected = dict.fromkeys(LAUNCHES, 0)
+    expected.update(adaln_norm=layers, adaln_norm_epilogue=layers,
+                    adaln_norm_backward=layers,
+                    adaln_norm_epilogue_backward=layers,
+                    flash_attention=layers)
+
+    def step(b):
+        loss, _ = gdm_loss(model, b, generator=gen)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        upd, state[0] = update(dict(zip(names, grads)), state[0], params)
+        apply_updates(params, upd)
+        return loss.detach()
+
+    losses, per_step = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for b in prefetch((data.sample(batch, i) for i in range(steps)),
+                      device="cuda"):
+        before = dict(LAUNCHES)
+        losses.append(step(b))
+        per_step.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # Omega of the trained DiT before the timed steps below train it further
+    omega["trained"] = {spb: dit_omega(model, cfg, spb) for spb in (1, 4)}
+    losses = torch.stack(losses).cpu().numpy()
+    bad = [i for i, got in enumerate(per_step) if got != expected]
+    print(f"{cfg.name}: {layers} layers, d={cfg.d_model}, {cfg.num_heads} x "
+          f"{cfg.resolved_head_dim} heads, S={cfg.latent_hw ** 2}: "
+          f"{n_params / 1e6:.1f} M parameters; {steps} AdamW steps at "
+          f"{DIT_TRAIN_LR} on LatentDataset batches of {batch} through "
+          f"prefetch in {wall:.2f} s ({wall * 1e3 / steps:.3f} ms a step on "
+          f"the host's clock); peak device memory {peak / 2**30:.3f} GiB")
+    print(f"expected launches per step {expected}; steps that differ: {bad}")
+    print("losses, every 25th step: " + ", ".join(
+        f"{i + 1}: {losses[i]:.5f}" for i in range(0, steps, 25))
+        + f", {steps}: {losses[-1]:.5f}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"mean of the first 5 losses {first:.6f}, of the last 5 {last:.6f}")
+    assert np.isfinite(losses).all(), "non-finite loss"
+    assert not bad, "a train step did not launch the kernels exactly once a " \
+        "layer"
+    assert last < first, "the DiT's loss did not fall"
+    # one step from an idle card: host enqueue time, then profiled (these
+    # steps train the model on, on one batch)
+    sample = next(prefetch(iter([data.sample(batch, steps)]), device="cuda"))
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(sample)
+        host.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+    kernels, dev_ms = profile_kernels(lambda: step(sample))
+    host_ms = statistics.median(host)
+    split = sorted(kernel_split(lambda: step(sample), calls=1).items(),
+                   key=lambda kv: -kv[1])
+    print("the profiled step's device ms by kernel, the largest eight: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split[:8]))
+    step_ms = wall * 1e3 / steps
+    floor = dit_train_flops(cfg, batch)
+    print(f"{card}: one train step launches {kernels} kernels summing to "
+          f"{dev_ms:.3f} ms of device time; the host enqueues it in "
+          f"{host_ms:.3f} ms (median of 3, from an idle card); over the run "
+          f"a step takes {step_ms:.3f} ms, so the card idles "
+          f"{100 * (1 - dev_ms / step_ms):.1f}% of it; the products take "
+          f"{floor / 1e12:.3f} TFLOP a step, {floor / PEAK_F32_FLOPS * 1e3:.3f}"
+          f" ms at the float32 rate (my count, dit_train_flops)")
+    for spb in (1, 4):
+        for what in ("random", "trained"):
+            print(f"Omega(1..4) of the {what} DiT, {spb} DDIM step(s) a "
+                  "block: " + " ".join(f"{q:.6f}" for q in omega[what][spb]))
+    del model, params, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dit_helpers(card: str):
+    """``from_gdm_model`` on the card at the reference's reduced config
+    (three services, B=4, two DDIM steps a block), with the reference's
+    properties asserted, and ``python -m repro_torch.examples.serve_gdm``
+    once with small flags: it must exit 0 and print its summary line."""
+    import numpy as np
+    from repro_torch.sim import from_gdm_model
+    curves = from_gdm_model(3, 4, seed=0, device="cuda")
+    for s, row in enumerate(curves):
+        print(f"from_gdm_model service {s}: Omega(0..4) = "
+              + " ".join(f"{q:.6f}" for q in row))
+    assert curves.shape == (3, 5) and (curves[:, 0] == 0).all()
+    assert (np.diff(curves, axis=1) >= 0).all(), "Omega not monotone"
+    assert np.abs(curves[:, -1] - 1.0).max() <= 1e-5, "Omega(B) is not 1"
+    cmd = [sys.executable, "-m", "repro_torch.examples.serve_gdm",
+           "--scenario", "smoke", "--train-eps", "4", "--frames", "8",
+           "--device", "cuda"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    print(f"{' '.join(cmd[1:])}: exit {out.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    lines = out.stdout.strip().splitlines()
+    for line in lines[-4:]:
+        print("  " + line)
+    assert out.returncode == 0, f"serve_gdm failed:\n{out.stderr[-4000:]}"
+    assert lines and lines[-1].startswith("learned vs greedy objective"), \
+        "serve_gdm printed no summary line"
+
+
 def print_occupancy(lib):
     """Resident blocks per SM of the kernels redesigned for Hopper
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at the blocks their
@@ -3809,6 +4211,13 @@ def print_occupancy(lib):
           "history in 64 kB of shared memory holds 3 blocks of 64 "
           "threads, 6 warps)")
     assert 16 * blocks > 6, "ssm_scan_backward holds no more warps than before"
+    threads, vpt = launch_shape(768, 4)
+    for epilogue in (0, 1):
+        blocks = lib.adaln_norm_backward_occupancy(4, vpt, threads, epilogue)
+        print(f"adaln_norm{'_epilogue' if epilogue else ''}_backward d=768: "
+              f"{blocks} blocks of {threads} threads per SM (a block walks "
+              f"its rows one at a time, two float4 a thread)")
+        assert blocks >= 1, "adaln_norm_backward cannot be resident"
 
 
 def build_kernels():
@@ -3912,11 +4321,14 @@ def main(argv) -> int:
     errs["decode_attention"] = check_decode(gen)
     errs["rmsnorm"] = check_rmsnorm(gen)
     errs.update(check_ssm_scan(gen))
-    check_kernel_grads(gen)
+    errs.update(check_kernel_grads(gen))
 
     phase("4. times (median of "
           f"{TIMED_RUNS} device-timed samples of 10 back-to-back calls)")
     times = time_kernels(gen, full)
+    # the backward at the DiT's training shape (B=8) goes in the JSON line
+    time_adaln_backward(gen, 4, 256, 768)
+    times.update(time_adaln_backward(gen, 8, 256, 768))
     # the JSON line carries each kernel at the launcher's shapes: decode
     # at B=1 against a full 24-row cache, rmsnorm on one decode row
     time_decode(gen, 8, 4096, 4096)
@@ -4084,6 +4496,20 @@ def main(argv) -> int:
           "(1, 1)")
     lm_mesh(card)
 
+    phase("24. the DiT's training path: full-width gdm-dit gdm_loss card vs "
+          "CPU (B=2, three AdamW steps); "
+          f"{DIT_TRAIN_STEPS} steps on the card from LatentDataset through "
+          "prefetch (B=8), exact launches, Omega before and after; "
+          "from_gdm_model and the serve_gdm CLI")
+    t0 = time.perf_counter()
+    dit_step_vs_cpu(full)
+    dit_launches = dit_train(full, card)
+    # the backward kernels' launches come from the training path
+    for name in ("adaln_norm_backward", "adaln_norm_epilogue_backward"):
+        launches[name] = dit_launches[name]
+    dit_helpers(card)
+    print(f"phase 24 took {time.perf_counter() - t0:.1f} s")
+
     replaces = {
         "adaln_norm": "src/repro/kernels/adaln_norm.py:76",
         "adaln_norm_epilogue": "src/repro/kernels/adaln_norm.py:86",
@@ -4094,10 +4520,18 @@ def main(argv) -> int:
         "ssm_scan_backward": "none: no Pallas backward; the reference "
                              "differentiates src/repro/kernels/ref.py:91 "
                              "with XLA",
+        "adaln_norm_backward": "none: no Pallas backward; the reference "
+                               "differentiates src/repro/kernels/ref.py:137 "
+                               "with XLA",
+        "adaln_norm_epilogue_backward": "none: no Pallas backward; the "
+                                        "reference differentiates "
+                                        "src/repro/kernels/ref.py:137 "
+                                        "with XLA",
     }
     sources = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
                for name in replaces}
     sources["adaln_norm_epilogue"] = sources["adaln_norm"]
+    sources["adaln_norm_epilogue_backward"] = sources["adaln_norm_backward"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": launches[name],

@@ -1,1 +1,2 @@
-from repro_torch.data.pipeline import DataConfig, TokenDataset  # noqa: F401
+from repro_torch.data.pipeline import (DataConfig,  # noqa: F401
+                                      LatentDataset, TokenDataset, prefetch)

@@ -3,13 +3,15 @@
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made in this
 process: a wrapper adds one where it launches its kernel and nowhere else,
 so a run can show that the main path went through the kernels (a wrapper
-that makes two launches, as the scan's backward does, counts one).
+that makes two launches, as the backward kernels of the scan and of adaLN
+do, counts one).
 """
 import torch
 
 LAUNCHES = {"adaln_norm": 0, "adaln_norm_epilogue": 0, "flash_attention": 0,
             "decode_attention": 0, "rmsnorm": 0, "ssm_scan": 0,
-            "ssm_scan_backward": 0}
+            "ssm_scan_backward": 0, "adaln_norm_backward": 0,
+            "adaln_norm_epilogue_backward": 0}
 
 
 def reset_launches() -> None:
@@ -50,11 +52,12 @@ def wants_grad(*tensors) -> bool:
 
 
 def refuse_grad(name: str, *tensors) -> None:
-    """Raise where a kernel without a backward would be asked for a
-    gradient: a ctypes launch fills a fresh tensor, so autograd would see
-    a constant and the graph would be cut without a word."""
+    """Raise where ``decode_attention``, since ``adaln_norm`` gained its
+    backward the one kernel without one, would be asked for a gradient: a
+    ctypes launch fills a fresh tensor, so autograd would see a constant
+    and the graph would be cut without a word."""
     if wants_grad(*tensors):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet (ROADMAP Queue 2 "
-            "item 6); call it under torch.no_grad() or on inputs that do "
-            "not require grad")
+            f"{name}: the CUDA kernel has no backward (ROADMAP Queue 2 item "
+            "6 lists the backward kernels); call it under torch.no_grad() "
+            "or on inputs that do not require grad")

@@ -6,16 +6,24 @@ gated-residual epilogue that first forms ``r = residual + gate * x`` and
 returns ``(y, r)``.  Its plain version is :func:`repro_torch.kernels.ref.
 adaln_norm`; :func:`repro_torch.kernels.ops.adaln_norm` picks between them
 by the tensor's device.
+
+The gradient of both forms is a kernel too (``csrc/adaln_norm_backward.
+cu``, :func:`adaln_norm_backward_cuda`), with no Pallas counterpart: the
+reference differentiates its plain version with XLA.  Its plain version is
+:func:`repro_torch.kernels.ref.adaln_norm_backward`, and
+:class:`repro_torch.kernels.grad.AdaLNNormFn` joins the two kernels.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from repro_torch.kernels import (LAUNCHES, build, check_launch,
-                                 check_operand, refuse_grad)
+from repro_torch.kernels import LAUNCHES, build, check_launch, check_operand
 
 MAX_D = 4096          # a row lives in one block's registers
 MAX_THREADS = 512
+BLOCKS_PER_SM = 4     # the backward's row blocks: about four an SM
 
 
 def load_width(x, shift, scale, weight, bias, gate=None, residual=None):
@@ -46,18 +54,20 @@ def launch_shape(d: int, width: int):
     return threads, vpt
 
 
-def adaln_norm_cuda(x, shift, scale, weight, bias, gate=None, residual=None,
-                    *, eps: float = 1e-5):
-    """x/residual: (B, S, d); shift/scale/gate: (B, d) with unit stride in
-    d (any row stride); weight/bias: (d,).  All float32 on one CUDA device,
-    d <= 4096.
-    """
+def rows_per_block(b: int, s: int, sms: int) -> int:
+    """Rows of one batch row that a block of the backward walks: enough
+    that the B * S rows make about ``BLOCKS_PER_SM`` blocks an SM, at most
+    S (a block's rows share one batch row's modulation)."""
+    return min(s, max(1, -(-(b * s) // (BLOCKS_PER_SM * sms))))
+
+
+def _check(x, shift, scale, weight, bias, gate, residual):
+    """Validate the forward's operands; returns (b, s, d, device)."""
     epilogue = residual is not None
     if epilogue != (gate is not None):
         raise ValueError("adaln_norm: gate and residual go together")
     if x.dim() != 3:
         raise ValueError(f"adaln_norm: x must be (B, S, d), got {tuple(x.shape)}")
-    refuse_grad("adaln_norm", x, shift, scale, weight, bias, gate, residual)
     b, s, d = x.shape
     dev = x.device
     if dev.type != "cuda":
@@ -72,6 +82,18 @@ def adaln_norm_cuda(x, shift, scale, weight, bias, gate=None, residual=None,
         check_operand(name, t, dev, (b, d), contiguous=False)
     if epilogue:
         check_operand("residual", residual, dev, (b, s, d))
+    return b, s, d, dev
+
+
+def adaln_norm_cuda(x, shift, scale, weight, bias, gate=None, residual=None,
+                    *, eps: float = 1e-5):
+    """x/residual: (B, S, d); shift/scale/gate: (B, d) with unit stride in
+    d (any row stride); weight/bias: (d,).  All float32 on one CUDA device,
+    d <= 4096.  The output carries no graph: a gradient goes through
+    :class:`repro_torch.kernels.grad.AdaLNNormFn`.
+    """
+    epilogue = residual is not None
+    b, s, d, dev = _check(x, shift, scale, weight, bias, gate, residual)
     y = torch.empty_like(x)
     r = torch.empty_like(x) if epilogue else None
     if x.numel() == 0:
@@ -93,3 +115,66 @@ def adaln_norm_cuda(x, shift, scale, weight, bias, gate=None, residual=None,
     check_launch("adaln_norm", err)
     LAUNCHES["adaln_norm_epilogue" if epilogue else "adaln_norm"] += 1
     return (y, r) if epilogue else y
+
+
+def adaln_norm_backward_cuda(x, shift, scale, weight, bias, dy, gate=None,
+                             residual=None, dr=None, *, eps: float = 1e-5):
+    """Gradients of :func:`adaln_norm_cuda` from its operands (as the
+    forward takes them) and dy (B, S, d), with dr (B, S, d), the gradient
+    of the returned r, optional in the epilogue form.  Returns contiguous
+    float32 gradients in the forward's argument order: (dx, dshift,
+    dscale, dweight, dbias), then (dgate, dresidual) in the epilogue form.
+    Two launches (rows, then the fixed-order column sums), counted as
+    one."""
+    epilogue = residual is not None
+    b, s, d, dev = _check(x, shift, scale, weight, bias, gate, residual)
+    check_operand("dy", dy, dev, (b, s, d))
+    if dr is not None:
+        if not epilogue:
+            raise ValueError("adaln_norm_backward: dr belongs to the "
+                             "epilogue form")
+        check_operand("dr", dr, dev, (b, s, d))
+    dx = torch.empty_like(x)
+    dshift = torch.empty(b, d, device=dev)
+    dscale = torch.empty(b, d, device=dev)
+    dweight = torch.empty(d, device=dev)
+    dbias = torch.empty(d, device=dev)
+    dgate = torch.empty(b, d, device=dev) if epilogue else None
+    dres = torch.empty_like(x) if epilogue else None
+    grads = (dx, dshift, dscale, dweight, dbias) + (
+        (dgate, dres) if epilogue else ())
+    if x.numel() == 0:
+        for t in grads[1:]:
+            t.zero_()
+        return grads
+    width = load_width(x, shift, scale, weight, bias, gate, residual)
+    if any(t is not None and t.data_ptr() % 16 for t in (dy, dr)):
+        width = 1
+    threads, vpt = launch_shape(d, width)
+    rows = rows_per_block(b, s, _sm_count(dev))
+    chunks = -(-s // rows)
+    part = torch.empty(b * chunks * (3 if epilogue else 2) * d, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.adaln_norm_backward_f32(
+            x.data_ptr(), residual.data_ptr() if epilogue else None,
+            gate.data_ptr() if epilogue else None,
+            gate.stride(0) if epilogue else 0,
+            scale.data_ptr(), scale.stride(0),
+            weight.data_ptr(), bias.data_ptr(), dy.data_ptr(),
+            dr.data_ptr() if dr is not None else None,
+            dx.data_ptr(), dres.data_ptr() if epilogue else None,
+            dweight.data_ptr(), dbias.data_ptr(), dshift.data_ptr(),
+            dscale.data_ptr(), dgate.data_ptr() if epilogue else None,
+            part.data_ptr(), b, s, d, width, threads, vpt, rows, eps,
+            torch.cuda.current_stream(dev).cuda_stream)
+    name = ("adaln_norm_epilogue_backward" if epilogue
+            else "adaln_norm_backward")
+    check_launch(name, err)
+    LAUNCHES[name] += 1
+    return grads
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count

@@ -1,18 +1,24 @@
-"""Gradients of the ``flash_attention`` and ``rmsnorm`` kernels on the card.
+"""Gradients of the ``flash_attention``, ``rmsnorm`` and ``adaln_norm``
+kernels on the card.
 
 Each kernel becomes a :class:`torch.autograd.Function` whose forward is the
-kernel, unchanged, and whose backward is the gradient written out in torch
-ops: the reference has no backward kernel for either (XLA differentiates
-its plain versions), and hand-written backward kernels for these two are
-queued in ROADMAP Queue 2 item 6.  The formulas are plain functions of
-tensors, so the CPU tests hold them against autograd of the plain versions
-and against ``jax.grad`` of the reference's.  (The scan's gradient is a
-kernel: :mod:`repro_torch.kernels.ssm_scan`.)
+kernel, unchanged.  The reference has no backward kernel for any of them
+(XLA differentiates its plain versions).  :class:`AdaLNNormFn`'s backward
+is a kernel of its own (``csrc/adaln_norm_backward.cu``, plain version
+:func:`repro_torch.kernels.ref.adaln_norm_backward`);
+:class:`FlashAttentionFn` and :class:`RmsNormFn` write the gradient out in
+torch ops, and hand-written backward kernels for those two are queued in
+ROADMAP Queue 2 item 6.  The formulas are plain functions of tensors, so
+the CPU tests hold them against autograd of the plain versions and
+against ``jax.grad`` of the reference's.  (The scan's gradient is a
+kernel too: :mod:`repro_torch.kernels.ssm_scan`.)
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.adaln_norm import (adaln_norm_backward_cuda,
+                                           adaln_norm_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
@@ -105,3 +111,30 @@ class RmsNormFn(torch.autograd.Function):
         x, scale = ctx.saved_tensors
         dx, dscale = rmsnorm_backward(x, scale, dy, ctx.eps)
         return dx, dscale, None
+
+
+class AdaLNNormFn(torch.autograd.Function):
+    """``adaln_norm`` on the card, both forms, with a gradient for every
+    operand: the forward kernel, then the backward kernel, which
+    recomputes the row statistics from the saved operands.  In the
+    epilogue form the output is ``(y, r)``; an unused r brings no
+    gradient (grads are not materialised), so the kernel reads no dr."""
+
+    @staticmethod
+    def forward(ctx, x, shift, scale, weight, bias, gate, residual, eps):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, shift, scale, weight, bias, gate, residual)
+        ctx.eps = eps
+        return adaln_norm_cuda(x, shift, scale, weight, bias, gate=gate,
+                               residual=residual, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy, dr=None):
+        x, shift, scale, weight, bias, gate, residual = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        grads = adaln_norm_backward_cuda(
+            x, shift, scale, weight, bias, dy, gate=gate, residual=residual,
+            dr=None if dr is None else dr.contiguous(), eps=ctx.eps)
+        if residual is None:
+            return grads + (None, None, None)
+        return grads + (None,)

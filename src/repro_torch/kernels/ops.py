@@ -9,9 +9,9 @@ reference's ``impl`` argument chose between Pallas and XLA.
 Where autograd records (grad mode on and an input that requires grad), a
 CUDA tensor goes through the kernel's ``torch.autograd.Function``
 (``flash_attention``, ``rmsnorm``: :mod:`repro_torch.kernels.grad`;
-``ssm_scan``: forward and backward kernels), and the CPU's plain versions
-are differentiated by autograd itself.  ``adaln_norm`` and
-``decode_attention`` have no backward yet and refuse.
+``adaln_norm``, both forms, and ``ssm_scan``: forward and backward
+kernels), and the CPU's plain versions are differentiated by autograd
+itself.  ``decode_attention`` has no backward and refuses.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from repro_torch.kernels import ref, wants_grad
 from repro_torch.kernels.adaln_norm import adaln_norm_cuda
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.grad import FlashAttentionFn, RmsNormFn
+from repro_torch.kernels.grad import AdaLNNormFn, FlashAttentionFn, RmsNormFn
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.kernels.ssm_scan import SsmScanFn, ssm_scan_cuda
 
@@ -57,6 +57,9 @@ def adaln_norm(x, shift, scale, weight, bias, gate=None, residual=None, *,
     if gate is not None:
         gate = gate.reshape(b, d)
     if x.device.type == "cuda":
+        if wants_grad(x, shift, scale, weight, bias, gate, residual):
+            return AdaLNNormFn.apply(x, shift, scale, weight, bias, gate,
+                                     residual, eps)
         return adaln_norm_cuda(x, shift, scale, weight, bias, gate=gate,
                                residual=residual, eps=eps)
     if x.device.type == "cpu":

@@ -68,6 +68,49 @@ def adaln_norm(x, shift, scale, weight, bias, gate=None, residual=None,
     return y if residual is None else (y, x32.to(x.dtype))
 
 
+def adaln_norm_backward(x, shift, scale, weight, bias, dy, gate=None,
+                        residual=None, dr=None, *, eps: float = 1e-5):
+    """Gradients of :func:`adaln_norm`, written out in float32.
+
+    With x' = x (or r = residual + gate * x in the epilogue form),
+    xh = (x' - mean) * rstd and z = xh * w + b, so y = z * (1 + sc) + sh:
+    dsh = sum_s dy, dsc = sum_s dy * z per batch row; dz = dy * (1 + sc),
+    dw = sum dz * xh and db = sum dz over every row; with g = dz * w,
+    dx' = rstd * (g - mean(g) - xh * mean(g * xh)) + dr (``dr``, the
+    gradient of the returned r, is zero where absent).  In the epilogue
+    form dresidual = dx', dgate = sum_s dx' * x and dx = gate * dx'.
+    ``shift`` is not read: y is linear in it.  Returns the gradients in
+    the forward's argument order, (dx, dshift, dscale, dweight, dbias),
+    then (dgate, dresidual) in the epilogue form.
+    """
+    del shift
+    x32, dy32 = x.float(), dy.float()
+    xr = x32
+    if residual is not None:
+        xr = residual.float() + gate.float()[:, None, :] * x32
+    mean = xr.mean(dim=-1, keepdim=True)
+    var = xr.var(dim=-1, keepdim=True, correction=0)
+    rstd = (var + eps) ** -0.5
+    xh = (xr - mean) * rstd
+    w = weight.float()
+    z = xh * w + bias.float()
+    dshift = dy32.sum(1)
+    dscale = (dy32 * z).sum(1)
+    dz = dy32 * (1.0 + scale.float()[:, None, :])
+    dweight = (dz * xh).sum((0, 1))
+    dbias = dz.sum((0, 1))
+    g = dz * w
+    dxr = rstd * (g - g.mean(dim=-1, keepdim=True)
+                  - xh * (g * xh).mean(dim=-1, keepdim=True))
+    if dr is not None:
+        dxr = dxr + dr.float()
+    out = (dxr, dshift, dscale, dweight, dbias)
+    if residual is not None:
+        out = (gate.float()[:, None, :] * dxr, dshift, dscale, dweight,
+               dbias, (dxr * x32).sum(1), dxr)
+    return out
+
+
 def decode_attention(q, k_cache, v_cache, lengths, *,
                      scale: float | None = None):
     """One query token against a KV cache.

@@ -99,9 +99,10 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
     return specs
 
 
-def trainable(model: LM) -> Dict[str, torch.Tensor]:
+def trainable(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The model's parameters by name, each set to require grad (the
-    port's parameters are created without, for the serving paths)."""
+    port's parameters are created without, for the serving paths): an LM
+    for the train step, or the DiT for ``gdm_loss``."""
     params = dict(model.named_parameters())
     for p in params.values():
         p.requires_grad_(True)

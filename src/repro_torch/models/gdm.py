@@ -12,8 +12,9 @@ parameter pytree (one :class:`DiTLayer` per entry of its stacked
 name.  Each layer runs the two hand-written kernels: ``adaln_norm`` twice
 (plain, then with the gated-residual epilogue) and ``flash_attention`` once
 (non-causal, no rope).  The matrix products stay ``@``, as the reference
-leaves them to XLA.  Nothing here takes gradients (training waits for a
-later slice).
+leaves them to XLA.  :func:`gdm_loss` is the training objective: on the
+card its gradient runs the backward kernel of ``adaln_norm`` and the
+autograd function of ``flash_attention`` (:mod:`repro_torch.kernels.grad`).
 """
 from __future__ import annotations
 
@@ -275,3 +276,40 @@ def quality_per_block(model: DiT, latent, prompt, *, num_blocks: int,
     final = outs[-1]
     return torch.stack([ssim_proxy(o, final).clamp(0.0, 1.0).mean()
                         for o in outs])
+
+
+# ---------------------------------------------------------------------------
+# Training loss (noise prediction)
+# ---------------------------------------------------------------------------
+
+def gdm_loss(model: DiT, batch: Dict, *, total_steps: int = 16,
+             generator: torch.Generator | None = None, t=None, eps=None):
+    """Standard eps-prediction MSE on the ``make_schedule(total_steps)``
+    schedule.  batch: {prompt (B, P) int, latent (B, H, W, C) float32},
+    tensors on the model's device (numpy arrays are moved there).
+
+    The timesteps t (B,) in [0, total_steps) and the noise eps (the
+    latent's (B, H*W, C)) are drawn from ``generator`` on the model's
+    device, t first, unless given: the reference draws them with
+    ``jax.random`` (``randint(k1, ...)``, ``normal(k2, ...)`` from
+    ``split(key)``), which torch cannot repeat, so a comparison passes the
+    reference's draws in.  Returns ``(loss, {"loss": loss})``.
+    """
+    dev = model.pos.device
+    latent = torch.as_tensor(batch["latent"], device=dev)
+    prompt = torch.as_tensor(batch["prompt"], device=dev)
+    lat = latent.reshape(latent.shape[0], -1, LATENT_CHANNELS)
+    schedule = make_schedule(total_steps, device=dev)
+    if t is None:
+        t = torch.randint(0, total_steps, (lat.shape[0],),
+                          generator=generator, device=dev)
+    if eps is None:
+        eps = torch.randn(lat.shape, generator=generator, device=dev,
+                          dtype=lat.dtype)
+    t = torch.as_tensor(t, device=dev).long()
+    eps = torch.as_tensor(eps, device=dev).reshape(lat.shape)
+    ab = schedule["alpha_bar"][t][:, None, None]
+    noisy = torch.sqrt(ab) * lat + torch.sqrt(1 - ab) * eps
+    pred = gdm_denoise(model, noisy, t, prompt)
+    loss = torch.mean((pred - eps) ** 2)
+    return loss, {"loss": loss}

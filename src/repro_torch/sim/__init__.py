@@ -6,7 +6,8 @@ from repro_torch.sim.faults import (FaultTrace,  # noqa: F401
                                     fault_trace, register_fault)
 from repro_torch.sim.mobility import (RandomWaypoint,  # noqa: F401
                                       VecRandomWaypoint)
-from repro_torch.sim.quality import synthetic_curves  # noqa: F401
+from repro_torch.sim.quality import (from_gdm_model,  # noqa: F401
+                                     synthetic_curves)
 from repro_torch.sim.scenarios import (RequestTrace, get_scenario,  # noqa: F401
                                        register_scenario, request_trace,
                                        scenario_names)

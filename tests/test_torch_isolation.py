@@ -55,7 +55,9 @@ def test_port_imports_with_jax_and_the_reference_blocked():
         "sim.faults", "serving.scheduler", "serving.cluster", "nn.xlstm",
         "configs.registry", "configs.seamless_m4t_large_v2",
         "configs.xlstm_1_3b", "configs.llava_next_34b", "nn.moe_sharded",
-        "distributed.flash_decode")} <= names
+        "distributed.flash_decode", "data.pipeline", "sim.quality",
+        "examples.quickstart", "examples.train_agent", "examples.serve_gdm",
+        "examples.serve_fleet")} <= names
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -69,7 +71,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.rl import D3QLAgent, D3QLConfig, qnet_init
     from repro_torch.serving import GDMService, make_gdm_services
     from repro_torch.core.policy import GreedyPoAPolicy, evaluate_fused
-    from repro_torch.sim import EdgeSimulator, get_scenario, torch_env
+    from repro_torch.sim import (EdgeSimulator, from_gdm_model, get_scenario,
+                                 torch_env)
+    from repro_torch.data import prefetch
+    from repro_torch.examples import (quickstart, serve_fleet, serve_gdm,
+                                      train_agent)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     smoke = get_scenario("smoke")
     cfg = get_config("gdm-dit").reduced()
@@ -108,7 +114,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                      smoke, train_eps=1, frames=1, cells=2),
                  lambda: torch_env.world_from_sim(EdgeSimulator(smoke), 2),
                  lambda: evaluate_fused(GreedyPoAPolicy(),
-                                        EdgeSimulator(smoke), 1)):
+                                        EdgeSimulator(smoke), 1),
+                 lambda: prefetch(iter([{"x": 1}])),
+                 lambda: from_gdm_model(1, 2),
+                 lambda: quickstart.main([]),
+                 lambda: train_agent.main(["--episodes", "1"]),
+                 lambda: serve_gdm.main(["--scenario", "smoke"]),
+                 lambda: serve_fleet.main(["--scenario", "smoke"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
@@ -122,8 +134,9 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
         build.nvcc()
     # the library is named by its sources: every kernel, built for sm_90a
     assert [p.name for p in build._sources()] == [
-        "adaln_norm.cu", "decode_attention.cu", "flash_attention.cu",
-        "rmsnorm.cu", "ssm_scan.cu", "ssm_scan_backward.cu"]
+        "adaln_norm.cu", "adaln_norm_backward.cu", "decode_attention.cu",
+        "flash_attention.cu", "rmsnorm.cu", "ssm_scan.cu",
+        "ssm_scan_backward.cu"]
     assert [p.name for p in build._headers()] == ["ssm_scan.cuh"]
     assert {n[:-len("_f32")] for n in build.SIGNATURES} <= {
         p.stem for p in build._sources()}

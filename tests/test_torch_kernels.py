@@ -709,11 +709,15 @@ def test_autograd_functions_carry_gradients(monkeypatch):
 
 
 def test_kernels_without_a_backward_refuse_gradients(monkeypatch):
-    """On the card, ``adaln_norm`` and ``decode_attention`` raise where a
-    gradient is wanted instead of cutting the graph, before they reach the
-    library (stubbed here: reaching it fails the test)."""
+    """On the card ``decode_attention``, the one kernel without a
+    backward, raises where a gradient is wanted instead of cutting the
+    graph, before it reaches the library (stubbed here: reaching it fails
+    the test).  ``adaln_norm`` has its backward kernel now: its wrapper
+    takes inputs that require grad (``ops.adaln_norm`` routes them through
+    ``AdaLNNormFn``) and goes on to its usual checks."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.adaln_norm import adaln_norm_cuda
+    from repro_torch.kernels.adaln_norm import (adaln_norm_backward_cuda,
+                                                adaln_norm_cuda)
     from repro_torch.kernels.decode_attention import decode_attention_cuda
 
     def no_library():
@@ -727,9 +731,11 @@ def test_kernels_without_a_backward_refuse_gradients(monkeypatch):
     cache = torch.zeros(1, 4, 2, 16)
     lens = torch.ones(1, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="no backward"):
-        adaln_norm_cuda(x, mod, mod, v, v)
-    with pytest.raises(NotImplementedError, match="no backward"):
         decode_attention_cuda(q, cache, cache, lens)
+    with pytest.raises(ValueError, match="cpu"):
+        adaln_norm_cuda(x, mod, mod, v, v)
+    with pytest.raises(ValueError, match="cpu"):
+        adaln_norm_backward_cuda(x, mod, mod, v, v, torch.zeros(1, 4, 8))
     with torch.no_grad():              # no graph to cut: the usual checks
         with pytest.raises(ValueError, match="cpu"):
             adaln_norm_cuda(x, mod, mod, v, v)
