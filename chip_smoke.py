@@ -175,9 +175,10 @@ calls give the same bits), and the gradients that
 keys, and the DiT's training shape) and ``rmsnorm`` carry on the card
 against autograd of their plain versions, and the adaLN backward kernel in
 both forms (through ``ops.adaln_norm`` under autograd, at the adaLN
-shapes, r used and unused) against autograd of the plain version, a
-second call bit for bit; phase 4 times both scan kernels at the training
-shape, the adaLN backward at B=4 and B=8 beside its forward, and the
+shapes and the backward's own: B=16, S=17, d=4096; r used and unused)
+against autograd of the plain version, a second call bit for bit; phase 4
+times both scan kernels at the training shape, the adaLN backward at B=4
+and B=8 beside its forward (one clustered launch, profiled), and the
 attention and norm kernels at the shapes of phases 19–21 (seamless's
 encoder and cross-attention, llava's prefill and G=7 decode, deepseek's
 G=8 decode, rows of 2048, 7168 and 8192).
@@ -190,11 +191,13 @@ line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernel-times TREE`` builds the kernels of another
 checkout's ``TREE/src/repro_torch`` (a parent commit unpacked with ``git
-archive``) and times its adaLN, decode, rmsnorm and both scan kernels,
-and the layers they serve (the DiT forward at B=4, the device time and
-host enqueue of a yi-6b decode step, a full-width Jamba Mamba block's
-forward at B=8, L=128) in this harness, so that two trees are compared on
-one card in one run (parent, change, change, parent); it ends with a
+archive``) and times its adaLN, adaLN backward (B=8 and B=4, with its
+profiled split by kernel and its residency), decode, rmsnorm and both
+scan kernels, and the layers they serve (the DiT forward at B=4, the
+device time and host enqueue of a yi-6b decode step, a full-width Jamba
+Mamba block's forward at B=8, L=128) in this harness, so that two trees
+are compared on one card in one run (parent, change, change, parent); it
+ends with a
 ``{"tree": ..., "kernel_times": ...}`` line.
 """
 from __future__ import annotations
@@ -357,6 +360,14 @@ ADALN_CASES = [(1, 256, 768, 0), (4, 256, 768, 0), (8, 256, 768, 0),
                (4, 16, 64, 0), (3, 5, 100, 0), (3, 5, 99, 0),
                (4, 256, 768, 1), (2, 8, 3000, 0), (2, 8, 2001, 0),
                (2, 7, 3001, 0)]
+
+
+# the backward's own shapes beside ADALN_CASES (whose B=1 at S=256 has 32
+# clusters a batch row): B=16 (32 blocks, four clusters a batch row, 16
+# batch rows drawing the second ticket), S=17 (17 blocks padded to 24),
+# B=1 at S=17 unaligned, and d=4096 (the epilogue's 48 kB of shared sums)
+ADALN_BACKWARD_CASES = [(16, 256, 768, 0), (3, 17, 768, 0), (1, 17, 768, 1),
+                        (2, 8, 4096, 0)]
 
 
 def check_adaln(gen):
@@ -609,7 +620,8 @@ def check_ssm_scan(gen):
 def check_adaln_backward(gen):
     """The adaLN backward kernel in both forms, through ``ops.adaln_norm``
     under autograd (``AdaLNNormFn``, the training path), against autograd
-    of the plain version at phase 3's adaLN shapes: the modulation a
+    of the plain version at phase 3's adaLN shapes and
+    ``ADALN_BACKWARD_CASES``: the modulation a
     (B, 1, 6d) projection's chunks (a leaf whose gradient gathers shift,
     scale and gate), aligned and one float off; the epilogue with r used
     (dr given) and unused.  Relative to each gradient's largest magnitude,
@@ -619,7 +631,8 @@ def check_adaln_backward(gen):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.adaln_norm import adaln_norm_backward_cuda
     worst = {"adaln_norm_backward": 0.0, "adaln_norm_epilogue_backward": 0.0}
-    for (b, s, d, offset) in ADALN_CASES:
+    t0 = time.perf_counter()
+    for (b, s, d, offset) in ADALN_CASES + ADALN_BACKWARD_CASES:
         for epilogue, with_dr in ((False, False), (True, True),
                                   (True, False)):
             x = _randn(gen, b, s, d)
@@ -668,6 +681,8 @@ def check_adaln_backward(gen):
                 f"{name} disagrees with autograd of the plain version"
             assert same, f"{name} is not deterministic"
             worst[name] = max(worst[name], *(e for e, _ in rels))
+    print(f"the adaLN backward's checks took {time.perf_counter() - t0:.1f} "
+          "s")
     return worst
 
 
@@ -818,7 +833,7 @@ def time_adaln_backward(gen, b, s, d):
               f"same form {t.pop('forward_ms'):.7f} ms in this call; "
               f"max|kernel - plain| of the timed call {t.pop('err'):.3e}; "
               "profiled device ms by kernel (mean of 5 calls): " + ", ".join(
-                  f"{k} {v:.7f}" for k, v in t.pop("split").items()))
+                  f"{k} {v:.7f}" for k, v in t["split"].items()))
     return out
 
 
@@ -4211,13 +4226,39 @@ def print_occupancy(lib):
           "history in 64 kB of shared memory holds 3 blocks of 64 "
           "threads, 6 warps)")
     assert 16 * blocks > 6, "ssm_scan_backward holds no more warps than before"
-    threads, vpt = launch_shape(768, 4)
+    print_backward_occupancy(lib)
+
+
+def print_backward_occupancy(lib):
+    """The adaLN backward's residency at d=768: blocks per SM and, since
+    its launch in clusters, the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters) beside the grid of the DiT's train
+    step (B=8, S=256); a tree from before the clusters reports blocks."""
+    import torch
+    from repro_torch.kernels import adaln_norm
+    threads, vpt = adaln_norm.launch_shape(768, 4)
+    fn = lib.adaln_norm_backward_occupancy
     for epilogue in (0, 1):
-        blocks = lib.adaln_norm_backward_occupancy(4, vpt, threads, epilogue)
-        print(f"adaln_norm{'_epilogue' if epilogue else ''}_backward d=768: "
-              f"{blocks} blocks of {threads} threads per SM (a block walks "
-              f"its rows one at a time, two float4 a thread)")
-        assert blocks >= 1, "adaln_norm_backward cannot be resident"
+        name = f"adaln_norm{'_epilogue' if epilogue else ''}_backward d=768"
+        if len(fn.argtypes) == 4:
+            blocks = fn(4, vpt, threads, epilogue)
+            print(f"{name}: {blocks} blocks of {threads} threads per SM (a "
+                  "block walks its rows one at a time, two float4 a thread; "
+                  "a second kernel adds the column sums)")
+            assert blocks >= 1, "adaln_norm_backward cannot be resident"
+            continue
+        blocks = fn(4, vpt, threads, epilogue, 768, 0)
+        clusters = fn(4, vpt, threads, epilogue, 768, 1)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        rows, cluster, per_row = adaln_norm.backward_grid(8, 256, sms)
+        print(f"{name}: {blocks} blocks of {threads} threads per SM, "
+              f"{(2 + epilogue) * 768 * 4} bytes of shared sums each; "
+              f"clusters of {cluster} blocks, {clusters} resident on the "
+              f"card; B=8, S=256 launches {8 * per_row // cluster} clusters "
+              f"({rows} rows a block, {per_row // cluster} clusters a batch "
+              "row)")
+        assert blocks >= 1 and clusters >= 1, \
+            "adaln_norm_backward cannot be resident"
 
 
 def build_kernels():
@@ -4237,12 +4278,14 @@ def build_kernels():
 def kernel_times(tree: str) -> int:
     """``--kernel-times TREE``: build the kernels of the ``repro_torch``
     package under ``TREE/src`` (another checkout, such as a parent commit
-    unpacked with ``git archive``) and time the adaLN, decode, rmsnorm and
-    scan kernels at phase 4's shapes in this script's harness, and the
-    layers they serve: phase 5's DiT forward at B=4, phase 8's decode step
-    of full yi-6b (device time and host enqueue) and one full-width Jamba
-    Mamba block forward at the trainer's shape, so that two trees are
-    compared within one run on one card."""
+    unpacked with ``git archive``) and time the adaLN, adaLN backward
+    (both forms at B=8 and B=4, with its profiled split by kernel and
+    residency), decode, rmsnorm and scan kernels at phase 4's shapes in
+    this script's harness, and the layers they serve: phase 5's DiT
+    forward at B=4, phase 8's decode step of full yi-6b (device time and
+    host enqueue) and one full-width Jamba Mamba block forward at the
+    trainer's shape, so that two trees are compared within one run on one
+    card."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.gdm import init_gdm
@@ -4250,13 +4293,19 @@ def kernel_times(tree: str) -> int:
     phase("1. card")
     card_info()
     phase(f"2. build the kernels of {tree}")
-    build_kernels()
+    print_backward_occupancy(build_kernels())
     gen = torch.Generator(device="cuda").manual_seed(0)
-    phase(f"4. times of {tree}'s adaLN, decode, rmsnorm and scan kernels")
+    phase(f"4. times of {tree}'s adaLN, adaLN backward, decode, rmsnorm and "
+          "scan kernels")
     out = {"launch_floor_ms": launch_floor_ms()}
     for b in (1, 4):
         for name, t in time_adaln(gen, b, 256, 768).items():
             out[f"{name} B={b}"] = t["ms"]
+    for b in (8, 4):
+        for name, t in time_adaln_backward(gen, b, 256, 768).items():
+            out[f"{name} B={b}"] = t["ms"]
+            out.update({f"{name} B={b}, profiled {k}": v
+                        for k, v in t["split"].items()})
     out["decode_attention B=8 S=4096"] = time_decode(gen, 8, 4096,
                                                      4096)["ms"]
     t = time_decode(gen, 1, 24, 24, cold=True)

@@ -24,6 +24,8 @@ from repro_torch.kernels import LAUNCHES, build, check_launch, check_operand
 MAX_D = 4096          # a row lives in one block's registers
 MAX_THREADS = 512
 BLOCKS_PER_SM = 4     # the backward's row blocks: about four an SM
+CLUSTER = 8           # the backward's blocks a cluster (csrc kCluster)
+MAX_BATCH = 65535     # the backward's grid: a batch row a grid row
 
 
 def load_width(x, shift, scale, weight, bias, gate=None, residual=None):
@@ -54,11 +56,16 @@ def launch_shape(d: int, width: int):
     return threads, vpt
 
 
-def rows_per_block(b: int, s: int, sms: int) -> int:
-    """Rows of one batch row that a block of the backward walks: enough
-    that the B * S rows make about ``BLOCKS_PER_SM`` blocks an SM, at most
-    S (a block's rows share one batch row's modulation)."""
-    return min(s, max(1, -(-(b * s) // (BLOCKS_PER_SM * sms))))
+def backward_grid(b: int, s: int, sms: int):
+    """(rows a block, blocks a cluster, blocks a batch row) of the
+    backward: a block walks R rows of one batch row, R such that the
+    B * S rows make about ``BLOCKS_PER_SM`` blocks an SM (at most S, as a
+    block's rows share one batch row's modulation); a batch row's
+    ceil(S / R) blocks are padded to a multiple of the cluster size, and
+    a block past the last row adds zeros to its cluster's sums."""
+    rows = min(s, max(1, -(-(b * s) // (BLOCKS_PER_SM * sms))))
+    blocks = -(-(-(-s // rows)) // CLUSTER) * CLUSTER
+    return rows, CLUSTER, blocks
 
 
 def _check(x, shift, scale, weight, bias, gate, residual):
@@ -124,8 +131,7 @@ def adaln_norm_backward_cuda(x, shift, scale, weight, bias, dy, gate=None,
     of the returned r, optional in the epilogue form.  Returns contiguous
     float32 gradients in the forward's argument order: (dx, dshift,
     dscale, dweight, dbias), then (dgate, dresidual) in the epilogue form.
-    Two launches (rows, then the fixed-order column sums), counted as
-    one."""
+    One launch, in clusters (:func:`backward_grid`)."""
     epilogue = residual is not None
     b, s, d, dev = _check(x, shift, scale, weight, bias, gate, residual)
     check_operand("dy", dy, dev, (b, s, d))
@@ -151,11 +157,15 @@ def adaln_norm_backward_cuda(x, shift, scale, weight, bias, dy, gate=None,
     if any(t is not None and t.data_ptr() % 16 for t in (dy, dr)):
         width = 1
     threads, vpt = launch_shape(d, width)
-    rows = rows_per_block(b, s, _sm_count(dev))
-    chunks = -(-s // rows)
-    part = torch.empty(b * chunks * (3 if epilogue else 2) * d, device=dev)
+    if b > MAX_BATCH:
+        raise ValueError(f"adaln_norm_backward: B={b} > {MAX_BATCH} is not "
+                         "supported")
+    rows, cluster, blocks = backward_grid(b, s, _sm_count(dev))
+    kp = 3 if epilogue else 2
+    work = torch.empty(b * (blocks // cluster * kp + 2) * d, device=dev)
     lib = build.library()
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.adaln_norm_backward_f32(
             x.data_ptr(), residual.data_ptr() if epilogue else None,
             gate.data_ptr() if epilogue else None,
@@ -166,13 +176,21 @@ def adaln_norm_backward_cuda(x, shift, scale, weight, bias, dy, gate=None,
             dx.data_ptr(), dres.data_ptr() if epilogue else None,
             dweight.data_ptr(), dbias.data_ptr(), dshift.data_ptr(),
             dscale.data_ptr(), dgate.data_ptr() if epilogue else None,
-            part.data_ptr(), b, s, d, width, threads, vpt, rows, eps,
-            torch.cuda.current_stream(dev).cuda_stream)
+            work.data_ptr(), _tickets(dev, stream).data_ptr(), b, s, d,
+            width, threads, vpt, rows, cluster, blocks, eps, stream)
     name = ("adaln_norm_epilogue_backward" if epilogue
             else "adaln_norm_backward")
     check_launch(name, err)
     LAUNCHES[name] += 1
     return grads
+
+
+@functools.lru_cache(maxsize=None)
+def _tickets(dev: torch.device, stream: int) -> torch.Tensor:
+    """The backward's ticket counters on one stream of ``dev``: (MAX_BATCH
+    + 1) * CLUSTER integers, zeroed once; each launch leaves them zero."""
+    return torch.zeros((MAX_BATCH + 1) * CLUSTER, dtype=torch.int32,
+                       device=dev)
 
 
 @functools.lru_cache(maxsize=None)

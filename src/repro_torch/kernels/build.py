@@ -42,8 +42,8 @@ SIGNATURES = {
     "rmsnorm_f32": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _F, _P],
     "ssm_scan_f32": [_P] * 9 + [_I] * 4 + [_P],
     "ssm_scan_backward_f32": [_P] * 15 + [_I] * 4 + [_P],
-    "adaln_norm_backward_f32": [_P, _P, _P, _LL, _P, _LL] + [_P] * 12
-                               + [_I] * 7 + [_F, _P],
+    "adaln_norm_backward_f32": [_P, _P, _P, _LL, _P, _LL] + [_P] * 13
+                               + [_I] * 9 + [_F, _P],
 }
 # C functions that size a kernel's buffers (they return a float count)
 SIZES = {
@@ -53,7 +53,7 @@ SIZES = {
 # C functions that report a kernel's resident blocks per SM (-1 on error)
 OCCUPANCY = {
     "adaln_norm_occupancy": [_I] * 4,
-    "adaln_norm_backward_occupancy": [_I] * 4,
+    "adaln_norm_backward_occupancy": [_I] * 6,
     "decode_attention_occupancy": [_I] * 4,
     "flash_attention_occupancy": [_I],
     "rmsnorm_occupancy": [_I] * 4,

@@ -13,7 +13,8 @@ largest magnitude of the quantity compared:
 
 * the adaLN backward: 1e-6 against autograd and ``jax.grad`` (sums over at
   most 2 x 8 rows of 24 in another order);
-* the kernel's arithmetic (its chunked partial sums and its refactored
+* the kernel's arithmetic (its per-block sums, added across a cluster by
+  column slice, then over clusters and batch rows, and its refactored
   dscale, dweight and dbias): 1e-5 — the same sums associated otherwise;
 * ``gdm_loss``: 1e-6 for the loss, 1e-5 for each gradient leaf (products
   and reductions in another order, through two layers);
@@ -133,21 +134,25 @@ def test_adaln_backward_matches_autograd_and_jax(b, s, d, epilogue, offset,
 
 
 def _kernel_arithmetic(x, sh, sc, w, bias, dy, gate=None, residual=None,
-                       dr=None, rows=3, eps=1e-5):
+                       dr=None, rows=3, cluster=4, width=1, eps=1e-5):
     """``csrc/adaln_norm_backward.cu``'s algorithm in torch: blocks of
     ``rows`` rows of one batch row keep sum dy, sum dy * xh (and sum dx' *
-    x) over their rows; the combine sums the blocks in order and forms
-    dscale = w * C + b * A, dweight = sum_b (1 + sc) C, dbias = sum_b (1 +
-    sc) A."""
+    x) over their rows, a batch row's blocks padded with empty ones to a
+    multiple of ``cluster``; rank r of a cluster adds column slice r (the
+    row's n vectors of ``width`` floats [r n / C, (r + 1) n / C)) over the
+    cluster's blocks in rank order; the last
+    cluster to finish a slice adds the clusters in order and forms dshift,
+    dscale = w * C + b * A and (1 + sc) times both sums; the last batch row
+    adds those in batch order into dweight and dbias."""
     del sh
     bsz, seq, d = x.shape
     dx = torch.empty_like(x)
     dres = torch.empty_like(x)
-    chunks = -(-seq // rows)
+    blocks = -(-(-(-seq // rows)) // cluster) * cluster
     kp = 3 if residual is not None else 2
-    part = torch.zeros(bsz, chunks, kp, d)
+    sums = torch.zeros(bsz, blocks, kp, d)
     for b in range(bsz):
-        for c in range(chunks):
+        for c in range(blocks):
             for s in range(c * rows, min(seq, (c + 1) * rows)):
                 h = x[b, s]
                 v = h if residual is None else residual[b, s] + gate[b] * h
@@ -156,8 +161,8 @@ def _kernel_arithmetic(x, sh, sc, w, bias, dy, gate=None, residual=None,
                 xh = (v - mean) * rstd
                 gg = dy[b, s] * (1.0 + sc[b]) * w
                 o = rstd * (gg - gg.sum() / d - xh * (gg * xh).sum() / d)
-                part[b, c, 0] += dy[b, s]
-                part[b, c, 1] += dy[b, s] * xh
+                sums[b, c, 0] += dy[b, s]
+                sums[b, c, 1] += dy[b, s] * xh
                 if residual is None:
                     dx[b, s] = o
                     continue
@@ -165,34 +170,66 @@ def _kernel_arithmetic(x, sh, sc, w, bias, dy, gate=None, residual=None,
                     o = o + dr[b, s]
                 dres[b, s] = o
                 dx[b, s] = gate[b] * o
-                part[b, c, 2] += o * h
-    sums = part.sum(1)
-    a_, c_ = sums[:, 0], sums[:, 1]
-    out = (dx, a_, w * c_ + bias * a_, ((1 + sc) * c_).sum(0),
-           ((1 + sc) * a_).sum(0))
-    return out + ((sums[:, 2], dres) if residual is not None else ())
+                sums[b, c, 2] += o * h
+    clusters = blocks // cluster
+    part = torch.zeros(bsz, clusters, kp, d)
+    n = d // width
+    for r in range(cluster):
+        cols = slice(r * n // cluster * width, (r + 1) * n // cluster * width)
+        for k in range(clusters):
+            for q in range(cluster):           # rank order
+                part[:, k, :, cols] += sums[:, k * cluster + q, :, cols]
+    tot = torch.zeros(bsz, kp, d)
+    for k in range(clusters):                  # cluster order
+        tot += part[:, k]
+    a_, c_ = tot[:, 0], tot[:, 1]
+    mid = torch.stack(((1 + sc) * c_, (1 + sc) * a_), 1)
+    dwb = torch.zeros(2, d)
+    for b in range(bsz):                       # batch order
+        dwb += mid[b]
+    out = (dx, a_, w * c_ + bias * a_, dwb[0], dwb[1])
+    return out + ((tot[:, 2], dres) if residual is not None else ())
 
 
-@pytest.mark.parametrize("case", [1, 3, 4])
-def test_adaln_backward_kernel_arithmetic_matches_plain(case):
+@pytest.mark.parametrize("case,rows,cluster,width", [
+    (1, 3, 4, 1), (3, 3, 4, 1), (4, 3, 4, 1),
+    (0, 3, 8, 1),    # S=8, not a multiple of R * C = 24: 3 blocks, 5 empty
+    (5, 2, 4, 1),    # S=7 over blocks of 2: 4 blocks, the last half full
+    (2, 1, 8, 1),    # a block a row, one cluster a batch row
+    (1, 3, 4, 4)],   # slices of whole float4: 1, 2, 1, 2 of d/4 = 6
+    ids=["1", "3", "4", "0-padded", "5-ragged", "2-one-cluster",
+         "1-float4"])
+def test_adaln_backward_kernel_arithmetic_matches_plain(case, rows, cluster,
+                                                        width):
     b, s, d, epilogue, offset, with_dr = ADALN_CASES[case]
     a = _adaln_case(b, s, d, epilogue, offset, seed=7 + case)
     args = _views(a, d, offset, epilogue)
     dy = torch.from_numpy(a["dy"])
     dr = torch.from_numpy(a["dr"]) if with_dr else None
     want = ref.adaln_norm_backward(*args[:5], dy, *args[5:], dr=dr)
-    got = _kernel_arithmetic(*args[:5], dy, *args[5:], dr=dr)
+    got = _kernel_arithmetic(*args[:5], dy, *args[5:], dr=dr, rows=rows,
+                             cluster=cluster, width=width)
     for g, w in zip(got, want):
         assert _rel(g, w) <= 1e-5
 
 
-def test_backward_rows_per_block():
-    # about four blocks an SM over the B * S rows, within one batch row
-    assert adaln_mod.rows_per_block(8, 256, 132) == 4
-    assert adaln_mod.rows_per_block(4, 256, 132) == 2
-    assert adaln_mod.rows_per_block(1, 256, 132) == 1
-    assert adaln_mod.rows_per_block(2, 3, 132) == 1
-    assert adaln_mod.rows_per_block(4096, 16, 1) == 16
+# (B, S, SMs) -> (rows a block, blocks a cluster, blocks a batch row):
+# about four blocks an SM over the B * S rows, within one batch row, the
+# blocks padded to a multiple of the cluster
+@pytest.mark.parametrize("b,s,sms,want", [
+    (8, 256, 132, (4, 8, 64)),         # the DiT's train step: no padding
+    (4, 256, 132, (2, 8, 128)),
+    (1, 256, 132, (1, 8, 256)),
+    (16, 256, 132, (8, 8, 32)),
+    (2, 3, 132, (1, 8, 8)),            # fewer rows than C: 5 empty blocks
+    (3, 17, 132, (1, 8, 24)),          # S not a multiple of R * C
+    (4096, 16, 1, (16, 8, 8)),         # one block of rows, 7 empty
+    (2, 40, 4, (5, 8, 8))])            # R * C = S: one full cluster
+def test_backward_rows_per_block(b, s, sms, want):
+    assert adaln_mod.backward_grid(b, s, sms) == want
+    rows, cluster, blocks = want
+    assert blocks % cluster == 0 and (blocks - cluster) * rows < s <= \
+        blocks * rows
 
 
 @pytest.mark.parametrize("epilogue,use_r", [(False, False), (True, True),
