@@ -166,7 +166,20 @@ non-zero before the result line):
     and the card's idle share, peak memory, and Omega(k) of the random and
     the trained DiT (the reference's properties asserted); then
     ``from_gdm_model`` on the card and ``python -m
-    repro_torch.examples.serve_gdm`` at small flags.
+    repro_torch.examples.serve_gdm`` at small flags;
+25. the cost counter (``repro_torch.distributed.op_cost``) on the card:
+    full-width granite-moe-1b-a400m's train step (B=8, S=128) and full
+    yi-6b's decode step (B=8, a 4096-row cache, every row in use), each
+    counted on the card and on the meta device: the two ``Cost``s equal,
+    every kernel charged exactly as often as it launched, the step's
+    profiled device time at least the roofline's largest term on the H100
+    (the fraction printed), the tracker's peak beside
+    ``torch.cuda.max_memory_allocated``; ``repro_torch.launch.dryrun``'s
+    ``run_cell`` on meta for yi-6b train_4k / prefill_32k / decode_32k and
+    xlstm-1.3b long_500k on the single pod (each record and its seconds);
+    a 2048-token request moved between two ``KVPagePool``s on the card at
+    yi-6b's geometry with ``ServeConfig``'s page size (pages bit for bit,
+    ``migration_bytes``, GB/s against 3.35 TB/s).
 
 Phase 3 also holds the selective scan (forward and backward kernels)
 against its plain version and autograd (and both against themselves: two
@@ -4174,6 +4187,218 @@ def dit_helpers(card: str):
         "serve_gdm printed no summary line"
 
 
+# -- phase 25: the cost counter on the card, the dry run, the KV pool ----------------
+
+COST_CELLS = (("granite-moe-1b-a400m", "train", 8, 128),
+              ("yi-6b", "decode", 8, 4096))
+DRYRUN_CELLS = (("yi-6b", "train_4k"), ("yi-6b", "prefill_32k"),
+                ("yi-6b", "decode_32k"), ("xlstm-1.3b", "long_500k"))
+
+
+def _cost_step(cfg, kind, b, s, device):
+    """One ``kind`` step (train or decode) of ``cfg`` at batch ``b``,
+    length ``s`` on ``device`` (the card, or meta), as a call: a train
+    step on random tokens, or a decode step against an ``s``-row cache
+    whose rows are all in use (every length set to s - 1 first, so the
+    decode kernel reads the whole cache its formula counts)."""
+    import torch
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import LM, init_decode_state, init_lm
+    from repro_torch.optim import adamw
+    meta = device == "meta"
+    model = LM(cfg, device=device) if meta else init_lm(cfg, seed=0,
+                                                        device=device)
+    gen = None if meta else torch.Generator(device=device).manual_seed(3)
+
+    def tokens(*shape):
+        if meta:
+            return torch.empty(shape, dtype=torch.int32, device=device)
+        return torch.randint(0, cfg.vocab_size, shape, dtype=torch.int32,
+                             device=device, generator=gen)
+
+    if kind == "train":
+        step = steps.make_train_step(cfg, TrainConfig())
+        opt = adamw(1e-3)[0](steps.trainable(model))
+        batch = {"tokens": tokens(b, s), "labels": tokens(b, s)}
+        return lambda: step(model, opt, batch)
+    step = steps.make_serve_step(cfg)
+    state = init_decode_state(cfg, b, s, device=device)
+    token = tokens(b)
+
+    def call():
+        for slot in state:
+            slot["kv"].length.fill_(s - 1)
+        return step(model, token, state)
+
+    return call
+
+
+def cost_on_card(cfg, kind, b, s):
+    """One counted step on the card against the same cell counted on the
+    meta device: the Cost equal, each kernel's charges equal to its launch
+    count, the step's device time (the profiled kernels' sum) at least the
+    roofline's largest term, and the tracker's peak beside the
+    allocator's."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import op_cost, roofline
+    from repro_torch.kernels import LAUNCHES
+    call = _cost_step(cfg, kind, b, s, "cuda")
+    call()                                  # warm: cuBLAS, the allocator
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    with op_cost.count() as counted:
+        call()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    allocated = torch.cuda.max_memory_allocated() - base
+    launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    card = counted.cost
+    n, dev_ms = profile_kernels(call)
+    del call
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    meta_call = _cost_step(cfg, kind, b, s, "meta")
+    with op_cost.count() as on_meta:
+        meta_call()
+    meta_s = time.perf_counter() - t0
+    what = f"{cfg.name} {kind} B={b} S={s}"
+    if on_meta.cost != card:
+        mine, theirs = dict(counted.bytes_by_op(200)), dict(
+            on_meta.bytes_by_op(200))
+        for k in sorted(set(mine) | set(theirs)):
+            if mine.get(k) != theirs.get(k):
+                print(f"  bytes by op differ: {k} card {mine.get(k)} "
+                      f"meta {theirs.get(k)}")
+        raise AssertionError(f"{what}: the card's count {card} differs "
+                             f"from the meta count {on_meta.cost}")
+    charged = {k: int(v[0]) for k, v in card.kernels.items()}
+    for name, count in launched.items():
+        assert charged.get(name, 0) == count, (
+            f"{what}: {name} launched {count} times, charged "
+            f"{charged.get(name, 0)}")
+    assert all(k in launched or k.endswith("_backward")
+               for k in charged), charged
+    rf = roofline.analyze(card, num_devices=1)
+    bound_ms = max(rf.compute_s, rf.memory_s) * 1e3
+    print(f"{what}: {card.flops / 1e9:.3f} GFLOP, {card.bytes / 1e9:.3f} GB "
+          f"counted on the card in {host_s:.2f} s, equal to the meta count "
+          f"({meta_s:.2f} s); kernels charged = launched: {charged}")
+    print(f"  roofline on the H100 (67 TFLOP/s float32, 3.35 TB/s): compute "
+          f"{rf.compute_s * 1e3:.4f} ms, memory {rf.memory_s * 1e3:.4f} ms "
+          f"({rf.dominant}); the step's {n} kernels ran {dev_ms:.4f} ms of "
+          f"device time: {bound_ms / dev_ms:.4f} of it is the bound")
+    print(f"  peak: the tracker {card.peak_bytes / 2**20:.1f} MiB, "
+          f"torch.cuda.max_memory_allocated above the step's start "
+          f"{allocated / 2**20:.1f} MiB (gap "
+          f"{(allocated - card.peak_bytes) / 2**20:+.1f} MiB: what a kernel "
+          "unit allocates inside, its workspaces and the torch-op "
+          "backwards' intermediates, is not tracked, and the allocator "
+          "rounds each block up)")
+    assert dev_ms >= bound_ms, (
+        f"{what}: {dev_ms} ms of device time is below the roofline's "
+        f"{bound_ms} ms; the count is wrong")
+    del meta_call
+    return dict(flops=card.flops, bytes=card.bytes, device_ms=dev_ms,
+                bound_ms=bound_ms, peak=card.peak_bytes, allocated=allocated)
+
+
+def dryrun_cells():
+    """The dry run on meta for DRYRUN_CELLS on the single pod, each record
+    and its seconds."""
+    from repro_torch.launch import dryrun
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi_pod=False,
+                              opts=dryrun.OPT_LEVELS["baseline"])
+        secs = time.perf_counter() - t0
+        assert rec["status"] == "ok", rec
+        rf = rec["roofline"]
+        print(f"dryrun {arch} {shape} single ({secs:.2f} s): "
+              f"{rf['flops_per_device'] / 1e12:.3f} TFLOP, "
+              f"{rf['bytes_per_device'] / 1e9:.3f} GB, collective "
+              f"{rf['collective_bytes_per_device'] / 1e9:.3f} GB a device; "
+              f"compute {rf['compute_s'] * 1e3:.2f} ms, memory "
+              f"{rf['memory_s'] * 1e3:.2f} ms, collective "
+              f"{rf['collective_s'] * 1e3:.2f} ms ({rf['dominant']}); "
+              f"arguments {rf['argument_bytes'] / 2**30:.3f} GiB, peak "
+              f"{rf['peak_memory_bytes'] / 2**30:.3f} GiB; useful "
+              f"{rf['useful_ratio']:.4f}; busiest position "
+              f"{rec['busiest_position']}")
+
+
+def kv_pool_on_card(cfg, tokens: int = 2048):
+    """A ``tokens``-long request extracted from one ``KVPagePool`` on the
+    card and injected into another at ``cfg``'s geometry with
+    ``ServeConfig``'s page size: the pages bit for bit, the migration
+    bytes, and the move's rate against 3.35 TB/s."""
+    import torch
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serving import KVPagePool
+    page = ServeConfig().page_size
+    pages = -(-tokens // page)
+    geo = dict(kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+               num_layers=cfg.num_layers)
+    src = KVPagePool(2 * pages, page, **geo)
+    dst = KVPagePool(2 * pages, page, **geo)
+    assert src.data.device.type == "cuda"
+    src.allocate(1)
+    for _ in range(tokens):
+        src.append_token(1)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    src.data.normal_(generator=gen)
+    dst.allocate(0)
+    for _ in range(3 * page):               # another request's pages first
+        dst.append_token(0)
+
+    def move():
+        blob = src.extract(1)
+        dst.release(1)
+        dst.inject(1, blob)
+        return blob
+
+    blob = move()
+    torch.cuda.synchronize()
+    assert torch.equal(dst.data[dst.tables[1].pages],
+                       src.data[src.tables[1].pages])
+    assert dst.tables[1].length == tokens
+    assert dst.tables[1].pages != src.tables[1].pages
+    per_page = geo["num_layers"] * 2 * page * geo["kv_heads"] \
+        * geo["head_dim"] * 4
+    nbytes = src.migration_bytes(1)
+    assert nbytes == pages * per_page == blob["pages"].nbytes
+    ms = device_ms(move, runs=5, reps=1, sleep_cycles=2_000_000)
+    traffic = 4 * nbytes          # extract reads and writes, inject too
+    print(f"KV pool at {cfg.name}'s geometry ({geo['num_layers']} layers, "
+          f"{geo['kv_heads']} kv heads x {geo['head_dim']}, page {page}): "
+          f"{tokens} tokens = {pages} pages, {nbytes / 1e6:.3f} MB "
+          f"extracted and injected in {ms:.4f} ms: "
+          f"{nbytes / ms / 1e6:.2f} GB/s of migration bytes, "
+          f"{traffic / ms / 1e6:.2f} GB/s of HBM traffic against 3350 GB/s "
+          f"({traffic / ms / 1e6 / 3350:.4f})")
+    return dict(ms=ms, nbytes=nbytes)
+
+
+def count_phase():
+    """Phase 25: two counted steps on the card, the dry run, the KV pool."""
+    import torch
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    out = {}
+    for arch, kind, b, s in COST_CELLS:
+        out[arch] = cost_on_card(get_config(arch), kind, b, s)
+        torch.cuda.empty_cache()
+    dryrun_cells()
+    out["kv_pool"] = kv_pool_on_card(get_config("yi-6b"))
+    torch.cuda.empty_cache()
+    print(f"phase 25 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def print_occupancy(lib):
     """Resident blocks per SM of the kernels redesigned for Hopper
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at the blocks their
@@ -4558,6 +4783,13 @@ def main(argv) -> int:
         launches[name] = dit_launches[name]
     dit_helpers(card)
     print(f"phase 24 took {time.perf_counter() - t0:.1f} s")
+
+    phase("25. the cost counter on the card: granite-moe-1b-a400m's train "
+          "step (B=8, S=128) and yi-6b's decode step (B=8, 4096-row cache) "
+          "counted on the card and on meta, kernel charges vs launches, "
+          "device time vs the roofline; the dry run on meta; a 2048-token "
+          "KV-pool migration at yi-6b's geometry")
+    count_phase()
 
     replaces = {
         "adaln_norm": "src/repro/kernels/adaln_norm.py:76",

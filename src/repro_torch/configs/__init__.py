@@ -16,6 +16,7 @@ from repro_torch.configs.base import (  # noqa: F401
     MambaConfig,
     MeshConfig,
     ModelConfig,
+    ServeConfig,
     ShapeConfig,
     TrainConfig,
     XLSTMConfig,

@@ -4,8 +4,10 @@ A copy of the fields of ``repro.configs.base.ModelConfig`` with the same
 defaults, derived properties and ``reduced()`` rule, so a config built here
 equals the reference's field for field; ``MambaConfig``, ``XLSTMConfig``,
 ``ShapeConfig`` (with the four assigned shapes in ``SHAPES``),
-``MeshConfig`` (with ``SINGLE_POD`` / ``MULTI_POD``) and ``TrainConfig``
-are copies too.  The port is float32 throughout, so the
+``MeshConfig`` (with ``SINGLE_POD`` / ``MULTI_POD``), ``TrainConfig`` and
+``ServeConfig`` are copies too, and so is the reference's parameter-count
+formula (``param_count`` / ``active_param_count``, which the dry run's
+MODEL_FLOPS read).  The port is float32 throughout, so the
 reference's ``dtype`` and ``gdm_impl`` fields have no counterpart: the
 dtype is fixed, and the kernel follows the tensor's device.
 """
@@ -104,6 +106,13 @@ class ModelConfig:
         for even sharding; the port keeps the shapes)."""
         return ((self.vocab_size + multiple - 1) // multiple) * multiple
 
+    # -- parameter counting (used for roofline MODEL_FLOPS = 6*N*D) --------
+    def param_count(self) -> int:
+        return _param_count(self)
+
+    def active_param_count(self) -> int:
+        return _param_count(self, active_only=True)
+
     # -- reduced smoke-test variant -----------------------------------------
     def reduced(self) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's rule)."""
@@ -136,6 +145,61 @@ class ModelConfig:
         if self.gdm_blocks:
             kw.update(gdm_blocks=min(self.gdm_blocks, 4), latent_hw=4)
         return replace(self, **kw)
+
+
+def _param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Approximate parameter count (embedding + per-layer weights).
+
+    The reference's formula, copied: it is not the count of the built
+    model (seamless-m4t-large-v2 2.035 B here, 1.634 B as built;
+    xlstm-1.3b 2.02 B, 3.581 B as built, its mLSTM q, k, v counted
+    block-diagonal)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    n = 0
+    n += cfg.vocab_size * d                     # embedding
+    if not cfg.tie_embeddings:
+        n += cfg.vocab_size * d                 # lm head
+    def attn_params() -> int:
+        qkv = d * cfg.q_dim + 2 * d * cfg.kv_dim
+        if cfg.qkv_bias:
+            qkv += cfg.q_dim + 2 * cfg.kv_dim
+        return qkv + cfg.q_dim * d
+    def dense_mlp() -> int:
+        return 3 * d * cfg.d_ff if cfg.d_ff else 0
+    def moe_mlp() -> int:
+        dff = cfg.moe_d_ff or cfg.d_ff
+        e = cfg.experts_per_token if active_only else cfg.num_experts
+        return e * 3 * d * dff + d * cfg.num_experts   # experts + router
+    def mamba_params() -> int:
+        mc = cfg.mamba or MambaConfig()
+        d_in = mc.expand * d
+        dt_rank = mc.resolved_dt_rank(d)
+        return (d * 2 * d_in + d_in * mc.d_conv + d_in * (dt_rank + 2 * mc.d_state)
+                + dt_rank * d_in + d_in * mc.d_state + d_in + d_in * d)
+    def xlstm_params() -> int:
+        xc = cfg.xlstm or XLSTMConfig()
+        d_in = int(xc.proj_factor * d)
+        # mLSTM: up/gate/down proj + qkv + gates
+        return 2 * d * d_in + d_in * d + 3 * d_in * d_in // max(cfg.num_heads, 1) + 4 * d_in
+    for layer in range(cfg.num_layers):
+        if cfg.family == "ssm" and cfg.xlstm is not None:
+            n += xlstm_params() + 2 * d
+            continue
+        is_attn = (layer % cfg.attn_every == 0) if cfg.attn_every > 1 else True
+        if cfg.family == "hybrid" and not is_attn:
+            n += mamba_params()
+        else:
+            n += attn_params()
+        if cfg.is_moe and (layer % cfg.moe_every == (cfg.moe_every - 1) or cfg.moe_every == 1):
+            n += moe_mlp()
+        else:
+            n += dense_mlp()
+        n += 2 * d                               # norms
+    for _ in range(cfg.encoder_layers):
+        n += attn_params() + dense_mlp() + 2 * d
+        if cfg.cross_attention:
+            n += attn_params() + d               # decoder cross-attn counted here
+    return n
 
 
 @dataclass(frozen=True)
@@ -199,4 +263,13 @@ class TrainConfig:
     b2: float = 0.95
     microbatch: int = 0           # 0 -> no gradient accumulation
     remat: bool = True
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_batch: int = 8
+    max_seq_len: int = 2_048
+    page_size: int = 128
+    early_exit_quality: float = 0.0   # >0 -> adaptive chain-length reduction
     seed: int = 0

@@ -19,7 +19,10 @@ device (a copy, written back, on another device), its partial is
 computed there, and the partials are gathered to the data shard's first
 device for the combine (the reference's ``all_gather``).  The partial is
 plain torch ops, as it is plain ``jnp`` in the reference: it is no
-kernel, and the ``decode_attention`` kernel does not run here.
+kernel, and the ``decode_attention`` kernel does not run here.  A cost
+counter (:mod:`repro_torch.distributed.op_cost`) sees each shard's
+partial at its mesh position and is charged the combine's three
+all-gathers, as ``hlo_cost`` counts the reference's.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.op_cost import collective, place, where
 from repro_torch.distributed.sharding import _axes, shard_rows
 
 NEG_INF = -1e30
@@ -68,9 +72,15 @@ def _insert(cache, new, pos, start: int):
 
 
 def _combine(parts, home):
-    """The exact combine of the shards' partials, on ``home``."""
-    o_all, m_all, l_all = (torch.stack([p[i].to(home) for p in parts])
-                           for i in range(3))
+    """The exact combine of the shards' partials, on ``home``: each of
+    o, m and l all-gathered over the shards."""
+    at = [where(p[0]) for p in parts]
+    o_all, m_all, l_all = (
+        place(torch.stack([p[i].to(home) for p in parts]), at[0])
+        for i in range(3))
+    for t in (o_all, m_all, l_all):
+        collective("all-gather", t.numel() * t.element_size(), len(parts),
+                   at)
     m_star = m_all.amax(dim=0)                               # (B, H)
     w = torch.exp(m_all - m_star[None])
     l_star = (l_all * w).sum(dim=0)
@@ -104,12 +114,13 @@ def sharded_decode_attention(q, k_cache, v_cache, lengths, *,
     outs = []
     for i, devs in enumerate(rows):
         rs = slice(i * bs, (i + 1) * bs)
+        row = i if len(rows) > 1 else where(q)[0]
         parts = []
         for m, dev in enumerate(devs):
             start = m * s_loc
             blocks = [c[rs, start:start + s_loc] for c in (k_cache, v_cache)]
-            k_l, v_l = (c.to(dev) for c in blocks)
-            len_l = lengths[rs].to(dev)
+            k_l, v_l = (place(c.to(dev), (row, m)) for c in blocks)
+            len_l = place(lengths[rs].to(dev), (row, m))
             if with_insert:
                 pos = len_l[0] - 1
                 for c, new in ((k_l, k_new), (v_l, v_new)):
@@ -117,8 +128,8 @@ def sharded_decode_attention(q, k_cache, v_cache, lengths, *,
                 for c, local in zip(blocks, (k_l, v_l)):
                     if local is not c:      # a copy on another device
                         c.copy_(local)
-            parts.append(_local_partial(q[rs].to(dev), k_l, v_l, len_l,
-                                        start, scale))
+            parts.append(_local_partial(place(q[rs].to(dev), (row, m)),
+                                        k_l, v_l, len_l, start, scale))
         outs.append(_combine(parts, devs[0]).to(q.dtype))
     out = torch.cat([o.to(q.device) for o in outs]) if len(outs) > 1 \
         else outs[0].to(q.device)

@@ -13,6 +13,10 @@ On a 1-D mesh, :func:`split` cuts a tensor into its per-device shards by a
 spec, each moved to its device, and :func:`gather` puts shards back in
 global order on one device: the port's ``all_gather(tiled=True)``.  A
 shard on the device it came from is a view; on another device, a copy.
+A cost counter (:mod:`repro_torch.distributed.op_cost`) sees shard j at
+mesh position (j, 0) and is charged the ring model's bytes of each: a
+split that cuts a dimension as a scatter, one that cuts none as a
+broadcast, a gather as an all-gather.
 
 The LM rules (``PARAM_RULES``, ``param_specs``, ``param_shardings``,
 ``input_specs_shardings``, ``decode_state_specs``, ``logits_spec``) give
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed.op_cost import collective, place
 
 
 class PartitionSpec(tuple):
@@ -219,15 +224,21 @@ def split(x: torch.Tensor, mesh, spec: P) -> List[torch.Tensor]:
     ``spec`` splits over the mesh's axis, each on its device; where
     ``spec`` splits nothing, the whole of ``x`` on every device."""
     devices = mesh_devices(mesh)
+    n = len(devices)
     dim = _split_dim(spec)
+    at = [(j, 0) for j in range(n)]
+    collective("broadcast" if dim is None else "scatter",
+               x.numel() * x.element_size(), n, at)
     if dim is None:
+        # on repeated devices the shards are x itself: not placed
         return [_to(x, d) for d in devices]
     if spec[dim] != mesh.axis_names[0]:
         raise ValueError(f"{spec} names no axis of {dict(mesh.shape)}")
-    if x.shape[dim] % len(devices):
+    if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
-                         f"over {len(devices)} devices")
-    return [_to(c, d) for c, d in zip(x.chunk(len(devices), dim), devices)]
+                         f"over {n} devices")
+    return [place(_to(c, d), p)
+            for c, d, p in zip(x.chunk(n, dim), devices, at)]
 
 
 def gather(shards: Sequence[torch.Tensor], spec: P,
@@ -238,7 +249,10 @@ def gather(shards: Sequence[torch.Tensor], spec: P,
     dim = _split_dim(spec)
     if dim is None or len(shards) == 1:
         return _to(shards[0], device)
-    return torch.cat([_to(s, device) for s in shards], dim)
+    out = torch.cat([_to(s, device) for s in shards], dim)
+    collective("all-gather", out.numel() * out.element_size(), len(shards),
+               [(j, 0) for j in range(len(shards))])
+    return out
 
 
 # -- the LM rules -------------------------------------------------------------------

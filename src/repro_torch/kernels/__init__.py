@@ -5,7 +5,23 @@ process: a wrapper adds one where it launches its kernel and nowhere else,
 so a run can show that the main path went through the kernels (a wrapper
 that makes two launches, as the backward kernels of the scan and of adaLN
 do, counts one).
+
+A cost counter (:func:`repro_torch.distributed.op_cost.count`) sees each
+kernel as one unit, whichever device implements it.  Every wrapper
+charges it, through :func:`launched` where it launches its kernel (the
+same hook that counts the launch) or :func:`charge` where no kernel runs,
+the work its formula gives (the ``work`` functions beside each wrapper:
+float32 operations and the bytes each operand and result moves once);
+:func:`opaque` keeps the aten ops inside a kernel's call or backward,
+and the allocations they make, out of the count.  On the meta device a
+kernel's call gives its outputs' shapes and runs nothing, and on the CPU
+under a counter the plain version runs as one autograd node
+(:func:`unlaunched`), so that a step counts the same on the meta device,
+the CPU and the card.
 """
+import contextlib
+import functools
+
 import torch
 
 LAUNCHES = {"adaln_norm": 0, "adaln_norm_epilogue": 0, "flash_attention": 0,
@@ -14,9 +30,137 @@ LAUNCHES = {"adaln_norm": 0, "adaln_norm_epilogue": 0, "flash_attention": 0,
             "adaln_norm_epilogue_backward": 0}
 
 
+# the cost counters in effect, innermost last
+# (repro_torch.distributed.op_cost.count pushes and pops them)
+METERS: list = []
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def charge(name: str, work) -> None:
+    """One call of kernel ``name`` doing ``work`` = (flops, bytes), to
+    every counter in effect."""
+    for meter in METERS:
+        meter.charge(name, *work)
+
+
+def launched(name: str, work) -> None:
+    """Where a wrapper has launched its kernel: one launch and its charge."""
+    LAUNCHES[name] += 1
+    charge(name, work)
+
+
+def opaque(fn):
+    """``fn``, a kernel op or a kernel's backward, as one unit to every
+    counter in effect: its aten ops count nothing and allocate nothing,
+    and what it returns is held as allocated where its tensor arguments
+    live."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        if not METERS:
+            return fn(*args, **kwargs)
+        with contextlib.ExitStack() as stack:
+            for meter in list(METERS):
+                stack.enter_context(meter.opaque(args, kwargs))
+            out = fn(*args, **kwargs)
+            for meter in METERS:
+                meter.hold(out)
+        return out
+    return run
+
+
+def uncounted(fn):
+    """``fn``, set-up work kept from every counter in effect (a table
+    cached on first use, so that a step counts the same whether or not
+    the cache was warm): its ops count nothing and allocate nothing."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with contextlib.ExitStack() as stack:
+            for meter in list(METERS):
+                stack.enter_context(meter.opaque((), {}))
+            return fn(*args, **kwargs)
+    return run
+
+
+def unlaunched(name: str, work, inputs, plain, shapes, backward=None):
+    """A kernel's call where no kernel runs: ``plain(*inputs)``, its plain
+    version, on the CPU, or on the meta device empty outputs of
+    ``shapes(*inputs)`` (nothing computed).  With no counter in effect
+    the CPU runs the plain version as it is.  Under a counter the call is
+    charged ``work`` as ``name`` and, where a gradient is wanted, is one
+    autograd node whose backward charges ``backward`` = (name, work of the
+    output gradients): on meta empty gradients, on the CPU the plain
+    version's own.  Outputs and gradients are then contiguous, as a
+    kernel writes them."""
+    device = next(t.device for t in inputs if isinstance(t, torch.Tensor))
+    if device.type == "cpu" and not METERS:
+        return plain(*inputs)
+    charge(name, work)
+    if not wants_grad(*inputs):
+        if device.type == "meta":
+            return shapes(*inputs)
+        out = _flat(plain(*inputs))
+        out = tuple(o.contiguous() for o in out)
+        return out if len(out) > 1 else out[0]
+    return _Unlaunched.apply(
+        (backward, None if device.type == "meta" else plain, shapes),
+        *inputs)
+
+
+def _flat(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _contiguous(t):
+    return None if t is None else t.contiguous()
+
+
+class _Unlaunched(torch.autograd.Function):
+    """:func:`unlaunched`'s autograd node.  Like the kernels' own
+    functions, it keeps its inputs until its backward has run."""
+
+    @staticmethod
+    def forward(ctx, spec, *inputs):
+        ctx.set_materialize_grads(False)
+        ctx.spec = spec
+        _, plain, shapes = spec
+        if plain is None:
+            ctx.leaves = inputs
+            return shapes(*inputs)
+        with torch.enable_grad():
+            ctx.leaves = [t.detach().requires_grad_(t.requires_grad)
+                          if isinstance(t, torch.Tensor) else t
+                          for t in inputs]
+            out = plain(*ctx.leaves)
+        ctx.outs = _flat(out)
+        detached = tuple(o.detach().contiguous() for o in ctx.outs)
+        return detached if isinstance(out, tuple) else detached[0]
+
+    @staticmethod
+    @opaque
+    def backward(ctx, *grads):
+        backward, plain, _ = ctx.spec
+        if backward is not None:
+            charge(backward[0], backward[1](grads))
+        need = ctx.needs_input_grad[1:]
+        leaves = ctx.leaves
+        del ctx.leaves
+        if plain is None:
+            return (None,) + tuple(
+                torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                if n else None for t, n in zip(leaves, need))
+        pairs = [(o, g) for o, g in zip(ctx.outs, grads)
+                 if g is not None and o.requires_grad]
+        del ctx.outs
+        wanted = [t for t, n in zip(leaves, need) if n]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wanted, [g for _, g in pairs],
+            allow_unused=True) if pairs else [None] * len(wanted))
+        return (None,) + tuple(_contiguous(next(got)) if n else None
+                               for n in need)
 
 
 def check_operand(name: str, t, device: torch.device, shape=None, *,

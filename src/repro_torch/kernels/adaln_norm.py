@@ -19,13 +19,35 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build, check_launch, check_operand
+from repro_torch.kernels import build, check_launch, check_operand, launched
 
 MAX_D = 4096          # a row lives in one block's registers
 MAX_THREADS = 512
 BLOCKS_PER_SM = 4     # the backward's row blocks: about four an SM
 CLUSTER = 8           # the backward's blocks a cluster (csrc kCluster)
 MAX_BATCH = 65535     # the backward's grid: a batch row a grid row
+
+
+def work(b: int, s: int, d: int, epilogue: bool):
+    """(flops, bytes) of one call on (B, S, d): 10 flops an element (12
+    with the epilogue), x (and residual) read, y (and r) written, the (B,
+    d) modulation rows (and gate) and weight, bias read once, float32."""
+    rows = b * s * d
+    return ((12.0 if epilogue else 10.0) * rows,
+            4.0 * ((4 if epilogue else 2) * rows
+                   + (3 if epilogue else 2) * b * d + 2 * d))
+
+
+def backward_work(b: int, s: int, d: int, epilogue: bool, with_dr: bool):
+    """(flops, bytes) of the backward: 20 flops an element (25 with the
+    epilogue); x, dy read and dx written, with the epilogue residual read
+    and dresidual written and dr read where given; scale (and gate) read
+    and their (B, d) gradients written; weight, bias read and their
+    gradients written."""
+    rows = b * s * d
+    return ((25.0 if epilogue else 20.0) * rows,
+            4.0 * ((3 + 2 * epilogue + with_dr) * rows
+                   + (5 if epilogue else 3) * b * d + 4 * d))
 
 
 def load_width(x, shift, scale, weight, bias, gate=None, residual=None):
@@ -120,7 +142,8 @@ def adaln_norm_cuda(x, shift, scale, weight, bias, gate=None, residual=None,
             b * s, s, d, width, threads, vpt, eps,
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch("adaln_norm", err)
-    LAUNCHES["adaln_norm_epilogue" if epilogue else "adaln_norm"] += 1
+    launched("adaln_norm_epilogue" if epilogue else "adaln_norm",
+             work(b, s, d, epilogue))
     return (y, r) if epilogue else y
 
 
@@ -181,7 +204,7 @@ def adaln_norm_backward_cuda(x, shift, scale, weight, bias, dy, gate=None,
     name = ("adaln_norm_epilogue_backward" if epilogue
             else "adaln_norm_backward")
     check_launch(name, err)
-    LAUNCHES[name] += 1
+    launched(name, backward_work(b, s, d, epilogue, dr is not None))
     return grads
 
 

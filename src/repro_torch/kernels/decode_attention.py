@@ -14,8 +14,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import (LAUNCHES, build, check_launch,
-                                 check_operand, refuse_grad)
+from repro_torch.kernels import (build, check_launch, check_operand,
+                                 launched, refuse_grad)
 
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's compiled head widths
 MAX_GROUP = 8                     # query heads per kv head
@@ -26,6 +26,16 @@ BLOCKS_PER_SM = 2                 # blocks in flight the splits aim for
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def work(q_shape, k_shape):
+    """(flops, bytes) of one call, from the shapes: every cache row
+    counted (the lengths are data; the reference's XLA version computes
+    over the whole cache too), 4 D flops per (row, query head), and q,
+    the caches and the lengths read and o written once."""
+    b, h, d = q_shape
+    s, kh = k_shape[1], k_shape[2]
+    return 4.0 * b * s * h * d, 4.0 * (2 * b * h * d + 2 * b * s * kh * d + b)
 
 
 def decode_grid(pairs: int, group: int, seq: int, sms: int):
@@ -97,5 +107,5 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
             b, s, h, kh, d, splits, head_groups, float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch("decode_attention", err)
-    LAUNCHES["decode_attention"] += 1
+    launched("decode_attention", work(q.shape, k_cache.shape))
     return o

@@ -9,11 +9,47 @@ tensor's device.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCHES, build, check_launch, check_operand
+from repro_torch.kernels import build, check_launch, check_operand, launched
 
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's compiled head widths
+
+
+@functools.lru_cache(maxsize=None)
+def unmasked_pairs(sq: int, sk: int, causal: bool, window: int,
+                   q_offset: int) -> int:
+    """The (query, key) pairs of one (batch row, head) that the mask
+    keeps: query i at position i + q_offset sees key j where j <= i +
+    q_offset (causal) and i + q_offset - j < window (window > 0)."""
+    pos = np.arange(sq, dtype=np.int64) + q_offset
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros_like(pos)
+    hi = np.minimum(pos, sk - 1) if causal else np.full_like(pos, sk - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def work(q_shape, k_shape, *, causal: bool, window: int, q_offset: int):
+    """(flops, bytes) of one call: 4 D flops per unmasked (query, key)
+    pair (the two products; the softmax's exponentials not counted), and
+    q, k, v read and o written once, float32."""
+    b, sq, h, d = q_shape
+    sk, kh = k_shape[1], k_shape[2]
+    pairs = b * h * unmasked_pairs(sq, sk, causal, window, q_offset)
+    return 4.0 * pairs * d, 4.0 * 2 * (b * sq * h * d + b * sk * kh * d)
+
+
+def backward_work(q_shape, k_shape, *, causal: bool, window: int,
+                  q_offset: int):
+    """(flops, bytes) of the gradient of q, k and v, FlashAttention-2's
+    work: 10 D flops per unmasked pair (P recomputed, then dV, dP, dQ and
+    dK), and q, k, v, o, dO read and dQ, dK, dV written once."""
+    b, sq, h, d = q_shape
+    sk, kh = k_shape[1], k_shape[2]
+    pairs = b * h * unmasked_pairs(sq, sk, causal, window, q_offset)
+    return 10.0 * pairs * d, 4.0 * 4 * (b * sq * h * d + b * sk * kh * d)
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
@@ -52,5 +88,6 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
             b, sq, sk, h, kh, d, int(causal), int(window), int(q_offset),
             float(scale), torch.cuda.current_stream(dev).cuda_stream)
     check_launch("flash_attention", err)
-    LAUNCHES["flash_attention"] += 1
+    launched("flash_attention", work(q.shape, k.shape, causal=causal,
+                                     window=window, q_offset=q_offset))
     return o

@@ -17,6 +17,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import charge, opaque
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rmsnorm as rms
 from repro_torch.kernels.adaln_norm import (adaln_norm_backward_cuda,
                                            adaln_norm_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -62,7 +65,8 @@ def attention_backward(q, k, v, o, do, *, causal: bool = True,
     if g > 1:
         dk = dk.reshape(b, sk, kh, g, d).sum(3)
         dv = dv.reshape(b, sk, kh, g, d).sum(3)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return (dq.to(q.dtype).contiguous(), dk.to(k.dtype).contiguous(),
+            dv.to(v.dtype).contiguous())
 
 
 def rmsnorm_backward(x, scale, dy, eps: float = 1e-6):
@@ -91,8 +95,12 @@ class FlashAttentionFn(torch.autograd.Function):
         return o
 
     @staticmethod
+    @opaque
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
+        mask = {n: ctx.mask[n] for n in ("causal", "window", "q_offset")}
+        charge("flash_attention_backward",
+               fa.backward_work(q.shape, k.shape, **mask))
         dq, dk, dv = attention_backward(q, k, v, o, do, **ctx.mask)
         return dq, dk, dv, None, None, None, None
 
@@ -107,8 +115,10 @@ class RmsNormFn(torch.autograd.Function):
         return rmsnorm_cuda(x, scale, eps=eps)
 
     @staticmethod
+    @opaque
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
+        charge("rmsnorm_backward", rms.backward_work(x.shape))
         dx, dscale = rmsnorm_backward(x, scale, dy, ctx.eps)
         return dx, dscale, None
 
@@ -129,6 +139,7 @@ class AdaLNNormFn(torch.autograd.Function):
                                residual=residual, eps=eps)
 
     @staticmethod
+    @opaque
     def backward(ctx, dy, dr=None):
         x, shift, scale, weight, bias, gate, residual = ctx.saved_tensors
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()

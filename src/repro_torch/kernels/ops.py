@@ -12,10 +12,26 @@ CUDA tensor goes through the kernel's ``torch.autograd.Function``
 ``adaln_norm``, both forms, and ``ssm_scan``: forward and backward
 kernels), and the CPU's plain versions are differentiated by autograd
 itself.  ``decode_attention`` has no backward and refuses.
+
+A meta tensor gets its output's shape and runs nothing, with a gradient
+of the right shapes where one is wanted: the cost counter's dry run
+(:mod:`repro_torch.launch.dryrun`) takes every kernel this way.  Every op
+is charged to a counter in effect by its kernel's formula, once a call
+(:func:`repro_torch.kernels.opaque`); on the CPU under a counter the
+plain version runs as one autograd node (:func:`repro_torch.kernels.
+unlaunched`), and with no counter exactly as it ran before counters.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import ref, wants_grad
+import torch
+
+from repro_torch.kernels import (opaque, ref, refuse_grad, unlaunched,
+                                 wants_grad)
+from repro_torch.kernels import adaln_norm as _adaln
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import ssm_scan as _scan
 from repro_torch.kernels.adaln_norm import adaln_norm_cuda
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -26,9 +42,17 @@ from repro_torch.kernels.ssm_scan import SsmScanFn, ssm_scan_cuda
 
 def _no_path(op: str, device):
     return ValueError(f"{op}: no implementation for device {device} "
-                      "(CUDA runs the kernel, the CPU the plain version)")
+                      "(CUDA runs the kernel, the CPU the plain version, "
+                      "meta the shapes)")
 
 
+def _empty(*shapes):
+    """Meta outputs of ``shapes`` (float32)."""
+    out = tuple(torch.empty(s, device="meta") for s in shapes)
+    return out if len(out) > 1 else out[0]
+
+
+@opaque
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, scale: float | None = None):
     """Causal/windowed GQA attention.  q: (B,Sq,H,D); k,v: (B,Sk,KH,D)."""
@@ -38,12 +62,22 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                           scale)
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset, scale=scale)
-    if q.device.type == "cpu":
+
+    def plain(q, k, v):
         return ref.attention(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, scale=scale)
+
+    if q.device.type in ("cpu", "meta"):
+        mask = dict(causal=causal, window=window, q_offset=q_offset)
+        return unlaunched(
+            "flash_attention", _flash.work(q.shape, k.shape, **mask),
+            (q, k, v), plain, lambda q, k, v: _empty(q.shape),
+            ("flash_attention_backward",
+             lambda _: _flash.backward_work(q.shape, k.shape, **mask)))
     raise _no_path("flash_attention", q.device)
 
 
+@opaque
 def adaln_norm(x, shift, scale, weight, bias, gate=None, residual=None, *,
                eps: float = 1e-5):
     """Fused DiT adaLN: LayerNorm + shift/scale modulation.
@@ -62,12 +96,25 @@ def adaln_norm(x, shift, scale, weight, bias, gate=None, residual=None, *,
                                      residual, eps)
         return adaln_norm_cuda(x, shift, scale, weight, bias, gate=gate,
                                residual=residual, eps=eps)
-    if x.device.type == "cpu":
+    epilogue = residual is not None
+
+    def plain(x, shift, scale, weight, bias, gate, residual):
         return ref.adaln_norm(x, shift, scale, weight, bias, gate=gate,
                               residual=residual, eps=eps)
+
+    if x.device.type in ("cpu", "meta"):
+        name = "adaln_norm_epilogue" if epilogue else "adaln_norm"
+        s = x.shape[1]
+        return unlaunched(
+            name, _adaln.work(b, s, d, epilogue),
+            (x, shift, scale, weight, bias, gate, residual), plain,
+            lambda x, *_: _empty(*[x.shape] * (1 + epilogue)),
+            (name + "_backward", lambda grads: _adaln.backward_work(
+                b, s, d, epilogue, epilogue and grads[1] is not None)))
     raise _no_path("adaln_norm", x.device)
 
 
+@opaque
 def decode_attention(q, k_cache, v_cache, lengths, *,
                      scale: float | None = None):
     """Single-token GQA cache attention.  q: (B,H,D); caches: (B,S,KH,D);
@@ -75,22 +122,40 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     if q.device.type == "cuda":
         return decode_attention_cuda(q, k_cache, v_cache, lengths,
                                      scale=scale)
-    if q.device.type == "cpu":
+
+    def plain(q, k_cache, v_cache, lengths):
         return ref.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+
+    if q.device.type in ("cpu", "meta"):
+        if q.device.type == "meta":
+            refuse_grad("decode_attention", q, k_cache, v_cache)
+        return unlaunched("decode_attention",
+                          _decode.work(q.shape, k_cache.shape),
+                          (q, k_cache, v_cache, lengths), plain,
+                          lambda q, *_: _empty(q.shape))
     raise _no_path("decode_attention", q.device)
 
 
+@opaque
 def rmsnorm(x, scale, *, eps: float = 1e-6):
     """Row RMSNorm over the last axis.  x: (..., D); scale: (D,)."""
     if x.device.type == "cuda":
         if wants_grad(x, scale):
             return RmsNormFn.apply(x, scale, eps)
         return rmsnorm_cuda(x, scale, eps=eps)
-    if x.device.type == "cpu":
+
+    def plain(x, scale):
         return ref.rmsnorm(x, scale, eps=eps)
+
+    if x.device.type in ("cpu", "meta"):
+        return unlaunched("rmsnorm", _rms.work(x.shape), (x, scale), plain,
+                          lambda x, _: _empty(x.shape),
+                          ("rmsnorm_backward",
+                           lambda _: _rms.backward_work(x.shape)))
     raise _no_path("rmsnorm", x.device)
 
 
+@opaque
 def ssm_scan(u, delta, a, bmat, cmat, d, *, return_state: bool = False):
     """Selective scan from a zero state.  u, delta: (B, L, Din); a: (Din,
     N); bmat, cmat: (B, L, N); d: (Din,).  Returns y (B, L, Din), or (y,
@@ -107,8 +172,22 @@ def ssm_scan(u, delta, a, bmat, cmat, d, *, return_state: bool = False):
             return SsmScanFn.apply(u, delta, a, bmat, cmat, d)
         y, h_final, _ = ssm_scan_cuda(u, delta, a, bmat, cmat, d,
                                       return_state=return_state)
-    elif u.device.type == "cpu":
-        y, h_final = ref.ssm_scan(u, delta, a, bmat, cmat, d)
-    else:
-        raise _no_path("ssm_scan", u.device)
-    return (y, h_final) if return_state else y
+        return (y, h_final) if return_state else y
+
+    def plain(*args):
+        y, h_final = ref.ssm_scan(*args)
+        return (y, h_final) if return_state else y
+
+    args = (u, delta, a, bmat, cmat, d)
+    if u.device.type in ("cpu", "meta"):
+        b, _, din = u.shape
+        n = a.shape[1]
+        if u.device.type == "meta" and return_state and wants_grad(*args):
+            raise NotImplementedError(
+                "ssm_scan: on the card the final state carries no "
+                "gradient; call the prefill under torch.no_grad()")
+        return unlaunched(
+            "ssm_scan", _scan.work(u.shape, n, return_state), args, plain,
+            lambda u, *_: _empty(u.shape, *[(b, din, n)] * return_state),
+            ("ssm_scan_backward", lambda _: _scan.backward_work(u.shape, n)))
+    raise _no_path("ssm_scan", u.device)

@@ -8,13 +8,30 @@ device.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCHES, build, check_launch, check_operand
+from repro_torch.kernels import build, check_launch, check_operand, launched
 
 MAX_D = 8192          # a row lives in one block's registers
 MAX_THREADS = 1024
 MANY_ROWS = 512       # from here two rows a block (rows_per_block)
+
+
+def work(x_shape):
+    """(flops, bytes) of one call: 4 flops an element (square, sum,
+    scale twice), x read, y written and scale read once, float32."""
+    d = x_shape[-1]
+    rows = int(np.prod(x_shape[:-1], dtype=np.int64))
+    return 4.0 * rows * d, 4.0 * (2 * rows * d + d)
+
+
+def backward_work(x_shape):
+    """(flops, bytes) of the gradient of x and scale: 10 flops an
+    element, x, dy and scale read, dx and dscale written once."""
+    d = x_shape[-1]
+    rows = int(np.prod(x_shape[:-1], dtype=np.int64))
+    return 10.0 * rows * d, 4.0 * (3 * rows * d + 2 * d)
 
 
 def load_width(x, scale):
@@ -72,5 +89,5 @@ def rmsnorm_cuda(x, scale, *, eps: float = 1e-6):
                               rows_per_block(rows), float(eps),
                               torch.cuda.current_stream(dev).cuda_stream)
     check_launch("rmsnorm", err)
-    LAUNCHES["rmsnorm"] += 1
+    launched("rmsnorm", work(x.shape))
     return y

@@ -15,9 +15,32 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build, check_launch, check_operand
+from repro_torch.kernels import (build, check_launch, check_operand,
+                                 launched, opaque)
 
 MAX_N = 16            # the state a thread keeps in registers
+
+
+def work(u_shape, n: int, return_state: bool = False):
+    """(flops, bytes) of the forward on u (B, L, Din) with N states: 6
+    flops per (b, t, d, n) and 3 per (b, t, d) (its exponentials not
+    counted); u, dt read, y written, B, C read, A, D read once, and
+    h_final written where returned; float32."""
+    b, length, din = u_shape
+    rows, small = b * length * din, b * length * n
+    return (float(rows * (6 * n + 3)),
+            4.0 * (3 * rows + 2 * small + din * n + din
+                   + (b * din * n if return_state else 0)))
+
+
+def backward_work(u_shape, n: int):
+    """(flops, bytes) of the backward: 16 flops per (b, t, d, n) and 6
+    per (b, t, d) (the forward's recomputation not counted); u, dt, dy,
+    B, C, A, D read and du, ddt, dA, dB, dC, dD written once."""
+    b, length, din = u_shape
+    rows, small = b * length * din, b * length * n
+    return (float(rows * (16 * n + 6)),
+            4.0 * (5 * rows + 4 * small + 2 * (din * n + din)))
 
 
 def _check(u, delta, a, bmat, cmat, d):
@@ -68,7 +91,7 @@ def ssm_scan_cuda(u, delta, a, bmat, cmat, d, *, return_state: bool = False,
             b, length, din, n,
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch("ssm_scan", err)
-    LAUNCHES["ssm_scan"] += 1
+    launched("ssm_scan", work(u.shape, n, return_state))
     return y, h_final, states
 
 
@@ -103,7 +126,7 @@ def ssm_scan_backward_cuda(u, delta, a, bmat, cmat, d, states, gy):
             b, length, din, n,
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch("ssm_scan_backward", err)
-    LAUNCHES["ssm_scan_backward"] += 1
+    launched("ssm_scan_backward", backward_work(u.shape, n))
     return gu, gdelta, ga, gb, gc, gd
 
 
@@ -119,6 +142,7 @@ class SsmScanFn(torch.autograd.Function):
         return y
 
     @staticmethod
+    @opaque
     def backward(ctx, gy):
         u, delta, a, bmat, cmat, d, states = ctx.saved_tensors
         return ssm_scan_backward_cuda(u, delta, a, bmat, cmat, d, states,

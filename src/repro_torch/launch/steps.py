@@ -39,6 +39,12 @@ the kv heads; otherwise the model axis computes what one device does.
 Without ``global_batch`` the batch stays whole, as the reference's
 activations then carry no constraint.  A mesh of one device gives the
 bits of no mesh.
+
+Each data shard's rows are placed at their mesh position for a cost
+counter (:func:`repro_torch.distributed.op_cost.place`), and the train
+step charges it the ring all-reduce of the gradients over the data
+shards (:func:`repro_torch.distributed.op_cost.collective`), whether or
+not the mesh repeats a device.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.distributed.op_cost import HOME, collective, place
 from repro_torch.distributed.sharding import (NamedSharding, _axes,
                                               batch_spec, shard_rows,
                                               sub_mesh)
@@ -137,11 +144,15 @@ class _Shards:
                              "shards")
         return [slice(i * n // k, (i + 1) * n // k) for i in range(k)]
 
+    def to(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """``t`` on shard i's home, placed at its mesh position."""
+        return place(t.to(self.homes[i]), (i, 0))
+
     def split(self, batch: Dict) -> List[Dict]:
         """The batch dict's rows, shard by shard, each on its home."""
         rows = self.rows(next(iter(batch.values())).shape[0])
-        return [{k: v[r].to(h) for k, v in batch.items()}
-                for r, h in zip(rows, self.homes)]
+        return [{k: self.to(v[r], i) for k, v in batch.items()}
+                for i, r in enumerate(rows)]
 
 
 def _gather(ts: Sequence[torch.Tensor], dim: int = 0) -> torch.Tensor:
@@ -205,6 +216,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
             for r in range(1, len(leaves)):
                 summed = [g + h.to(g.device) for g, h in
                           zip(summed, grads[r * n:(r + 1) * n])]
+            k = len(shards.homes)
+            collective("all-reduce", sum(g.numel() * g.element_size()
+                                         for g in summed), k,
+                       [(i, 0) for i in range(k)])
+            summed = [place(g, HOME) for g in summed]
             return ({k: v.detach() for k, v in metrics.items()},
                     dict(zip(names, summed)))
 
@@ -296,16 +312,16 @@ def make_serve_step(cfg: ModelConfig, *, opts: StepOptions = StepOptions(),
         shards = _Shards(model, mesh, global_batch)
         rows = shards.rows(token.shape[0])
         views = [_map_state(lambda t: t[:, r], state) for r in rows]
-        states = [_map_state(lambda t: t.to(h), v)
-                  for v, h in zip(views, shards.homes)]
+        states = [_map_state(lambda t: shards.to(t, i), v)
+                  for i, v in enumerate(views)]
         sd = [(shards.batch_axes, "model",
                sub_mesh(mesh, shards.batch_axes, i))
               for i in range(len(rows))] if split_k else None
         logits = decode_shards(
-            shards.models, [token[r].to(h) for r, h in
-                            zip(rows, shards.homes)], states,
-            memories=[None if memory is None else memory[r].to(h)
-                      for r, h in zip(rows, shards.homes)],
+            shards.models, [shards.to(token[r], i)
+                            for i, r in enumerate(rows)], states,
+            memories=[None if memory is None else shards.to(memory[r], i)
+                      for i, r in enumerate(rows)],
             sharded_decode=sd)
         for v, st in zip(views, states):
             for a, b in zip(_state_leaves(v), _state_leaves(st)):

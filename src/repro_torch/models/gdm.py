@@ -28,7 +28,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, uncounted
 from repro_torch.nn import (Attention, Dense, Embedding, GeluMLP, LayerNorm,
                             attention_apply, dense_apply, embedding_apply,
                             gelu_mlp_apply, layernorm_apply)
@@ -103,6 +103,7 @@ def init_gdm(cfg: ModelConfig, *, seed: int = 0, device=None) -> DiT:
 
 
 @functools.lru_cache(maxsize=None)
+@uncounted
 def _timestep_freqs(half: int, device: torch.device):
     """Sinusoidal frequency table, made once per device from the same numpy
     expression as the reference's (float64, then float32)."""

@@ -64,6 +64,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.op_cost import HOME, moved
 from repro_torch.distributed.sharding import sub_mesh
 from repro_torch.nn import (Attention, Dense, Embedding, GeluMLP, LayerNorm,
                             Mamba, MambaState, RMSNorm, SwiGLU, dense_apply,
@@ -265,7 +266,7 @@ def _lm_head(model: LM, x):
     else:
         logits = dense_apply(model.head, x)
     if cfg.padded_vocab() != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = PAD_LOGIT
+        logits[..., cfg.vocab_size:].fill_(PAD_LOGIT)
     return logits
 
 
@@ -289,9 +290,10 @@ def _moe_einsum(mods: List[MoE], hs: List[torch.Tensor]):
         y, aux = moe_apply(mods[0], hs[0])
         return [y], aux
     home = hs[0].device
-    y, aux = moe_apply(mods[0], torch.cat([h.to(home) for h in hs]))
-    return [c.to(h.device) for c, h in
-            zip(y.split([h.shape[0] for h in hs]), hs)], aux
+    y, aux = moe_apply(mods[0], torch.cat([moved(h.to(home), HOME)
+                                           for h in hs]))
+    return [moved(c.to(h.device), (i, 0)) for i, (c, h) in
+            enumerate(zip(y.split([h.shape[0] for h in hs]), hs))], aux
 
 
 def _moe_a2a(cfg: ModelConfig, moe_sharded_ctx) -> MoeFn:
@@ -433,7 +435,7 @@ def loss_shards(models: List[LM], batches: List[Dict], *,
     if len(losses) > 1:
         rows = [b["labels"].shape[0] for b in batches]
         home = losses[0].device
-        loss = sum(l.to(home) * (r / sum(rows))
+        loss = sum(moved(l.to(home), HOME) * (r / sum(rows))
                    for l, r in zip(losses, rows))
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux": aux,

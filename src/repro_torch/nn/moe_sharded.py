@@ -16,6 +16,11 @@ different devices.  The data shards of ``batch_axes`` run one after the
 other, each over its row of the mesh.  Everything is differentiable,
 the copies between devices included.
 
+A cost counter (:mod:`repro_torch.distributed.op_cost`) sees model shard
+m's work at its mesh position and is charged each all-to-all, forward and
+(through a gradient hook) backward, with the ring model's bytes, as
+``hlo_cost`` counts the reference's ``all_to_all`` and its transpose.
+
 Sums are deterministic where the reference's scatter-adds would be
 atomics on the card: every packed buffer row has one nonzero
 contribution (a dropped pair adds zeros), and each token adds its k
@@ -30,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.op_cost import collective, place, where
 from repro_torch.distributed.sharding import _axes, shard_rows
 from repro_torch.nn.moe import MoE, load_balance_loss, top_k_gates
 
@@ -119,9 +125,19 @@ def _combine(y_back, meta, t_l: int, k: int):
 
 def _all_to_all(blocks: List[torch.Tensor], devs) -> List[torch.Tensor]:
     """blocks[i] (tp, ...) on shard i -> out[j] (tp, ...) on shard j,
-    out[j][i] = blocks[i][j]."""
-    return [torch.stack([b[j].to(dev) for b in blocks])
-            for j, dev in enumerate(devs)]
+    out[j][i] = blocks[i][j].  Charged to a cost counter as one
+    all-to-all over the tp shards (its transpose too, where a gradient
+    flows back)."""
+    at = [where(b) for b in blocks]
+    nbytes = blocks[0].numel() * blocks[0].element_size()
+    tp = len(devs)
+    collective("all-to-all", nbytes, tp, at)
+    out = [place(torch.stack([b[j].to(dev) for b in blocks]), at[j])
+           for j, dev in enumerate(devs)]
+    if out[0].requires_grad:
+        out[0].register_hook(
+            lambda g: collective("all-to-all", nbytes, tp, at))
+    return out
 
 
 def _one_data_shard(module: MoE, x, devs, *, k: int, cf: float):
@@ -135,10 +151,11 @@ def _one_data_shard(module: MoE, x, devs, *, k: int, cf: float):
     cap_s = max(k, int(cf * t_l * k / tp))        # per destination
     cap_e = max(k, int(cf * t_l * k * tp / e))    # per local expert
     sends, eids, metas, auxes = [], [], [], []
-    for dev, x_l in zip(devs, x.chunk(tp, dim=1)):
+    row = where(x)[0]
+    for m, (dev, x_l) in enumerate(zip(devs, x.chunk(tp, dim=1))):
         sx, se, meta, aux = _pack(
-            x_l.to(dev).reshape(t_l, d), module.router.to(dev), k=k,
-            e_loc=e_loc, tp=tp, cap_s=cap_s)
+            place(x_l.to(dev), (row, m)).reshape(t_l, d),
+            module.router.to(dev), k=k, e_loc=e_loc, tp=tp, cap_s=cap_s)
         sends.append(sx)
         eids.append(se)
         metas.append(meta)
@@ -151,9 +168,10 @@ def _one_data_shard(module: MoE, x, devs, *, k: int, cf: float):
             rx, reid, module.gate_w[w].to(dev), module.up_w[w].to(dev),
             module.down_w[w].to(dev), cap_e=cap_e))
     home = devs[0]
-    ys = [_combine(y_back, meta, t_l, k).to(home).reshape(b, s // tp, d)
+    ys = [place(_combine(y_back, meta, t_l, k).to(home), (row, 0))
+          .reshape(b, s // tp, d)
           for y_back, meta in zip(_all_to_all(results, devs), metas)]
-    aux = torch.stack([a.to(home) for a in auxes]).mean()
+    aux = torch.stack([place(a.to(home), (row, 0)) for a in auxes]).mean()
     return torch.cat(ys, dim=1), aux
 
 
@@ -186,8 +204,11 @@ def moe_apply_sharded(module: MoE, x, *, cfg: ModelConfig, mesh,
                          f"divide over {tp} model shards, B={x.shape[0]} "
                          f"over {len(rows)} data shards")
     ys, auxes = [], []
-    for devs, x_i in zip(rows, x.chunk(len(rows), dim=0)):
-        y, aux = _one_data_shard(module, x_i.to(devs[0]), devs,
+    for i, (devs, x_i) in enumerate(zip(rows, x.chunk(len(rows), dim=0))):
+        x_i = x_i.to(devs[0])
+        if len(rows) > 1:
+            place(x_i, (i, 0))
+        y, aux = _one_data_shard(module, x_i, devs,
                                  k=cfg.experts_per_token, cf=cf)
         ys.append(y.to(x.device))
         auxes.append(aux)

@@ -5,8 +5,11 @@ import functools
 
 import torch
 
+from repro_torch.kernels import uncounted
+
 
 @functools.lru_cache(maxsize=None)
+@uncounted
 def _frequencies(head_dim: int, theta: float, device: torch.device):
     exponents = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
     # theta ** e rounded once to float32, as the reference's float32 power

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, XLSTMConfig
+from repro_torch.distributed.op_cost import RepeatedSteps
 from repro_torch.nn.linear import Dense, _param, dense_apply
 
 NEG_INF = -1e30
@@ -261,14 +262,20 @@ def _slstm_out(params: SLSTM, hs, dtype):
 def slstm_apply(params: SLSTM, x, *, cfg: ModelConfig,
                 return_state: bool = False):
     """Sequential forward, one cell per position.  x: (B, S, d_model).
-    With ``return_state`` also the state after the last position."""
+    With ``return_state`` also the state after the last position.  On
+    the meta device under a cost counter three cells run and the other
+    S - 3 are counted as the second (:class:`~repro_torch.distributed.
+    op_cost.RepeatedSteps`); their outputs are stand-ins of its shape."""
     b, s, _ = x.shape
     state = slstm_init_state(cfg, b, device=x.device)
     zx = dense_apply(params.wx, x.float()).float()           # (B, S, 4d)
+    loop = RepeatedSteps(s, zx)
     hs = []
-    for t in range(s):
-        state = _slstm_cell(params, zx[:, t], state, cfg.num_heads)
+    for t in range(loop.run):
+        state = loop.step(t, lambda: _slstm_cell(
+            params, zx[:, t], state, cfg.num_heads), lambda st: st.h)
         hs.append(state.h)
+    hs += loop.stand_ins(state.h)
     y = _slstm_out(params, torch.stack(hs, dim=1), x.dtype)
     return (y, state) if return_state else y
 

@@ -18,7 +18,12 @@ from repro_torch.serving.gdm_service import (  # noqa: F401
     SlotBatch,
     make_gdm_services,
 )
-from repro_torch.serving.kv_manager import TransferLedger, state_nbytes  # noqa: F401
+from repro_torch.serving.kv_manager import (  # noqa: F401
+    KVPagePool,
+    PageTable,
+    TransferLedger,
+    state_nbytes,
+)
 from repro_torch.serving.policy_bridge import (  # noqa: F401
     ServingPolicy,
     engine_from_scenario,

@@ -57,7 +57,8 @@ def test_port_imports_with_jax_and_the_reference_blocked():
         "configs.xlstm_1_3b", "configs.llava_next_34b", "nn.moe_sharded",
         "distributed.flash_decode", "data.pipeline", "sim.quality",
         "examples.quickstart", "examples.train_agent", "examples.serve_gdm",
-        "examples.serve_fleet")} <= names
+        "examples.serve_fleet", "distributed.op_cost", "distributed.roofline",
+        "launch.dryrun", "serving.kv_manager")} <= names
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -69,7 +70,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch import experiments
     from repro_torch.core import LearnGDMController
     from repro_torch.rl import D3QLAgent, D3QLConfig, qnet_init
-    from repro_torch.serving import GDMService, make_gdm_services
+    from repro_torch.serving import GDMService, KVPagePool, make_gdm_services
     from repro_torch.core.policy import GreedyPoAPolicy, evaluate_fused
     from repro_torch.sim import (EdgeSimulator, from_gdm_model, get_scenario,
                                  torch_env)
@@ -120,7 +121,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: quickstart.main([]),
                  lambda: train_agent.main(["--episodes", "1"]),
                  lambda: serve_gdm.main(["--scenario", "smoke"]),
-                 lambda: serve_fleet.main(["--scenario", "smoke"])):
+                 lambda: serve_fleet.main(["--scenario", "smoke"]),
+                 lambda: KVPagePool(2, 4, kv_heads=1, head_dim=4,
+                                    num_layers=1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 

@@ -325,21 +325,39 @@ def test_cuda_wrappers_reject_cpu_tensors():
         rmsnorm_cuda(x, v)
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that says it lives on a device the ops have no path for."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_ops_refuse_unknown_devices():
-    x = torch.zeros(1, 2, 4, device="meta")
+    """A device that is neither the card, the CPU nor meta raises; the
+    meta device (the dry run's) gets each op's output shapes."""
+    x = torch.zeros(1, 2, 4).as_subclass(_Elsewhere)
     with pytest.raises(ValueError, match="no implementation"):
-        tops.adaln_norm(x, torch.zeros(1, 4, device="meta"),
-                        torch.zeros(1, 4, device="meta"),
-                        torch.zeros(4, device="meta"),
-                        torch.zeros(4, device="meta"))
-    q = torch.zeros(1, 2, 1, 16, device="meta")
+        tops.adaln_norm(x, torch.zeros(1, 4), torch.zeros(1, 4),
+                        torch.zeros(4), torch.zeros(4))
+    q = torch.zeros(1, 2, 1, 16).as_subclass(_Elsewhere)
     with pytest.raises(ValueError, match="no implementation"):
         tops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="no implementation"):
-        tops.decode_attention(q[:, 0], q, q,
-                              torch.zeros(1, dtype=torch.int32, device="meta"))
+        tops.decode_attention(q[:, 0], q, q, torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="no implementation"):
-        tops.rmsnorm(x, torch.zeros(4, device="meta"))
+        tops.rmsnorm(x, torch.zeros(4))
+    meta = torch.zeros(1, 2, 4, device="meta")
+    row = torch.zeros(1, 4, device="meta")
+    vec = torch.zeros(4, device="meta")
+    y, r = tops.adaln_norm(meta, row, row, vec, vec, gate=row, residual=meta)
+    assert y.shape == r.shape == meta.shape and y.device.type == "meta"
+    q = torch.zeros(1, 2, 1, 16, device="meta")
+    assert tops.flash_attention(q, q, q).shape == q.shape
+    assert tops.decode_attention(
+        q[:, 0], q, q, torch.zeros(1, dtype=torch.int32, device="meta")
+    ).shape == q[:, 0].shape
+    assert tops.rmsnorm(meta, vec).shape == meta.shape
 
 
 # -- decode_attention ---------------------------------------------------------------

@@ -179,12 +179,23 @@ def test_scan_gradients_match_jax_grad(b, length, din, n, with_state):
 
 
 def test_ops_scan_refuses_unknown_devices():
-    x = torch.zeros(1, 2, 4, device="meta")
+    """A device that is neither the card, the CPU nor meta raises; the
+    meta device gets y's shape (and the final state's) and, where a
+    gradient is wanted, the card's refusal of a differentiated state."""
+    from test_torch_kernels import _Elsewhere
+    x = torch.zeros(1, 2, 4).as_subclass(_Elsewhere)
     with pytest.raises(ValueError, match="no implementation"):
-        tops.ssm_scan(x, x, torch.zeros(4, 2, device="meta"),
-                      torch.zeros(1, 2, 2, device="meta"),
-                      torch.zeros(1, 2, 2, device="meta"),
-                      torch.zeros(4, device="meta"))
+        tops.ssm_scan(x, x, torch.zeros(4, 2), torch.zeros(1, 2, 2),
+                      torch.zeros(1, 2, 2), torch.zeros(4))
+    m = torch.zeros(1, 2, 4, device="meta")
+    args = (m, m, torch.zeros(4, 2, device="meta"),
+            torch.zeros(1, 2, 2, device="meta"),
+            torch.zeros(1, 2, 2, device="meta"),
+            torch.zeros(4, device="meta"))
+    y, h = tops.ssm_scan(*args, return_state=True)
+    assert y.shape == m.shape and h.shape == (1, 4, 2)
+    with pytest.raises(NotImplementedError, match="no_grad"):
+        tops.ssm_scan(m.requires_grad_(), *args[1:], return_state=True)
 
 
 def test_scan_cuda_wrappers_reject_cpu_tensors():
