@@ -180,6 +180,25 @@ non-zero before the result line):
     a 2048-token request moved between two ``KVPagePool``s on the card at
     yi-6b's geometry with ``ServeConfig``'s page size (pages bit for bit,
     ``migration_bytes``, GB/s against 3.35 TB/s).
+26. the reference's bfloat16 configuration of the LM: (a) the bfloat16
+    variants of flash, decode, rmsnorm and the scan against their plain
+    versions on bfloat16 inputs at the main paths' shapes (the DiT's,
+    yi-6b's, granite's, llava's G=7, deepseek's G=8, the Jamba scan's; a
+    float32 query over the bfloat16 cache), at the
+    reference's bfloat16 bars, a second call bit for bit, then timed beside
+    the float32 kernel from the same call, their bfloat16 bound and the
+    library call in bfloat16; (b) full yi-6b in bfloat16 (12.1 GB of
+    weights): a 128-token prefill and 32 served decode steps through
+    ``make_prefill_step`` / ``make_serve_step`` with the bfloat16 state,
+    every launch exact (65 ``rmsnorm_bf16`` and 32
+    ``decode_attention_bf16`` a step), the decode step's device ms against
+    its bound from its ``Cost``, peak memory; two layers card vs CPU in
+    bfloat16; (c) float32 yi-6b (two layers) over a bfloat16 state card vs
+    CPU; (d) one full-width Jamba period in bfloat16, prefill and decode
+    card vs CPU, the prefill through ``ssm_scan_bf16``; (e) yi-6b's decode
+    step and granite's prefill in bfloat16 counted on the card equal to
+    meta, and phase 25's dry-run cells in bfloat16 beside their float32
+    argument bytes.
 
 Phase 3 also holds the selective scan (forward and backward kernels)
 against its plain version and autograd (and both against themselves: two
@@ -199,7 +218,8 @@ G=8 decode, rows of 2048, 7168 and 8192).
 Then it prints one JSON line describing the kernels (each kernel's
 launches from the path that carries it: the DiT kernels from the fleet of
 phase 15, decode and rmsnorm from phase 8, the scan kernels from phase
-10, the adaLN backward from phase 24's training run), and as its last
+10, the adaLN backward from phase 24's training run, the bfloat16
+variants from phase 26's yi-6b and Jamba runs), and as its last
 line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernel-times TREE`` builds the kernels of another
@@ -216,6 +236,7 @@ ends with a
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -235,6 +256,8 @@ PEAK_F32_FLOPS = 67e12
 # dense TF32 on the tensor cores; flash_attention's 3xTF32 products issue
 # three TF32 products for each float32 one
 PEAK_TF32_FLOPS = 495e12
+# dense bfloat16 on the tensor cores
+PEAK_BF16_FLOPS = 989e12
 # exponentials run on the special-function units: 16 results per clock per
 # SM (CUDA C programming guide, compute capability 9.0) against 128 float32
 # FMA lanes (256 flops), so a sixteenth of the float32 rate
@@ -278,7 +301,20 @@ ROUTE_TIE_TOL = 1e-4
 TIMED_RUNS = 25
 
 
+def release() -> None:
+    """Collect the heap and hand the allocator's free blocks back to the
+    card: a model that only a reference cycle holds stays on the card
+    until Python's collector happens to run, and the heaviest phase
+    (phase 21's xlstm-1.3b training, 74.8 of the card's 79.2 GiB) has no
+    room for one."""
+    gc.collect()
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
 def phase(title: str) -> None:
+    release()
     print(f"\n== {title}", flush=True)
 
 
@@ -332,15 +368,16 @@ def device_ms(fn, runs: int = TIMED_RUNS, reps: int = 10,
 
 
 def bound_ms(nbytes: float, flops: float, exps: float = 0.0,
-             tf32_flops: float = 0.0):
+             tf32_flops: float = 0.0, bf16_flops: float = 0.0):
     """The least time of the work, in ms, and what bounds it: its bytes at
     the memory rate, or its operations, float32 ``flops`` on the CUDA
-    cores, ``tf32_flops`` on the tensor cores and ``exps`` exponentials on
-    the special-function units, which run side by side (the largest of
-    the three counts)."""
+    cores, ``tf32_flops`` and ``bf16_flops`` on the tensor cores and
+    ``exps`` exponentials on the special-function units, which run side
+    by side (the largest of the counts)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = max(flops / PEAK_F32_FLOPS, exps / PEAK_SFU_PER_S,
-                tf32_flops / PEAK_TF32_FLOPS) * 1e3
+                tf32_flops / PEAK_TF32_FLOPS,
+                bf16_flops / PEAK_BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1274,7 +1311,8 @@ def _state_tensors(state):
 
 
 def lm_vs_cpu(cfg, prompt_len: int = 16, steps: int = 4, model=None,
-              route=None, batch: int = 1, stubs=None):
+              route=None, batch: int = 1, stubs=None, state_dtype=None,
+              tol: float = LM_TOL, teacher: bool = False):
     """One prefill and ``steps`` greedy decode steps of ``cfg`` on the card
     and on the CPU from the same weights (``model``'s, or drawn from a
     seed): the largest gaps in logits and in the decode state (and in the
@@ -1284,41 +1322,53 @@ def lm_vs_cpu(cfg, prompt_len: int = 16, steps: int = 4, model=None,
     prefill's memory.  With ``route`` (a ``RouteCheck`` in force), the MoE
     calls are held as it holds them; a token routed to another expert set
     at a near-tie changes everything after it, so the logits, state and
-    tokens are then left to the per-layer comparison."""
+    tokens are then left to the per-layer comparison.  The state in
+    ``state_dtype`` (float32 unless given), the CPU's model in the card
+    model's dtype; gaps are taken in float32 and held to ``tol``.  With
+    ``teacher`` (bfloat16, where the two sides' rounding can order a
+    near-tie of the greedy choice either way) the CPU runs first and the
+    card decodes the CPU's tokens, the greedy streams printed, not held."""
     import torch
     from repro_torch.models.lm import (LM, init_lm, lm_decode_step,
                                        lm_prefill)
     model = model if model is not None else init_lm(cfg, seed=11,
                                                     device="cuda")
-    cpu_model = LM(cfg, device="cpu")
+    state_dtype = state_dtype or torch.float32
+    cpu_model = LM(cfg, device="cpu", dtype=model.embed.table.dtype)
     cpu_model.load_state_dict(model.state_dict())
     gen = torch.Generator().manual_seed(5)
     prompt = torch.randint(2, cfg.vocab_size, (batch, prompt_len),
                            generator=gen, dtype=torch.int32)
     runs = {}
+    sides = [("card", "cuda", model), ("cpu", "cpu", cpu_model)]
     with torch.no_grad():
-        for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        for side, dev, m in sides[::-1] if teacher else sides:
             kw = {k: v.to(dev) for k, v in (stubs or {}).items()}
             logits, state, memory = lm_prefill(
-                m, prompt.to(dev), max_seq=prompt_len + steps + 4, **kw)
+                m, prompt.to(dev), max_seq=prompt_len + steps + 4,
+                state_dtype=state_dtype, **kw)
             outs, tokens = [logits[:, -1]], []
-            for _ in range(steps):
+            for i in range(steps):
                 tok = outs[-1][:, :cfg.vocab_size].argmax(-1).to(torch.int32)
                 tokens.append(tok.tolist())
+                if teacher and side == "card":
+                    tok = torch.tensor(runs["cpu"][1][i], dtype=torch.int32,
+                                       device=dev)
                 logits, state = lm_decode_step(m, tok, state, memory=memory)
                 outs.append(logits)
-            runs[dev] = ([o.cpu() for o in outs], tokens,
-                         _state_tensors(state),
-                         None if memory is None else memory.cpu())
+            runs[side] = ([o.float().cpu() for o in outs], tokens,
+                         [t.float() if t.is_floating_point() else t
+                          for t in _state_tensors(state)],
+                         None if memory is None else memory.float().cpu())
     del cpu_model
     (g_out, g_tok, g_state, g_mem), (c_out, c_tok, c_state, c_mem) = \
-        runs["cuda"], runs["cpu"]
+        runs["card"], runs["cpu"]
     if c_mem is not None:
         assert torch.isfinite(g_mem).all(), "non-finite memory on the card"
         mem_rel = _rel(g_mem, c_mem)[1]
         print(f"encoder memory {tuple(c_mem.shape)}: max|card - cpu| / "
-              f"max|cpu| = {mem_rel:.3e} (tolerance {LM_TOL})")
-        assert mem_rel <= LM_TOL, "the encoder's memory differs"
+              f"max|cpu| = {mem_rel:.3e} (tolerance {tol})")
+        assert mem_rel <= tol, "the encoder's memory differs"
     for o in g_out:
         assert torch.isfinite(o).all(), "non-finite logits on the card"
     scale = max(float(o[:, :cfg.vocab_size].abs().max()) for o in c_out)
@@ -1333,8 +1383,9 @@ def lm_vs_cpu(cfg, prompt_len: int = 16, steps: int = 4, model=None,
           f"logits {gap:.3e} (max|logit| {scale:.3f}, relative "
           f"{gap / scale:.3e}), decode state {st_gap:.3e} (max "
           f"{st_scale:.3f}, relative {st_gap / st_scale:.3e}); tolerance "
-          f"{LM_TOL} relative")
-    print(f"greedy tokens: card {g_tok}, cpu {c_tok}")
+          f"{tol} relative")
+    print(f"greedy tokens: card {g_tok}, cpu {c_tok}"
+          + (" (the card decoded the CPU's)" if teacher else ""))
     if route is not None:
         route.report(f"{cfg.name} prefill + decode")
         if route.swaps:
@@ -1342,9 +1393,10 @@ def lm_vs_cpu(cfg, prompt_len: int = 16, steps: int = 4, model=None,
                   "logits, state and tokens after it are held by the "
                   "per-layer comparison above")
             return
-    assert gap / scale <= LM_TOL, "logits on the card disagree with the CPU"
-    assert st_gap / st_scale <= LM_TOL, "decode state on the card disagrees"
-    assert g_tok == c_tok, "greedy tokens differ between card and CPU"
+    assert gap / scale <= tol, "logits on the card disagree with the CPU"
+    assert st_gap / st_scale <= tol, "decode state on the card disagrees"
+    assert teacher or g_tok == c_tok, \
+        "greedy tokens differ between card and CPU"
     for g, c in zip(g_state, c_state):
         if not c.is_floating_point():
             assert torch.equal(g, c), "cache lengths differ"
@@ -1362,7 +1414,8 @@ def time_decode_step(lm, state=None, memory=None):
     import torch
     from repro_torch.models.lm import init_decode_state, lm_decode_step
     if state is None:
-        state = init_decode_state(lm.cfg, 1, 64, device="cuda")
+        state = init_decode_state(lm.cfg, 1, 64, dtype=torch.float32,
+                                  device="cuda")
     tok = torch.full((1,), 7, dtype=torch.int32, device="cuda")
 
     def step():
@@ -1937,6 +1990,7 @@ def train_period(cfg, tcfg, kernel_ms, global_batch: int = 8,
     pattern = step_pattern(cfg)
     expected = forward_launches(cfg)
     expected["ssm_scan_backward"] = expected["ssm_scan"]
+    release()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = init_lm(cfg, seed=tcfg.seed, device="cuda")
@@ -3153,8 +3207,8 @@ def split_k_decode(cfg, card: str, dev: str = "cuda", batch: int = 8,
     gen = torch.Generator().manual_seed(5)
     toks = torch.randint(2, cfg.vocab_size, (steps + 1, batch, prompt),
                          generator=gen, dtype=torch.int32).to(dev)
-    pre = make_prefill_step(cfg, max_seq=cache)(model,
-                                                {"tokens": toks[0]})
+    pre = make_prefill_step(cfg, max_seq=cache, state_dtype=torch.float32)(
+        model, {"tokens": toks[0]})
     per_step = decode_launches(cfg)
     runs = {}
     for name, shape in (("unsharded", None), ("(2, 8)", (2, 8)),
@@ -3402,9 +3456,10 @@ def dp_steps(cfg, tcfg, card: str, dev: str = "cuda", batch: int = 8,
                         ("(1, 1)", (1, 1))):
         mesh = None if shape is None else _lm_mesh(shape, dev)
         clock = _Clock(dev)
-        pre[name] = make_prefill_step(cfg, mesh=mesh, global_batch=batch
-                                      if mesh else 0)(model,
-                                                      {"tokens": prompt})
+        pre[name] = make_prefill_step(cfg, mesh=mesh,
+                                      state_dtype=torch.float32,
+                                      global_batch=batch if mesh else 0)(
+            model, {"tokens": prompt})
         ms, _, _ = clock.stop()
         train[name] = _train_steps(cfg, tcfg, dev, mesh, batch, seq,
                                    StepOptions())
@@ -3795,18 +3850,42 @@ def zoo_vs_cpu(tcfg, prompt_batch: int = 2, train_batch: int = 2,
         torch.cuda.empty_cache()
 
 
-def serve_steps(cfg, model, batch, steps: int, what: str):
+def launches_as(model, state_dtype, counts):
+    """``counts`` (by float32 kernel name) under the names the launches
+    take for ``model``'s dtype and the state's: in a bfloat16 model every
+    kernel that has a bfloat16 variant (a ``_bf16`` key of ``LAUNCHES``)
+    under that variant's name; over a bfloat16 cache the decode kernel's,
+    whose variant the cache picks."""
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    bf = torch.bfloat16
+    rename = ({k: k + "_bf16" for k in LAUNCHES if k + "_bf16" in LAUNCHES}
+              if model.embed.table.dtype == bf else {})
+    if state_dtype == bf:
+        rename["decode_attention"] = "decode_attention_bf16"
+    out = dict.fromkeys(LAUNCHES, 0)
+    for k, v in counts.items():
+        out[rename.get(k, k)] += v
+    return out
+
+
+def serve_steps(cfg, model, batch, steps: int, what: str, state_dtype=None):
     """``make_prefill_step`` on ``batch`` and ``steps`` greedy steps of
     ``make_serve_step`` (cross-attending to the prefill's memory), on the
     card, with each kernel's launches held exactly to the layer pattern:
     the prefill's, then every step's.  Prints the prefill's and each
     step's device time (CUDA events around each, the step served eagerly)
-    and returns the prefill's output and the served ms per step."""
+    and returns the prefill's output, the last state, the memory, the
+    served ms per step and the launches counted over the prefill and the
+    steps together.  The state in ``state_dtype`` (float32 unless given),
+    the launches expected under the names ``launches_as`` gives."""
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     s = batch["tokens"].shape[1]
-    prefill = make_prefill_step(cfg, max_seq=s + steps)
+    state_dtype = state_dtype or torch.float32
+    prefill = make_prefill_step(cfg, max_seq=s + steps,
+                                state_dtype=state_dtype)
     serve = make_serve_step(cfg)
     torch.cuda.synchronize()
     reset_launches()
@@ -3815,7 +3894,8 @@ def serve_steps(cfg, model, batch, steps: int, what: str):
     out = prefill(model, batch)
     ev[1].record()
     torch.cuda.synchronize()
-    pre_launches, want = dict(LAUNCHES), forward_launches(cfg)
+    pre_launches = dict(LAUNCHES)
+    want = launches_as(model, state_dtype, forward_launches(cfg))
     print(f"{what}: prefill of {s} positions at B={batch['tokens'].shape[0]}"
           f" {ev[0].elapsed_time(ev[1]):.3f} ms of device time (CUDA "
           f"events); launches {pre_launches}, expected {want}")
@@ -3836,8 +3916,9 @@ def serve_steps(cfg, model, batch, steps: int, what: str):
         pairs.append(pair)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    want = {k: steps * v for k, v in decode_launches(
-        cfg, memory is not None).items()}
+    want = launches_as(model, state_dtype, {
+        k: steps * v for k, v in decode_launches(
+            cfg, memory is not None).items()})
     served = statistics.median(a.elapsed_time(b) for a, b in pairs)
     print(f"{steps} decode steps: tokens {[t[0] for t in tokens]}; served "
           f"{served:.4f} ms a step (CUDA events around each, median); "
@@ -3846,7 +3927,8 @@ def serve_steps(cfg, model, batch, steps: int, what: str):
     assert all(0 <= t[0] < cfg.vocab_size for t in tokens)
     assert launches == want, "the decode steps did not run the kernels " \
         "exactly as the layer pattern implies"
-    return out, state, memory, served
+    return out, state, memory, served, {
+        k: pre_launches[k] + launches[k] for k in launches}
 
 
 def _decode_weight_bytes(model) -> int:
@@ -3887,8 +3969,8 @@ def seamless_whole(cfg, tcfg, prompt: int = 16, steps: int = 32,
     batch = {"tokens": torch.randint(2, cfg.vocab_size, (1, prompt),
                                      generator=gen, dtype=torch.int32).cuda(),
              "enc_frames": zoo_stubs(cfg, 1, seed=8)["enc_frames"].cuda()}
-    out, state, memory, served = serve_steps(cfg, model, batch, steps,
-                                             cfg.name)
+    out, state, memory, served, _ = serve_steps(cfg, model, batch, steps,
+                                                cfg.name)
     dev_ms, host_ms = time_decode_step(model, state=state, memory=memory)
     # the bound: the weights a step reads and the memory (S_mem x d) read
     # once, and in each of the L layers the memory projected to k and v
@@ -3935,7 +4017,8 @@ def llava_cut(cfg, steps: int = 16, text: int = 128):
                                      generator=gen, dtype=torch.int32).cuda(),
              "patch_embeds": zoo_stubs(cfg, 1, seed=9,
                                        patches=p)["patch_embeds"].cuda()}
-    out, state, _, served = serve_steps(cfg, model, batch, steps, cfg.name)
+    out, state, _, served, _ = serve_steps(cfg, model, batch, steps,
+                                           cfg.name)
     dev_ms, host_ms = time_decode_step(model, state=state)
     weights = _decode_weight_bytes(model)
     rows = p + text + steps
@@ -4195,20 +4278,23 @@ DRYRUN_CELLS = (("yi-6b", "train_4k"), ("yi-6b", "prefill_32k"),
                 ("yi-6b", "decode_32k"), ("xlstm-1.3b", "long_500k"))
 
 
-def _cost_step(cfg, kind, b, s, device):
-    """One ``kind`` step (train or decode) of ``cfg`` at batch ``b``,
-    length ``s`` on ``device`` (the card, or meta), as a call: a train
-    step on random tokens, or a decode step against an ``s``-row cache
-    whose rows are all in use (every length set to s - 1 first, so the
-    decode kernel reads the whole cache its formula counts)."""
+def _cost_step(cfg, kind, b, s, device, dtype=None):
+    """One ``kind`` step (train, prefill or decode) of ``cfg`` at batch
+    ``b``, length ``s`` on ``device`` (the card, or meta), as a call: a
+    train step on random tokens, a prefill of them, or a decode step
+    against an ``s``-row cache whose rows are all in use (every length set
+    to s - 1 first, so the decode kernel reads the whole cache its formula
+    counts).  The model and the state in ``dtype`` (float32 unless
+    given)."""
     import torch
     from repro_torch.configs import TrainConfig
     from repro_torch.launch import steps
     from repro_torch.models.lm import LM, init_decode_state, init_lm
     from repro_torch.optim import adamw
+    dtype = dtype or torch.float32
     meta = device == "meta"
-    model = LM(cfg, device=device) if meta else init_lm(cfg, seed=0,
-                                                        device=device)
+    model = LM(cfg, device=device, dtype=dtype) if meta else init_lm(
+        cfg, seed=0, device=device, dtype=dtype)
     gen = None if meta else torch.Generator(device=device).manual_seed(3)
 
     def tokens(*shape):
@@ -4222,8 +4308,12 @@ def _cost_step(cfg, kind, b, s, device):
         opt = adamw(1e-3)[0](steps.trainable(model))
         batch = {"tokens": tokens(b, s), "labels": tokens(b, s)}
         return lambda: step(model, opt, batch)
+    if kind == "prefill":
+        step = steps.make_prefill_step(cfg, max_seq=s, state_dtype=dtype)
+        batch = {"tokens": tokens(b, s)}
+        return lambda: step(model, batch)
     step = steps.make_serve_step(cfg)
-    state = init_decode_state(cfg, b, s, device=device)
+    state = init_decode_state(cfg, b, s, dtype=dtype, device=device)
     token = tokens(b)
 
     def call():
@@ -4234,17 +4324,19 @@ def _cost_step(cfg, kind, b, s, device):
     return call
 
 
-def cost_on_card(cfg, kind, b, s):
+def cost_on_card(cfg, kind, b, s, dtype=None):
     """One counted step on the card against the same cell counted on the
     meta device: the Cost equal, each kernel's charges equal to its launch
     count, the step's device time (the profiled kernels' sum) at least the
-    roofline's largest term, and the tracker's peak beside the
-    allocator's."""
+    roofline's largest term (at ``dtype``'s rate), and the tracker's peak
+    beside the allocator's.  The model and state in ``dtype`` (float32
+    unless given)."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import op_cost, roofline
     from repro_torch.kernels import LAUNCHES
-    call = _cost_step(cfg, kind, b, s, "cuda")
+    dtype = dtype or torch.float32
+    call = _cost_step(cfg, kind, b, s, "cuda", dtype)
     call()                                  # warm: cuBLAS, the allocator
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -4262,11 +4354,11 @@ def cost_on_card(cfg, kind, b, s):
     del call
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    meta_call = _cost_step(cfg, kind, b, s, "meta")
+    meta_call = _cost_step(cfg, kind, b, s, "meta", dtype)
     with op_cost.count() as on_meta:
         meta_call()
     meta_s = time.perf_counter() - t0
-    what = f"{cfg.name} {kind} B={b} S={s}"
+    what = f"{cfg.name} {kind} B={b} S={s} {str(dtype)[6:]}"
     if on_meta.cost != card:
         mine, theirs = dict(counted.bytes_by_op(200)), dict(
             on_meta.bytes_by_op(200))
@@ -4283,12 +4375,13 @@ def cost_on_card(cfg, kind, b, s):
             f"{charged.get(name, 0)}")
     assert all(k in launched or k.endswith("_backward")
                for k in charged), charged
-    rf = roofline.analyze(card, num_devices=1)
+    rf = roofline.analyze(card, num_devices=1, dtype=dtype)
     bound_ms = max(rf.compute_s, rf.memory_s) * 1e3
     print(f"{what}: {card.flops / 1e9:.3f} GFLOP, {card.bytes / 1e9:.3f} GB "
           f"counted on the card in {host_s:.2f} s, equal to the meta count "
           f"({meta_s:.2f} s); kernels charged = launched: {charged}")
-    print(f"  roofline on the H100 (67 TFLOP/s float32, 3.35 TB/s): compute "
+    print(f"  roofline on the H100 ({roofline.peak_flops(dtype) / 1e12:.0f} "
+          f"TFLOP/s {str(dtype)[6:]}, 3.35 TB/s): compute "
           f"{rf.compute_s * 1e3:.4f} ms, memory {rf.memory_s * 1e3:.4f} ms "
           f"({rf.dominant}); the step's {n} kernels ran {dev_ms:.4f} ms of "
           f"device time: {bound_ms / dev_ms:.4f} of it is the bound")
@@ -4310,11 +4403,13 @@ def cost_on_card(cfg, kind, b, s):
 def dryrun_cells():
     """The dry run on meta for DRYRUN_CELLS on the single pod, each record
     and its seconds."""
+    import torch
     from repro_torch.launch import dryrun
     for arch, shape in DRYRUN_CELLS:
         t0 = time.perf_counter()
         rec = dryrun.run_cell(arch, shape, multi_pod=False,
-                              opts=dryrun.OPT_LEVELS["baseline"])
+                              opts=dryrun.OPT_LEVELS["baseline"],
+                              dtype=torch.float32)
         secs = time.perf_counter() - t0
         assert rec["status"] == "ok", rec
         rf = rec["roofline"]
@@ -4397,6 +4492,458 @@ def count_phase():
     torch.cuda.empty_cache()
     print(f"phase 25 took {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# -- phase 26: the reference's bfloat16 configuration of the LM ----------------------
+
+# the reference's bfloat16 bars (tests/test_kernels.py: flash, decode and
+# rmsnorm 2e-2, the scan 5e-2), applied as np.testing.assert_allclose does:
+# |kernel - plain| <= bar * (1 + |plain|), compared in float32.  Kernel
+# and plain version compute in float32 from the same bfloat16 inputs and
+# round once; they part by the order of the sums, by flash's bfloat16 P,
+# and by the one bfloat16 ulp (2^-8 relative) that a rounding at a
+# different side of a boundary gives
+BF16_KERNEL_TOL = 2e-2
+BF16_SCAN_TOL = 5e-2
+# LM steps in bfloat16, card vs CPU, relative to the largest |logit|
+# (|state|): each side rounds every op's output to bfloat16 after
+# products summed in another order, so a layer's output parts by a few
+# bfloat16 ulps; the reduced configs against the reference part by up to
+# 3.8e-2 over 8 layers (tests/test_torch_bf16.py)
+BF16_LM_TOL = 5e-2
+# float32 parameters over a bfloat16 state: only the cache is rounded,
+# alike on both sides, but a float32 value that the two sides compute a
+# rounding apart can land on neighbouring bfloat16 values: one bfloat16 ulp
+# of the largest value
+MIXED_TOL = 4e-3
+
+# (B, Sq, Sk, H, KH, D, causal, window, q_offset): the DiT's shape, yi-6b's
+# prefill (phase 26's), granite's train shape, llava's prefill (G=7), and
+# the masking cases: a window, q_offset with a ragged Sk, cross-attention
+BF16_FLASH_CASES = [
+    (4, 256, 256, 12, 12, 64, False, 0, 0),
+    (1, 128, 128, 32, 4, 128, True, 0, 0),
+    (8, 128, 128, 16, 8, 64, True, 0, 0),
+    (1, 3008, 3008, 56, 8, 128, True, 0, 0),
+    (2, 100, 100, 8, 2, 32, True, 16, 0),
+    (2, 17, 40, 4, 4, 16, True, 0, 23),
+    (1, 5, 300, 8, 1, 128, False, 0, 0),
+]
+# (B, S, H, KH, D, lengths): the launcher's decode, phase 26's cache, B=8
+# over 4096 rows with ragged lengths, granite's heads, llava's G=7,
+# deepseek's G=8, splits over head groups, D=16 and 32
+BF16_DECODE_CASES = [
+    (1, 24, 32, 4, 128, [9]),
+    (1, 24, 32, 4, 128, [0]),
+    (1, 160, 32, 4, 128, [160]),
+    (8, 4096, 32, 4, 128, [0, 1, 4096, 4095, 2049, 300, 5000, 64]),
+    (1, 24, 16, 8, 64, [24]),
+    (1, 3024, 56, 8, 128, [3009]),
+    (1, 4096, 64, 8, 128, [4096]),
+    (3, 200, 8, 2, 64, [67, 134, 135]),
+    (2, 33, 4, 1, 16, [33, 5]),
+    (2, 777, 16, 4, 32, [777, 100]),
+]
+# (rows, d, offset of x in elements): yi-6b's decode row, trainer rows and
+# prefill rows, granite's row, llava's prefill, deepseek's row; a view two
+# bytes into its buffer and d = 100 (single values a load)
+BF16_RMS_CASES = [(1, 4096, 0), (1024, 4096, 0), (8192, 4096, 0),
+                  (128, 4096, 0), (1, 1024, 0), (3008, 7168, 0),
+                  (1, 8192, 0), (3, 4096, 1), (7, 100, 0)]
+# (B, L, Din, N): the training shape, phase 26's Jamba prefill, and the
+# single-value copies (Din and N no multiple of 8)
+BF16_SCAN_CASES = [(8, 128, 8192, 16), (1, 32, 8192, 16), (2, 37, 300, 5),
+                   (2, 40, 100, 16), (2, 16, 128, 8)]
+
+
+def _bf16(t):
+    import torch
+    return t.to(torch.bfloat16)
+
+
+def _allclose_gap(got, want, tol):
+    """max|got - want| in float32, and whether every element is within
+    ``tol * (1 + |want|)``."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return float(diff.max()), bool((diff <= tol * (1 + w.abs())).all())
+
+
+def check_bf16_kernels(gen):
+    """Phase 26(a): each bfloat16 kernel against its plain version on the
+    card, on bfloat16 inputs (decode also with a float32 query over the
+    bfloat16 cache, held at float32's TOL; the scan's final state float32,
+    at SCAN_TOL), a second call bit for bit; rmsnorm refuses a float32
+    scale over bfloat16 rows.  Returns each variant's largest absolute
+    gap."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rmsnorm import load_width
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+    worst = dict.fromkeys(("flash_attention_bf16", "decode_attention_bf16",
+                           "rmsnorm_bf16", "ssm_scan_bf16"), 0.0)
+    for (b, sq, sk, h, kh, d, causal, window, q_offset) in BF16_FLASH_CASES:
+        q = _bf16(_randn(gen, b, sq, h, d))
+        k, v = _bf16(_randn(gen, b, sk, kh, d)), _bf16(_randn(gen, b, sk,
+                                                              kh, d))
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        got = ops.flash_attention(q, k, v, **kw)
+        assert got.dtype == torch.bfloat16
+        err, ok = _allclose_gap(got, ref.attention(q, k, v, **kw),
+                                BF16_KERNEL_TOL)
+        print(f"flash_attention bf16 B={b} Sq={sq} Sk={sk} H={h} KH={kh} "
+              f"D={d} causal={causal} window={window} q_offset={q_offset}: "
+              f"max|kernel - plain| = {err:.3e}")
+        assert ok, "flash_attention bf16 disagrees with its plain version"
+        worst["flash_attention_bf16"] = max(worst["flash_attention_bf16"],
+                                            err)
+    for (b, s, h, kh, d, lengths) in BF16_DECODE_CASES:
+        k, v = _bf16(_randn(gen, b, s, kh, d)), _bf16(_randn(gen, b, s, kh,
+                                                             d))
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        for q in (_bf16(_randn(gen, b, h, d)), _randn(gen, b, h, d)):
+            got = ops.decode_attention(q, k, v, lens)
+            same = torch.equal(got, ops.decode_attention(q, k, v, lens))
+            want = ref.decode_attention(q, k, v, lens)
+            assert got.dtype == q.dtype
+            if q.dtype == torch.bfloat16:
+                err, ok = _allclose_gap(got, want, BF16_KERNEL_TOL)
+            else:
+                err = float((got - want).abs().max())
+                ok = err <= TOL
+            print(f"decode_attention bf16 cache, q {str(q.dtype)[6:]}, B={b} "
+                  f"S={s} H={h} KH={kh} D={d} lengths={lengths}: "
+                  f"max|kernel - plain| = {err:.3e}; a second call "
+                  f"bit-identical: {same}")
+            assert ok, "decode_attention bf16 disagrees with its plain version"
+            assert same, "decode_attention bf16 is not deterministic"
+            worst["decode_attention_bf16"] = max(
+                worst["decode_attention_bf16"], err)
+    for rows, d, offset in BF16_RMS_CASES:
+        x = _bf16(_randn(gen, rows * d + offset))[offset:].view(rows, d)
+        w32 = 1.0 + _randn(gen, d, scale=0.1)
+        w = _bf16(w32)
+        got = ops.rmsnorm(x, w)
+        same = torch.equal(got, ops.rmsnorm(x, w))
+        assert got.dtype == torch.bfloat16
+        err, ok = _allclose_gap(got, ref.rmsnorm(x, w), BF16_KERNEL_TOL)
+        print(f"rmsnorm bf16 rows={rows} d={d} x offset {offset}: "
+              f"{2 * load_width(x, w)}-byte loads; max|kernel - plain| = "
+              f"{err:.3e}; a second call bit-identical: {same}")
+        assert ok, "rmsnorm bf16 disagrees with its plain version"
+        assert same, "rmsnorm bf16 is not deterministic"
+        worst["rmsnorm_bf16"] = max(worst["rmsnorm_bf16"], err)
+        try:
+            ops.rmsnorm(x, w32)
+        except TypeError:
+            pass
+        else:
+            raise AssertionError("rmsnorm took a float32 scale over "
+                                 "bfloat16 rows")
+    for (b, length, din, n) in BF16_SCAN_CASES:
+        ins = scan_inputs(gen, b, length, din, n)
+        for i in (0, 1, 3, 4):                     # u, dt, B, C
+            ins[i] = _bf16(ins[i])
+        y, hf, _ = ssm_scan_cuda(*ins, return_state=True)
+        y2, hf2, _ = ssm_scan_cuda(*ins, return_state=True)
+        same = torch.equal(y, y2) and torch.equal(hf, hf2)
+        wy, wh = ref.ssm_scan(*ins)
+        assert y.dtype == torch.bfloat16 and hf.dtype == torch.float32
+        err, ok = _allclose_gap(y, wy, BF16_SCAN_TOL)
+        eh, rh = _rel(hf, wh)
+        print(f"ssm_scan bf16 B={b} L={length} Din={din} N={n}: y "
+              f"max|kernel - plain| = {err:.3e}, h_final {eh:.3e} (rel "
+              f"{rh:.3e}); a second call bit-identical: {same}")
+        assert ok and rh <= SCAN_TOL, \
+            "ssm_scan bf16 disagrees with its plain version"
+        assert same, "ssm_scan bf16 is not deterministic"
+        worst["ssm_scan_bf16"] = max(worst["ssm_scan_bf16"], err)
+    return worst
+
+
+def _print_bf16_times(what, t):
+    _print_times(what, t)
+    print(f"  the float32 kernel at the same shape in this call: "
+          f"{t['f32_ms']:.7f} ms ({t['f32_ms'] / t['ms']:.2f}x the bfloat16 "
+          f"kernel's time)")
+
+
+def time_flash_bf16(gen, b, sq, sk, h, kh, d, causal, runs=TIMED_RUNS,
+                    reps=10):
+    """flash_attention in bfloat16 beside the float32 kernel on the same
+    values, its plain version and SDPA in bfloat16; the bound counts
+    bfloat16 bytes and the products at the bfloat16 rate."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    q32 = _randn(gen, b, sq, h, d)
+    k32, v32 = _randn(gen, b, sk, kh, d), _randn(gen, b, sk, kh, d)
+    q, k, v = _bf16(q32), _bf16(k32), _bf16(v32)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sk)
+    t_bound, by = bound_ms(2 * 2 * (b * sq * h * d + b * sk * kh * d), 0.0,
+                           pairs, bf16_flops=4 * pairs * d)
+    kw = dict(runs=runs, reps=reps)
+    t = dict(ms=device_ms(lambda: ops.flash_attention(q, k, v,
+                                                      causal=causal), **kw),
+             f32_ms=device_ms(lambda: ops.flash_attention(
+                 q32, k32, v32, causal=causal), **kw),
+             plain_ms=device_ms(lambda: ref.attention(q, k, v,
+                                                      causal=causal), **kw),
+             bound_ms=t_bound, bound_by=by,
+             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=causal, enable_gqa=True), **kw))
+    _print_bf16_times(f"flash_attention bf16 B={b} Sq={sq} Sk={sk} H={h} "
+                      f"KH={kh} D={d} {'causal' if causal else 'non-causal'}",
+                      t)
+    return t
+
+
+def time_decode_bf16(gen, b, s, length, heads=(32, 4, 128), q_bf16=True):
+    """decode_attention over a bfloat16 cache (q bfloat16, or float32 as a
+    float32 model gives it) beside the float32 kernel, the plain version
+    and SDPA on bfloat16 (GQA, boolean length mask); the bound counts the
+    cache rows these lengths read, at 2 bytes, and q and o at q's size."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    h, kh, d = heads
+    q32, k32, v32 = (_randn(gen, b, h, d), _randn(gen, b, s, kh, d),
+                     _randn(gen, b, s, kh, d))
+    q = _bf16(q32) if q_bf16 else q32
+    k, v = _bf16(k32), _bf16(v32)
+    lens = torch.full((b,), length, dtype=torch.int32, device="cuda")
+    qt = _bf16(q)[:, :, None].contiguous()
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+    mask = (torch.arange(s, device="cuda")[None, :] < lens[:, None])
+    mask = mask[:, None, None, :]
+    rows = b * min(length, s)
+    t_bound, by = bound_ms(q.element_size() * 2 * b * h * d
+                           + 2 * 2 * rows * kh * d + 4 * b, 0.0,
+                           bf16_flops=4 * rows * h * d)
+    t = dict(ms=device_ms(lambda: ops.decode_attention(q, k, v, lens)),
+             f32_ms=device_ms(lambda: ops.decode_attention(q32, k32, v32,
+                                                           lens)),
+             plain_ms=device_ms(lambda: ref.decode_attention(q, k, v, lens)),
+             bound_ms=t_bound, bound_by=by,
+             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=mask, enable_gqa=True)))
+    _print_bf16_times(f"decode_attention bf16 cache, q "
+                      f"{'bf16' if q_bf16 else 'float32'}, B={b} S={s} "
+                      f"lengths={length} H={h} KH={kh} D={d}", t)
+    return t
+
+
+def time_rmsnorm_bf16(gen, rows, d):
+    """rmsnorm on bfloat16 rows with a bfloat16 scale beside the float32
+    kernel, the plain version and ``F.rms_norm`` in bfloat16."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    x32 = _randn(gen, rows, d)
+    w32 = 1.0 + _randn(gen, d, scale=0.1)
+    x, w = _bf16(x32), _bf16(w32)
+    t_bound, by = bound_ms(2 * (2 * rows * d + d), 4 * rows * d)
+    t = dict(ms=device_ms(lambda: ops.rmsnorm(x, w)),
+             f32_ms=device_ms(lambda: ops.rmsnorm(x32, w32)),
+             plain_ms=device_ms(lambda: ref.rmsnorm(x, w)),
+             bound_ms=t_bound, bound_by=by,
+             library_ms=device_ms(lambda: F.rms_norm(x, (d,), w, eps=1e-6)))
+    _print_bf16_times(f"rmsnorm bf16 rows={rows} d={d}", t)
+    return t
+
+
+def time_scan_bf16(gen, b, length, din, n):
+    """The forward scan in bfloat16 as the prefill calls it (the final
+    state returned) beside the float32 kernel and the plain loop; no
+    single PyTorch call computes a selective scan."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+    ins32 = scan_inputs(gen, b, length, din, n)
+    ins = [_bf16(t) if i in (0, 1, 3, 4) else t for i, t in enumerate(ins32)]
+    rows, small = b * length * din, b * length * n
+    t_bound, by = bound_ms(2 * (3 * rows + 2 * small)
+                           + 4 * (din * n + din + b * din * n),
+                           rows * (6 * n + 3), rows * n)
+    t = dict(ms=device_ms(lambda: ssm_scan_cuda(*ins, return_state=True)),
+             f32_ms=device_ms(lambda: ssm_scan_cuda(*ins32,
+                                                    return_state=True)),
+             plain_ms=device_ms(lambda: ref.ssm_scan(*ins), runs=5, reps=1,
+                                sleep_cycles=2_000_000),
+             bound_ms=t_bound, bound_by=by, library_ms=None)
+    _print_bf16_times(f"ssm_scan bf16 B={b} L={length} Din={din} N={n} "
+                      "(returning the state)", t)
+    return t
+
+
+def time_bf16_kernels(gen):
+    """Phase 26(a)'s times; returns each variant at phase 26's main-path
+    shape: flash at yi-6b's prefill, decode at B=1 over phase 26's 160-row
+    cache, rmsnorm on one decode row, the scan at the Jamba prefill."""
+    out = {}
+    for case in ((4, 256, 256, 12, 12, 64, False),
+                 (8, 128, 128, 16, 8, 64, True)):
+        time_flash_bf16(gen, *case)
+    time_flash_bf16(gen, 1, 3008, 3008, 56, 8, 128, True, runs=10, reps=2)
+    out["flash_attention_bf16"] = time_flash_bf16(gen, 1, 128, 128, 32, 4,
+                                                  128, True)
+    time_decode_bf16(gen, 1, 24, 24)
+    time_decode_bf16(gen, 1, 24, 24, q_bf16=False)
+    time_decode_bf16(gen, 8, 4096, 4096)
+    time_decode_bf16(gen, 1, 24, 24, heads=(16, 8, 64))
+    time_decode_bf16(gen, 1, 3024, 3009, heads=(56, 8, 128))
+    time_decode_bf16(gen, 1, 4096, 4096, heads=(64, 8, 128))
+    out["decode_attention_bf16"] = time_decode_bf16(gen, 1, 160, 160)
+    for rows, d in ((1024, 4096), (8192, 4096), (1, 1024), (3008, 7168),
+                    (1, 8192)):
+        time_rmsnorm_bf16(gen, rows, d)
+    out["rmsnorm_bf16"] = time_rmsnorm_bf16(gen, 1, 4096)
+    time_scan_bf16(gen, 8, 128, 8192, 16)
+    out["ssm_scan_bf16"] = time_scan_bf16(gen, 1, 32, 8192, 16)
+    return out
+
+
+def yi_bf16(cfg, prompt: int = 128, steps: int = 32):
+    """Phase 26(b): ``cfg`` (yi-6b) whole in bfloat16 on the card: the
+    weights' bytes, a prefill of ``prompt`` tokens and ``steps`` served
+    decode steps through ``make_prefill_step`` / ``make_serve_step`` with
+    the state in bfloat16 (the reference's defaults), every launch exact
+    (``serve_steps``); one decode step counted on the card (its Cost's
+    roofline at the bfloat16 rate is the step's bound) and its device time
+    from a CUDA graph beside it; the peak memory.  Returns each bfloat16
+    kernel's launches over the prefill and the steps."""
+    import torch
+    from repro_torch.distributed import op_cost, roofline
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.lm import init_lm
+    bf = torch.bfloat16
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_lm(cfg, seed=1, device="cuda", dtype=bf)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{cfg.name} whole in bfloat16: {weights / 1e9:.3f} GB of weights "
+          f"({sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+          f"parameters), drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(2, cfg.vocab_size, (1, prompt), generator=gen,
+                         dtype=torch.int32).cuda()
+    out, state, _, served, launches = serve_steps(
+        cfg, model, {"tokens": toks}, steps, f"{cfg.name} whole, bfloat16",
+        state_dtype=bf)
+    peak = torch.cuda.max_memory_allocated() - base
+    tok = torch.full((1,), 7, dtype=torch.int32, device="cuda")
+    with op_cost.count() as counted:
+        make_serve_step(cfg)(model, tok, state)
+    torch.cuda.synchronize()
+    rf = roofline.analyze(counted.cost, num_devices=1, dtype=bf)
+    bound = max(rf.compute_s, rf.memory_s) * 1e3
+    dev_ms, host_ms = time_decode_step(model, state)
+    print(f"decode step (B=1, a {prompt + steps}-row bfloat16 cache): "
+          f"{dev_ms:.4f} ms of device time (CUDA graph), {host_ms:.4f} ms "
+          f"to enqueue, {served:.4f} ms served; its count "
+          f"{counted.cost.bytes / 1e9:.4f} GB, "
+          f"{counted.cost.flops / 1e9:.4f} GFLOP: bound {bound:.4f} ms "
+          f"({rf.dominant}, 3.35 TB/s, 989 TFLOP/s bfloat16), the step at "
+          f"{bound / dev_ms:.4f} of it; peak {peak / 2**30:.3f} GiB above "
+          f"the phase's start")
+    assert dev_ms >= bound, "the step ran below its bound: the count is wrong"
+    assert peak < 80 * 2**30
+    del model, state, out
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches.items() if k.endswith("_bf16")}
+
+
+def jamba_bf16(prompt: int = 32, steps: int = 2):
+    """Phase 26(d): one full-width Jamba period (attention + 7 Mamba, no
+    experts) in bfloat16, prefill and ``steps`` decode steps card vs CPU,
+    the prefill's seven Mamba layers through ``ssm_scan_bf16``.  Returns
+    its launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.lm import init_lm
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_experts=0,
+                              num_layers=8)
+    model = init_lm(cfg, seed=11, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    reset_launches()
+    lm_vs_cpu(cfg, prompt_len=prompt, steps=steps, model=model,
+              state_dtype=torch.bfloat16, tol=BF16_LM_TOL, teacher=True)
+    launched = dict(LAUNCHES)
+    print(f"Jamba period in bfloat16: launches {launched}")
+    assert launched["ssm_scan_bf16"] == 7 and launched["ssm_scan"] == 0, \
+        "the prefill's Mamba layers did not run ssm_scan_bf16"
+    del model
+    torch.cuda.empty_cache()
+    return {"ssm_scan_bf16": launched["ssm_scan_bf16"]}
+
+
+def bf16_counts_and_dryrun():
+    """Phase 26(e): yi-6b's decode step (B=8, a full 4096-row cache) and
+    granite's prefill (B=8, S=128) in bfloat16 counted on the card and on
+    meta (``cost_on_card``), then the dry run's four cells of phase 25 on
+    meta in the default bfloat16, each cell's arguments beside the float32
+    cell's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    bf = torch.bfloat16
+    for arch, kind, b, s in (("yi-6b", "decode", 8, 4096),
+                             ("granite-moe-1b-a400m", "prefill", 8, 128)):
+        cost_on_card(get_config(arch), kind, b, s, dtype=bf)
+        torch.cuda.empty_cache()
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi_pod=False,
+                              opts=dryrun.OPT_LEVELS["baseline"])
+        secs = time.perf_counter() - t0
+        assert rec["status"] == "ok" and rec["dtype"] == "bfloat16", rec
+        rf = rec["roofline"]
+        f32 = dryrun.cell_argument_bytes(arch, shape, multi_pod=False,
+                                         dtype=torch.float32)
+        print(f"dryrun {arch} {shape} single bfloat16 ({secs:.2f} s): "
+              f"{rf['flops_per_device'] / 1e12:.3f} TFLOP, "
+              f"{rf['bytes_per_device'] / 1e9:.3f} GB a device; compute "
+              f"{rf['compute_s'] * 1e3:.2f} ms (989 TFLOP/s), memory "
+              f"{rf['memory_s'] * 1e3:.2f} ms ({rf['dominant']}); arguments "
+              f"{rf['argument_bytes'] / 2**30:.3f} GiB against float32's "
+              f"{f32 / 2**30:.3f} GiB ({rf['argument_bytes'] / f32:.4f}), "
+              f"peak {rf['peak_memory_bytes'] / 2**30:.3f} GiB")
+        assert rf["argument_bytes"] < f32
+
+
+def bf16_phase(gen, yi):
+    """Phase 26, the reference's bfloat16 configuration of the LM: (a)
+    the bfloat16 kernels against their plain versions and timed, (b)
+    yi-6b whole in bfloat16 and two layers card vs CPU, (c) float32
+    yi-6b (two layers) over a bfloat16 state card vs CPU, (d) a Jamba
+    period in bfloat16, (e) the counts and the dry run in bfloat16.
+    Returns (errors, times, launches) of the four variants."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.lm import init_lm
+    t0 = time.perf_counter()
+    errs = check_bf16_kernels(gen)
+    times = time_bf16_kernels(gen)
+    launches = yi_bf16(yi)
+    pair = dataclasses.replace(yi, num_layers=2)
+    lm_vs_cpu(pair, model=init_lm(pair, seed=11, device="cuda",
+                                  dtype=torch.bfloat16),
+              state_dtype=torch.bfloat16, tol=BF16_LM_TOL, teacher=True)
+    reset_launches()
+    lm_vs_cpu(pair, state_dtype=torch.bfloat16, tol=MIXED_TOL, teacher=True)
+    print(f"float32 {pair.name} over a bfloat16 state: launches "
+          f"{dict(LAUNCHES)}")
+    assert LAUNCHES["decode_attention_bf16"] == 4 * 2 \
+        and LAUNCHES["decode_attention"] == 0, \
+        "the float32 model's decode over a bfloat16 cache missed its kernel"
+    torch.cuda.empty_cache()
+    launches.update(jamba_bf16())
+    bf16_counts_and_dryrun()
+    print(f"phase 26 took {time.perf_counter() - t0:.1f} s")
+    return errs, times, launches
 
 
 def print_occupancy(lib):
@@ -4576,6 +5123,7 @@ def main(argv) -> int:
     if argv:
         print("usage: chip_smoke.py [--kernel-times TREE]", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     phase("1. card")
     card = card_info()
     import torch
@@ -4791,6 +5339,16 @@ def main(argv) -> int:
           "KV-pool migration at yi-6b's geometry")
     count_phase()
 
+    phase("26. the reference's bfloat16 configuration of the LM: the "
+          "bfloat16 kernels vs their plain versions and timed; yi-6b whole "
+          "in bfloat16 (prefill 128 + 32 serve steps) and two layers card "
+          "vs CPU; float32 yi-6b over a bfloat16 state; a Jamba period in "
+          "bfloat16; counts card = meta and the dry run in bfloat16")
+    bf_errs, bf_times, bf_launches = bf16_phase(gen, yi)
+    errs.update(bf_errs)
+    times.update(bf_times)
+    launches.update(bf_launches)
+
     replaces = {
         "adaln_norm": "src/repro/kernels/adaln_norm.py:76",
         "adaln_norm_epilogue": "src/repro/kernels/adaln_norm.py:86",
@@ -4809,10 +5367,18 @@ def main(argv) -> int:
                                         "src/repro/kernels/ref.py:137 "
                                         "with XLA",
     }
+    for name in ("flash_attention", "decode_attention", "rmsnorm",
+                 "ssm_scan"):
+        replaces[name + "_bf16"] = replaces[name] + " (its bfloat16 path)"
     sources = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
                for name in replaces}
     sources["adaln_norm_epilogue"] = sources["adaln_norm"]
     sources["adaln_norm_epilogue_backward"] = sources["adaln_norm_backward"]
+    for name in list(sources):
+        if name.endswith("_bf16"):
+            sources[name] = sources[name[:-len("_bf16")]]
+    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the "
+          "kernels' build included")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": launches[name],

@@ -26,6 +26,12 @@ place.
 
 ``AsyncCheckpointer`` copies the state to host numpy arrays before its
 thread starts, so training goes on while the copy is written.
+
+A bfloat16 tensor is written widened to float32, which holds its value
+exactly and which either package restores into a bfloat16 template
+exactly (the reference writes its own bfloat16 arrays as numpy's 2-byte
+void, which its ``restore`` cannot cast; this module reads them as
+bfloat16 bits).
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.convert import from_numpy, is_bfloat16
 from repro_torch.models.lm import reference_leaf
 
 MANIFEST = "manifest.json"
@@ -82,10 +89,21 @@ def _rebuild(tree, leaf_fn, prefix: str = ""):
 
 def _host(leaf) -> np.ndarray:
     """A host numpy copy of a tensor (never a view of a parameter that the
-    next step updates in place); other leaves as numpy arrays."""
+    next step updates in place; bfloat16 widened to float32); other
+    leaves as numpy arrays."""
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return leaf.detach().to("cpu", torch.float32).numpy()
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.asarray(leaf)
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A host tensor of a checkpoint's array (bfloat16 bits as
+    bfloat16)."""
+    if is_bfloat16(arr):
+        return from_numpy(arr)
+    return torch.from_numpy(np.require(arr, requirements="CW"))
 
 
 def save(ckpt_dir: str, step: int, state, *, host_index: int = 0,
@@ -185,8 +203,7 @@ def restore(ckpt_dir: str, like, *, step: Optional[int] = None
             raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs "
                              f"template {tuple(tmpl.shape)}")
         if isinstance(tmpl, torch.Tensor):
-            return torch.from_numpy(arr).to(device=tmpl.device,
-                                            dtype=tmpl.dtype)
+            return _tensor(arr).to(device=tmpl.device, dtype=tmpl.dtype)
         return arr.astype(tmpl.dtype) if hasattr(tmpl, "dtype") else arr
 
     return _rebuild(like, leaf), step
@@ -217,7 +234,9 @@ def _stacked(named: Dict[str, torch.Tensor], prefix: str
         first = next(iter(by_period.values()))
         stacked = None not in by_period
         shape = ((len(by_period),) if stacked else ()) + tuple(first.shape)
-        arr = np.empty(shape, dtype=torch.empty((), dtype=first.dtype)
+        kind = torch.float32 if first.dtype == torch.bfloat16 \
+            else first.dtype                      # bfloat16 widened
+        arr = np.empty(shape, dtype=torch.empty((), dtype=kind)
                        .numpy().dtype)
         for period, t in by_period.items():
             dst = arr[period] if stacked else arr
@@ -260,7 +279,7 @@ def load_train_state(arrays: Dict[str, np.ndarray], model, opt_state):
             if tuple(value.shape) != tuple(t.shape):
                 raise ValueError(f"shape mismatch for {prefix + key}: ckpt "
                                  f"{value.shape} vs model {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(np.require(value, requirements="CW")))
+            t.copy_(_tensor(value))
     return opt_state._replace(step=int(arrays["[1]/step"]))
 
 

@@ -7,9 +7,11 @@ equals the reference's field for field; ``MambaConfig``, ``XLSTMConfig``,
 ``MeshConfig`` (with ``SINGLE_POD`` / ``MULTI_POD``), ``TrainConfig`` and
 ``ServeConfig`` are copies too, and so is the reference's parameter-count
 formula (``param_count`` / ``active_param_count``, which the dry run's
-MODEL_FLOPS read).  The port is float32 throughout, so the
-reference's ``dtype`` and ``gdm_impl`` fields have no counterpart: the
-dtype is fixed, and the kernel follows the tensor's device.
+MODEL_FLOPS read).  ``dtype`` is carried as the reference's
+(``"bfloat16"``; ``reduced()`` sets ``"float32"``) and, as there, nothing
+reads it: a model's dtype is its constructor's (``LM(dtype=)``), a
+state's its step's (``state_dtype``).  The reference's ``gdm_impl`` has
+no counterpart: the kernel follows the tensor's device.
 """
 from __future__ import annotations
 
@@ -73,6 +75,8 @@ class ModelConfig:
     # multimodal stubs -----------------------------------------------------
     num_patch_tokens: int = 0     # vlm: precomputed patch embeddings prepended
     frontend: str = "none"        # none | audio_frames | image_patches
+    # numerics -------------------------------------------------------------
+    dtype: str = "bfloat16"
     # long context ---------------------------------------------------------
     attention_window: int = 0     # 0 -> full attention; >0 sliding window
     subquadratic: bool = False    # True for ssm/hybrid (eligible for long_500k)
@@ -126,6 +130,7 @@ class ModelConfig:
             head_dim=16,
             d_ff=128 if self.d_ff else 0,
             vocab_size=128,
+            dtype="float32",
         )
         if self.is_moe:
             # generous capacity: tiny batches must not drop tokens

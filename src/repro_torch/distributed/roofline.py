@@ -10,16 +10,20 @@ own seams charged, with the same ring-model factors.
 
 Hardware constants: one NVIDIA H100 80GB HBM3 (SXM5) at its 700 W power
 limit, from NVIDIA's data sheet (dense, no sparsity): 67 TFLOP/s of
-float32 on the CUDA cores (the port's products are float32), 3.35 TB/s
-of HBM, and 450 GB/s a direction of NVLink (900 GB/s both ways).  A card
-set below 700 W runs slower than these.
+float32 on the CUDA cores, 989 TFLOP/s of bfloat16 on the tensor cores
+(the compute term of a cell counted in that dtype), 3.35 TB/s of HBM,
+and 450 GB/s a direction of NVLink (900 GB/s both ways).  A card set
+below 700 W runs slower than these.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
+import torch
+
 PEAK_FLOPS = 67e12           # float32 / card (H100 SXM5, 700 W)
+PEAK_BF16_FLOPS = 989e12     # bfloat16, dense tensor cores / card
 HBM_BW = 3.35e12             # bytes/s / card
 NVLINK_BW = 450e9            # bytes/s / card, one direction
 
@@ -47,19 +51,26 @@ class Roofline:
         return dataclasses.asdict(self)
 
 
+def peak_flops(dtype=torch.float32) -> float:
+    """The card's peak rate for a step computed in ``dtype``: bfloat16 on
+    the tensor cores, float32 on the CUDA cores."""
+    return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FLOPS
+
+
 def analyze(cost, *, num_devices: int, model_flops_global: float = 0.0,
-            argument_bytes: int = 0) -> Roofline:
+            argument_bytes: int = 0, dtype=torch.float32) -> Roofline:
     """The three roofline terms of one device's counted work.
 
     ``cost`` is the busiest mesh position's
     :class:`~repro_torch.distributed.op_cost.Cost`; ``argument_bytes`` the
     device's share of the step's arguments, by the spec rules (what the
-    reference's ``memory_analysis`` reports as arguments).  The peak is
-    the arguments plus the most the step's own allocations held at once
-    (``temp_bytes``); ``output_bytes`` is 0 (outputs are among the step's
-    allocations).  The port has no XLA, so ``xla_cost_analysis`` stays
+    reference's ``memory_analysis`` reports as arguments); ``dtype`` the
+    cell's, which sets the compute term's rate (:func:`peak_flops`).  The
+    peak is the arguments plus the most the step's own allocations held
+    at once (``temp_bytes``); ``output_bytes`` is 0 (outputs are among the
+    step's allocations).  The port has no XLA, so ``xla_cost_analysis`` stays
     empty; ``kernel_detail`` holds the counter's charges by kernel."""
-    compute_s = cost.flops / PEAK_FLOPS
+    compute_s = cost.flops / peak_flops(dtype)
     memory_s = cost.bytes / HBM_BW
     collective_s = cost.coll_bytes / NVLINK_BW
     terms = {"compute": compute_s, "memory": memory_s,
@@ -93,7 +104,8 @@ def kernel_path_memory_estimate(cfg, shape, num_devices: int = 256,
     """Projected per-device HBM bytes of one step on the KERNEL path.
 
     The reference's formula, copied (``memory_s`` at the H100's HBM
-    rate); the port passes ``dtype_bytes=4``, its float32.
+    rate); ``dtype_bytes`` is the cell's element size (2 for bfloat16,
+    the reference's default, 4 for float32).
 
       params read once + activations in/out per layer + KV-cache R/W +
       kernel I/O (q,k,v,o / u,dt,B,C,y) + logits — times the pass factor

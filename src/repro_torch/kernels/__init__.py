@@ -4,7 +4,8 @@
 process: a wrapper adds one where it launches its kernel and nowhere else,
 so a run can show that the main path went through the kernels (a wrapper
 that makes two launches, as the backward kernels of the scan and of adaLN
-do, counts one).
+do, counts one).  A kernel's bfloat16 variant counts, and is charged,
+under its own name (``rmsnorm_bf16``: :func:`variant`).
 
 A cost counter (:func:`repro_torch.distributed.op_cost.count`) sees each
 kernel as one unit, whichever device implements it.  Every wrapper
@@ -27,7 +28,18 @@ import torch
 LAUNCHES = {"adaln_norm": 0, "adaln_norm_epilogue": 0, "flash_attention": 0,
             "decode_attention": 0, "rmsnorm": 0, "ssm_scan": 0,
             "ssm_scan_backward": 0, "adaln_norm_backward": 0,
-            "adaln_norm_epilogue_backward": 0}
+            "adaln_norm_epilogue_backward": 0,
+            "flash_attention_bf16": 0, "decode_attention_bf16": 0,
+            "rmsnorm_bf16": 0, "ssm_scan_bf16": 0}
+
+BF16 = torch.bfloat16
+
+
+def variant(name: str, t: torch.Tensor) -> str:
+    """The name a call of kernel ``name`` launches and is charged under:
+    ``name + "_bf16"`` where ``t``, the operand whose dtype picks the
+    variant (x, q, the caches, u), is bfloat16."""
+    return name + "_bf16" if t.dtype == BF16 else name
 
 
 # the cost counters in effect, innermost last
@@ -164,15 +176,20 @@ class _Unlaunched(torch.autograd.Function):
 
 
 def check_operand(name: str, t, device: torch.device, shape=None, *,
-                  contiguous: bool = True) -> None:
-    """Raise unless ``t`` is a float32 tensor on ``device`` of ``shape``
-    (and contiguous, unless the kernel takes a row stride for it)."""
+                  contiguous: bool = True,
+                  dtypes=(torch.float32,)) -> None:
+    """Raise unless ``t`` is a tensor of one of ``dtypes`` (the ones the
+    kernel takes for this operand, given the others) on ``device`` of
+    ``shape`` (and contiguous, unless the kernel takes a row stride for
+    it)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}; the kernel takes float32")
+    if t.dtype not in dtypes:
+        takes = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name}: dtype {t.dtype}; the kernel takes {takes} "
+                        "here")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")

@@ -28,26 +28,28 @@ CLUSTER = 8           # the backward's blocks a cluster (csrc kCluster)
 MAX_BATCH = 65535     # the backward's grid: a batch row a grid row
 
 
-def work(b: int, s: int, d: int, epilogue: bool):
+def work(b: int, s: int, d: int, epilogue: bool, itemsize: int = 4):
     """(flops, bytes) of one call on (B, S, d): 10 flops an element (12
     with the epilogue), x (and residual) read, y (and r) written, the (B,
-    d) modulation rows (and gate) and weight, bias read once, float32."""
+    d) modulation rows (and gate) and weight, bias read once, at
+    ``itemsize`` bytes an element (the kernel takes float32)."""
     rows = b * s * d
     return ((12.0 if epilogue else 10.0) * rows,
-            4.0 * ((4 if epilogue else 2) * rows
-                   + (3 if epilogue else 2) * b * d + 2 * d))
+            float(itemsize * ((4 if epilogue else 2) * rows
+                              + (3 if epilogue else 2) * b * d + 2 * d)))
 
 
-def backward_work(b: int, s: int, d: int, epilogue: bool, with_dr: bool):
+def backward_work(b: int, s: int, d: int, epilogue: bool, with_dr: bool,
+                  itemsize: int = 4):
     """(flops, bytes) of the backward: 20 flops an element (25 with the
     epilogue); x, dy read and dx written, with the epilogue residual read
     and dresidual written and dr read where given; scale (and gate) read
     and their (B, d) gradients written; weight, bias read and their
-    gradients written."""
+    gradients written; ``itemsize`` bytes an element."""
     rows = b * s * d
     return ((25.0 if epilogue else 20.0) * rows,
-            4.0 * ((3 + 2 * epilogue + with_dr) * rows
-                   + (5 if epilogue else 3) * b * d + 4 * d))
+            float(itemsize * ((3 + 2 * epilogue + with_dr) * rows
+                              + (5 if epilogue else 3) * b * d + 4 * d)))
 
 
 def load_width(x, shift, scale, weight, bias, gate=None, residual=None):

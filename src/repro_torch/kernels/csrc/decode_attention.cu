@@ -1,5 +1,5 @@
 // Single-token decode attention against a KV cache for Hopper (sm_90a),
-// float32:
+// float32, or a bfloat16 cache with a float32 or bfloat16 query:
 //
 //   o[b, h] = softmax_j(scale * q[b, h] . k[b, j, h / G]) @ v[b, :, h / G]
 //
@@ -10,7 +10,10 @@
 // gets the uniform average of its S values; lengths >= S attend to all S.
 //
 // Replaces: src/repro/kernels/decode_attention.py :: decode_attention_pallas
-//   (_decode_kernel).
+//   (_decode_kernel), which casts q, k and v to float32 and writes q's
+//   dtype: the bfloat16 variant reads the cache as bfloat16 (the reference's
+//   default cache dtype) and q as the model's dtype, bfloat16 or, where
+//   float32 parameters write a bfloat16 cache, float32.
 //
 // Bound: bytes.  Every cache row is read once and used for G dot products
 // and G axpys of length D: 4 * G flops per 8 bytes of k and v, far below
@@ -62,10 +65,20 @@
 //   one (slower at B = 8, S = 4096).
 // - Online softmax in float32, masked scores at -1e30, keys past the end
 //   at -inf (weight 0), l clamped at 1e-30, as in the TPU kernel.
+// - bfloat16: the same kernel over the cache's element type.  Its tiles
+//   come through the same cp.async ring at half the bytes (K rows D + 8
+//   values apart, so every row still starts on 16 bytes), and every value
+//   is widened to float32 as it is read: q once, into shared memory, K and
+//   V four at a time (8 bytes) in place of a float4.  Scores, max, sum and
+//   the P V accumulator stay float32 (so do the splits' partials); the
+//   output is rounded once to q's dtype.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kWarp = 32;
 constexpr int kTile = 32;          // keys per tile: one per lane
@@ -76,22 +89,57 @@ constexpr int kMaxHpw = 2;         // query heads a warp takes
 constexpr int kCombineThreads = 128;
 constexpr float kMasked = -1e30f;
 
-template <int D>
+// shared memory of a block: q and p in float32 (kHead floats), then the
+// ring's stages of K and V tiles in the cache's type T
+template <int D, typename T>
 struct Smem {
-  static constexpr int LDK = D + 4;              // K row stride, floats
-  static constexpr int LDV = D;                  // V row stride
-  static constexpr int kQ = kMaxG * D;           // q of the block's heads
-  static constexpr int kP = kTile * kMaxHpw;     // a warp's p, [key][head]
+  static constexpr int LDK = D + 16 / sizeof(T);  // K row stride, values
+  static constexpr int LDV = D;                   // V row stride
+  static constexpr int kQ = kMaxG * D;            // q of the block's heads
+  static constexpr int kP = kTile * kMaxHpw;      // a warp's p, [key][head]
   static constexpr int kHead = kQ + kMaxWarps * kP;
-  static constexpr int kStage = kTile * (LDK + LDV);
+  static constexpr int kStage = kTile * (LDK + LDV);   // values of T
   // q, p and the ring's stages (one or two tiles)
   static constexpr int bytes(int stages) {
-    return (kHead + stages * kStage) * 4;
+    return kHead * 4 + stages * kStage * (int)sizeof(T);
   }
 };
 
+// four consecutive values as float32: one 16-byte read of floats, one
+// 8-byte read of bfloat16
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(pair[0]);
+  const float2 b = __bfloat1622float2(pair[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// four values from float32, rounded once to the output's type
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<unsigned*>(&a);
+  raw.y = *reinterpret_cast<unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void narrow(float* p, float v) { *p = v; }
+__device__ __forceinline__ void narrow(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // 16 bytes from global to shared, asynchronously
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
                :: "r"(s), "l"(src));
@@ -122,16 +170,16 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // keys [t0, min(t0 + kTile, end)) of one (b, kv head) into a stage; the
 // rows past end are left as they are (the kernel never weighs them)
-template <int D>
-__device__ __forceinline__ void load_tile(float* sk, float* sv,
-                                          const float* kb, const float* vb,
-                                          long long key_stride, int t0,
-                                          int end) {
-  using L = Smem<D>;
+template <int D, typename T>
+__device__ __forceinline__ void load_tile(T* sk, T* sv, const T* kb,
+                                          const T* vb, long long key_stride,
+                                          int t0, int end) {
+  using L = Smem<D, T>;
+  constexpr int E = 16 / sizeof(T);        // values a 16-byte copy moves
   const int rows = min(kTile, end - t0);
-  for (int i = threadIdx.x; i < rows * (D / 4); i += blockDim.x) {
-    const int r = i / (D / 4);
-    const int c = (i % (D / 4)) * 4;
+  for (int i = threadIdx.x; i < rows * (D / E); i += blockDim.x) {
+    const int r = i / (D / E);
+    const int c = (i % (D / E)) * E;
     const long long off = (long long)(t0 + r) * key_stride + c;
     cp_async16(sk + r * L::LDK + c, kb + off);
     cp_async16(sv + r * L::LDV + c, vb + off);
@@ -139,20 +187,23 @@ __device__ __forceinline__ void load_tile(float* sk, float* sv,
 }
 
 // HPW: query heads a warp takes; warps [0, hpb / HPW) compute, and every
-// warp of the block (at least kMinWarps) shares the copies
-template <int D, int HPW>
+// warp of the block (at least kMinWarps) shares the copies.  TQ: q's and
+// o's type, TKV: the caches' (float, or bfloat16 with q in either)
+template <int D, int HPW, typename TQ, typename TKV>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
-decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const int* __restrict__ lengths,
-              float* __restrict__ o, float* __restrict__ ws_acc,
+decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+              const TKV* __restrict__ v, const int* __restrict__ lengths,
+              TQ* __restrict__ o, float* __restrict__ ws_acc,
               float* __restrict__ ws_ml, int seq, int heads, int kv_heads,
               int G, int hpb, int splits, int chunk, int stages,
               float scale) {
-  using L = Smem<D>;
+  using L = Smem<D, TKV>;
   constexpr int DL = D / 4;                // lanes per key in P V
   constexpr int KG = kWarp / DL;           // keys a warp's P V step takes
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;
+  // stage i of the ring: a K tile, then a V tile
+  TKV* ring = reinterpret_cast<TKV*>(smem + L::kHead);
 
   const int pair = blockIdx.x;             // b * KH + kh
   const int b = pair / kv_heads;
@@ -169,14 +220,19 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // the length are read but never weighed
   const int k0 = split * chunk;
   const long long q_off = ((long long)b * heads + (long long)kh * G + g0) * D;
-  for (int i = threadIdx.x; i < hpb * DL; i += blockDim.x)
-    cp_async16(sq + 4 * i, q + q_off + 4 * i);
+  if constexpr (sizeof(TQ) == 4) {
+    for (int i = threadIdx.x; i < hpb * DL; i += blockDim.x)
+      cp_async16(sq + 4 * i, q + q_off + 4 * i);
+  } else {                 // widened as it is stored (the tile loop's
+    for (int i = threadIdx.x; i < hpb * D; i += blockDim.x)   // barrier
+      sq[i] = widen(q[q_off + i]);                  // publishes it)
+  }
   const long long key_stride = (long long)kv_heads * D;
   const long long base = ((long long)b * seq * kv_heads + kh) * D;
-  const float* kb = k + base;
-  const float* vb = v + base;
-  load_tile<D>(smem + L::kHead, smem + L::kHead + kTile * L::LDK, kb, vb,
-               key_stride, k0, min(k0 + chunk, seq));
+  const TKV* kb = k + base;
+  const TKV* vb = v + base;
+  load_tile<D, TKV>(ring, ring + kTile * L::LDK, kb, vb, key_stride, k0,
+                    min(k0 + chunk, seq));
   cp_async_commit();
 
   const int len = lengths[b];
@@ -204,9 +260,9 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // is the same every time); one stage holds a split of one tile
     if (stages == 2) {
       if (t + 1 < ntiles) {
-        float* st = smem + L::kHead + ((t + 1) & 1) * L::kStage;
-        load_tile<D>(st, st + kTile * L::LDK, kb, vb, key_stride,
-                     t0 + kTile, k1);
+        TKV* st = ring + ((t + 1) & 1) * L::kStage;
+        load_tile<D, TKV>(st, st + kTile * L::LDK, kb, vb, key_stride,
+                          t0 + kTile, k1);
       }
       cp_async_commit();
       cp_async_wait<1>();
@@ -214,8 +270,8 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* sk = smem + L::kHead + (t & 1) * L::kStage;
-    const float* sv = sk + kTile * L::LDK;
+    const TKV* sk = ring + (t & 1) * L::kStage;
+    const TKV* sv = sk + kTile * L::LDK;
     const int nk = min(kTile, k1 - t0);
     if (!computes) {
       __syncthreads();
@@ -226,10 +282,10 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float4 dot[HPW];
 #pragma unroll
     for (int h = 0; h < HPW; ++h) dot[h] = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4* kr = reinterpret_cast<const float4*>(sk + lane * L::LDK);
+    const TKV* kr = sk + lane * L::LDK;
 #pragma unroll 8
     for (int c = 0; c < DL; ++c) {
-      const float4 kv = kr[c];
+      const float4 kv = load4(kr + 4 * c);
 #pragma unroll
       for (int h = 0; h < HPW; ++h) {
         const float4 qv = reinterpret_cast<const float4*>(qw + h * D)[c];
@@ -263,10 +319,9 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < nk; j += KG) {
       const int jj = j + kg;
       // at D < 128 a step's last keys may pass nk (kg > 0)
-      const float4 vv =
-          KG == 1 || jj < nk
-              ? *reinterpret_cast<const float4*>(sv + jj * L::LDV + 4 * dl)
-              : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 vv = KG == 1 || jj < nk
+                            ? load4(sv + jj * L::LDV + 4 * dl)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
       float pj[HPW];                         // p_jj of each head: one read
       if constexpr (HPW == 2) {
         const float2 t = *reinterpret_cast<const float2*>(sp + jj * 2);
@@ -303,10 +358,9 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (kg != 0) continue;
     if (splits == 1) {
       const float inv = 1.0f / fmaxf(lsum, 1e-30f);
-      reinterpret_cast<float4*>(
-          o + ((long long)b * heads + (long long)kh * G + g) * D)[dl] =
-          make_float4(acc[h].x * inv, acc[h].y * inv, acc[h].z * inv,
-                      acc[h].w * inv);
+      store4(o + ((long long)b * heads + (long long)kh * G + g) * D + 4 * dl,
+             make_float4(acc[h].x * inv, acc[h].y * inv, acc[h].z * inv,
+                         acc[h].w * inv));
     } else {
       const long long ws = ((long long)pair * splits + split) * G + g;
       reinterpret_cast<float4*>(ws_acc + ws * D)[dl] = acc[h];
@@ -319,9 +373,10 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // Merge the splits of one (b, kv head) in split order.
+template <typename TQ>
 __global__ void __launch_bounds__(kCombineThreads)
 combine_kernel(const float* __restrict__ ws_acc,
-               const float* __restrict__ ws_ml, float* __restrict__ o,
+               const float* __restrict__ ws_ml, TQ* __restrict__ o,
                int heads, int kv_heads, int G, int D, int splits) {
   const int pair = blockIdx.x;
   const int b = pair / kv_heads;
@@ -345,32 +400,32 @@ combine_kernel(const float* __restrict__ ws_acc,
         a += ws_acc[ws * D + d] * w;
       }
     }
-    o[((long long)b * heads + (long long)kh * G + g) * D + d] =
-        a / fmaxf(lsum, 1e-30f);
+    narrow(o + ((long long)b * heads + (long long)kh * G + g) * D + d,
+           a / fmaxf(lsum, 1e-30f));
   }
 }
 
-template <int D, int HPW>
+template <int D, int HPW, typename TQ, typename TKV>
 cudaError_t prepare(int bytes) {
   // above 48 kB, dynamic shared memory must be asked for (per device)
   return bytes <= 48 * 1024
              ? cudaSuccess
-             : cudaFuncSetAttribute(decode_kernel<D, HPW>,
+             : cudaFuncSetAttribute(decode_kernel<D, HPW, TQ, TKV>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     bytes);
 }
 
-template <int D, int HPW>
-cudaError_t launch(dim3 grid, int warps, cudaStream_t s, const float* q,
-                   const float* k, const float* v, const int* lengths,
-                   float* o, float* ws_acc, float* ws_ml, int seq, int heads,
+template <int D, int HPW, typename TQ, typename TKV>
+cudaError_t launch(dim3 grid, int warps, cudaStream_t s, const TQ* q,
+                   const TKV* k, const TKV* v, const int* lengths, TQ* o,
+                   float* ws_acc, float* ws_ml, int seq, int heads,
                    int kv_heads, int G, int hpb, int splits, int chunk,
                    float scale) {
   const int stages = chunk > kTile ? 2 : 1;
-  const int bytes = Smem<D>::bytes(stages);
-  cudaError_t e = prepare<D, HPW>(bytes);
+  const int bytes = Smem<D, TKV>::bytes(stages);
+  cudaError_t e = prepare<D, HPW, TQ, TKV>(bytes);
   if (e != cudaSuccess) return e;
-  decode_kernel<D, HPW><<<grid, warps * kWarp, bytes, s>>>(
+  decode_kernel<D, HPW, TQ, TKV><<<grid, warps * kWarp, bytes, s>>>(
       q, k, v, lengths, o, ws_acc, ws_ml, seq, heads, kv_heads, G, hpb,
       splits, chunk, stages, scale);
   return cudaGetLastError();
@@ -378,22 +433,23 @@ cudaError_t launch(dim3 grid, int warps, cudaStream_t s, const float* q,
 
 template <int D, int HPW>
 int occupancy(int warps, int stages) {
-  const int bytes = Smem<D>::bytes(stages);
-  if (prepare<D, HPW>(bytes) != cudaSuccess) return -1;
+  const int bytes = Smem<D, float>::bytes(stages);
+  if (prepare<D, HPW, float, float>(bytes) != cudaSuccess) return -1;
   int blocks = -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, decode_kernel<D, HPW>, warps * kWarp, bytes) != cudaSuccess)
+          &blocks, decode_kernel<D, HPW, float, float>, warps * kWarp,
+          bytes) != cudaSuccess)
     return -1;
   return blocks;
 }
 
 // the kernel for head width D and hpw heads a warp
-template <int D>
+template <int D, typename TQ, typename TKV>
 cudaError_t launch_d(int hpw, dim3 grid, int warps, cudaStream_t s,
-                     const float* q, const float* k, const float* v,
-                     const int* lengths, float* o, float* ws_acc,
-                     float* ws_ml, int seq, int heads, int kv_heads, int G,
-                     int hpb, int splits, int chunk, float scale) {
+                     const TQ* q, const TKV* k, const TKV* v,
+                     const int* lengths, TQ* o, float* ws_acc, float* ws_ml,
+                     int seq, int heads, int kv_heads, int G, int hpb,
+                     int splits, int chunk, float scale) {
   switch (hpw) {
     case 1: return launch<D, 1>(grid, warps, s, q, k, v, lengths, o, ws_acc,
                                 ws_ml, seq, heads, kv_heads, G, hpb, splits,
@@ -414,22 +470,12 @@ int occupancy_d(int hpw, int warps, int stages) {
   }
 }
 
-}  // namespace
-
-// head_dim in {16, 32, 64, 128}; heads % kv_heads == 0 with at most 8 query
-// heads per kv head; head_groups divides heads / kv_heads; seq >= 1;
-// batch * kv_heads < 2^31, head_groups and splits <= 65535 (the wrapper's
-// decode_grid).  With splits > 1, ws_acc holds batch * kv_heads * splits *
-// (heads / kv_heads) * head_dim floats and ws_ml twice batch * kv_heads *
-// splits * (heads / kv_heads).  All pointers 16-byte aligned.  Returns
-// cudaGetLastError() after the launches.
-extern "C" int decode_attention_f32(const float* q, const float* k,
-                                    const float* v, const int* lengths,
-                                    float* o, float* ws_acc, float* ws_ml,
-                                    int batch, int seq, int heads,
-                                    int kv_heads, int head_dim, int splits,
-                                    int head_groups, float scale,
-                                    void* stream) {
+// both variants' launch: the split kernel, then (splits > 1) the merge
+template <typename TQ, typename TKV>
+int decode(const TQ* q, const TKV* k, const TKV* v, const int* lengths,
+           TQ* o, float* ws_acc, float* ws_ml, int batch, int seq, int heads,
+           int kv_heads, int head_dim, int splits, int head_groups,
+           float scale, void* stream) {
   if (batch <= 0 || seq <= 0 || kv_heads <= 0 || heads <= 0 ||
       heads % kv_heads != 0 || heads / kv_heads > kMaxG || splits < 1 ||
       splits > 65535 || head_groups < 1 ||
@@ -459,9 +505,54 @@ extern "C" int decode_attention_f32(const float* q, const float* k,
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || splits == 1) return (int)err;
-  combine_kernel<<<batch * kv_heads, kCombineThreads, 0, s>>>(
+  combine_kernel<TQ><<<batch * kv_heads, kCombineThreads, 0, s>>>(
       ws_acc, ws_ml, o, heads, kv_heads, G, head_dim, splits);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// head_dim in {16, 32, 64, 128}; heads % kv_heads == 0 with at most 8 query
+// heads per kv head; head_groups divides heads / kv_heads; seq >= 1;
+// batch * kv_heads < 2^31, head_groups and splits <= 65535 (the wrapper's
+// decode_grid).  With splits > 1, ws_acc holds batch * kv_heads * splits *
+// (heads / kv_heads) * head_dim floats and ws_ml twice batch * kv_heads *
+// splits * (heads / kv_heads).  All pointers 16-byte aligned.  Returns
+// cudaGetLastError() after the launches.
+extern "C" int decode_attention_f32(const float* q, const float* k,
+                                    const float* v, const int* lengths,
+                                    float* o, float* ws_acc, float* ws_ml,
+                                    int batch, int seq, int heads,
+                                    int kv_heads, int head_dim, int splits,
+                                    int head_groups, float scale,
+                                    void* stream) {
+  return decode<float, float>(q, k, v, lengths, o, ws_acc, ws_ml, batch, seq,
+                              heads, kv_heads, head_dim, splits, head_groups,
+                              scale, stream);
+}
+
+// The caches bfloat16, q and o bfloat16 (q_bf16 = 1) or float32 (0), the
+// workspaces float32; otherwise as decode_attention_f32 (the caches' rows
+// then need 16-byte alignment, which head_dim >= 16 gives a contiguous
+// cache that starts on 16 bytes).
+extern "C" int decode_attention_bf16(const void* q, const void* k,
+                                     const void* v, const int* lengths,
+                                     void* o, float* ws_acc, float* ws_ml,
+                                     int batch, int seq, int heads,
+                                     int kv_heads, int head_dim, int splits,
+                                     int head_groups, int q_bf16, float scale,
+                                     void* stream) {
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  if (q_bf16)
+    return decode<bf16, bf16>(static_cast<const bf16*>(q), kb, vb, lengths,
+                              static_cast<bf16*>(o), ws_acc, ws_ml, batch,
+                              seq, heads, kv_heads, head_dim, splits,
+                              head_groups, scale, stream);
+  return decode<float, bf16>(static_cast<const float*>(q), kb, vb, lengths,
+                             static_cast<float*>(o), ws_acc, ws_ml, batch,
+                             seq, heads, kv_heads, head_dim, splits,
+                             head_groups, scale, stream);
 }
 
 // Blocks of the kernel for (head_dim, heads a warp takes, warps a block,

@@ -1,5 +1,6 @@
-// FlashAttention-2 style attention for Hopper (sm_90a), float32 in and out,
-// products on the tensor cores at float32 accuracy (3xTF32).
+// FlashAttention-2 style attention for Hopper (sm_90a): float32 in and out
+// with the products on the tensor cores at float32 accuracy (3xTF32), or
+// bfloat16 in and out with bfloat16 products (below).
 //
 //   o[b, i, h] = softmax_j(scale * q[b, i, h] . k[b, j, h / G]) @ v[b, :, h / G]
 //
@@ -64,11 +65,28 @@
 //   masked tile a masked score is -1e30 and a key past Sk is -inf.
 // - Output: each warp stages its 16 rows in its part of the Q buffer and
 //   writes them out with 16-byte coalesced stores.
+// - bfloat16 (the reference's default dtype; its TPU kernel casts each tile
+//   to float32 and writes q's dtype): the same kernel over the element
+//   type, with tiles of half the bytes (rows D + 8 values apart: the
+//   fragments' 4-byte reads land on 32 distinct banks).  S = Q K^T is one
+//   mma.sync m16n8k16 with bfloat16 operands and a float32 accumulator: a
+//   product of two bfloat16 values is exact in float32, so one pass gives
+//   what 3xTF32's three give float32.  The softmax statistics stay
+//   float32.  O = P V rounds P to bfloat16 for the same instruction (the
+//   row sum l is taken from the float32 P): the accumulator of S holds
+//   keys 2t, 2t + 1 (and 2t + 8, 2t + 9 in the next 8-key block), exactly
+//   the A operand's k indices of a 16-key step, so P goes in as it stands;
+//   V's B fragment pairs keys 2t and 2t + 1 of one feature, two 2-byte
+//   reads.  Each key tile's P V again goes into a fresh accumulator.  The
+//   output is rounded once to bfloat16.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -76,15 +94,16 @@ constexpr int kBQ = 16 * kWarps;     // query rows per block
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+// shared memory of a block in values of T (float or bfloat16)
+template <int D, typename T>
 struct Tile {
   static constexpr int BK = D <= 64 ? 64 : 32;   // keys per K/V tile
-  static constexpr int LD = D + 4;               // shared row stride
-  static constexpr int kQFloats = kBQ * LD;
-  static constexpr int kKvFloats = BK * LD;      // one K or V tile
+  static constexpr int LD = D + 16 / sizeof(T);  // shared row stride
+  static constexpr int kQ = kBQ * LD;
+  static constexpr int kKv = BK * LD;            // one K or V tile
   // Q, then a ring of two stages of a K and a V tile
-  static constexpr int kFloats = kQFloats + 2 * 2 * kKvFloats;
-  static constexpr int kBytes = kFloats * 4;
+  static constexpr int kValues = kQ + 2 * 2 * kKv;
+  static constexpr int kBytes = kValues * (int)sizeof(T);
 };
 
 __device__ __forceinline__ uint32_t tf32(float x) {
@@ -123,8 +142,122 @@ __device__ __forceinline__ void mma3_split(float (&c)[4],
   mma(c, ab[0], ab[1], ab[2], ab[3], bb[0], bb[1]);
 }
 
+// c += a b on bfloat16 operands: a (rows g, g+8 by columns 2t, 2t+1 and
+// 2t+8, 2t+9), b (rows 2t, 2t+1 and 2t+8, 2t+9 of column g), two values a
+// register, the lower index in the lower half
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// two consecutive bfloat16 values as one register
+__device__ __forceinline__ uint32_t ld2(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two floats rounded to bfloat16, lo in the lower half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two bfloat16 values from two rows, the first in the lower half
+__device__ __forceinline__ uint32_t pair_bf16(const bf16* lo,
+                                              const bf16* hi) {
+  return (uint32_t)__bfloat16_as_ushort(*lo) |
+         ((uint32_t)__bfloat16_as_ushort(*hi) << 16);
+}
+
+// S (16 rows of the warp x the tile's BK keys) = Q K^T in 3xTF32
+template <int D, int LD, int NS>
+__device__ __forceinline__ void qk_tile(float (&s)[NS][4], const float* qw,
+                                        const float* ks, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ab[4], as[4];
+    split(qw[g * LD + kk * 8 + t], ab[0], as[0]);
+    split(qw[(g + 8) * LD + kk * 8 + t], ab[1], as[1]);
+    split(qw[g * LD + kk * 8 + t + 4], ab[2], as[2]);
+    split(qw[(g + 8) * LD + kk * 8 + t + 4], ab[3], as[3]);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const float* kr = ks + (j * 8 + g) * LD + kk * 8 + t;
+      const float bf[2] = {kr[0], kr[4]};
+      mma3_split(s[j], ab, as, bf);
+    }
+  }
+}
+
+// the same in bfloat16: one m16n8k16 per 8 keys and 16 features
+template <int D, int LD, int NS>
+__device__ __forceinline__ void qk_tile(float (&s)[NS][4], const bf16* qw,
+                                        const bf16* ks, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const bf16* q0 = qw + g * LD + kk * 16 + 2 * t;
+    const bf16* q8 = q0 + 8 * LD;
+    const uint32_t a0 = ld2(q0), a1 = ld2(q8), a2 = ld2(q0 + 8),
+                   a3 = ld2(q8 + 8);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const bf16* kr = ks + (j * 8 + g) * LD + kk * 16 + 2 * t;
+      mma_bf16(s[j], a0, a1, a2, a3, ld2(kr), ld2(kr + 8));
+    }
+  }
+}
+
+// ot = P V for the tile (P the softmax weights in s) in 3xTF32: k index t
+// is key 2t, k index t + 4 is key 2t + 1 of each 8-key block, so S's
+// accumulator is P's operand as it stands
+template <int D, int LD, int NS>
+__device__ __forceinline__ void pv_tile(float (&ot)[D / 8][4],
+                                        const float (&s)[NS][4],
+                                        const float* vs, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    uint32_t ab[4], as[4];
+    split(s[j][0], ab[0], as[0]);     // row g,     key 2t
+    split(s[j][2], ab[1], as[1]);     // row g + 8, key 2t
+    split(s[j][1], ab[2], as[2]);     // row g,     key 2t + 1
+    split(s[j][3], ab[3], as[3]);     // row g + 8, key 2t + 1
+    const float* vr = vs + (j * 8 + 2 * t) * LD + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float bf[2] = {vr[n * 8], vr[LD + n * 8]};
+      mma3_split(ot[n], ab, as, bf);
+    }
+  }
+}
+
+// the same in bfloat16, P rounded: a 16-key step takes two 8-key blocks
+// of S's accumulator (keys 2t, 2t + 1 and 2t + 8, 2t + 9) as its A operand
+template <int D, int LD, int NS>
+__device__ __forceinline__ void pv_tile(float (&ot)[D / 8][4],
+                                        const float (&s)[NS][4],
+                                        const bf16* vs, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NS; j += 2) {
+    const uint32_t a0 = pack_bf16(s[j][0], s[j][1]);          // row g
+    const uint32_t a1 = pack_bf16(s[j][2], s[j][3]);          // row g + 8
+    const uint32_t a2 = pack_bf16(s[j + 1][0], s[j + 1][1]);
+    const uint32_t a3 = pack_bf16(s[j + 1][2], s[j + 1][3]);
+    const bf16* vr = vs + (j * 8 + 2 * t) * LD + g;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const bf16* c = vr + n * 8;
+      mma_bf16(ot[n], a0, a1, a2, a3, pair_bf16(c, c + LD),
+               pair_bf16(c + 8 * LD, c + 9 * LD));
+    }
+  }
+}
+
 // 16 bytes from global to shared, asynchronously; zero-filled unless valid
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
@@ -140,37 +273,39 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N));
 }
 
-// rows [row0, row0 + ROWS) of a (rows, stride) float32 matrix, its first D
-// columns, into shared memory at LD floats a row; rows >= nrows are zero
-template <int ROWS, int D, int LD>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
+// rows [row0, row0 + ROWS) of a (rows, stride) matrix of T, its first D
+// columns, into shared memory at LD values a row; rows >= nrows are zero
+template <int ROWS, int D, int LD, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src,
                                           long long stride, int row0,
                                           int nrows) {
-  constexpr int kChunks = ROWS * D / 4;
+  constexpr int E = 16 / sizeof(T);        // values a 16-byte copy moves
+  constexpr int kChunks = ROWS * D / E;
 #pragma unroll
   for (int i = threadIdx.x; i < kChunks; i += kThreads) {
-    const int r = i / (D / 4);
-    const int c = (i % (D / 4)) * 4;
+    const int r = i / (D / E);
+    const int c = (i % (D / E)) * E;
     const bool valid = row0 + r < nrows;
     cp_async16(dst + r * LD + c,
                src + (valid ? (long long)(row0 + r) * stride + c : 0), valid);
   }
 }
 
-template <int D>
+// T: the element type of q, k, v and o (float or bfloat16)
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int sq,
+flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ o, int sq,
              int sk, int heads, int kv_heads, int causal, int window,
              int q_offset, float scale) {
-  using T = Tile<D>;
-  constexpr int BK = T::BK;
-  constexpr int LD = T::LD;
+  using L = Tile<D, T>;
+  constexpr int BK = L::BK;
+  constexpr int LD = L::LD;
   constexpr int NS = BK / 8;       // 8-key column blocks of S per tile
   constexpr int NO = D / 8;        // 8-feature column blocks of O
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                                  // [kBQ][LD]
-  float* kvs = smem + T::kQFloats;                   // [stage][K, V][BK][LD]
+  T* qs = reinterpret_cast<T*>(smem);                // [kBQ][LD]
+  T* kvs = qs + L::kQ;                               // [stage][K, V][BK][LD]
 
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -181,9 +316,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * kBQ;
   const long long q_stride = (long long)heads * D;
   const long long kv_stride = (long long)kv_heads * D;
-  const float* qb = q + b * sq * q_stride + (long long)h * D;
-  const float* kb = k + b * sk * kv_stride + (long long)kvh * D;
-  const float* vb = v + b * sk * kv_stride + (long long)kvh * D;
+  const T* qb = q + b * sq * q_stride + (long long)h * D;
+  const T* kb = k + b * sk * kv_stride + (long long)kvh * D;
+  const T* vb = v + b * sk * kv_stride + (long long)kvh * D;
 
   // the key tiles some row of this block can see
   const int qlo = q0 + q_offset;
@@ -199,9 +334,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int t_hi = kmax / BK + 1;
 
   auto load_kv = [&](int tile, int stage) {
-    float* ks = kvs + stage * 2 * T::kKvFloats;
+    T* ks = kvs + stage * 2 * L::kKv;
     load_rows<BK, D, LD>(ks, kb, kv_stride, tile * BK, sk);
-    load_rows<BK, D, LD>(ks + T::kKvFloats, vb, kv_stride, tile * BK, sk);
+    load_rows<BK, D, LD>(ks + L::kKv, vb, kv_stride, tile * BK, sk);
   };
   load_rows<kBQ, D, LD>(qs, qb, q_stride, q0, sq);
   load_kv(t_lo, 0);
@@ -211,7 +346,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int row_g = q0 + warp * 16 + g;        // this thread's two rows
   const int pos_g = row_g + q_offset;
   const int pos_g8 = pos_g + 8;
-  const float* qw = qs + warp * 16 * LD;
+  const T* qw = qs + warp * 16 * LD;
 
   float acc[NO][4];
 #pragma unroll
@@ -227,8 +362,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
     cp_async_wait<1>();                 // this tile (and Q) have landed
     __syncthreads();
-    const float* ks = kvs + stage * 2 * T::kKvFloats;
-    const float* vs = ks + T::kKvFloats;
+    const T* ks = kvs + stage * 2 * L::kKv;
+    const T* vs = ks + L::kKv;
     const int k0 = tile * BK;
 
     // S = Q K^T for the warp's 16 rows and the tile's BK keys
@@ -237,20 +372,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      uint32_t ab[4], as[4];
-      split(qw[g * LD + kk * 8 + t], ab[0], as[0]);
-      split(qw[(g + 8) * LD + kk * 8 + t], ab[1], as[1]);
-      split(qw[g * LD + kk * 8 + t + 4], ab[2], as[2]);
-      split(qw[(g + 8) * LD + kk * 8 + t + 4], ab[3], as[3]);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const float* kr = ks + (j * 8 + g) * LD + kk * 8 + t;
-        const float bf[2] = {kr[0], kr[4]};
-        mma3_split(s[j], ab, as, bf);
-      }
-    }
+    qk_tile<D, LD, NS>(s, qw, ks, g, t);
 
     // mask, scale into the log2 domain, row max across the quad
     float tmax_g = kMasked, tmax_g8 = kMasked;
@@ -299,27 +421,13 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       acc[n][3] *= al_g8;
     }
 
-    // O += P V: k index t is key 2t, k index t + 4 is key 2t + 1 of each
-    // 8-key block, so S's accumulator is P's operand as it stands
+    // O += P V, into a fresh accumulator for the tile
     float ot[NO][4];
 #pragma unroll
     for (int n = 0; n < NO; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) ot[n][i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      uint32_t ab[4], as[4];
-      split(s[j][0], ab[0], as[0]);     // row g,     key 2t
-      split(s[j][2], ab[1], as[1]);     // row g + 8, key 2t
-      split(s[j][1], ab[2], as[2]);     // row g,     key 2t + 1
-      split(s[j][3], ab[3], as[3]);     // row g + 8, key 2t + 1
-      const float* vr = vs + (j * 8 + 2 * t) * LD + g;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const float bf[2] = {vr[n * 8], vr[LD + n * 8]};
-        mma3_split(ot[n], ab, as, bf);
-      }
-    }
+    pv_tile<D, LD, NS>(ot, s, vs, g, t);
 #pragma unroll
     for (int n = 0; n < NO; ++n)
 #pragma unroll
@@ -336,65 +444,68 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float inv_g = 1.f / fmaxf(l_g, 1e-30f);
   const float inv_g8 = 1.f / fmaxf(l_g8, 1e-30f);
   // the warp's rows of Q are read for the last time: stage O there
-  float* ow = qs + warp * 16 * LD;
+  T* ow = qs + warp * 16 * LD;
   __syncwarp();
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
-    *reinterpret_cast<float2*>(ow + g * LD + n * 8 + 2 * t) =
-        make_float2(acc[n][0] * inv_g, acc[n][1] * inv_g);
-    *reinterpret_cast<float2*>(ow + (g + 8) * LD + n * 8 + 2 * t) =
-        make_float2(acc[n][2] * inv_g8, acc[n][3] * inv_g8);
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float2*>(ow + g * LD + n * 8 + 2 * t) =
+          make_float2(acc[n][0] * inv_g, acc[n][1] * inv_g);
+      *reinterpret_cast<float2*>(ow + (g + 8) * LD + n * 8 + 2 * t) =
+          make_float2(acc[n][2] * inv_g8, acc[n][3] * inv_g8);
+    } else {
+      *reinterpret_cast<uint32_t*>(ow + g * LD + n * 8 + 2 * t) =
+          pack_bf16(acc[n][0] * inv_g, acc[n][1] * inv_g);
+      *reinterpret_cast<uint32_t*>(ow + (g + 8) * LD + n * 8 + 2 * t) =
+          pack_bf16(acc[n][2] * inv_g8, acc[n][3] * inv_g8);
+    }
   }
   __syncwarp();
+  constexpr int E = 16 / sizeof(T);        // values a 16-byte store moves
   const int rows = min(16, sq - (q0 + warp * 16));
-  for (int i = lane; i < rows * (D / 4); i += 32) {
-    const int r = i / (D / 4);
-    const int c = (i % (D / 4)) * 4;
-    *reinterpret_cast<float4*>(
+  for (int i = lane; i < rows * (D / E); i += 32) {
+    const int r = i / (D / E);
+    const int c = (i % (D / E)) * E;
+    *reinterpret_cast<uint4*>(
         o + (b * sq + q0 + warp * 16 + r) * q_stride + (long long)h * D + c) =
-        *reinterpret_cast<const float4*>(ow + r * LD + c);
+        *reinterpret_cast<const uint4*>(ow + r * LD + c);
   }
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t prepare() {
   // above 48 kB, dynamic shared memory must be asked for (per device)
-  return cudaFuncSetAttribute(flash_kernel<D>,
+  return cudaFuncSetAttribute(flash_kernel<D, T>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              Tile<D>::kBytes);
+                              Tile<D, T>::kBytes);
 }
 
-template <int D>
-cudaError_t launch(dim3 grid, cudaStream_t s, const float* q, const float* k,
-                   const float* v, float* o, int sq, int sk, int heads,
-                   int kv_heads, int causal, int window, int q_offset,
-                   float scale) {
-  cudaError_t e = prepare<D>();
+template <int D, typename T>
+cudaError_t launch(dim3 grid, cudaStream_t s, const T* q, const T* k,
+                   const T* v, T* o, int sq, int sk, int heads, int kv_heads,
+                   int causal, int window, int q_offset, float scale) {
+  cudaError_t e = prepare<D, T>();
   if (e != cudaSuccess) return e;
-  flash_kernel<D><<<grid, kThreads, Tile<D>::kBytes, s>>>(
+  flash_kernel<D, T><<<grid, kThreads, Tile<D, T>::kBytes, s>>>(
       q, k, v, o, sq, sk, heads, kv_heads, causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 int occupancy() {
-  if (prepare<D>() != cudaSuccess) return -1;
+  if (prepare<D, float>() != cudaSuccess) return -1;
   int blocks = -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, flash_kernel<D>, kThreads, Tile<D>::kBytes) != cudaSuccess)
+          &blocks, flash_kernel<D, float>, kThreads,
+          Tile<D, float>::kBytes) != cudaSuccess)
     return -1;
   return blocks;
 }
 
-}  // namespace
-
-// head_dim in {16, 32, 64, 128}; heads % kv_heads == 0; sq, sk >= 1; every
-// pointer 16-byte aligned.  Returns cudaGetLastError() after the launch.
-extern "C" int flash_attention_f32(const float* q, const float* k,
-                                   const float* v, float* o, int batch,
-                                   int sq, int sk, int heads, int kv_heads,
-                                   int head_dim, int causal, int window,
-                                   int q_offset, float scale, void* stream) {
+template <typename T>
+int attention(const T* q, const T* k, const T* v, T* o, int batch, int sq,
+              int sk, int heads, int kv_heads, int head_dim, int causal,
+              int window, int q_offset, float scale, void* stream) {
   if (batch <= 0 || batch > 65535 || sq <= 0 || sk <= 0 || kv_heads <= 0 ||
       heads <= 0 || heads > 65535 || heads % kv_heads != 0)
     return (int)cudaErrorInvalidValue;
@@ -412,6 +523,32 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                                       scale);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// head_dim in {16, 32, 64, 128}; heads % kv_heads == 0; sq, sk >= 1; every
+// pointer 16-byte aligned.  Returns cudaGetLastError() after the launch.
+extern "C" int flash_attention_f32(const float* q, const float* k,
+                                   const float* v, float* o, int batch,
+                                   int sq, int sk, int heads, int kv_heads,
+                                   int head_dim, int causal, int window,
+                                   int q_offset, float scale, void* stream) {
+  return attention<float>(q, k, v, o, batch, sq, sk, heads, kv_heads,
+                          head_dim, causal, window, q_offset, scale, stream);
+}
+
+// q, k, v and o bfloat16; otherwise as flash_attention_f32.
+extern "C" int flash_attention_bf16(const void* q, const void* k,
+                                    const void* v, void* o, int batch,
+                                    int sq, int sk, int heads, int kv_heads,
+                                    int head_dim, int causal, int window,
+                                    int q_offset, float scale, void* stream) {
+  return attention<bf16>(static_cast<const bf16*>(q),
+                         static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                         batch, sq, sk, heads, kv_heads, head_dim, causal,
+                         window, q_offset, scale, stream);
 }
 
 // Blocks of the kernel for head_dim one SM holds at once (-1 on error).

@@ -1,8 +1,13 @@
-// Row RMSNorm for Hopper (sm_90a), float32:
+// Row RMSNorm for Hopper (sm_90a), float32 and bfloat16:
 //
 //   y = x * rsqrt(mean(x^2) + eps) * scale
 //
-// x and y are (rows, d) row-major, scale is (d,).  The order is the
+// x and y are (rows, d) row-major, scale is (d,).  In bfloat16 (the
+// reference's default dtype of the LM) x, scale and y are bfloat16; every
+// value is widened to float32 as it is read,
+// the sum of squares and the products are float32, and y is rounded once
+// to bfloat16 (__float2bfloat16_rn), as the TPU kernel computes in float32
+// and casts its output to x's dtype.  The order is the
 // reference's: x times the inverse root first, then times scale.  The
 // inverse root is rsqrtf (at most 2 ulp from the correctly rounded value;
 // the reference's (var + eps) ** -0.5 is held to it at 1e-5).
@@ -10,7 +15,7 @@
 // Replaces: src/repro/kernels/rmsnorm.py :: rmsnorm_pallas (_rmsnorm_kernel).
 //
 // Bound: bytes.  Three float operations per element against 8 bytes of
-// traffic.  On the LM's decode step a call normalises one row of 4096: the
+// traffic (4 in bfloat16).  On the LM's decode step a call normalises one row of 4096: the
 // bytes take 0.015 us, so what bounds the call is latency (the launch and
 // the memory round trips on its critical path).
 //
@@ -36,8 +41,16 @@
 //   a call has many rows a block takes two, and each thread's scale slice
 //   serves both: an SM holds as many rows as before, and scale is read
 //   half as often.  One row takes one block (no idle second row's sums).
+// - bfloat16 is the same kernel over another element type: a 16-byte
+//   vector holds 8 values, so a row of 4096 is 128 threads of four
+//   vectors, and the bytes a call moves are half of float32's.  Its
+//   16-byte form takes at most 256 threads (a row of 8192), and says so
+//   in its launch bounds: under the 1024-thread bound's 64 registers the
+//   two-row block spilled 716 bytes a thread (ptxas, on an H100) and ran
+//   below the float32 kernel.
 // The wrapper picks the width (load_width), threads and vectors from d
 // (launch_shape) and the rows a block from the row count.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -48,11 +61,26 @@ constexpr int kWarp = 32;
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxWarps = kMaxThreads / kWarp;
 
-// W consecutive floats, moved as one load or store (16 bytes for W = 4)
-template <int W>
-struct __align__(4 * W) Vec {
-  float v[W];
+using bf16 = __nv_bfloat16;
+
+// W consecutive values, moved as one load or store (16 bytes for 4 floats
+// or 8 bfloat16)
+template <typename T, int W>
+struct __align__(sizeof(T) * W) Vec {
+  T v[W];
 };
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 narrow<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -61,13 +89,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// W: floats per vector (1 or 4); VPT: vectors per thread; ROWS: rows a
-// block (1 or 2), which share the thread's slice of scale
-template <int W, int VPT, int ROWS>
-__global__ void __launch_bounds__(kMaxThreads)
-rmsnorm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-               float* __restrict__ y, long long rows, int d, float eps) {
-  using V = Vec<W>;
+// T: x's, scale's and y's type; W: values per vector (1, or 16 bytes: 4
+// floats, 8 bfloat16); VPT: vectors per thread; ROWS: rows a block (1 or
+// 2), which share the thread's slice of scale
+template <typename T, int W>
+constexpr int max_threads() {
+  return sizeof(T) == 2 && W > 1 ? kMaxThreads / 4 : kMaxThreads;
+}
+
+template <typename T, int W, int VPT, int ROWS>
+__global__ void __launch_bounds__(max_threads<T, W>())
+rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+               T* __restrict__ y, long long rows, int d, float eps) {
+  using V = Vec<T, W>;
   __shared__ float red[ROWS][kMaxWarps];
   const long long row0 = (long long)blockIdx.x * ROWS;
   // a block of two rows may hold one (the last of an odd count)
@@ -86,7 +120,8 @@ rmsnorm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
       w[k] = wr[i];
 #pragma unroll
       for (int r = 0; r < ROWS; ++r)
-        if (r < live) v[r][k] = reinterpret_cast<const V*>(x + (row0 + r) * d)[i];
+        if (r < live)
+          v[r][k] = reinterpret_cast<const V*>(x + (row0 + r) * d)[i];
     }
   }
   // squares in vector order, then element order; a warp's sum by shuffles
@@ -98,7 +133,10 @@ rmsnorm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
       for (int k = 0; k < VPT; ++k) {
         if (ok[k]) {
 #pragma unroll
-          for (int e = 0; e < W; ++e) sq += v[r][k].v[e] * v[r][k].v[e];
+          for (int e = 0; e < W; ++e) {
+            const float xe = widen(v[r][k].v[e]);
+            sq += xe * xe;
+          }
         }
       }
       sq = warp_sum(sq);
@@ -119,7 +157,8 @@ rmsnorm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
         if (ok[k]) {
           V o;
 #pragma unroll
-          for (int e = 0; e < W; ++e) o.v[e] = v[r][k].v[e] * inv * w[k].v[e];
+          for (int e = 0; e < W; ++e)
+            o.v[e] = narrow<T>(widen(v[r][k].v[e]) * inv * widen(w[k].v[e]));
           yr[threadIdx.x + k * blockDim.x] = o;
         }
       }
@@ -127,13 +166,18 @@ rmsnorm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+// the kernel for (width, vpt, rows_per_block): width 16 / sizeof(T) with
+// vpt 4, or width 1 with vpt 4 or 8
+template <typename T>
 const void* kernel_for(int width, int vpt, int rows_per_block) {
+  constexpr int kWide = 16 / sizeof(T);
 #define REPRO_RMS_KERNEL(W, V)                                               \
   if (width == W && vpt == V)                                                \
-    return rows_per_block == 1 ? (const void*)rmsnorm_kernel<W, V, 1>        \
-                               : (const void*)rmsnorm_kernel<W, V, 2>;
+    return rows_per_block == 1                                               \
+               ? (const void*)rmsnorm_kernel<T, W, V, 1>                     \
+               : (const void*)rmsnorm_kernel<T, W, V, 2>;
   if (rows_per_block != 1 && rows_per_block != 2) return nullptr;
-  REPRO_RMS_KERNEL(4, 4)
+  REPRO_RMS_KERNEL(kWide, 4)
   REPRO_RMS_KERNEL(1, 4)
   REPRO_RMS_KERNEL(1, 8)
 #undef REPRO_RMS_KERNEL
@@ -142,6 +186,28 @@ const void* kernel_for(int width, int vpt, int rows_per_block) {
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T>
+int launch(const T* x, const T* scale, T* y, long long rows, int d,
+           int width, int threads, int vpt, int rows_per_block, float eps,
+           void* stream) {
+  const void* fn = kernel_for<T>(width, vpt, rows_per_block);
+  const int most = width > 1 ? max_threads<T, (int)(16 / sizeof(T))>()
+                             : max_threads<T, 1>();
+  if (fn == nullptr || rows <= 0 || rows > 0x7fffffffLL || d <= 0 ||
+      d > 8192 || d % width != 0 || threads % kWarp != 0 || threads <= 0 ||
+      threads > most || (long long)threads * vpt < d / width)
+    return (int)cudaErrorInvalidValue;
+  if (width > 1 && !(aligned16(x) && aligned16(scale) && aligned16(y)))
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {&x, &scale, &y, &rows, &d, &eps};
+  const unsigned blocks =
+      (unsigned)((rows + rows_per_block - 1) / rows_per_block);
+  cudaError_t err = cudaLaunchKernel(fn, dim3(blocks), dim3(threads), args,
+                                     0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -155,27 +221,28 @@ extern "C" int rmsnorm_f32(const float* x, const float* scale, float* y,
                            long long rows, int d, int width, int threads,
                            int vpt, int rows_per_block, float eps,
                            void* stream) {
-  const void* fn = kernel_for(width, vpt, rows_per_block);
-  if (fn == nullptr || rows <= 0 || rows > 0x7fffffffLL || d <= 0 ||
-      d > 8192 || d % width != 0 || threads % kWarp != 0 || threads <= 0 ||
-      threads > kMaxThreads || (long long)threads * vpt < d / width)
-    return (int)cudaErrorInvalidValue;
-  if (width == 4 && !(aligned16(x) && aligned16(scale) && aligned16(y)))
-    return (int)cudaErrorInvalidValue;
-  void* args[] = {&x, &scale, &y, &rows, &d, &eps};
-  const unsigned blocks =
-      (unsigned)((rows + rows_per_block - 1) / rows_per_block);
-  cudaError_t err = cudaLaunchKernel(fn, dim3(blocks), dim3(threads), args,
-                                     0, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch<float>(x, scale, y, rows, d, width, threads, vpt,
+                       rows_per_block, eps, stream);
+}
+
+// x, scale and y bfloat16; width 8 (16-byte vectors: d % 8 == 0 and x,
+// scale and y 16-byte aligned) with vpt 4, or width 1 with vpt 4 or 8;
+// threads up to 256 with width 8; otherwise as rmsnorm_f32.
+extern "C" int rmsnorm_bf16(const void* x, const void* scale, void* y,
+                            long long rows, int d, int width, int threads,
+                            int vpt, int rows_per_block, float eps,
+                            void* stream) {
+  return launch<bf16>(static_cast<const bf16*>(x),
+                      static_cast<const bf16*>(scale), static_cast<bf16*>(y),
+                      rows, d, width, threads, vpt, rows_per_block, eps,
+                      stream);
 }
 
 // Blocks of the kernel for (width, vpt, threads, rows_per_block) one SM
 // holds at once (-1 on error).
 extern "C" int rmsnorm_occupancy(int width, int vpt, int threads,
                                  int rows_per_block) {
-  const void* fn = kernel_for(width, vpt, rows_per_block);
+  const void* fn = kernel_for<float>(width, vpt, rows_per_block);
   int blocks = -1;
   if (fn == nullptr || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                            &blocks, fn, threads, 0) != cudaSuccess)

@@ -3,8 +3,11 @@
 
 Replaces ``repro.kernels.decode_attention.decode_attention_pallas``: one
 query token per batch row against a KV cache, attending to positions
-``[0, lengths[b])``, with G = H/KH query heads per kv head read by index.
-Its plain version is :func:`repro_torch.kernels.ref.decode_attention`;
+``[0, lengths[b])``, with G = H/KH query heads per kv head read by index,
+in float32 or, as the reference's kernel takes a bfloat16 cache, with
+bfloat16 caches and q in bfloat16 or float32 (the
+``decode_attention_bf16`` launch; the output in q's dtype).  Its plain
+version is :func:`repro_torch.kernels.ref.decode_attention`;
 :func:`repro_torch.kernels.ops.decode_attention` picks between them by the
 tensor's device.
 """
@@ -14,8 +17,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import (build, check_launch, check_operand,
-                                 launched, refuse_grad)
+from repro_torch.kernels import (BF16, build, check_launch, check_operand,
+                                 launched, refuse_grad, variant)
 
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's compiled head widths
 MAX_GROUP = 8                     # query heads per kv head
@@ -28,14 +31,16 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def work(q_shape, k_shape):
+def work(q_shape, k_shape, q_bytes: int = 4, kv_bytes: int = 4):
     """(flops, bytes) of one call, from the shapes: every cache row
     counted (the lengths are data; the reference's XLA version computes
-    over the whole cache too), 4 D flops per (row, query head), and q,
-    the caches and the lengths read and o written once."""
+    over the whole cache too), 4 D flops per (row, query head), and q
+    (``q_bytes`` an element), the caches (``kv_bytes``) and the int32
+    lengths read and o (q's type) written once."""
     b, h, d = q_shape
     s, kh = k_shape[1], k_shape[2]
-    return 4.0 * b * s * h * d, 4.0 * (2 * b * h * d + 2 * b * s * kh * d + b)
+    return 4.0 * b * s * h * d, float(q_bytes * 2 * b * h * d
+                                      + kv_bytes * 2 * b * s * kh * d + 4 * b)
 
 
 def decode_grid(pairs: int, group: int, seq: int, sms: int):
@@ -56,8 +61,9 @@ def decode_grid(pairs: int, group: int, seq: int, sms: int):
 def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
                           scale: float | None = None):
     """q: (B, H, D); k_cache, v_cache: (B, S, KH, D), H % KH == 0 and
-    H / KH <= 8; float32, contiguous and 16-byte aligned, with lengths (B,)
-    int32, on one CUDA device.  Returns (B, H, D)."""
+    H / KH <= 8; contiguous and 16-byte aligned, with lengths (B,) int32,
+    on one CUDA device; float32, or bfloat16 caches with q bfloat16 or
+    float32.  Returns (B, H, D) in q's dtype."""
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError("decode_attention: q must be (B, H, D) and the "
                          "caches (B, S, KH, D)")
@@ -74,9 +80,13 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
                          f"(at most {MAX_GROUP} per kv head)")
     if s == 0:
         raise ValueError("decode_attention: empty cache")
-    check_operand("q", q, dev, (b, h, d))
-    check_operand("k_cache", k_cache, dev, (b, s, kh, d))
-    check_operand("v_cache", v_cache, dev, (b, s, kh, d))
+    bf = k_cache.dtype == BF16
+    check_operand("k_cache", k_cache, dev, (b, s, kh, d),
+                  dtypes=(torch.float32, BF16))
+    check_operand("v_cache", v_cache, dev, (b, s, kh, d),
+                  dtypes=(k_cache.dtype,))
+    check_operand("q", q, dev, (b, h, d),
+                  dtypes=(BF16, torch.float32) if bf else (torch.float32,))
     if (lengths.device != dev or lengths.dtype != torch.int32
             or tuple(lengths.shape) != (b,) or not lengths.is_contiguous()):
         raise ValueError(f"decode_attention: lengths must be contiguous "
@@ -98,14 +108,20 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
         ws_acc = torch.empty(b * kh * splits * g * d, device=dev)
         ws_ml = torch.empty(b * kh * splits * g * 2, device=dev)
     lib = build.library()
-    with torch.cuda.device(dev):
-        err = lib.decode_attention_f32(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+    name = variant("decode_attention", k_cache)
+    args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), o.data_ptr(),
             ws_acc.data_ptr() if ws_acc is not None else None,
             ws_ml.data_ptr() if ws_ml is not None else None,
-            b, s, h, kh, d, splits, head_groups, float(scale),
-            torch.cuda.current_stream(dev).cuda_stream)
-    check_launch("decode_attention", err)
-    launched("decode_attention", work(q.shape, k_cache.shape))
+            b, s, h, kh, d, splits, head_groups)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if bf:
+            err = lib.decode_attention_bf16(*args, int(q.dtype == BF16),
+                                            float(scale), stream)
+        else:
+            err = lib.decode_attention_f32(*args, float(scale), stream)
+    check_launch(name, err)
+    launched(name, work(q.shape, k_cache.shape, q.element_size(),
+                        k_cache.element_size()))
     return o

@@ -2,7 +2,9 @@
 
 Replaces ``repro.kernels.flash_attention.flash_attention_pallas`` with its
 full semantics: causal and sliding-window masks, ``q_offset``, grouped-query
-attention by index (kv is never repeated) and any key length.  Its plain
+attention by index (kv is never repeated) and any key length, in float32
+or bfloat16 (the ``flash_attention_bf16`` launch: bfloat16 products on the
+tensor cores, float32 softmax, the output rounded once).  Its plain
 version is :func:`repro_torch.kernels.ref.attention`;
 :func:`repro_torch.kernels.ops.flash_attention` picks between them by the
 tensor's device.
@@ -14,7 +16,8 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels import build, check_launch, check_operand, launched
+from repro_torch.kernels import (BF16, build, check_launch, check_operand,
+                                 launched, variant)
 
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's compiled head widths
 
@@ -31,33 +34,37 @@ def unmasked_pairs(sq: int, sk: int, causal: bool, window: int,
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def work(q_shape, k_shape, *, causal: bool, window: int, q_offset: int):
+def work(q_shape, k_shape, *, causal: bool, window: int, q_offset: int,
+         itemsize: int = 4):
     """(flops, bytes) of one call: 4 D flops per unmasked (query, key)
     pair (the two products; the softmax's exponentials not counted), and
-    q, k, v read and o written once, float32."""
+    q, k, v read and o written once, ``itemsize`` bytes an element."""
     b, sq, h, d = q_shape
     sk, kh = k_shape[1], k_shape[2]
     pairs = b * h * unmasked_pairs(sq, sk, causal, window, q_offset)
-    return 4.0 * pairs * d, 4.0 * 2 * (b * sq * h * d + b * sk * kh * d)
+    return 4.0 * pairs * d, float(itemsize * 2 * (b * sq * h * d
+                                                  + b * sk * kh * d))
 
 
 def backward_work(q_shape, k_shape, *, causal: bool, window: int,
-                  q_offset: int):
+                  q_offset: int, itemsize: int = 4):
     """(flops, bytes) of the gradient of q, k and v, FlashAttention-2's
     work: 10 D flops per unmasked pair (P recomputed, then dV, dP, dQ and
-    dK), and q, k, v, o, dO read and dQ, dK, dV written once."""
+    dK), and q, k, v, o, dO read and dQ, dK, dV written once, ``itemsize``
+    bytes an element."""
     b, sq, h, d = q_shape
     sk, kh = k_shape[1], k_shape[2]
     pairs = b * h * unmasked_pairs(sq, sk, causal, window, q_offset)
-    return 10.0 * pairs * d, 4.0 * 4 * (b * sq * h * d + b * sk * kh * d)
+    return 10.0 * pairs * d, float(itemsize * 4 * (b * sq * h * d
+                                                   + b * sk * kh * d))
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          q_offset: int = 0, scale: float | None = None):
-    """q: (B, Sq, H, D); k, v: (B, Sk, KH, D), H % KH == 0; contiguous
-    float32 on one CUDA device, starting on 16 bytes.  Returns (B, Sq, H,
-    D), with the products on the tensor cores in 3xTF32 (float32
-    accuracy)."""
+    """q: (B, Sq, H, D); k, v: (B, Sk, KH, D), H % KH == 0; contiguous,
+    all float32 or all bfloat16, on one CUDA device, starting on 16 bytes.
+    Returns (B, Sq, H, D) in their dtype, with the products on the tensor
+    cores in 3xTF32 (float32 accuracy) or in bfloat16."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be 4-D (B, S, H, D)")
     b, sq, h, d = q.shape
@@ -71,9 +78,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention: {h} heads over {kh} kv heads")
     if sk == 0:
         raise ValueError("flash_attention: no keys")
-    check_operand("q", q, dev, (b, sq, h, d))
-    check_operand("k", k, dev, (b, sk, kh, d))
-    check_operand("v", v, dev, (b, sk, kh, d))
+    check_operand("q", q, dev, (b, sq, h, d), dtypes=(torch.float32, BF16))
+    check_operand("k", k, dev, (b, sk, kh, d), dtypes=(q.dtype,))
+    check_operand("v", v, dev, (b, sk, kh, d), dtypes=(q.dtype,))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must start on 16 bytes "
                          "(the kernel copies 16-byte chunks)")
@@ -82,12 +89,15 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     if q.numel() == 0:
         return o
     lib = build.library()
+    name = variant("flash_attention", q)
+    entry = lib.flash_attention_bf16 if q.dtype == BF16 \
+        else lib.flash_attention_f32
     with torch.cuda.device(dev):
-        err = lib.flash_attention_f32(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             b, sq, sk, h, kh, d, int(causal), int(window), int(q_offset),
             float(scale), torch.cuda.current_stream(dev).cuda_stream)
-    check_launch("flash_attention", err)
-    launched("flash_attention", work(q.shape, k.shape, causal=causal,
-                                     window=window, q_offset=q_offset))
+    check_launch(name, err)
+    launched(name, work(q.shape, k.shape, causal=causal, window=window,
+                        q_offset=q_offset, itemsize=q.element_size()))
     return o

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import charge, opaque
+from repro_torch.kernels import charge, opaque, variant
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rmsnorm as rms
 from repro_torch.kernels.adaln_norm import (adaln_norm_backward_cuda,
@@ -99,8 +99,9 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
         mask = {n: ctx.mask[n] for n in ("causal", "window", "q_offset")}
-        charge("flash_attention_backward",
-               fa.backward_work(q.shape, k.shape, **mask))
+        charge(variant("flash_attention", q) + "_backward",
+               fa.backward_work(q.shape, k.shape, **mask,
+                                itemsize=q.element_size()))
         dq, dk, dv = attention_backward(q, k, v, o, do, **ctx.mask)
         return dq, dk, dv, None, None, None, None
 
@@ -118,7 +119,8 @@ class RmsNormFn(torch.autograd.Function):
     @opaque
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        charge("rmsnorm_backward", rms.backward_work(x.shape))
+        charge(variant("rmsnorm", x) + "_backward",
+               rms.backward_work(x.shape))
         dx, dscale = rmsnorm_backward(x, scale, dy, ctx.eps)
         return dx, dscale, None
 

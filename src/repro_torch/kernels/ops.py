@@ -13,8 +13,14 @@ CUDA tensor goes through the kernel's ``torch.autograd.Function``
 kernels), and the CPU's plain versions are differentiated by autograd
 itself.  ``decode_attention`` has no backward and refuses.
 
-A meta tensor gets its output's shape and runs nothing, with a gradient
-of the right shapes where one is wanted: the cost counter's dry run
+A bfloat16 input takes the kernel's bfloat16 variant on the card (where
+the kernel has one) and, on the CPU, the same plain version, which
+computes in float32 from any input dtype and rounds once to the output's,
+as the reference's Pallas bodies do; either is charged under the
+variant's name (:func:`repro_torch.kernels.variant`).
+
+A meta tensor gets its output's shape and dtype and runs nothing, with a
+gradient of the right shapes where one is wanted: the cost counter's dry run
 (:mod:`repro_torch.launch.dryrun`) takes every kernel this way.  Every op
 is charged to a counter in effect by its kernel's formula, once a call
 (:func:`repro_torch.kernels.opaque`); on the CPU under a counter the
@@ -26,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import (opaque, ref, refuse_grad, unlaunched,
-                                 wants_grad)
+                                 variant, wants_grad)
 from repro_torch.kernels import adaln_norm as _adaln
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
@@ -46,9 +52,10 @@ def _no_path(op: str, device):
                       "meta the shapes)")
 
 
-def _empty(*shapes):
-    """Meta outputs of ``shapes`` (float32)."""
-    out = tuple(torch.empty(s, device="meta") for s in shapes)
+def _empty(*specs):
+    """Meta outputs of ``specs``, each (shape, dtype): the dtype the
+    kernel writes."""
+    out = tuple(torch.empty(s, dtype=dt, device="meta") for s, dt in specs)
     return out if len(out) > 1 else out[0]
 
 
@@ -68,11 +75,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                              q_offset=q_offset, scale=scale)
 
     if q.device.type in ("cpu", "meta"):
-        mask = dict(causal=causal, window=window, q_offset=q_offset)
+        mask = dict(causal=causal, window=window, q_offset=q_offset,
+                    itemsize=q.element_size())
+        name = variant("flash_attention", q)
         return unlaunched(
-            "flash_attention", _flash.work(q.shape, k.shape, **mask),
-            (q, k, v), plain, lambda q, k, v: _empty(q.shape),
-            ("flash_attention_backward",
+            name, _flash.work(q.shape, k.shape, **mask),
+            (q, k, v), plain, lambda q, k, v: _empty((q.shape, q.dtype)),
+            (name + "_backward",
              lambda _: _flash.backward_work(q.shape, k.shape, **mask)))
     raise _no_path("flash_attention", q.device)
 
@@ -106,11 +115,12 @@ def adaln_norm(x, shift, scale, weight, bias, gate=None, residual=None, *,
         name = "adaln_norm_epilogue" if epilogue else "adaln_norm"
         s = x.shape[1]
         return unlaunched(
-            name, _adaln.work(b, s, d, epilogue),
+            name, _adaln.work(b, s, d, epilogue, x.element_size()),
             (x, shift, scale, weight, bias, gate, residual), plain,
-            lambda x, *_: _empty(*[x.shape] * (1 + epilogue)),
+            lambda x, *_: _empty(*[(x.shape, x.dtype)] * (1 + epilogue)),
             (name + "_backward", lambda grads: _adaln.backward_work(
-                b, s, d, epilogue, epilogue and grads[1] is not None)))
+                b, s, d, epilogue, epilogue and grads[1] is not None,
+                x.element_size())))
     raise _no_path("adaln_norm", x.device)
 
 
@@ -129,10 +139,12 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     if q.device.type in ("cpu", "meta"):
         if q.device.type == "meta":
             refuse_grad("decode_attention", q, k_cache, v_cache)
-        return unlaunched("decode_attention",
-                          _decode.work(q.shape, k_cache.shape),
+        return unlaunched(variant("decode_attention", k_cache),
+                          _decode.work(q.shape, k_cache.shape,
+                                       q.element_size(),
+                                       k_cache.element_size()),
                           (q, k_cache, v_cache, lengths), plain,
-                          lambda q, *_: _empty(q.shape))
+                          lambda q, *_: _empty((q.shape, q.dtype)))
     raise _no_path("decode_attention", q.device)
 
 
@@ -148,9 +160,12 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
         return ref.rmsnorm(x, scale, eps=eps)
 
     if x.device.type in ("cpu", "meta"):
-        return unlaunched("rmsnorm", _rms.work(x.shape), (x, scale), plain,
-                          lambda x, _: _empty(x.shape),
-                          ("rmsnorm_backward",
+        name = variant("rmsnorm", x)
+        return unlaunched(name, _rms.work(x.shape, x.element_size(),
+                                          scale.element_size()),
+                          (x, scale), plain,
+                          lambda x, _: _empty((x.shape, x.dtype)),
+                          (name + "_backward",
                            lambda _: _rms.backward_work(x.shape)))
     raise _no_path("rmsnorm", x.device)
 
@@ -187,7 +202,10 @@ def ssm_scan(u, delta, a, bmat, cmat, d, *, return_state: bool = False):
                 "ssm_scan: on the card the final state carries no "
                 "gradient; call the prefill under torch.no_grad()")
         return unlaunched(
-            "ssm_scan", _scan.work(u.shape, n, return_state), args, plain,
-            lambda u, *_: _empty(u.shape, *[(b, din, n)] * return_state),
+            variant("ssm_scan", u),
+            _scan.work(u.shape, n, return_state, u.element_size()), args,
+            plain, lambda u, *_: _empty(
+                (u.shape, u.dtype),
+                *[((b, din, n), torch.float32)] * return_state),
             ("ssm_scan_backward", lambda _: _scan.backward_work(u.shape, n)))
     raise _no_path("ssm_scan", u.device)

@@ -4,9 +4,14 @@ the autograd function that joins them.
 
 The forward replaces ``repro.kernels.ssm_scan.ssm_scan_pallas`` and, unlike
 it, can also return the final state (the reference's prefill takes that
-from its plain scan) and save the chunk-start states its backward needs.
+from its plain scan) and save the chunk-start states its backward needs;
+it runs in float32 or, as the reference's Mamba block calls it in
+bfloat16, with bfloat16 u, delta, B and C and float32 A and D (the
+``ssm_scan_bf16`` launch: y bfloat16, the state and its checkpoints
+float32).
 The backward has no Pallas counterpart: the reference differentiates its
-plain scan with XLA, which a kernel of the port does instead.  The plain
+plain scan with XLA, which a kernel of the port does instead; it takes
+float32 only.  The plain
 version is :func:`repro_torch.kernels.ref.ssm_scan`, differentiated by
 autograd; :func:`repro_torch.kernels.ops.ssm_scan` picks between them by
 the tensor's device.
@@ -15,22 +20,24 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (build, check_launch, check_operand,
-                                 launched, opaque)
+from repro_torch.kernels import (BF16, build, check_launch, check_operand,
+                                 launched, opaque, variant)
 
 MAX_N = 16            # the state a thread keeps in registers
 
 
-def work(u_shape, n: int, return_state: bool = False):
+def work(u_shape, n: int, return_state: bool = False, itemsize: int = 4):
     """(flops, bytes) of the forward on u (B, L, Din) with N states: 6
     flops per (b, t, d, n) and 3 per (b, t, d) (its exponentials not
-    counted); u, dt read, y written, B, C read, A, D read once, and
-    h_final written where returned; float32."""
+    counted); u, dt read, y written, B, C read (``itemsize`` bytes an
+    element), A, D read once, and h_final written where returned
+    (float32)."""
     b, length, din = u_shape
     rows, small = b * length * din, b * length * n
     return (float(rows * (6 * n + 3)),
-            4.0 * (3 * rows + 2 * small + din * n + din
-                   + (b * din * n if return_state else 0)))
+            float(itemsize * (3 * rows + 2 * small)
+                  + 4 * (din * n + din
+                         + (b * din * n if return_state else 0))))
 
 
 def backward_work(u_shape, n: int):
@@ -43,7 +50,7 @@ def backward_work(u_shape, n: int):
             4.0 * (5 * rows + 4 * small + 2 * (din * n + din)))
 
 
-def _check(u, delta, a, bmat, cmat, d):
+def _check(u, delta, a, bmat, cmat, d, dtypes=(torch.float32,)):
     if u.dim() != 3 or a.dim() != 2:
         raise ValueError("ssm_scan: u must be (B, L, Din) and a (Din, N)")
     b, length, din = u.shape
@@ -55,11 +62,12 @@ def _check(u, delta, a, bmat, cmat, d):
         raise ValueError(f"ssm_scan: d_state={n} outside 1..{MAX_N}")
     if b > 65535:
         raise ValueError(f"ssm_scan: batch {b} > 65535")
-    check_operand("u", u, dev, (b, length, din))
-    check_operand("delta", delta, dev, (b, length, din))
+    check_operand("u", u, dev, (b, length, din), dtypes=dtypes)
+    same = (u.dtype,)
+    check_operand("delta", delta, dev, (b, length, din), dtypes=same)
     check_operand("a", a, dev, (din, n))
-    check_operand("bmat", bmat, dev, (b, length, n))
-    check_operand("cmat", cmat, dev, (b, length, n))
+    check_operand("bmat", bmat, dev, (b, length, n), dtypes=same)
+    check_operand("cmat", cmat, dev, (b, length, n), dtypes=same)
     check_operand("d", d, dev, (din,))
     return b, length, din, n, dev
 
@@ -67,11 +75,13 @@ def _check(u, delta, a, bmat, cmat, d):
 def ssm_scan_cuda(u, delta, a, bmat, cmat, d, *, return_state: bool = False,
                   save_states: bool = False):
     """u, delta: (B, L, Din); a: (Din, N); bmat, cmat: (B, L, N); d: (Din,).
-    Contiguous float32 on one CUDA device, N <= 16; the state starts at 0.
-    Returns (y (B, L, Din), h_final (B, Din, N) or None, states or None):
-    h_final with ``return_state``, the chunk-start states the backward
-    reads with ``save_states``."""
-    b, length, din, n, dev = _check(u, delta, a, bmat, cmat, d)
+    Contiguous on one CUDA device, N <= 16; u, delta, bmat and cmat all
+    float32 or all bfloat16, a and d float32; the state starts at 0.
+    Returns (y (B, L, Din) in u's dtype, h_final (B, Din, N) float32 or
+    None, states or None): h_final with ``return_state``, the chunk-start
+    states the backward reads with ``save_states``."""
+    b, length, din, n, dev = _check(u, delta, a, bmat, cmat, d,
+                                    dtypes=(torch.float32, BF16))
     y = torch.empty_like(u)
     h_final = torch.empty(b, din, n, device=dev) if return_state else None
     if length == 0 or din == 0 or b == 0:
@@ -82,16 +92,18 @@ def ssm_scan_cuda(u, delta, a, bmat, cmat, d, *, return_state: bool = False,
     lib = build.library()
     states = (torch.empty(lib.ssm_scan_states_floats(b, length, din, n),
                           device=dev) if save_states else None)
+    name = variant("ssm_scan", u)
+    entry = lib.ssm_scan_bf16 if u.dtype == BF16 else lib.ssm_scan_f32
     with torch.cuda.device(dev):
-        err = lib.ssm_scan_f32(
+        err = entry(
             u.data_ptr(), delta.data_ptr(), a.data_ptr(), bmat.data_ptr(),
             cmat.data_ptr(), d.data_ptr(), y.data_ptr(),
             h_final.data_ptr() if h_final is not None else None,
             states.data_ptr() if states is not None else None,
             b, length, din, n,
             torch.cuda.current_stream(dev).cuda_stream)
-    check_launch("ssm_scan", err)
-    launched("ssm_scan", work(u.shape, n, return_state))
+    check_launch(name, err)
+    launched(name, work(u.shape, n, return_state, u.element_size()))
     return y, h_final, states
 
 

@@ -10,8 +10,9 @@ meta by nature, as the reference's is abstract: for every cell it
      names, and the steps' shard loops tell the counter which mesh
      position runs what);
   2. builds the model on ``torch.device("meta")`` and the cell's inputs
-     as they already are on meta (``launch.steps.input_specs``): nothing
-     allocated;
+     as they already are on meta (``launch.steps.input_specs``), both in
+     the cell's dtype (bfloat16 by default, as the reference's; ``--dtype
+     float32`` for the port's earlier records): nothing allocated;
   3. runs the cell's step (train / prefill / serve) once, with the step
      factory's ``mesh=`` and ``global_batch=``, under
      :func:`repro_torch.distributed.op_cost.count`: every kernel gives its
@@ -19,12 +20,13 @@ meta by nature, as the reference's is abstract: for every cell it
      and bytes; a shape error, a mesh the shard loops cannot split over,
      or an op the meta device cannot run is a FAILURE;
   4. records per device the argument bytes by the spec rules
-     (``param_specs``, the AdamW moments like their parameters,
+     (``param_specs``, the float32 AdamW moments like their parameters,
      ``decode_state_specs``, ``input_specs_shardings``: what the
      reference's ``memory_analysis`` reports as arguments), and the FLOPs,
      bytes, collectives and peak of the busiest mesh position's executed
-     work, with the three roofline terms on the H100, to
-     results/dryrun_torch/<cell>.json.
+     work, with the three roofline terms on the H100 (the compute term
+     at the dtype's rate), to results/dryrun_torch/<cell>.json (a float32
+     cell's name ends in ``__float32``).
 
 The model axis stays rules-only for the dense layers: one data shard
 computes whole dense layers (the all-to-all MoE and the split-K decode
@@ -34,6 +36,7 @@ Megatron split of the dense layers would take off each device.
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --mesh single
   python -m repro_torch.launch.dryrun --all --mesh both
+  python -m repro_torch.launch.dryrun --all --mesh both --dtype float32
   python -m repro_torch.launch.dryrun --all --mesh single --opt-level perf
 """
 from __future__ import annotations
@@ -64,19 +67,24 @@ from repro_torch.optim import adamw
 META = torch.device("meta")
 
 # Perf-pass option sets, as the reference's, with the levers the port has
-# (``loss_chunk``, ``sharded_decode``, ``moe_a2a``, ``microbatch``): the
-# reference's ``seq_shard_carry``, ``fused_position`` and ``remat`` have
-# no counterpart (the port keeps no activation sharding between layers,
-# always inserts a decode row at one position, and runs eagerly), so its
-# "perf-sp" and "perf-fusedpos" levels are not here.
+# (``loss_chunk``, ``fused_position``, ``sharded_decode``, ``moe_a2a``):
+# the reference's ``seq_shard_carry`` and ``remat`` have no counterpart
+# (the port keeps no activation sharding between layers and runs
+# eagerly), so its "perf-sp" level is not here.  As there, "baseline"
+# inserts each decode row at its own position.
 OPT_LEVELS = {
-    "baseline": StepOptions(),
-    "perf": StepOptions(loss_chunk=512, sharded_decode=True),
-    "perf-losschunk": StepOptions(loss_chunk=512),
-    "perf-flashdecode": StepOptions(sharded_decode=True),
-    "perf-moea2a": StepOptions(moe_a2a=True),
-    "perf2": StepOptions(loss_chunk=512, sharded_decode=True, moe_a2a=True),
+    "baseline": StepOptions(fused_position=False),
+    "perf": StepOptions(loss_chunk=512, fused_position=True,
+                        sharded_decode=True),
+    "perf-losschunk": StepOptions(loss_chunk=512, fused_position=False),
+    "perf-fusedpos": StepOptions(fused_position=True),
+    "perf-flashdecode": StepOptions(fused_position=False,
+                                    sharded_decode=True),
+    "perf-moea2a": StepOptions(fused_position=False, moe_a2a=True),
+    "perf2": StepOptions(loss_chunk=512, fused_position=True,
+                         sharded_decode=True, moe_a2a=True),
 }
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _mesh_name(multi_pod: bool) -> str:
@@ -94,13 +102,15 @@ def _shard_bytes(t: torch.Tensor, spec, mesh) -> float:
 
 def argument_bytes(cfg, shape, mesh, model: LM, inputs) -> float:
     """Per-device bytes of the step's arguments by the spec rules: the
-    parameters (and for a train step the AdamW moments, sharded like
+    parameters at their element size (and for a train step the AdamW
+    moments, float32 whatever the parameters' dtype and sharded like
     them; the port's step counter is a host integer) and the inputs."""
     specs = param_specs(model, mesh)
     params = dict(model.named_parameters())
     total = sum(_shard_bytes(p, specs[k], mesh) for k, p in params.items())
     if shape.kind == "train":
-        total *= 3
+        total += 2 * sum(_shard_bytes(p, specs[k], mesh) * 4
+                         / p.element_size() for k, p in params.items())
     if shape.kind in ("train", "prefill"):
         shardings = input_specs_shardings(cfg, shape, mesh)
         return total + sum(_shard_bytes(v, shardings[k].spec, mesh)
@@ -120,8 +130,30 @@ def argument_bytes(cfg, shape, mesh, model: LM, inputs) -> float:
     return total
 
 
+def _cell(arch: str, shape_name: str, multi_pod: bool, dtype):
+    """(cfg, shape, mesh, model, inputs) of a supported cell, on meta."""
+    cfg = get_config(arch)
+    shape = get_shape(shape_name)
+    n = 512 if multi_pod else 256
+    mesh = make_production_mesh(multi_pod=multi_pod, devices=("meta",) * n)
+    model = LM(cfg, device=META, dtype=dtype)
+    inputs = input_specs(cfg, shape, dtype=dtype)
+    if shape.kind == "prefill":
+        inputs.pop("labels", None)
+    return cfg, shape, mesh, model, inputs
+
+
+def cell_argument_bytes(arch: str, shape_name: str, *, multi_pod: bool,
+                        dtype=torch.bfloat16) -> float:
+    """A supported cell's per-device argument bytes in ``dtype`` alone
+    (:func:`argument_bytes`; nothing is counted)."""
+    return argument_bytes(*_cell(arch, shape_name, multi_pod, dtype))
+
+
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
-             opts: StepOptions) -> dict:
+             opts: StepOptions, dtype=torch.bfloat16) -> dict:
+    """One cell's record, its parameters, inputs and decode state in
+    ``dtype`` (the reference's default bfloat16)."""
     cfg = get_config(arch)
     shape = get_shape(shape_name)
     ok, why = cell_supported(cfg, shape)
@@ -131,13 +163,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
                 "status": "skipped", "reason": why}
 
     n = 512 if multi_pod else 256
-    mesh = make_production_mesh(multi_pod=multi_pod, devices=("meta",) * n)
     b = shape.global_batch
     t0 = time.time()
-    model = LM(cfg, device=META)
-    inputs = input_specs(cfg, shape)
-    if shape.kind == "prefill":
-        inputs.pop("labels", None)
+    _, _, mesh, model, inputs = _cell(arch, shape_name, multi_pod, dtype)
     args = argument_bytes(cfg, shape, mesh, model, inputs)
     if shape.kind == "train":
         step = make_train_step(cfg, TrainConfig(), opts=opts, mesh=mesh,
@@ -145,7 +173,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         opt_state = adamw(1e-3)[0](trainable(model))
         call = lambda: step(model, opt_state, inputs)           # noqa: E731
     elif shape.kind == "prefill":
-        step = make_prefill_step(cfg, max_seq=shape.seq_len, mesh=mesh,
+        step = make_prefill_step(cfg, max_seq=shape.seq_len,
+                                 state_dtype=dtype, mesh=mesh,
                                  global_batch=b)
         call = lambda: step(model, inputs)                       # noqa: E731
     else:
@@ -159,12 +188,13 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
 
     rf = analyze(counter.cost, num_devices=n,
                  model_flops_global=model_flops_estimate(cfg, shape),
-                 argument_bytes=args)
+                 argument_bytes=args, dtype=dtype)
     return {
         "arch": arch,
         "shape": shape_name,
         "mesh": _mesh_name(multi_pod),
         "num_devices": n,
+        "dtype": str(dtype).replace("torch.", ""),
         "status": "ok",
         "lower_s": round(t_build, 2),
         "compile_s": round(t_count, 2),
@@ -182,6 +212,7 @@ def main(argv=None) -> None:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--opt-level", choices=sorted(OPT_LEVELS),
                     default="baseline")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16")
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--force", action="store_true", help="recompute existing")
     args = ap.parse_args(argv)
@@ -191,6 +222,8 @@ def main(argv=None) -> None:
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
     opts = OPT_LEVELS[args.opt_level]
+    dtype = DTYPES[args.dtype]
+    suffix = "" if args.dtype == "bfloat16" else f"__{args.dtype}"
 
     os.makedirs(args.out, exist_ok=True)
     failures = 0
@@ -199,7 +232,7 @@ def main(argv=None) -> None:
         for shape_name in shapes:
             for multi in meshes:
                 tag = (f"{arch}__{shape_name}__{_mesh_name(multi)}__"
-                       f"{args.opt_level}")
+                       f"{args.opt_level}{suffix}")
                 path = os.path.join(args.out, tag + ".json")
                 if os.path.exists(path) and not args.force:
                     print(f"[skip-cached] {tag}")
@@ -207,7 +240,7 @@ def main(argv=None) -> None:
                 print(f"[dryrun] {tag} ...", flush=True)
                 try:
                     rec = run_cell(arch, shape_name, multi_pod=multi,
-                                   opts=opts)
+                                   opts=opts, dtype=dtype)
                 except Exception as e:                      # noqa: BLE001
                     rec = {"arch": arch, "shape": shape_name,
                            "mesh": _mesh_name(multi),

@@ -127,7 +127,8 @@ def build_lm_block_fn(seed: int = 0, *, model: Optional[LM] = None,
     def init_state(rng: np.random.Generator) -> Dict:
         token = np.asarray(rng.integers(2, cfg.vocab_size, size=(1,)),
                            np.int32)
-        return {"state": init_decode_state(cfg, 1, max_seq, device=dev),
+        return {"state": init_decode_state(cfg, 1, max_seq,
+                                           dtype=torch.float32, device=dev),
                 "token": torch.from_numpy(token).to(dev),
                 "text": [int(token[0])]}
 

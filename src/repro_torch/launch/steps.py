@@ -13,13 +13,20 @@ as meta-device tensors, never allocated.
 
 ``StepOptions`` keeps the reference's levers that change what a step
 computes: the chunked cross-entropy, gradient accumulation over
-microbatches, int8 error-feedback gradient compression (applied when the
-step is given an error-feedback state, as in the reference), the
-all-to-all MoE dispatch and the split-K decode; the decode step inserts
-into the cache at one position for every row, the reference's default.
-``remat`` and ``impl`` have no counterpart (PyTorch runs eagerly and the
-kernel follows the device), nor has ``seq_shard_carry`` (the port keeps
-no activation sharding between layers).
+microbatches, the decode step's cache insert at one position for every
+row (``fused_position``, the reference's default) or at each row's own,
+int8 error-feedback gradient compression (applied when the step is given
+an error-feedback state, as in the reference), the all-to-all MoE
+dispatch and the split-K decode.  ``remat`` and ``impl`` have no
+counterpart (PyTorch runs eagerly and the kernel follows the device), nor
+has ``seq_shard_carry`` (the port keeps no activation sharding between
+layers).
+
+The dtypes are the reference's: ``input_specs`` gives the stubs and the
+decode state in ``dtype`` and ``make_prefill_step`` builds the state in
+``state_dtype``, bfloat16 by default for both; the model's parameters
+keep the dtype they were made in (``models.lm.LM(dtype=)``), as the
+reference's params do.
 
 Each factory takes ``mesh=`` and ``global_batch=``, as the reference's.
 With both, the batch splits over the mesh's data axes by
@@ -73,17 +80,21 @@ Mark = Optional[Callable[[str], None]]
 class StepOptions:
     loss_chunk: int = 0              # chunked CE (0 = off)
     microbatch: int = 0              # gradient accumulation chunks (0 = off)
+    fused_position: bool = True      # decode cache insert at one position
     grad_compression: bool = False   # int8 error-feedback DP all-reduce
     sharded_decode: bool = False     # split-K flash-decoding over a mesh
     moe_a2a: bool = False            # all-to-all EP dispatch
 
 
-def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                dtype=torch.bfloat16) -> Dict:
     """Stand-ins on the meta device for every model input of the (arch,
     shape) cell: int32 tokens and labels (train; tokens alone for prefill)
-    with the float32 stubs the family takes (``patch_embeds``,
-    ``enc_frames``), or for decode one token, the decode state at
-    ``shape.seq_len`` and the enc-dec encoder's ``memory``."""
+    with the stubs the family takes (``patch_embeds``, ``enc_frames``), or
+    for decode one token, the decode state at ``shape.seq_len`` and the
+    enc-dec encoder's ``memory``; the stubs, the memory and the state's
+    caches and conv tails in ``dtype`` (the reference's default
+    bfloat16)."""
     b, s = shape.global_batch, shape.seq_len
     meta = torch.device("meta")
     if shape.kind in ("train", "prefill"):
@@ -93,16 +104,19 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
                                           device=meta)
         if cfg.num_patch_tokens:
             specs["patch_embeds"] = torch.empty(
-                b, cfg.num_patch_tokens, cfg.d_model, device=meta)
+                b, cfg.num_patch_tokens, cfg.d_model, dtype=dtype,
+                device=meta)
         if cfg.is_encdec:
             specs["enc_frames"] = torch.empty(
-                b, cfg.encoder_seq_len, cfg.d_model, device=meta)
+                b, cfg.encoder_seq_len, cfg.d_model, dtype=dtype,
+                device=meta)
         return specs
     specs = {"token": torch.empty(b, dtype=torch.int32, device=meta),
-             "state": init_decode_state(cfg, b, s, device=meta)}
+             "state": init_decode_state(cfg, b, s, dtype=dtype,
+                                        device=meta)}
     if cfg.is_encdec:
         specs["memory"] = torch.empty(b, cfg.encoder_seq_len, cfg.d_model,
-                                      device=meta)
+                                      dtype=dtype, device=meta)
     return specs
 
 
@@ -266,21 +280,25 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
 
 
 def make_prefill_step(cfg: ModelConfig, *, max_seq: Optional[int] = None,
-                      mesh=None, global_batch: int = 0):
+                      state_dtype=torch.bfloat16, mesh=None,
+                      global_batch: int = 0):
     """Returns ``prefill_step(model, batch) -> {"logits", "state"(,
     "memory")}``: the prompt's prefill without a graph, the logits of its
     last position (B, padded_vocab), the decode state for ``max_seq``
-    positions (the prompt's length by default) and, for an enc-dec model,
-    the encoder's memory.  batch: "tokens" (B, S) with the family's stubs
-    ("patch_embeds", "enc_frames").  On a mesh the data shards' logits,
-    states and memories are gathered on the first shard's device."""
+    positions (the prompt's length by default; its caches and conv tails
+    in ``state_dtype``, the reference's default bfloat16) and, for an
+    enc-dec model, the encoder's memory.  batch: "tokens" (B, S) with the
+    family's stubs ("patch_embeds", "enc_frames").  On a mesh the data
+    shards' logits, states and memories are gathered on the first shard's
+    device."""
 
     @torch.no_grad()
     def prefill_step(model: LM, batch) -> Dict:
         shards = _Shards(model, mesh, global_batch)
         logits, states, mems = prefill_shards(
             shards.models, shards.split(batch),
-            max_seq=max_seq or batch["tokens"].shape[1])
+            max_seq=max_seq or batch["tokens"].shape[1],
+            state_dtype=state_dtype)
         leaves = [_state_leaves(s) for s in states]
         it = iter([_gather(ts, 1) for ts in zip(*leaves)])
         out = {"logits": _gather([lg[:, -1] for lg in logits]),
@@ -300,6 +318,9 @@ def make_serve_step(cfg: ModelConfig, *, opts: StepOptions = StepOptions(),
     lm_decode_step` does), cross-attending to ``memory`` where given.  On
     a mesh each data shard decodes its rows of the state (a view of
     them, or a copy written back on another device);
+    ``opts.fused_position`` inserts every row's new key and value at the
+    first row's position (the reference's default) or, off, each at its
+    own (:func:`~repro_torch.nn.attention.attention_decode`);
     ``opts.sharded_decode`` engages the split-K decode only when the model
     axis does not divide the kv heads, as in the reference (the
     ``decode_attention`` kernel runs otherwise)."""
@@ -322,7 +343,7 @@ def make_serve_step(cfg: ModelConfig, *, opts: StepOptions = StepOptions(),
                             for i, r in enumerate(rows)], states,
             memories=[None if memory is None else shards.to(memory[r], i)
                       for i, r in enumerate(rows)],
-            sharded_decode=sd)
+            fused_position=opts.fused_position, sharded_decode=sd)
         for v, st in zip(views, states):
             for a, b in zip(_state_leaves(v), _state_leaves(st)):
                 if a is not b:          # a copy on another device

@@ -25,6 +25,17 @@ reference's ``(in, out)`` layout.
 
 :func:`dit_to_jax`, :func:`lm_to_jax` and :func:`qnet_to_jax` are the
 inverses, exact.
+
+A bfloat16 leaf (the reference's ``init_lm(dtype=jnp.bfloat16)``; numpy
+holds it in ``ml_dtypes``' 2-byte type, which ``torch.from_numpy``
+refuses) crosses as its bits, through an int16 view, so a bfloat16
+parameter holds the reference's value bit for bit; ``lm_from_jax`` builds
+the model in bfloat16 where the params hold such leaves (their float32
+leaves, Mamba's ``a_log`` and ``d`` and the MoE router, stay float32, as
+the model keeps them).  Going back, a bfloat16 parameter becomes a numpy
+array of that type where numpy knows it (``ml_dtypes`` loaded, as JAX
+does), else float32, which holds its value exactly.  Any other leaf
+crosses as float32.
 """
 from __future__ import annotations
 
@@ -55,6 +66,48 @@ def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...
 _STACKS = (("layers",), ("encoder", "layers"))   # layer stacks, by path
 
 
+def is_bfloat16(arr: np.ndarray) -> bool:
+    """Whether a numpy array holds bfloat16: ``ml_dtypes``' type, or the
+    2-byte void that numpy gives it where that type is not loaded."""
+    return arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V"
+                                            and arr.dtype.itemsize == 2)
+
+
+def _array(leaf) -> np.ndarray:
+    """A leaf as a numpy array: bfloat16 as it is, any other as float32."""
+    arr = np.asarray(leaf)
+    return arr if is_bfloat16(arr) else np.asarray(arr, dtype=np.float32)
+
+
+def from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """A host tensor of ``_array``'s result: bfloat16 from its bits."""
+    if is_bfloat16(arr):
+        bits = np.ascontiguousarray(arr).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, dtype=np.float32))
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of a parameter (bfloat16 as ``is_bfloat16`` reads
+    it, or float32 where numpy lacks that type)."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy().copy()
+    try:
+        kind = np.dtype("bfloat16")
+    except TypeError:
+        return t.float().numpy()
+    return t.view(torch.int16).numpy().copy().view(kind)
+
+
+def _params_dtype(params) -> torch.dtype:
+    """bfloat16 where any leaf of ``params`` is bfloat16, else float32:
+    the dtype an LM holding them is built in."""
+    return torch.bfloat16 if any(is_bfloat16(np.asarray(leaf))
+                                 for _, leaf in _leaves(params)) \
+        else torch.float32
+
+
 def _stack_root(path: Tuple[str, ...]) -> Optional[Tuple[str, ...]]:
     return next((r for r in _STACKS if path[:len(r)] == r), None)
 
@@ -69,7 +122,7 @@ def _fill(model, params: Dict, stacked: Dict[Tuple[str, ...], int]) -> None:
     targets = dict(model.named_parameters())
     filled = set()
     for path, leaf in _leaves(params):
-        arr = np.asarray(leaf, dtype=np.float32)
+        arr = _array(leaf)
         root = _stack_root(path)
         if root is not None:
             n = stacked.get(root, 0)
@@ -88,7 +141,7 @@ def _fill(model, params: Dict, stacked: Dict[Tuple[str, ...], int]) -> None:
             if tuple(p.shape) != value.shape:
                 raise ValueError(f"{name}: shape {value.shape}, the port "
                                  f"expects {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+            p.copy_(from_numpy(value))
             filled.add(name)
     missing = sorted(set(targets) - filled)
     if missing:
@@ -103,7 +156,7 @@ def _to_tree(model, slots: bool) -> Dict:
     stacked: Dict[Tuple[str, ...], list] = {}
     for name, p in model.named_parameters():
         parts = tuple(name.split("."))
-        value = p.detach().cpu().numpy().copy()
+        value = _numpy(p)
         root = _stack_root(parts)
         if root is not None:
             rest = parts[len(root) + 1:]
@@ -135,10 +188,13 @@ def dit_to_jax(model: DiT) -> Dict:
     return _to_tree(model, slots=False)
 
 
-def lm_from_jax(params: Dict, cfg: ModelConfig, *, device=None) -> LM:
+def lm_from_jax(params: Dict, cfg: ModelConfig, *, device=None,
+                dtype=None) -> LM:
     """The port's LM holding the reference's ``params`` (a tuple over
-    pattern slots in ``layers``, each stacked over the periods)."""
-    model = LM(cfg, device=resolve_device(device))
+    pattern slots in ``layers``, each stacked over the periods), built in
+    ``dtype`` (by default the params' own: :func:`_params_dtype`)."""
+    model = LM(cfg, device=resolve_device(device),
+               dtype=dtype or _params_dtype(params))
     _fill(model, params, {("layers",): len(model.layers),
                           ("encoder", "layers"): cfg.encoder_layers})
     return model

@@ -51,8 +51,15 @@ pattern slot, each tensor with a leading period axis: ``{"kv":
 KVCache(k, v, length)}``, ``{"mamba": MambaState(conv, ssm)}``,
 ``{"mlstm": MLSTMState(c, n, m), "conv_tail": ...}`` or ``{"slstm":
 SLSTMState(h, c, n, m)}``, so a request's payload has the reference's
-bytes.  Every state is float32: the launcher and the tests pass float32
-to the reference, whose own default is bfloat16.
+bytes.  As in the reference, the KV caches and the conv tails take the
+state's dtype (``init_decode_state(dtype=)``, ``lm_prefill(state_dtype=)``;
+bfloat16 by default) and the recurrent states (Mamba's ``ssm``, the
+mLSTM's and sLSTM's cells) are float32 whatever it is.  The parameters
+take the model's dtype (``LM(dtype=)``, float32 by default, as the
+reference's ``init_lm``), but for Mamba's ``a_log`` and ``d`` and the MoE
+router, float32 in any model; activations run in the parameters' dtype,
+and every norm, softmax and recurrence reduces in float32 and rounds once,
+as the reference's.
 """
 from __future__ import annotations
 
@@ -111,9 +118,9 @@ def layer_pattern(cfg: ModelConfig, *, decoder: bool = True
     return [LayerSpec("attn", mlp, cross=cfg.is_encdec)]
 
 
-def _norm_module(cfg: ModelConfig, device):
-    return (LayerNorm if cfg.is_encdec else RMSNorm)(cfg.d_model,
-                                                      device=device)
+def _norm_module(cfg: ModelConfig, device, dtype):
+    return (LayerNorm if cfg.is_encdec else RMSNorm)(
+        cfg.d_model, device=device, dtype=dtype)
 
 
 def _norm(cfg: ModelConfig, params, x):
@@ -129,29 +136,32 @@ class Block(nn.Module):
     and ``mlp`` (SwiGLU or GELU) or ``moe`` (experts); no MLP in an xLSTM
     block."""
 
-    def __init__(self, cfg: ModelConfig, spec: LayerSpec, *, device=None):
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
-        self.norm1 = _norm_module(cfg, device)
+        kw = dict(device=device, dtype=dtype)
+        self.norm1 = _norm_module(cfg, device, dtype)
         mixer = {"attn": Attention, "mamba": Mamba, "mlstm": MLSTM,
                  "slstm": SLSTM}[spec.mixer]
-        setattr(self, spec.mixer, mixer(cfg, device=device))
+        setattr(self, spec.mixer, mixer(cfg, **kw))
         if spec.cross:
-            self.cross_norm = _norm_module(cfg, device)
-            self.cross = Attention(cfg, device=device)
+            self.cross_norm = _norm_module(cfg, device, dtype)
+            self.cross = Attention(cfg, **kw)
         if spec.mlp == "none":
             return
-        self.norm2 = _norm_module(cfg, device)
+        self.norm2 = _norm_module(cfg, device, dtype)
         if spec.mlp == "moe":
-            self.moe = MoE(cfg, device=device)
+            self.moe = MoE(cfg, **kw)
         else:
             mlp = GeluMLP if spec.mlp == "gelu" else SwiGLU
             self.mlp = mlp(cfg.d_model, cfg.d_ff, num_layers=cfg.num_layers,
-                           device=device)
+                           **kw)
 
 
-def _stack(cfg: ModelConfig, pattern, periods: int, device):
+def _stack(cfg: ModelConfig, pattern, periods: int, device, dtype):
     return nn.ModuleList(
-        nn.ModuleList(Block(cfg, spec, device=device) for spec in pattern)
+        nn.ModuleList(Block(cfg, spec, device=device, dtype=dtype)
+                      for spec in pattern)
         for _ in range(periods))
 
 
@@ -159,20 +169,26 @@ class Encoder(nn.Module):
     """The enc-dec encoder: ``encoder_layers`` blocks of the encoder
     pattern and a final norm (the reference's ``params["encoder"]``)."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.layers = _stack(cfg, layer_pattern(cfg, decoder=False),
-                             cfg.encoder_layers, device)
-        self.final_norm = _norm_module(cfg, device)
+                             cfg.encoder_layers, device, dtype)
+        self.final_norm = _norm_module(cfg, device, dtype)
 
 
 class LM(nn.Module):
     """Embedding, ``num_layers / period`` periods of blocks, final norm,
     (unless tied) the head, and the family's extras: the ``encoder`` and
-    ``frame_proj`` (audio frames) or ``patch_proj`` (image patches)."""
+    ``frame_proj`` (audio frames) or ``patch_proj`` (image patches).  The
+    parameters in ``dtype`` (the reference's ``init_lm(dtype=)``, float32
+    by default), but for the float32 leaves the reference keeps (Mamba's
+    ``a_log`` and ``d``, the MoE router)."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
+        kw = dict(device=device, dtype=dtype)
         pattern = layer_pattern(cfg)
         if cfg.num_layers % len(pattern):
             raise ValueError(f"{cfg.num_layers} layers do not make whole "
@@ -180,21 +196,21 @@ class LM(nn.Module):
         self.cfg = cfg
         self.pattern = pattern
         vpad = cfg.padded_vocab()
-        self.embed = Embedding(vpad, cfg.d_model, device=device)
-        self.final_norm = _norm_module(cfg, device)
+        self.embed = Embedding(vpad, cfg.d_model, **kw)
+        self.final_norm = _norm_module(cfg, device, dtype)
         self.layers = _stack(cfg, pattern, cfg.num_layers // len(pattern),
-                             device)
+                             device, dtype)
         if cfg.tie_embeddings:
             self.register_module("head", None)
         else:
             self.head = Dense(cfg.d_model, vpad, stddev=cfg.d_model ** -0.5,
-                              device=device)
+                              **kw)
         if cfg.is_encdec:
-            self.encoder = Encoder(cfg, device=device)
+            self.encoder = Encoder(cfg, **kw)
         if cfg.frontend == "image_patches":
-            self.patch_proj = Dense(cfg.d_model, cfg.d_model, device=device)
+            self.patch_proj = Dense(cfg.d_model, cfg.d_model, **kw)
         if cfg.frontend == "audio_frames":
-            self.frame_proj = Dense(cfg.d_model, cfg.d_model, device=device)
+            self.frame_proj = Dense(cfg.d_model, cfg.d_model, **kw)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -219,13 +235,15 @@ def reference_leaf(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
     return parts, None
 
 
-def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> LM:
-    """An LM with weights drawn from ``torch.Generator(device).manual_seed(
-    seed)``.  The draws follow the reference's distributions, not its
-    numbers: weights that must equal the reference's come through
-    :func:`repro_torch.models.convert.lm_from_jax`."""
+def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None,
+            dtype=torch.float32) -> LM:
+    """An LM in ``dtype`` with weights drawn from ``torch.Generator(
+    device).manual_seed(seed)``.  The draws follow the reference's
+    distributions, not its numbers: weights that must equal the
+    reference's come through :func:`repro_torch.models.convert.
+    lm_from_jax`."""
     device = resolve_device(device)
-    model = LM(cfg, device=device)
+    model = LM(cfg, device=device, dtype=dtype)
     model.reset_parameters(torch.Generator(device=device).manual_seed(seed))
     return model
 
@@ -468,11 +486,13 @@ def _stacked(per_period: List[Dict]) -> Dict:
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
-                      device=None) -> Tuple[Dict, ...]:
-    """Stacked (num_periods, ...) float32 decode state, one entry per
-    pattern slot: an empty KV cache (every length 0) for attention, zero
-    conv tail and SSM state for Mamba, the mLSTM's and sLSTM's initial
-    states (stabiliser at ``NEG_INF``) and a zero conv tail."""
+                      dtype=torch.bfloat16, device=None) -> Tuple[Dict, ...]:
+    """Stacked (num_periods, ...) decode state, one entry per pattern
+    slot: an empty KV cache (every length 0) for attention, zero conv tail
+    and SSM state for Mamba, the mLSTM's and sLSTM's initial states
+    (stabiliser at ``NEG_INF``) and a zero conv tail.  The caches and the
+    conv tails in ``dtype`` (the reference's default bfloat16), the
+    recurrent states float32."""
     device = resolve_device(device)
     pattern = layer_pattern(cfg)
     n_periods = cfg.num_layers // len(pattern)
@@ -482,17 +502,18 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
         if spec.mixer == "attn":
             shape = (batch, max_seq, cfg.num_kv_heads, hd)
             return {"kv": KVCache(
-                torch.zeros(shape, device=device),
-                torch.zeros(shape, device=device),
+                torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device),
                 torch.zeros(batch, dtype=torch.int32, device=device))}
         if spec.mixer == "mamba":
-            return {"mamba": mamba_init_state(cfg, batch, device=device)}
+            return {"mamba": mamba_init_state(cfg, batch, dtype=dtype,
+                                              device=device)}
         if spec.mixer == "mlstm":
             xc = cfg.xlstm
             d_in = int(xc.proj_factor * cfg.d_model)
             return {"mlstm": mlstm_init_state(cfg, batch, device=device),
                     "conv_tail": torch.zeros(batch, xc.conv_kernel - 1, d_in,
-                                             device=device)}
+                                             dtype=dtype, device=device)}
         return {"slstm": slstm_init_state(cfg, batch, device=device)}
 
     return tuple(_stacked([one(spec) for _ in range(n_periods)])
@@ -500,23 +521,25 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 
 def _prefill_mixer(spec: LayerSpec, block: Block, h, cfg: ModelConfig,
-                   max_seq: int):
+                   max_seq: int, state_dtype):
     """The full-sequence mixer of one block and the decode state it
-    leaves."""
+    leaves, its cache and conv tail in ``state_dtype``."""
     if spec.mixer == "attn":
-        kv = prefill_kv_cache(block.attn, h, cfg=cfg, max_seq=max_seq)
+        kv = prefill_kv_cache(block.attn, h, cfg=cfg, max_seq=max_seq,
+                              dtype=state_dtype)
         return attention_apply(block.attn, h, cfg=cfg), {"kv": kv}
     if spec.mixer == "mamba":
         h, ms = mamba_apply(block.mamba, h, cfg=cfg, return_state=True)
-        return h, {"mamba": ms}
+        return h, {"mamba": ms._replace(conv=ms.conv.to(state_dtype))}
     if spec.mixer == "mlstm":
         h, mls, tail = mlstm_apply_with_state(block.mlstm, h, cfg=cfg)
-        return h, {"mlstm": mls, "conv_tail": tail}
+        return h, {"mlstm": mls, "conv_tail": tail.to(state_dtype)}
     h, sls = slstm_apply(block.slstm, h, cfg=cfg, return_state=True)
     return h, {"slstm": sls}
 
 
-def prefill_shards(models: List[LM], batches: List[Dict], *, max_seq: int):
+def prefill_shards(models: List[LM], batches: List[Dict], *, max_seq: int,
+                   state_dtype=torch.bfloat16):
     """:func:`lm_prefill` over data shards; returns the shards' logits,
     states and memories."""
     cfg = models[0].cfg
@@ -527,7 +550,7 @@ def prefill_shards(models: List[LM], batches: List[Dict], *, max_seq: int):
                                                _blocks(models, p))):
             for i, (b, x) in enumerate(zip(blocks, xs)):
                 h, st = _prefill_mixer(spec, b, _norm(cfg, b.norm1, x), cfg,
-                                       max_seq)
+                                       max_seq, state_dtype)
                 slots[i][j].append(st)
                 xs[i] = x + h
             xs, _ = _cross_and_mlp(blocks, spec, xs, cfg, mems, False)
@@ -537,18 +560,20 @@ def prefill_shards(models: List[LM], batches: List[Dict], *, max_seq: int):
 
 
 def lm_prefill(model: LM, tokens, *, max_seq: int, patch_embeds=None,
-               enc_frames=None):
+               enc_frames=None, state_dtype=torch.bfloat16):
     """Prompt prefill: the full forward that also builds the decode state.
 
     Returns (logits (B, S, padded_vocab), state, memory) — ``state`` laid
     out as :func:`init_decode_state` with every length S (each Mamba
     slot's conv tail and final scan state, each mLSTM's closed-form final
-    state and conv tail, each sLSTM's last state), and ``memory`` the
-    enc-dec encoder's output (None for another family), which decode
-    steps take for their cross-attention."""
+    state and conv tail, each sLSTM's last state; the caches and conv
+    tails in ``state_dtype``, the reference's default bfloat16), and
+    ``memory`` the enc-dec encoder's output (None for another family),
+    which decode steps take for their cross-attention."""
     logits, states, mems = prefill_shards(
         [model], [dict(tokens=tokens, patch_embeds=patch_embeds,
-                       enc_frames=enc_frames)], max_seq=max_seq)
+                       enc_frames=enc_frames)], max_seq=max_seq,
+        state_dtype=state_dtype)
     return logits[0], states[0], mems[0]
 
 
@@ -578,7 +603,7 @@ def _decode_mixer(spec: LayerSpec, block: Block, h, st: Dict, p: int,
         mls = st["mlstm"]
         h, new, tail = mlstm_decode(
             block.mlstm, h, MLSTMState(*(t[p] for t in mls)), cfg=cfg,
-            conv_tail=st["conv_tail"][p])
+            conv_tail=st["conv_tail"][p].to(h.dtype))
         _write(mls, p, new)
         st["conv_tail"][p] = tail
     else:

@@ -27,7 +27,8 @@ from repro_torch.nn.rope import apply_rope
 
 
 class KVCache(NamedTuple):
-    """Per-layer KV cache: (B, S_max, KH, D) float32 + current length (B,)
+    """Per-layer KV cache: (B, S_max, KH, D) in the state's dtype
+    (bfloat16 by default, as the reference's) + current length (B,)
     int32.  The decode path writes into ``k`` and ``v`` in place."""
     k: torch.Tensor
     v: torch.Tensor
@@ -37,16 +38,18 @@ class KVCache(NamedTuple):
 class Attention(nn.Module):
     """``wq``/``wk``/``wv``/``wo`` as in ``repro.nn.attention.attention_init``."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         d = cfg.d_model
-        self.wq = Dense(d, cfg.q_dim, bias=cfg.qkv_bias, device=device)
-        self.wk = Dense(d, cfg.kv_dim, bias=cfg.qkv_bias, device=device)
-        self.wv = Dense(d, cfg.kv_dim, bias=cfg.qkv_bias, device=device)
+        kw = dict(bias=cfg.qkv_bias, device=device, dtype=dtype)
+        self.wq = Dense(d, cfg.q_dim, **kw)
+        self.wk = Dense(d, cfg.kv_dim, **kw)
+        self.wv = Dense(d, cfg.kv_dim, **kw)
         self.wo = Dense(cfg.q_dim, d,
                         stddev=cfg.q_dim ** -0.5
                         / max(1, 2 * cfg.num_layers) ** 0.5,
-                        device=device)
+                        device=device, dtype=dtype)
 
 
 def _split_heads(x, n_heads, head_dim):
@@ -94,7 +97,11 @@ def attention_decode(params: Attention, x, cache: KVCache, *,
     ``fused_position=False`` writes row b at ``cache.length[b]``, as the
     reference's one-hot blend does for a finite cache: a row whose length
     is outside ``[0, S)`` is left unwritten.  Neither reads the lengths on
-    the host.
+    the host.  The new rows are rounded to the cache's dtype first, as the
+    reference's blend computes in it (``cache * (1 - onehot) + onehot *
+    row``: the kept rows times one, the written row plus zeros, exact in
+    any dtype).  The query stays in the model's dtype: a float32 model
+    over a bfloat16 cache hands the kernel a float32 q.
 
     ``sharded_decode``: (batch_axes, model_axis, mesh) runs the split-K
     decode over ``model_axis`` instead of the ``decode_attention`` kernel,
@@ -155,18 +162,20 @@ def cross_attention_decode(params: Attention, x, memory, *,
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-                  device=None) -> KVCache:
+                  dtype=torch.bfloat16, device=None) -> KVCache:
+    """An empty cache in ``dtype`` (the reference's default bfloat16)."""
     hd = cfg.resolved_head_dim
     shape = (batch, max_seq, cfg.num_kv_heads, hd)
-    return KVCache(k=torch.zeros(shape, device=device),
-                   v=torch.zeros(shape, device=device),
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
                    length=torch.zeros(batch, dtype=torch.int32,
                                       device=device))
 
 
 def prefill_kv_cache(params: Attention, x, *, cfg: ModelConfig,
-                     max_seq: int) -> KVCache:
-    """A cache built from a full prompt x (B, S, d_model), zero-padded to
+                     max_seq: int, dtype=torch.bfloat16) -> KVCache:
+    """A cache built from a full prompt x (B, S, d_model), rounded to
+    ``dtype`` (the reference's default bfloat16) and zero-padded to
     ``max_seq`` positions, with every length S."""
     hd = cfg.resolved_head_dim
     b, s, _ = x.shape
@@ -175,6 +184,6 @@ def prefill_kv_cache(params: Attention, x, *, cfg: ModelConfig,
                    cfg.rope_theta)
     v = _split_heads(dense_apply(params.wv, x), cfg.num_kv_heads, hd)
     pad = (0, 0, 0, 0, 0, max_seq - s)
-    return KVCache(torch.nn.functional.pad(k, pad),
-                   torch.nn.functional.pad(v, pad),
+    return KVCache(torch.nn.functional.pad(k.to(dtype), pad),
+                   torch.nn.functional.pad(v.to(dtype), pad),
                    torch.full((b,), s, dtype=torch.int32, device=x.device))

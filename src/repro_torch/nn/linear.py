@@ -14,8 +14,8 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def _param(*shape, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(*shape, device=device),
+def _param(*shape, device, dtype=torch.float32) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype),
                         requires_grad=False)
 
 
@@ -24,12 +24,13 @@ class Dense(nn.Module):
     optional zero bias ``b``."""
 
     def __init__(self, in_dim: int, out_dim: int, *, bias: bool = False,
-                 stddev: float | None = None, device=None):
+                 stddev: float | None = None, device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.stddev = stddev if stddev is not None else in_dim ** -0.5
-        self.w = _param(in_dim, out_dim, device=device)
+        self.w = _param(in_dim, out_dim, device=device, dtype=dtype)
         if bias:
-            self.b = _param(out_dim, device=device)
+            self.b = _param(out_dim, device=device, dtype=dtype)
         else:
             self.register_parameter("b", None)
 
@@ -50,9 +51,10 @@ def dense_apply(params: Dense, x):
 class Embedding(nn.Module):
     """``table`` (vocab, dim) ~ N(0, 0.02^2)."""
 
-    def __init__(self, vocab: int, dim: int, *, device=None):
+    def __init__(self, vocab: int, dim: int, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
-        self.table = _param(vocab, dim, device=device)
+        self.table = _param(vocab, dim, device=device, dtype=dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

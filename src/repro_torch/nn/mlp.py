@@ -2,6 +2,7 @@
 ``repro.nn.mlp``."""
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -17,12 +18,13 @@ class SwiGLU(nn.Module):
     """``gate`` and ``up`` (d, d_ff), ``down`` (d_ff, d); no biases."""
 
     def __init__(self, d_model: int, d_ff: int, *, num_layers: int = 1,
-                 device=None):
+                 device=None, dtype=torch.float32):
         super().__init__()
-        self.gate = Dense(d_model, d_ff, device=device)
-        self.up = Dense(d_model, d_ff, device=device)
+        self.gate = Dense(d_model, d_ff, device=device, dtype=dtype)
+        self.up = Dense(d_model, d_ff, device=device, dtype=dtype)
         self.down = Dense(d_ff, d_model,
-                          stddev=_down_stddev(d_ff, num_layers), device=device)
+                          stddev=_down_stddev(d_ff, num_layers),
+                          device=device, dtype=dtype)
 
 
 def swiglu_apply(params: SwiGLU, x):
@@ -34,11 +36,12 @@ class GeluMLP(nn.Module):
     """``up`` (d, d_ff) and ``down`` (d_ff, d), both with bias."""
 
     def __init__(self, d_model: int, d_ff: int, *, num_layers: int = 1,
-                 device=None):
+                 device=None, dtype=torch.float32):
         super().__init__()
-        self.up = Dense(d_model, d_ff, bias=True, device=device)
+        self.up = Dense(d_model, d_ff, bias=True, device=device, dtype=dtype)
         self.down = Dense(d_ff, d_model, bias=True,
-                          stddev=_down_stddev(d_ff, num_layers), device=device)
+                          stddev=_down_stddev(d_ff, num_layers),
+                          device=device, dtype=dtype)
 
 
 def gelu_mlp_apply(params: GeluMLP, x):

@@ -37,11 +37,13 @@ from repro_torch.nn.linear import _param
 
 
 class MoE(nn.Module):
-    """``router`` (d, E) float32, ``gate_w`` and ``up_w`` (E, d, f),
-    ``down_w`` (E, f, d); f is ``moe_d_ff`` (``d_ff`` if 0).  Keeps the
-    config's k and capacity factor."""
+    """``router`` (d, E) float32 whatever ``dtype`` is, ``gate_w`` and
+    ``up_w`` (E, d, f), ``down_w`` (E, f, d) in ``dtype``; f is
+    ``moe_d_ff`` (``d_ff`` if 0).  Keeps the config's k and capacity
+    factor."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         d, e = cfg.d_model, cfg.num_experts
         f = cfg.moe_d_ff or cfg.d_ff
@@ -50,9 +52,9 @@ class MoE(nn.Module):
         self.stddevs = (d ** -0.5, d ** -0.5, d ** -0.5,
                         f ** -0.5 / max(1, 2 * cfg.num_layers) ** 0.5)
         self.router = _param(d, e, device=device)
-        self.gate_w = _param(e, d, f, device=device)
-        self.up_w = _param(e, d, f, device=device)
-        self.down_w = _param(e, f, d, device=device)
+        self.gate_w = _param(e, d, f, device=device, dtype=dtype)
+        self.up_w = _param(e, d, f, device=device, dtype=dtype)
+        self.down_w = _param(e, f, d, device=device, dtype=dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

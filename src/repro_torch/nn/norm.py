@@ -17,9 +17,9 @@ from repro_torch.nn.linear import _param
 class RMSNorm(nn.Module):
     """``scale`` = 1 at init."""
 
-    def __init__(self, dim: int, *, device=None):
+    def __init__(self, dim: int, *, device=None, dtype=torch.float32):
         super().__init__()
-        self.scale = _param(dim, device=device)
+        self.scale = _param(dim, device=device, dtype=dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -34,10 +34,10 @@ def rmsnorm_apply(params: RMSNorm, x, eps: float = 1e-6):
 class LayerNorm(nn.Module):
     """``scale`` = 1 and ``bias`` = 0 at init."""
 
-    def __init__(self, dim: int, *, device=None):
+    def __init__(self, dim: int, *, device=None, dtype=torch.float32):
         super().__init__()
-        self.scale = _param(dim, device=device)
-        self.bias = _param(dim, device=device)
+        self.scale = _param(dim, device=device, dtype=dtype)
+        self.bias = _param(dim, device=device, dtype=dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

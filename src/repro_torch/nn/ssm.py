@@ -31,16 +31,18 @@ class DtProj(nn.Module):
     """``w`` (dt_rank, d_in) ~ N(0, 1/dt_rank); ``b`` the inverse softplus
     of a dt drawn log-uniform in [1e-3, 1e-1]."""
 
-    def __init__(self, dt_rank: int, d_in: int, *, device=None):
+    def __init__(self, dt_rank: int, d_in: int, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
-        self.w = _param(dt_rank, d_in, device=device)
-        self.b = _param(d_in, device=device)
+        self.w = _param(dt_rank, d_in, device=device, dtype=dtype)
+        self.b = _param(d_in, device=device, dtype=dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
+        # b drawn and transformed in float32, then rounded to its dtype
         self.w.normal_(0.0, self.w.shape[0] ** -0.5, generator=generator)
-        dt = torch.empty_like(self.b).uniform_(math.log(1e-3), math.log(1e-1),
-                                               generator=generator).exp()
+        dt = torch.empty(self.b.shape, device=self.b.device).uniform_(
+            math.log(1e-3), math.log(1e-1), generator=generator).exp()
         self.b.copy_(torch.log(torch.expm1(dt)))
 
 
@@ -48,25 +50,27 @@ class Mamba(nn.Module):
     """The reference's ``mamba_init`` tree: ``in_proj`` (d, 2 d_in),
     ``conv_w`` (K, d_in), ``conv_b``, ``x_proj`` (d_in, dt_rank + 2N),
     ``dt_proj.{w, b}``, ``a_log`` (d_in, N), ``d`` (d_in,), ``out_proj``
-    (d_in, d)."""
+    (d_in, d); ``a_log`` and ``d`` float32 whatever ``dtype`` is, as the
+    reference keeps them."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
         super().__init__()
         mc = cfg.mamba or MambaConfig()
         d = cfg.d_model
         d_in = mc.expand * d
         dt_rank = mc.resolved_dt_rank(d)
-        self.in_proj = Dense(d, 2 * d_in, device=device)
-        self.conv_w = _param(mc.d_conv, d_in, device=device)
-        self.conv_b = _param(d_in, device=device)
-        self.x_proj = Dense(d_in, dt_rank + 2 * mc.d_state, device=device)
-        self.dt_proj = DtProj(dt_rank, d_in, device=device)
+        self.in_proj = Dense(d, 2 * d_in, device=device, dtype=dtype)
+        self.conv_w = _param(mc.d_conv, d_in, device=device, dtype=dtype)
+        self.conv_b = _param(d_in, device=device, dtype=dtype)
+        self.x_proj = Dense(d_in, dt_rank + 2 * mc.d_state, device=device,
+                            dtype=dtype)
+        self.dt_proj = DtProj(dt_rank, d_in, device=device, dtype=dtype)
         self.a_log = _param(d_in, mc.d_state, device=device)
         self.d = _param(d_in, device=device)
         self.out_proj = Dense(d_in, d,
                               stddev=d_in ** -0.5
                               / max(1, 2 * cfg.num_layers) ** 0.5,
-                              device=device)
+                              device=device, dtype=dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -140,11 +144,14 @@ def mamba_apply(params: Mamba, x, *, cfg: ModelConfig,
 
 
 def mamba_init_state(cfg: ModelConfig, batch: int, *,
-                     device=None) -> MambaState:
+                     dtype=torch.float32, device=None) -> MambaState:
+    """Zero state: the conv tail in ``dtype``, the SSM state float32
+    whatever ``dtype`` is, as the reference keeps it."""
     mc = cfg.mamba or MambaConfig()
     d_in = mc.expand * cfg.d_model
     return MambaState(
-        conv=torch.zeros(batch, mc.d_conv - 1, d_in, device=device),
+        conv=torch.zeros(batch, mc.d_conv - 1, d_in, dtype=dtype,
+                         device=device),
         ssm=torch.zeros(batch, d_in, mc.d_state, device=device))
 
 

@@ -69,19 +69,20 @@ class MLSTM(nn.Module):
     (K, d_in), ``conv_b``, ``wq``/``wk``/``wv`` (d_in, d_in), ``w_if``
     (d_in, 2H), ``down`` (d_in, d)."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         xc = cfg.xlstm or XLSTMConfig()
         d, d_in = cfg.d_model, _d_inner(cfg)
-        self.up = Dense(d, 2 * d_in, device=device)
-        self.conv_w = _param(xc.conv_kernel, d_in, device=device)
-        self.conv_b = _param(d_in, device=device)
-        self.wq = Dense(d_in, d_in, device=device)
-        self.wk = Dense(d_in, d_in, device=device)
-        self.wv = Dense(d_in, d_in, device=device)
-        self.w_if = Dense(d_in, 2 * cfg.num_heads, device=device)
+        self.up = Dense(d, 2 * d_in, device=device, dtype=dtype)
+        self.conv_w = _param(xc.conv_kernel, d_in, device=device, dtype=dtype)
+        self.conv_b = _param(d_in, device=device, dtype=dtype)
+        self.wq = Dense(d_in, d_in, device=device, dtype=dtype)
+        self.wk = Dense(d_in, d_in, device=device, dtype=dtype)
+        self.wv = Dense(d_in, d_in, device=device, dtype=dtype)
+        self.w_if = Dense(d_in, 2 * cfg.num_heads, device=device, dtype=dtype)
         self.down = Dense(d_in, d, stddev=_down_stddev(d_in, cfg.num_layers),
-                          device=device)
+                          device=device, dtype=dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -218,15 +219,16 @@ class SLSTM(nn.Module):
     4 dh) block-diagonal recurrent weights, ``up`` (d, 2d), ``down`` (d,
     d)."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         d, h = cfg.d_model, cfg.num_heads
         dh = d // h
-        self.wx = Dense(d, 4 * d, device=device)
-        self.r = _param(h, dh, 4 * dh, device=device)
-        self.up = Dense(d, 2 * d, device=device)
+        self.wx = Dense(d, 4 * d, device=device, dtype=dtype)
+        self.r = _param(h, dh, 4 * dh, device=device, dtype=dtype)
+        self.up = Dense(d, 2 * d, device=device, dtype=dtype)
         self.down = Dense(d, d, stddev=_down_stddev(d, cfg.num_layers),
-                          device=device)
+                          device=device, dtype=dtype)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -8,7 +8,8 @@ the reference is pure, the port updates in place to save a copy of the
 model: ``clip_by_global_norm`` scales the gradients in place,
 ``update_fn`` advances the moments in ``state`` in place and returns the
 updates, and ``apply_updates`` adds them into the parameters in place.
-Every parameter and gradient of the port is float32.  The step counter
+A bfloat16 parameter takes its update rounded to bfloat16, as the
+reference's ``astype(p.dtype)`` gives it.  The step counter
 stays a host integer, so no update reads the card back.
 """
 from __future__ import annotations

@@ -9,7 +9,10 @@ meta device and the CPU, and against the reference's ``module_cost`` of
 the same step compiled by XLA; the collectives it charges against the
 reference's; ``launch/dryrun.run_cell`` on the production meshes at
 reduced width and its argument bytes against the reference's
-``NamedSharding`` shard shapes.
+``NamedSharding`` shard shapes, in float32 and in the reference's default
+bfloat16 (the parameters' bytes of every arch against
+``abstract_params(dtype=jnp.bfloat16)``; the roofline's compute term at
+the bfloat16 rate).
 """
 import dataclasses
 import json
@@ -43,6 +46,7 @@ from repro_torch.distributed import op_cost, roofline
 from repro_torch.launch import dryrun, steps
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.lm import LM, init_decode_state, init_lm
+from repro_torch.models.lm import reference_leaf as tlm_reference_leaf
 from repro_torch.nn.moe_sharded import moe_apply_sharded
 from repro_torch.optim import adamw
 
@@ -205,7 +209,7 @@ def test_views_and_allocations_move_nothing_and_region_writes_their_rows():
 
 def _inputs(cfg, kind, device, b=2, s=16):
     shape = ShapeConfig("t", "train" if kind == "train" else "prefill", s, b)
-    specs = steps.input_specs(cfg, shape)
+    specs = steps.input_specs(cfg, shape, dtype=torch.float32)
     gen = torch.Generator().manual_seed(0)
 
     def make(t):
@@ -221,7 +225,8 @@ def _inputs(cfg, kind, device, b=2, s=16):
     if kind != "decode":
         return {k: make(v) for k, v in specs.items()}
     out = {"token": make(torch.empty(b, dtype=torch.int32, device="meta")),
-           "state": init_decode_state(cfg, b, s, device=device)}
+           "state": init_decode_state(cfg, b, s, dtype=torch.float32,
+                                      device=device)}
     if cfg.is_encdec:
         out["memory"] = make(torch.empty(b, cfg.encoder_seq_len,
                                          cfg.d_model, device="meta"))
@@ -238,7 +243,8 @@ def _count_step(cfg, kind, device, mesh=None, b=2, s=16):
         opt = adamw(1e-3)[0](steps.trainable(model))
         call = lambda: step(model, opt, inputs)                  # noqa: E731
     elif kind == "prefill":
-        step = steps.make_prefill_step(cfg, max_seq=s, **kw)
+        step = steps.make_prefill_step(cfg, max_seq=s,
+                                       state_dtype=torch.float32, **kw)
         call = lambda: step(model, inputs)                       # noqa: E731
     else:
         step = steps.make_serve_step(cfg, **kw)
@@ -439,7 +445,8 @@ def test_run_cell_is_ok_with_the_reference_keys(arch, shape, multi,
     ``chip_smoke.py`` phase 25's, on the CPU of the card's host)."""
     _reduced(monkeypatch)
     rec = dryrun.run_cell(arch, shape, multi_pod=multi,
-                          opts=dryrun.OPT_LEVELS["baseline"])
+                          opts=dryrun.OPT_LEVELS["baseline"],
+                          dtype=torch.float32)
     assert rec["status"] == "ok", rec
     assert {"arch", "shape", "mesh", "num_devices", "status", "lower_s",
             "compile_s", "roofline"} <= set(rec)
@@ -515,6 +522,117 @@ def test_argument_bytes_match_reference_shard_shapes(kind):
         want += _ref_elements(sds["state"], jsharding.decode_state_specs(
             jcfg, jshape, jmesh, sds["state"]), jmesh)
     model = LM(cfg, device="meta")
-    inputs = steps.input_specs(cfg, shape)
+    inputs = steps.input_specs(cfg, shape, dtype=torch.float32)
     got = dryrun.argument_bytes(cfg, shape, mesh, model, inputs)
     assert got == 4 * want
+
+
+# -- the dry run in bfloat16, the reference's default ----------------------------
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_parameter_bytes_match_reference_in_bf16(arch):
+    """Every arch at full width on meta: the parameters' bytes in
+    bfloat16 (the float32 leaves the reference keeps, Mamba's ``a_log``
+    and ``d`` and the MoE router, among them) equal those of the
+    reference's ``abstract_params(dtype=jnp.bfloat16)``, leaf for leaf."""
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    model = LM(cfg, device="meta", dtype=torch.bfloat16)
+    want = jax.tree_util.tree_leaves_with_path(
+        jsteps.abstract_params(jcfg, dtype=jnp.bfloat16))
+    groups = {}
+    for name, p in model.named_parameters():
+        path, _ = tlm_reference_leaf(name)
+        groups.setdefault("/".join(path), []).append(p)
+    got = {k: (sum(p.numel() for p in ps) * ps[0].element_size(),
+               str(ps[0].dtype).replace("torch.", ""))
+           for k, ps in groups.items()}
+    assert len(got) == len(want)
+    for path, leaf in want:
+        key = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                       for k in path)
+        assert got[key] == (leaf.size * leaf.dtype.itemsize,
+                            leaf.dtype.name), key
+
+
+def _ref_bytes(tree, specs, mesh):
+    leaves = jax.tree_util.tree_leaves(tree)
+    spec_leaves = jax.tree_util.tree_leaves(
+        specs, is_leaf=lambda s: isinstance(s, JP))
+    assert len(leaves) == len(spec_leaves)
+    return sum(int(np.prod(NamedSharding(mesh, s).shard_shape(x.shape)))
+               * x.dtype.itemsize for x, s in zip(leaves, spec_leaves))
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_argument_bytes_match_reference_in_bf16(kind):
+    """The (2, 4) mesh of ``test_argument_bytes_match_reference_shard_
+    shapes`` at the reference's default dtype, byte for byte: bfloat16
+    parameters, AdamW's float32 moments, int32 tokens, the decode state's
+    bfloat16 caches and int32 lengths, a seamless' bfloat16 frames."""
+    arch = "seamless-m4t-large-v2" if kind == "prefill" else "yi-6b"
+    jcfg, cfg = jget_config(arch).reduced(), get_config(arch).reduced()
+    jmesh = AbstractMesh((2, 4), ("data", "model"))
+    mesh = make_host_mesh((2, 4), ("data", "model"), devices=("meta",) * 8)
+    params = jsteps.abstract_params(jcfg, dtype=jnp.bfloat16)
+    want = _ref_bytes(params, jsharding.param_specs(params, jmesh), jmesh)
+    shape = ShapeConfig("tiny", kind, 64 if kind == "decode" else 32, 8)
+    jshape = JShapeConfig("tiny", kind, 64 if kind == "decode" else 32, 8)
+    sds = jsteps.input_specs(jcfg, jshape)
+    if kind == "train":
+        opt = jsteps.abstract_opt_state(params)
+        want += _ref_bytes((opt.mu, opt.nu), jsharding.param_specs(
+            (opt.mu, opt.nu), jmesh), jmesh)
+    if kind != "decode":
+        b_sh = jsharding.input_specs_shardings(jcfg, jshape, jmesh)
+        if kind == "prefill":
+            sds.pop("labels", None)
+        want += sum(int(np.prod(b_sh[k].shard_shape(v.shape)))
+                    * v.dtype.itemsize for k, v in sds.items())
+    else:
+        want += 4 * int(np.prod(NamedSharding(
+            jmesh, jsharding.batch_spec(jmesh, 8, 0)).shard_shape((8,))))
+        want += _ref_bytes(sds["state"], jsharding.decode_state_specs(
+            jcfg, jshape, jmesh, sds["state"]), jmesh)
+    model = LM(cfg, device="meta", dtype=torch.bfloat16)
+    inputs = steps.input_specs(cfg, shape)
+    if kind == "prefill":
+        inputs.pop("labels", None)
+    assert dryrun.argument_bytes(cfg, shape, mesh, model, inputs) == want
+
+
+@pytest.mark.parametrize("arch,shape,multi", [
+    ("yi-6b", "train_4k", False),
+    ("granite-moe-1b-a400m", "decode_32k", False),
+    ("jamba-v0.1-52b", "prefill_32k", False),
+    ("yi-6b", "decode_32k", True)])
+def test_run_cell_in_bf16_is_ok_where_float32_is(arch, shape, multi,
+                                                 monkeypatch):
+    """The cells ``test_run_cell_is_ok_with_the_reference_keys`` runs in
+    float32, in the default bfloat16: ``ok``, its parameters' and its
+    inputs' bytes by their element size (the arguments below the float32
+    record's), the compute term at 989 TFLOP/s."""
+    _reduced(monkeypatch)
+    recs = {dt: dryrun.run_cell(arch, shape, multi_pod=multi,
+                                opts=dryrun.OPT_LEVELS["baseline"],
+                                dtype=dt)
+            for dt in (torch.float32, torch.bfloat16)}
+    f32, bf = recs[torch.float32]["roofline"], recs[torch.bfloat16]["roofline"]
+    assert recs[torch.bfloat16]["status"] == "ok"
+    assert recs[torch.bfloat16]["dtype"] == "bfloat16"
+    assert bf["argument_bytes"] < f32["argument_bytes"]
+    assert bf["compute_s"] == bf["flops_per_device"] / roofline.PEAK_BF16_FLOPS
+    assert f32["compute_s"] == f32["flops_per_device"] / roofline.PEAK_FLOPS
+    assert any(k.endswith("_bf16") for k in bf["kernel_detail"])
+    assert not any(k.endswith("_bf16") for k in f32["kernel_detail"])
+
+
+def test_opt_levels_insert_as_the_reference_levels_do():
+    """``fused_position`` per level as the reference's ``OPT_LEVELS``
+    (its ``perf-sp`` has no counterpart)."""
+    from repro.launch import dryrun as jdryrun
+    assert set(dryrun.OPT_LEVELS) == set(jdryrun.OPT_LEVELS) - {"perf-sp"}
+    for name, opts in dryrun.OPT_LEVELS.items():
+        ref = jdryrun.OPT_LEVELS[name]
+        for field in ("fused_position", "loss_chunk", "sharded_decode",
+                      "moe_a2a", "microbatch", "grad_compression"):
+            assert getattr(opts, field) == getattr(ref, field), (name, field)

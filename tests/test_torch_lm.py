@@ -202,7 +202,7 @@ def test_prefill_matches_reference(reduced):
         p, t, jcfg, max_seq=10, impl="xla", state_dtype=jnp.float32))(
             params, toks)
     got, state, _ = tlm.lm_prefill(model, torch.from_numpy(toks),
-                                   max_seq=10)
+                                   max_seq=10, state_dtype=torch.float32)
     _close(got, want)
     _close_state(state, wstate)
 
@@ -254,7 +254,8 @@ def test_prefill_then_decode_matches_full_forward(reduced):
     toks = torch.from_numpy(_tokens(cfg, (2, 10), seed=5))
     s = 8
     full, _ = tlm.lm_forward(model, toks[:, :s + 1])
-    pre, state, _ = tlm.lm_prefill(model, toks[:, :s], max_seq=s + 2)
+    pre, state, _ = tlm.lm_prefill(model, toks[:, :s], max_seq=s + 2,
+                                   state_dtype=torch.float32)
     v = cfg.vocab_size
     _close(pre[:, -1, :v], full[:, s - 1, :v].numpy())
     nxt, _ = tlm.lm_decode_step(model, toks[:, s], state)
@@ -265,7 +266,8 @@ def test_cold_decode_matches_forward(reduced):
     cfg, _, _, model = reduced
     toks = torch.from_numpy(_tokens(cfg, (2, 5), seed=6))
     full, _ = tlm.lm_forward(model, toks)
-    state = tlm.init_decode_state(cfg, 2, 8, device="cpu")
+    state = tlm.init_decode_state(cfg, 2, 8, dtype=torch.float32,
+                                  device="cpu")
     outs = []
     for t in range(5):
         logits, state = tlm.lm_decode_step(model, toks[:, t], state)
@@ -277,7 +279,8 @@ def test_cold_decode_matches_forward(reduced):
 def test_init_decode_state_matches_reference_layout(reduced):
     cfg, jcfg, _, _ = reduced
     want = jlm.init_decode_state(jcfg, 1, 24, dtype=jnp.float32)
-    got = tlm.init_decode_state(cfg, 1, 24, device="cpu")
+    got = tlm.init_decode_state(cfg, 1, 24, dtype=torch.float32,
+                                device="cpu")
     _close_state(got, want)
     assert [a.nbytes for a in got[0]["kv"]] == \
         [np.asarray(a).nbytes for a in want[0]["kv"]]
@@ -289,7 +292,8 @@ def test_padded_vocab_columns_are_masked():
     model = tlm.init_lm(cfg, seed=0, device="cpu")
     toks = torch.from_numpy(_tokens(cfg, (1, 4), seed=7))
     logits, _ = tlm.lm_forward(model, toks)
-    pre, state, _ = tlm.lm_prefill(model, toks, max_seq=6)
+    pre, state, _ = tlm.lm_prefill(model, toks, max_seq=6,
+                                   state_dtype=torch.float32)
     step, _ = tlm.lm_decode_step(model, toks[:, 0], state)
     for out in (logits, pre, step):
         assert bool((out[..., cfg.vocab_size:] == -1e9).all())
@@ -338,7 +342,7 @@ def test_full_width_layer_matches_reference():
         p, t, jcfg, max_seq=8, impl="xla", state_dtype=jnp.float32))(
             params, toks[:, :6])
     got, state, _ = tlm.lm_prefill(model, torch.from_numpy(toks[:, :6]),
-                                   max_seq=8)
+                                   max_seq=8, state_dtype=torch.float32)
     _close(got, want, FULL_TOL)
     _close_state(state, jstate, FULL_TOL)
     step = jax.jit(lambda p, t, s: jlm.lm_decode_step(p, t, s, jcfg,

@@ -303,8 +303,8 @@ def test_sharded_decode_with_inshard_insert_matches_plain_path():
         for n in ("wq", "wk", "wv", "wo"):
             getattr(attn, n).w.copy_(torch.from_numpy(np.array(p[n]["w"])))
     c0 = jnn.init_kv_cache(jcfg, 2, 8, dtype=jnp.float32)
-    c1 = tattn.init_kv_cache(cfg, 2, 8, device="cpu")
-    c2 = tattn.init_kv_cache(cfg, 2, 8, device="cpu")
+    c1 = tattn.init_kv_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
+    c2 = tattn.init_kv_cache(cfg, 2, 8, dtype=torch.float32, device="cpu")
     sd = ((), "model", _tmesh((1, 1)))
     for t in range(6):
         y0, c0 = jnn.attention_decode(p, jnp.asarray(x[:, t:t + 1]), c0,
@@ -466,7 +466,8 @@ def _yi():
 
 def _serve_steps(model, cfg, mesh, n=3, opts=tsteps.StepOptions()):
     batch = _tokens(cfg, 4, 6, seed=9)
-    pre = tsteps.make_prefill_step(cfg, max_seq=16)(
+    pre = tsteps.make_prefill_step(cfg, max_seq=16,
+                                   state_dtype=torch.float32)(
         model, {"tokens": torch.from_numpy(batch["tokens"])})
     serve = tsteps.make_serve_step(cfg, opts=opts, mesh=mesh,
                                    global_batch=4 if mesh else 0)
@@ -617,6 +618,7 @@ def _train(cfg, model, mesh, steps=2, opts=tsteps.StepOptions()):
 
 def _prefill(cfg, model, mesh):
     step = tsteps.make_prefill_step(cfg, max_seq=16, mesh=mesh,
+                                    state_dtype=torch.float32,
                                     global_batch=4 if mesh else 0)
     return step(model, {"tokens": torch.from_numpy(
         _tokens(cfg, 4, 16, seed=3)["tokens"])})

@@ -303,7 +303,7 @@ def test_prefill_and_decode_match_reference(moe_lm):
     want, jstate, _ = jlm.lm_prefill(params, toks[:, :7], jcfg, max_seq=10,
                                      impl="xla", state_dtype=jnp.float32)
     got, state, _ = tlm.lm_prefill(model, torch.from_numpy(toks[:, :7]),
-                                   max_seq=10)
+                                   max_seq=10, state_dtype=torch.float32)
     _close(got, want)
     _close_state(state, jstate)
     step = jax.jit(lambda p, t, s: jlm.lm_decode_step(p, t, s, jcfg,

@@ -163,7 +163,7 @@ def test_prefill_and_decode_match_reference(hybrid):
     want, jstate, _ = jlm.lm_prefill(params, toks[:, :7], jcfg, max_seq=10,
                                      impl="xla", state_dtype=jnp.float32)
     got, state, _ = tlm.lm_prefill(model, torch.from_numpy(toks[:, :7]),
-                                   max_seq=10)
+                                   max_seq=10, state_dtype=torch.float32)
     _close(got, want)
     _close_state(state, jstate)
     assert isinstance(state[1]["mamba"], MambaState)
@@ -180,7 +180,8 @@ def test_prefill_and_decode_match_reference(hybrid):
 def test_init_decode_state_matches_reference_layout(hybrid):
     cfg, jcfg, _, _ = hybrid
     want = jlm.init_decode_state(jcfg, 2, 16, dtype=jnp.float32)
-    got = tlm.init_decode_state(cfg, 2, 16, device="cpu")
+    got = tlm.init_decode_state(cfg, 2, 16, dtype=torch.float32,
+                                device="cpu")
     _close_state(got, want)
     assert [a.nbytes for slot in got for a in next(iter(slot.values()))] == \
         [np.asarray(a).nbytes for slot in want
@@ -194,12 +195,14 @@ def test_prefill_then_decode_matches_full_forward(hybrid):
     toks = torch.from_numpy(_tokens(cfg, (2, 9), seed=3))
     full, _ = tlm.lm_forward(model, toks)
     v = cfg.vocab_size
-    pre, state, _ = tlm.lm_prefill(model, toks[:, :6], max_seq=9)
+    pre, state, _ = tlm.lm_prefill(model, toks[:, :6], max_seq=9,
+                                   state_dtype=torch.float32)
     _close(pre[:, -1, :v], full[:, 5, :v].detach().numpy())
     for t in range(6, 9):
         nxt, state = tlm.lm_decode_step(model, toks[:, t], state)
         _close(nxt[:, :v], full[:, t, :v].detach().numpy())
-    state = tlm.init_decode_state(cfg, 2, 9, device="cpu")
+    state = tlm.init_decode_state(cfg, 2, 9, dtype=torch.float32,
+                                  device="cpu")
     for t in range(9):
         nxt, state = tlm.lm_decode_step(model, toks[:, t], state)
         _close(nxt[:, :v], full[:, t, :v].detach().numpy())

@@ -110,8 +110,9 @@ def test_registry_matches_reference():
 @pytest.mark.parametrize("arch", J_ASSIGNED)
 def test_input_specs_match_reference(arch):
     """Every (arch, shape) cell's inputs on the meta device: the
-    reference's shapes, float32 stubs, int32 tokens; decode states laid
-    out as the reference's."""
+    reference's shapes and dtypes (its default bfloat16 stubs and caches,
+    float32 recurrent states, int32 tokens); decode states laid out as the
+    reference's."""
     cfg, jcfg = get_config(arch), jax_get_config(arch)
     for name, shape in SHAPES.items():
         got = tsteps.input_specs(cfg, shape)
@@ -122,8 +123,9 @@ def test_input_specs_match_reference(arch):
         assert [tuple(t.shape) for t in gl] == [tuple(t.shape) for t in wl]
         for g, w in zip(gl, wl):
             assert g.device.type == "meta"
-            assert g.dtype == (torch.int32 if w.dtype == jnp.int32
-                               else torch.float32)
+            assert g.dtype == {"int32": torch.int32,
+                               "bfloat16": torch.bfloat16,
+                               "float32": torch.float32}[w.dtype.name]
 
 
 # -- the three families ------------------------------------------------------------------
@@ -249,7 +251,7 @@ def test_prefill_and_decode_match_reference(family):
                                         state_dtype=jnp.float32, **stubs)
     got, state, memory = tlm.lm_prefill(
         model, torch.from_numpy(batch["tokens"]), max_seq=10,
-        **_torch(stubs))
+        state_dtype=torch.float32, **_torch(stubs))
     v = cfg.vocab_size
     _close(got[..., :v], np.asarray(want)[..., :v])
     _close_state(state, jstate)
@@ -273,7 +275,8 @@ def test_prefill_and_decode_match_reference(family):
 def test_init_decode_state_matches_reference_layout(family):
     cfg, jcfg, _, _ = family
     want = jlm.init_decode_state(jcfg, 2, 16, dtype=jnp.float32)
-    got = tlm.init_decode_state(cfg, 2, 16, device="cpu")
+    got = tlm.init_decode_state(cfg, 2, 16, dtype=torch.float32,
+                                device="cpu")
     _close_state(got, want)
     assert [t.nbytes for t in _state_leaves(got)] == \
         [np.asarray(t).nbytes for t in jax.tree_util.tree_leaves(want)]
@@ -290,7 +293,7 @@ def test_prefill_then_decode_matches_full_forward(family):
     full, _ = tlm.lm_forward(model, toks, **stubs)
     v = cfg.vocab_size
     pre, state, memory = tlm.lm_prefill(model, toks[:, :6], max_seq=9,
-                                        **stubs)
+                                        state_dtype=torch.float32, **stubs)
     _close(pre[:, -1, :v], full[:, 5, :v].detach().numpy())
     for t in range(6, 9):
         nxt, state = tlm.lm_decode_step(model, toks[:, t], state,
@@ -298,7 +301,8 @@ def test_prefill_then_decode_matches_full_forward(family):
         _close(nxt[:, :v], full[:, t, :v].detach().numpy())
     if cfg.num_patch_tokens:
         return           # patches fill positions a token decode cannot
-    state = tlm.init_decode_state(cfg, 2, 9, device="cpu")
+    state = tlm.init_decode_state(cfg, 2, 9, dtype=torch.float32,
+                                  device="cpu")
     for t in range(9):
         nxt, state = tlm.lm_decode_step(model, toks[:, t], state,
                                         memory=memory)
@@ -315,7 +319,9 @@ def test_prefill_and_serve_steps_match_reference(family):
     jserve_step = jax.jit(jsteps.make_serve_step(
         jcfg, opts=jsteps.StepOptions(impl="xla")))
     want = jpre(params, batch)
-    got = tsteps.make_prefill_step(cfg, max_seq=9)(model, _torch(batch))
+    got = tsteps.make_prefill_step(cfg, max_seq=9,
+                                   state_dtype=torch.float32)(
+        model, _torch(batch))
     assert set(got) == set(want)
     _close(got["logits"], want["logits"])
     _close_state(got["state"], want["state"])
@@ -387,6 +393,7 @@ def test_unported_serving_levers_raise():
                                     opts=jopts, mesh=jmesh,
                                     global_batch=2)(params, batch)
     got = tsteps.make_prefill_step(cfg, max_seq=9, mesh=mesh,
+                                   state_dtype=torch.float32,
                                    global_batch=2)(model, _torch(batch))
     _close(got["logits"], want["logits"])
     _close_state(got["state"], want["state"])
