@@ -15,7 +15,8 @@ non-zero before the result line):
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (full-width gdm-dit at B in {1, 4, 8}, yi-6b's heads
    and widths, the trainer's rows, the reduced configs), on attention's
-   masking cases, on ragged decode lengths at tile and split edges, on
+   masking cases, on ragged decode lengths at warp-slice, tile and split
+   edges (G=7 and G=8 among them), on
    both load widths of adaLN and rmsnorm and on scans whose channels do
    not fill whole warps; tolerance 1e-5 (float32); adaLN, decode, rmsnorm
    and both scan kernels also against a second call, bit for bit;
@@ -184,7 +185,9 @@ non-zero before the result line):
     variants of flash, decode, rmsnorm and the scan against their plain
     versions on bfloat16 inputs at the main paths' shapes (the DiT's,
     yi-6b's, granite's, llava's G=7, deepseek's G=8, the Jamba scan's; a
-    float32 query over the bfloat16 cache), at the
+    float32 query over the bfloat16 cache; flash at the edges of the
+    wgmma kernel's 64-row warpgroups and 128-key tiles, decode at those of
+    the tensor cores' 16-key warp slices and 64-key tiles), at the
     reference's bfloat16 bars, a second call bit for bit, then timed beside
     the float32 kernel from the same call, their bfloat16 bound and the
     library call in bfloat16; (b) full yi-6b in bfloat16 (12.1 GB of
@@ -228,9 +231,12 @@ archive``) and times its adaLN, adaLN backward (B=8 and B=4, with its
 profiled split by kernel and its residency), decode, rmsnorm and both
 scan kernels, and the layers they serve (the DiT forward at B=4, the
 device time and host enqueue of a yi-6b decode step, a full-width Jamba
-Mamba block's forward at B=8, L=128) in this harness, so that two trees
-are compared on one card in one run (parent, change, change, parent); it
-ends with a
+Mamba block's forward at B=8, L=128), then decode in bfloat16 and float32
+at phase 26's six shapes (each with its profiled split between the split
+kernel and the merge), bfloat16 flash at four shapes (SDPA beside each)
+and yi-6b's bfloat16 decode step at B=1 and at B=8 over 4096 rows, in this
+harness, so that two trees are compared on one card in one run (parent,
+change, change, parent); it ends with a
 ``{"tree": ..., "kernel_times": ...}`` line.
 """
 from __future__ import annotations
@@ -525,13 +531,19 @@ DECODE_CASES = [
     (1, 3024, 56, 8, 128, [3024]),
     (1, 4096, 64, 8, 128, [4096]),                  # deepseek, G=8
     (2, 4096, 64, 8, 128, [1, 3000]),
+    # G=7 and G=8 at the edges of the 8-key warp slices, the 32-key tiles
+    # and the 96-key splits (3 splits at S=200)
+    (4, 200, 14, 2, 128, [8, 9, 33, 96]),
+    (4, 200, 16, 2, 128, [0, 1, 31, 97]),
+    (3, 200, 14, 2, 128, [95, 192, 193]),
+    (3, 200, 16, 2, 64, [191, 200, 201]),
 ]
 
 
 def check_decode(gen):
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.decode_attention import decode_grid
+    from repro_torch.kernels.decode_attention import decode_grid, tile_keys
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
     for (b, s, h, kh, d, lengths) in DECODE_CASES:
@@ -542,7 +554,8 @@ def check_decode(gen):
         got = ops.decode_attention(q, k, v, lens)
         same = torch.equal(got, ops.decode_attention(q, k, v, lens))
         err = float((got - ref.decode_attention(q, k, v, lens)).abs().max())
-        splits, groups = decode_grid(b * kh, h // kh, s, sms)
+        splits, groups = decode_grid(b * kh, h // kh, s, sms,
+                                     tile_keys(q.dtype, k.dtype))
         print(f"decode_attention B={b} S={s} H={h} KH={kh} D={d} lengths="
               f"{lengths}: {splits} splits x {groups} head groups; "
               f"max|kernel - plain| = {err:.3e}; a second call "
@@ -4516,6 +4529,15 @@ BF16_LM_TOL = 5e-2
 # rounding apart can land on neighbouring bfloat16 values: one bfloat16 ulp
 # of the largest value
 MIXED_TOL = 4e-3
+# flash and decode in bfloat16 again, each output row (b, [query,] head)
+# against its own scale: max|kernel - plain| <= BF16_ROW_TOL * max|plain|
+# over the row's D values.  The 2e-2 bar above is 0.6 of a typical output
+# at 3000-4000 keys (about sqrt(e / N) = 0.03 from standard normal
+# inputs), so a kernel that lost a warp's or a split's keys would pass it;
+# this bar is four bfloat16 ulps of the row's largest value (an ulp is
+# 2^-8 to 2^-7 of it), where a rounding at another side of a boundary
+# gives one.  check_bf16_controls shows it catches those faults.
+BF16_ROW_TOL = 2.0 ** -5
 
 # (B, Sq, Sk, H, KH, D, causal, window, q_offset): the DiT's shape, yi-6b's
 # prefill (phase 26's), granite's train shape, llava's prefill (G=7), and
@@ -4528,6 +4550,28 @@ BF16_FLASH_CASES = [
     (2, 100, 100, 8, 2, 32, True, 16, 0),
     (2, 17, 40, 4, 4, 16, True, 0, 23),
     (1, 5, 300, 8, 1, 128, False, 0, 0),
+    # the wgmma kernel's edges: Sq of 1, 63 and 65 against its 64-row
+    # warpgroups, Sk no multiple of its 128-key tile, causal with q_offset,
+    # windows, rows with every key masked, D=64 and D=128 with GQA
+    (2, 1, 300, 8, 2, 128, True, 0, 299),
+    (2, 63, 200, 8, 2, 64, False, 0, 0),
+    (2, 65, 65, 4, 4, 128, True, 0, 0),
+    (1, 130, 390, 6, 3, 128, True, 0, 260),
+    (2, 300, 300, 4, 2, 64, True, 100, 0),
+    (2, 200, 260, 4, 4, 128, False, 64, 60),
+    (1, 70, 90, 4, 4, 64, True, 0, -20),
+    (1, 257, 257, 2, 1, 128, False, 0, 0),
+    # enough heads x batch x 128-row query tiles to fill the SMs, so the
+    # wgmma kernel takes two consumer warpgroups a block (llava's prefill
+    # above is the other such case): D=64 and D=128 with GQA, ragged Sq
+    # and Sk, windows, q_offset large or negative (rows with every key
+    # masked), no mask at all
+    (2, 777, 901, 12, 4, 64, True, 256, 123),
+    (2, 600, 650, 24, 8, 64, True, 100, -50),
+    (3, 390, 333, 16, 16, 64, False, 0, 0),
+    (1, 1000, 1100, 40, 8, 128, True, 0, -37),
+    (2, 520, 2000, 32, 4, 128, True, 300, 1400),
+    (2, 333, 517, 32, 8, 128, False, 0, 0),
 ]
 # (B, S, H, KH, D, lengths): the launcher's decode, phase 26's cache, B=8
 # over 4096 rows with ragged lengths, granite's heads, llava's G=7,
@@ -4543,6 +4587,13 @@ BF16_DECODE_CASES = [
     (3, 200, 8, 2, 64, [67, 134, 135]),
     (2, 33, 4, 1, 16, [33, 5]),
     (2, 777, 16, 4, 32, [777, 100]),
+    # G=7 and G=8 at the edges of the tensor cores' 16-key warp slices,
+    # 64-key tiles and 192-key splits (2 splits at S=300); a float32 q
+    # takes the CUDA cores' 32-key tiles and 64-key splits there
+    (4, 300, 14, 2, 128, [15, 16, 17, 64]),
+    (4, 300, 16, 2, 128, [0, 1, 63, 65]),
+    (3, 300, 14, 2, 128, [191, 192, 193]),
+    (3, 300, 16, 2, 64, [299, 300, 301]),
 ]
 # (rows, d, offset of x in elements): yi-6b's decode row, trainer rows and
 # prefill rows, granite's row, llava's prefill, deepseek's row; a view two
@@ -4569,6 +4620,19 @@ def _allclose_gap(got, want, tol):
     return float(diff.max()), bool((diff <= tol * (1 + w.abs())).all())
 
 
+def _row_gap(got, want):
+    """The largest, over output rows (every index but the last, the head
+    dimension), of max|got - want| / max|want| in the row: the gap in
+    units of the row's own scale (inf where a row of zeros is missed)."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = (g - w).abs().amax(-1)
+    scale = w.abs().amax(-1)
+    ratio = torch.where(scale > 0, diff / scale.clamp_min(1e-30),
+                        torch.where(diff > 0, float("inf"), 0.0))
+    return float(ratio.max())
+
+
 def check_bf16_kernels(gen):
     """Phase 26(a): each bfloat16 kernel against its plain version on the
     card, on bfloat16 inputs (decode also with a float32 query over the
@@ -4578,10 +4642,14 @@ def check_bf16_kernels(gen):
     gap."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import bf16_route
     from repro_torch.kernels.rmsnorm import load_width
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
     worst = dict.fromkeys(("flash_attention_bf16", "decode_attention_bf16",
                            "rmsnorm_bf16", "ssm_scan_bf16"), 0.0)
+    row_worst = dict.fromkeys(("flash_attention_bf16",
+                               "decode_attention_bf16"), 0.0)
+    routes = set()
     for (b, sq, sk, h, kh, d, causal, window, q_offset) in BF16_FLASH_CASES:
         q = _bf16(_randn(gen, b, sq, h, d))
         k, v = _bf16(_randn(gen, b, sk, kh, d)), _bf16(_randn(gen, b, sk,
@@ -4589,14 +4657,26 @@ def check_bf16_kernels(gen):
         kw = dict(causal=causal, window=window, q_offset=q_offset)
         got = ops.flash_attention(q, k, v, **kw)
         assert got.dtype == torch.bfloat16
-        err, ok = _allclose_gap(got, ref.attention(q, k, v, **kw),
-                                BF16_KERNEL_TOL)
+        want = ref.attention(q, k, v, **kw)
+        err, ok = _allclose_gap(got, want, BF16_KERNEL_TOL)
+        row = _row_gap(got, want)
+        route = bf16_route(b, sq, h, d)
+        routes.add((d, route))
         print(f"flash_attention bf16 B={b} Sq={sq} Sk={sk} H={h} KH={kh} "
-              f"D={d} causal={causal} window={window} q_offset={q_offset}: "
-              f"max|kernel - plain| = {err:.3e}")
+              f"D={d} causal={causal} window={window} q_offset={q_offset} "
+              f"({route}): max|kernel - plain| = {err:.3e}; by row "
+              f"{row:.3e} of max|plain|")
         assert ok, "flash_attention bf16 disagrees with its plain version"
+        assert row <= BF16_ROW_TOL, \
+            "flash_attention bf16 disagrees with its plain version by row"
         worst["flash_attention_bf16"] = max(worst["flash_attention_bf16"],
                                             err)
+        row_worst["flash_attention_bf16"] = max(
+            row_worst["flash_attention_bf16"], row)
+    for d in (64, 128):
+        for nc in ("1 consumer warpgroup", "2 consumer warpgroups"):
+            assert (d, f"wgmma, {nc}") in routes, \
+                f"no flash case took the wgmma kernel with {nc} at D={d}"
     for (b, s, h, kh, d, lengths) in BF16_DECODE_CASES:
         k, v = _bf16(_randn(gen, b, s, kh, d)), _bf16(_randn(gen, b, s, kh,
                                                              d))
@@ -4606,14 +4686,20 @@ def check_bf16_kernels(gen):
             same = torch.equal(got, ops.decode_attention(q, k, v, lens))
             want = ref.decode_attention(q, k, v, lens)
             assert got.dtype == q.dtype
+            row = ""
             if q.dtype == torch.bfloat16:
                 err, ok = _allclose_gap(got, want, BF16_KERNEL_TOL)
+                gap = _row_gap(got, want)
+                ok = ok and gap <= BF16_ROW_TOL
+                row_worst["decode_attention_bf16"] = max(
+                    row_worst["decode_attention_bf16"], gap)
+                row = f"; by row {gap:.3e} of max|plain|"
             else:
                 err = float((got - want).abs().max())
                 ok = err <= TOL
             print(f"decode_attention bf16 cache, q {str(q.dtype)[6:]}, B={b} "
                   f"S={s} H={h} KH={kh} D={d} lengths={lengths}: "
-                  f"max|kernel - plain| = {err:.3e}; a second call "
+                  f"max|kernel - plain| = {err:.3e}{row}; a second call "
                   f"bit-identical: {same}")
             assert ok, "decode_attention bf16 disagrees with its plain version"
             assert same, "decode_attention bf16 is not deterministic"
@@ -4658,7 +4744,141 @@ def check_bf16_kernels(gen):
             "ssm_scan bf16 disagrees with its plain version"
         assert same, "ssm_scan bf16 is not deterministic"
         worst["ssm_scan_bf16"] = max(worst["ssm_scan_bf16"], err)
+    for name, gap in row_worst.items():
+        print(f"{name}: the largest gap by row over its cases {gap:.3e} of "
+              f"the row's max|plain| (bar {BF16_ROW_TOL:.3e})")
+    check_bf16_controls(gen)
     return worst
+
+
+def _attention_keeping(q, k, v, keep, *, causal=False, window=0,
+                       q_offset=0):
+    """ref.attention over only the keys that ``keep`` (broadcast to (B,
+    1, Sq, Sk)) leaves, and its masks: what a kernel that lost the other
+    keys computes, up to rounding."""
+    import torch
+    from repro_torch.kernels.ref import NEG_INF
+    b, sq, h, d = q.shape
+    sk, g = k.shape[1], h // k.shape[2]
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), kf) * d ** -0.5
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = keep & torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (qpos >= kpos)
+    if window > 0:
+        mask = mask & (qpos - kpos < window)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    out = torch.einsum("bhqs,bshd->bqhd", torch.softmax(scores, -1), vf)
+    return out.to(q.dtype)
+
+
+# the controls' shapes: llava's decode (G=7, 3009 of 3024 rows),
+# deepseek's (G=8, 4096), B=8 over 4096 rows with ragged lengths; llava's
+# prefill and a two-consumer D=64 prefill with a window
+BF16_CONTROL_DECODE = [(1, 3024, 56, 8, 128, [3009]),
+                       (1, 4096, 64, 8, 128, [4096]),
+                       (8, 4096, 32, 4, 128, [4096, 4095, 2049, 3000, 4096,
+                                              1000, 3333, 4090])]
+BF16_CONTROL_FLASH = [(1, 3008, 3008, 56, 8, 128, True, 0, 0),
+                      (2, 777, 901, 12, 4, 64, True, 256, 123)]
+
+
+def check_bf16_controls(gen):
+    """Phase 26(a): the power of BF16_ROW_TOL.  At the headline shapes the
+    kernel's gap by row stands beside the gap of outputs that a faulty
+    kernel would give, each computed by the plain version on the same
+    inputs: decode with one warp's keys of every tile left out, with the
+    middle split left out, and with one tile's V taken from the tile a
+    ring of three stages on (a stage raced); flash with one key tile left
+    out for the last block's worth of rows, with one tile's V from three
+    stages before, and (two consumers) with the second consumer's rows
+    given the first's.  Every fault must fail the bar, and the kernel
+    pass it."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decode_attention import (_sm_count, decode_grid,
+                                                      split_keys, tile_keys)
+    from repro_torch.kernels.flash_attention import bf16_route
+    sms = _sm_count(0)
+    worst_fault = float("inf")
+    for (b, s, h, kh, d, lengths) in BF16_CONTROL_DECODE:
+        q = _bf16(_randn(gen, b, h, d))
+        k, v = _bf16(_randn(gen, b, s, kh, d)), _bf16(_randn(gen, b, s, kh,
+                                                             d))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=q.device)
+        want = ref.decode_attention(q, k, v, lens)
+        tile = tile_keys(q.dtype, k.dtype)
+        splits, _ = decode_grid(b * kh, h // kh, s, sms, tile)
+        chunk = split_keys(s, splits, tile)
+        pos = torch.arange(s, device=q.device)
+        live = (pos[None, :] < lens[:, None])[:, None, None, :]
+        mid = splits // 2
+        faults = {
+            "warp 1's keys": (pos % tile) // (tile // 4) != 1,
+            f"split {mid} of {splits}": (pos < mid * chunk)
+            | (pos >= (mid + 1) * chunk),
+        }
+        gaps = {name: _row_gap(_attention_keeping(
+            q[:, None], k, v, live & keep)[:, 0], want)
+            for name, keep in faults.items()}
+        raced = v.clone()
+        raced[:, tile:2 * tile] = v[:, 4 * tile:5 * tile]
+        gaps["tile 1's V raced"] = _row_gap(
+            ref.decode_attention(q, k, raced, lens), want)
+        kernel = _row_gap(ops.decode_attention(q, k, v, lens), want)
+        print(f"control decode_attention bf16 B={b} S={s} H={h} KH={kh} "
+              f"D={d} lengths={lengths} ({splits} splits of {chunk} keys): "
+              f"kernel by row {kernel:.3e}; faults left out "
+              + ", ".join(f"{n} {g_:.3e}" for n, g_ in gaps.items()))
+        assert kernel <= BF16_ROW_TOL < min(gaps.values()), \
+            "BF16_ROW_TOL does not tell decode's kernel from a fault"
+        worst_fault = min(worst_fault, *gaps.values())
+    for (b, sq, sk, h, kh, d, causal, window, q_offset) in \
+            BF16_CONTROL_FLASH:
+        q = _bf16(_randn(gen, b, sq, h, d))
+        k, v = _bf16(_randn(gen, b, sk, kh, d)), _bf16(_randn(gen, b, sk,
+                                                              kh, d))
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        want = ref.attention(q, k, v, **kw)
+        route = bf16_route(b, sq, h, d)
+        rows = 128 if route.startswith("wgmma, 2") else 64
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        # a key tile that the last block's rows see: the one 128 keys
+        # below the last row's position; its V raced with the tile of
+        # the same stage three tiles before
+        kt = max(0, (min(sk - 1, sq - 1 + q_offset) - 128) // 128 * 128)
+        lost = _attention_keeping(
+            q, k, v, (qpos < sq - rows) | (kpos < kt) | (kpos >= kt + 128),
+            **kw)
+        raced = v.clone()
+        raced[:, kt:kt + 128] = v[:, kt - 384:kt - 256] if kt >= 384 \
+            else -v[:, kt:kt + 128]
+        gaps = {f"key tile {kt // 128} for the last {rows} rows":
+                _row_gap(lost, want),
+                f"tile {kt // 128}'s V raced": _row_gap(
+                    ref.attention(q, k, raced, **kw), want)}
+        if rows == 128:
+            whole = want.clone()
+            blk = whole[:, :sq // 128 * 128].view(b, sq // 128, 128, h, d)
+            blk[:, :, 64:] = blk[:, :, :64].clone()
+            gaps["consumer 1 given consumer 0's rows"] = _row_gap(whole,
+                                                                  want)
+        kernel = _row_gap(ops.flash_attention(q, k, v, **kw), want)
+        print(f"control flash_attention bf16 B={b} Sq={sq} Sk={sk} H={h} "
+              f"KH={kh} D={d} causal={causal} window={window} q_offset="
+              f"{q_offset} ({route}): kernel by row {kernel:.3e}; faults "
+              + ", ".join(f"{n} {g_:.3e}" for n, g_ in gaps.items()))
+        assert kernel <= BF16_ROW_TOL < min(gaps.values()), \
+            "BF16_ROW_TOL does not tell flash's kernel from a fault"
+        worst_fault = min(worst_fault, *gaps.values())
+        del want, lost, raced
+        torch.cuda.empty_cache()
+    print(f"controls: the smallest gap by row of a fault {worst_fault:.3e}, "
+          f"the bar {BF16_ROW_TOL:.3e}")
 
 
 def _print_bf16_times(what, t):
@@ -4799,6 +5019,94 @@ def time_bf16_kernels(gen):
     time_scan_bf16(gen, 8, 128, 8192, 16)
     out["ssm_scan_bf16"] = time_scan_bf16(gen, 1, 32, 8192, 16)
     return out
+
+
+# phase 26's decode shapes, (B, S, length, (H, KH, D)), and the bfloat16
+# flash shapes, (B, Sq, Sk, H, KH, D, causal), that --kernel-times compares
+# between trees
+DECODE_SHAPES = {
+    "launcher": (1, 24, 24, (32, 4, 128)),
+    "phase 26's step": (1, 160, 160, (32, 4, 128)),
+    "B=8 S=4096": (8, 4096, 4096, (32, 4, 128)),
+    "granite": (1, 24, 24, (16, 8, 64)),
+    "llava G=7": (1, 3024, 3009, (56, 8, 128)),
+    "deepseek G=8": (1, 4096, 4096, (64, 8, 128)),
+}
+FLASH_BF16_SHAPES = {
+    "DiT": (4, 256, 256, 12, 12, 64, False),
+    "granite": (8, 128, 128, 16, 8, 64, True),
+    "yi-6b prefill": (1, 128, 128, 32, 4, 128, True),
+    "llava prefill": (1, 3008, 3008, 56, 8, 128, True),
+}
+
+
+def time_attention_kernels(gen):
+    """decode_attention in both dtypes at ``DECODE_SHAPES`` (bfloat16 q
+    over a bfloat16 cache, and float32), each with its profiled device
+    time by kernel (the split kernel and the merge), and bfloat16
+    flash_attention at ``FLASH_BF16_SHAPES``, with SDPA in bfloat16
+    beside each; ms by name."""
+    import torch
+    from repro_torch.kernels import ops
+    out = {}
+    for name, (b, s, length, heads) in DECODE_SHAPES.items():
+        t = time_decode_bf16(gen, b, s, length, heads=heads)
+        out[f"decode_attention_bf16 {name}"] = t["ms"]
+        out[f"decode_attention {name}"] = t["f32_ms"]
+        out[f"SDPA bf16 decode {name}"] = t["library_ms"]
+        h, kh, d = heads
+        q, k, v = (_randn(gen, b, h, d), _randn(gen, b, s, kh, d),
+                   _randn(gen, b, s, kh, d))
+        lens = torch.full((b,), length, dtype=torch.int32, device="cuda")
+        for kname, args in (("decode_attention", (q, k, v)),
+                            ("decode_attention_bf16",
+                             tuple(_bf16(x) for x in (q, k, v)))):
+            split = kernel_split(lambda: ops.decode_attention(*args, lens))
+            print(f"  {kname} {name}: profiled device ms by kernel (mean of "
+                  "5 calls): " + ", ".join(f"{k} {v:.7f}"
+                                           for k, v in split.items()))
+            out.update({f"{kname} {name}, profiled {k}": v
+                        for k, v in split.items()})
+    for name, case in FLASH_BF16_SHAPES.items():
+        kw = dict(runs=10, reps=2) if case[1] > 1024 else {}
+        t = time_flash_bf16(gen, *case, **kw)
+        out[f"flash_attention_bf16 {name}"] = t["ms"]
+        out[f"SDPA bf16 {name}"] = t["library_ms"]
+    return out
+
+
+def bf16_decode_steps(cfg):
+    """``cfg`` (yi-6b) whole in bfloat16, its decode step as phase 26
+    reads it: at B=1 over a 160-row cache (every row in use), the device
+    time of the step's CUDA graph and the host's enqueue; at B=8 over a
+    full 4096-row cache, the summed device time of its profiled kernels."""
+    import torch
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.lm import init_decode_state, init_lm
+    bf = torch.bfloat16
+    model = init_lm(cfg, seed=1, device="cuda", dtype=bf)
+    state = init_decode_state(cfg, 1, 160, dtype=bf, device="cuda")
+    for slot in state:
+        slot["kv"].length.fill_(159)
+    dev1, host1 = time_decode_step(model, state)
+    del state
+    state = init_decode_state(cfg, 8, 4096, dtype=bf, device="cuda")
+    step = make_serve_step(cfg)
+    token = torch.full((8,), 7, dtype=torch.int32, device="cuda")
+
+    def call():
+        for slot in state:
+            slot["kv"].length.fill_(4095)
+        step(model, token, state)
+
+    with torch.no_grad():
+        n, dev8 = profile_kernels(call)
+    print(f"{cfg.name} in bfloat16, decode step: B=1 over 160 rows "
+          f"{dev1:.4f} ms of device time (CUDA graph), {host1:.4f} ms to "
+          f"enqueue; B=8 over 4096 rows {dev8:.4f} ms in {n} kernels")
+    del model, state
+    torch.cuda.empty_cache()
+    return dev1, host1, dev8
 
 
 def yi_bf16(cfg, prompt: int = 128, steps: int = 32):
@@ -4961,18 +5269,24 @@ def print_occupancy(lib):
               f"block, two float4 a thread; the first port held one block "
               f"of 8 warps an SM at B=4)")
         assert warps > 8, "adaln_norm holds no more warps than before"
-    # the launcher's block (one head, one copy stage) and that of B=8,
-    # S=4096 (eight heads, two a warp, a two-stage ring)
-    for hpw, stages in ((1, 1), (2, 2)):
-        blocks = lib.decode_attention_occupancy(128, hpw, 4, stages)
-        print(f"decode_attention D=128, {hpw} head(s) a warp, {stages} "
-              f"copy stage(s): {blocks} blocks of 4 warps per SM")
-        assert blocks >= 1, "decode_attention cannot be resident"
+    # eight heads a block, a three-stage ring: the CUDA cores' kernel
+    # (float32 q) and the tensor cores' (bfloat16 q and cache)
+    for tc, what in ((0, "CUDA cores, float32"),
+                     (1, "tensor cores, bfloat16")):
+        blocks = lib.decode_attention_occupancy(128, tc)
+        print(f"decode_attention D=128 ({what}): {blocks} blocks of 4 warps "
+              "per SM (decode_grid aims at 2)")
+        assert blocks >= 2, "decode_attention holds fewer than 2 blocks an SM"
     for d in HEAD_DIMS:
         blocks = lib.flash_attention_occupancy(d)
         print(f"flash_attention D={d}: {blocks} blocks of 128 threads per "
               f"SM ({4 * blocks} warps)")
         assert blocks >= 1, "flash_attention cannot be resident"
+    for d in (64, 128):
+        blocks = lib.flash_attention_bf16_occupancy(d)
+        print(f"flash_attention bf16 D={d} (wgmma): {blocks} block(s) of 384 "
+              "threads per SM (a producer and two consumer warpgroups)")
+        assert blocks >= 1, "flash_attention's wgmma kernel cannot be resident"
     import torch
     from repro_torch.kernels.rmsnorm import launch_shape as rms_shape
     threads, vpt = rms_shape(4096, 4)
@@ -5056,8 +5370,10 @@ def kernel_times(tree: str) -> int:
     this script's harness, and the layers they serve: phase 5's DiT
     forward at B=4, phase 8's decode step of full yi-6b (device time and
     host enqueue) and one full-width Jamba Mamba block forward at the
-    trainer's shape, so that two trees are compared within one run on one
-    card."""
+    trainer's shape; then the attention kernels at phase 26's shapes
+    (``time_attention_kernels``) and yi-6b's decode step in bfloat16
+    (``bf16_decode_steps``), so that two trees are compared within one run
+    on one card."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.gdm import init_gdm
@@ -5108,6 +5424,13 @@ def kernel_times(tree: str) -> int:
     out["yi-6b decode step, host enqueue"] = host_ms
     torch.cuda.empty_cache()
     out["Mamba block forward B=8 L=128"] = time_mamba_block()
+    phase(f"26. {tree}'s attention kernels in bfloat16 and float32 at "
+          "phase 26's shapes; yi-6b's decode step in bfloat16")
+    out.update(time_attention_kernels(gen))
+    (out["yi-6b bf16 decode step B=1, device"],
+     out["yi-6b bf16 decode step B=1, host enqueue"],
+     out["yi-6b bf16 decode step B=8 S=4096, kernels"]) = bf16_decode_steps(
+         get_config("yi-6b"))
     for name in ("DiT forward B=4", "yi-6b decode step, device",
                  "yi-6b decode step, host enqueue",
                  "Mamba block forward B=8 L=128"):

@@ -37,13 +37,12 @@ SIGNATURES = {
                        _LL, _I, _I, _I, _I, _I, _F, _P],
     "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _F, _P],
-    "decode_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _F, _P],
+    "decode_attention_f32": [_P] * 7 + [_I] * 8 + [_F, _P],
     "rmsnorm_f32": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _F, _P],
     "ssm_scan_f32": [_P] * 9 + [_I] * 4 + [_P],
     "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _F, _P],
-    "decode_attention_bf16": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "decode_attention_bf16": [_P] * 7 + [_I] * 9 + [_F, _P],
     "rmsnorm_bf16": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _F, _P],
     "ssm_scan_bf16": [_P] * 9 + [_I] * 4 + [_P],
     "ssm_scan_backward_f32": [_P] * 15 + [_I] * 4 + [_P],
@@ -59,11 +58,16 @@ SIZES = {
 OCCUPANCY = {
     "adaln_norm_occupancy": [_I] * 4,
     "adaln_norm_backward_occupancy": [_I] * 6,
-    "decode_attention_occupancy": [_I] * 4,
+    "decode_attention_occupancy": [_I] * 2,
     "flash_attention_occupancy": [_I],
+    "flash_attention_bf16_occupancy": [_I],
     "rmsnorm_occupancy": [_I] * 4,
     "ssm_scan_occupancy": [_I],
     "ssm_scan_backward_occupancy": [],
+}
+# C functions that say which kernel a call at given shapes launches
+ROUTES = {
+    "flash_attention_bf16_consumers": [_I] * 4,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -147,7 +151,8 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         for table, restype in ((SIGNATURES, ctypes.c_int),
                                (SIZES, ctypes.c_longlong),
-                               (OCCUPANCY, ctypes.c_int)):
+                               (OCCUPANCY, ctypes.c_int),
+                               (ROUTES, ctypes.c_int)):
             for name, argtypes in table.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

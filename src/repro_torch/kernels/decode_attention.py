@@ -22,7 +22,10 @@ from repro_torch.kernels import (BF16, build, check_launch, check_operand,
 
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's compiled head widths
 MAX_GROUP = 8                     # query heads per kv head
-MIN_SPLIT_KEYS = 64               # keys a split takes at the least
+TILE_KEYS = 32                    # keys a tile on the CUDA cores
+TILE_KEYS_MMA = 64                # ... on the tensor cores (bfloat16 q, cache)
+MIN_SPLIT_TILES = 2               # tiles a split takes at the least
+MAX_SPLITS = 128                  # splits the merge kernel takes
 BLOCKS_PER_SM = 2                 # blocks in flight the splits aim for
 
 
@@ -43,19 +46,37 @@ def work(q_shape, k_shape, q_bytes: int = 4, kv_bytes: int = 4):
                                       + kv_bytes * 2 * b * s * kh * d + 4 * b)
 
 
-def decode_grid(pairs: int, group: int, seq: int, sms: int):
+def tile_keys(q_dtype, kv_dtype) -> int:
+    """Keys a tile of the kernel that takes these dtypes: the tensor cores'
+    for bfloat16 q over a bfloat16 cache, else the CUDA cores'."""
+    return TILE_KEYS_MMA if q_dtype == kv_dtype == BF16 else TILE_KEYS
+
+
+def decode_grid(pairs: int, group: int, seq: int, sms: int, tile: int):
     """(splits, head groups) of the launch, from the shapes alone, so the
-    lengths never leave the card.  The cache of each (b, kv head) is split
-    into as many chunks as fill ``BLOCKS_PER_SM`` blocks on every SM, but
-    none under ``MIN_SPLIT_KEYS`` keys; then, while the blocks are fewer
-    than the SMs, the ``group`` query heads of a kv head go to as many
-    blocks (a divisor of ``group``) as keep one block an SM at most."""
-    splits = max(1, min(BLOCKS_PER_SM * sms // pairs,
-                        seq // MIN_SPLIT_KEYS))
+    lengths never leave the card.  The cache of each (b, kv head), in
+    tiles of ``tile`` keys, is split into as many chunks of whole tiles
+    as fill ``BLOCKS_PER_SM`` blocks on every SM, but none under
+    ``MIN_SPLIT_TILES`` tiles (a short cache takes one split and no
+    merge); then, while the blocks are fewer than the SMs, the ``group``
+    query heads of a kv head go to as many blocks (a divisor of
+    ``group``) as keep one block an SM at most."""
+    tiles = -(-seq // tile)
+    want = max(1, min(BLOCKS_PER_SM * sms // pairs, tiles // MIN_SPLIT_TILES,
+                      MAX_SPLITS))
+    per = -(-tiles // want)               # tiles a split takes
+    splits = -(-tiles // per)
     head_groups = max([hg for hg in range(1, group + 1)
                        if group % hg == 0 and pairs * splits * hg <= sms],
                       default=1)
     return splits, head_groups
+
+
+def split_keys(seq: int, splits: int, tile: int) -> int:
+    """Keys a split takes, the launch's one statement of it: split s
+    covers keys [s * chunk, (s + 1) * chunk), ceil(tiles / splits) whole
+    tiles of ``tile`` keys (the kernel refuses any other)."""
+    return -(-(-(-seq // tile)) // splits) * tile
 
 
 def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
@@ -101,8 +122,9 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
     if b == 0:
         return o
     g = h // kh
+    tile = tile_keys(q.dtype, k_cache.dtype)
     splits, head_groups = decode_grid(b * kh, g, s,
-                                      _sm_count(dev.index or 0))
+                                      _sm_count(dev.index or 0), tile)
     ws_acc = ws_ml = None
     if splits > 1:
         ws_acc = torch.empty(b * kh * splits * g * d, device=dev)
@@ -113,7 +135,8 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, *,
             lengths.data_ptr(), o.data_ptr(),
             ws_acc.data_ptr() if ws_acc is not None else None,
             ws_ml.data_ptr() if ws_ml is not None else None,
-            b, s, h, kh, d, splits, head_groups)
+            b, s, h, kh, d, splits, head_groups,
+            split_keys(s, splits, tile))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if bf:

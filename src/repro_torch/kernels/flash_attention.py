@@ -1,10 +1,12 @@
-"""Wrapper of the FlashAttention-2 CUDA kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the FlashAttention CUDA kernels (``csrc/flash_attention.cu``).
 
 Replaces ``repro.kernels.flash_attention.flash_attention_pallas`` with its
 full semantics: causal and sliding-window masks, ``q_offset``, grouped-query
 attention by index (kv is never repeated) and any key length, in float32
-or bfloat16 (the ``flash_attention_bf16`` launch: bfloat16 products on the
-tensor cores, float32 softmax, the output rounded once).  Its plain
+(3xTF32 ``mma.sync``) or bfloat16 (the ``flash_attention_bf16`` launch:
+bfloat16 products on the tensor cores, float32 softmax, the output rounded
+once; at D in {64, 128} a ``wgmma`` kernel fed by TMA, see
+:func:`bf16_route`).  Its plain
 version is :func:`repro_torch.kernels.ref.attention`;
 :func:`repro_torch.kernels.ops.flash_attention` picks between them by the
 tensor's device.
@@ -20,6 +22,20 @@ from repro_torch.kernels import (BF16, build, check_launch, check_operand,
                                  launched, variant)
 
 HEAD_DIMS = (16, 32, 64, 128)     # the kernel's compiled head widths
+
+
+def bf16_route(b: int, sq: int, h: int, d: int) -> str:
+    """Which kernel a bfloat16 call at these shapes launches, as the
+    launcher decides it (``flash_attention_bf16_consumers`` in the
+    source): FlashAttention-3's shape on ``wgmma`` and TMA with one or two
+    consumer warpgroups a block at D in {64, 128}, else the ``mma.sync``
+    kernel that float32 shares (its bfloat16 form).  Builds the kernels."""
+    nc = build.library().flash_attention_bf16_consumers(b, sq, h, d)
+    if nc < 0:
+        raise RuntimeError("flash_attention: the card's SM count is "
+                           "unreadable")
+    return (f"wgmma, {nc} consumer warpgroup{'s' if nc > 1 else ''}"
+            if nc else "mma.sync")
 
 
 @functools.lru_cache(maxsize=None)

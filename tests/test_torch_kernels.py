@@ -402,22 +402,38 @@ def test_decode_attention_empty_row_is_the_uniform_average():
     _close(got, want)
 
 
-def _decode_kernel_emulation(q, k, v, lengths, sms=132):
+def _decode_kernel_emulation(q, k, v, lengths, sms=132, tile=32):
     """``decode_attention.cu``'s arithmetic on CPU tensors: the splits of
-    ``decode_grid`` (chunks of ceil(S / splits) keys), tiles of 32 keys
-    from each split's start, per tile one max and the exponentials per
-    head, the running sum kept per lane (key slot) and summed at the end,
-    then the splits merged in split order with the log-sum-exp rule.  The
-    head groups only share the heads out among blocks; each head's
-    arithmetic is the same."""
-    from repro_torch.kernels.decode_attention import decode_grid
+    ``decode_grid`` (chunks of whole ``tile``-key tiles: 32 on the CUDA
+    cores, 64 on the tensor cores), each tile divided among the block's
+    four warps (``tile / 4`` keys each), every warp keeping its own running
+    max, sum and accumulator over its keys of every tile (one max and the
+    exponentials per tile and head), the warps merged in warp order with
+    the log-sum-exp rule (a warp with no key adds nothing), then the splits
+    merged in split order by the same rule.  The head groups only share
+    the heads out among blocks; each head's arithmetic is the same."""
+    from repro_torch.kernels.decode_attention import decode_grid, split_keys
     b, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
     g = h // kh
     scale = d ** -0.5
-    splits, _ = decode_grid(b * kh, g, s, sms)
-    chunk = -(-s // splits)
+    warps, kpw = 4, tile // 4
+    splits, _ = decode_grid(b * kh, g, s, sms, tile)
+    chunk = split_keys(s, splits, tile)              # whole tiles
     inf = torch.tensor(float("inf"))
+
+    def merge(parts):
+        """(m, l, acc) partials merged in order, as the kernels do."""
+        mx = torch.full((g,), -inf)
+        for pm, pl, _ in parts:
+            mx = torch.where(pl > 0, torch.maximum(mx, pm), mx)
+        lsum, a = torch.zeros(g), torch.zeros(g, d)
+        for pm, pl, pacc in parts:
+            w = torch.where(pl > 0, torch.exp(pm - mx), torch.zeros(g))
+            lsum = lsum + pl * w
+            a = a + pacc * w[:, None]
+        return mx, lsum, a
+
     out = torch.empty_like(q)
     for bi in range(b):
         ln = int(lengths[bi])
@@ -427,52 +443,71 @@ def _decode_kernel_emulation(q, k, v, lengths, sms=132):
             qg = q[bi, kv * g:(kv + 1) * g]
             parts = []
             for sp in range(splits):
-                k0, k1 = sp * chunk, min(sp * chunk + chunk, n)
-                m = torch.full((g,), -inf)
-                lanes = torch.zeros(g, 32)
-                acc = torch.zeros(g, d)
-                for t0 in range(k0, k1, 32):
-                    nk = min(32, k1 - t0)
-                    sc = torch.full((g, 32), -inf)
-                    sc[:, :nk] = (torch.full((g, nk), -1e30) if masked else
-                                  (qg @ k[bi, t0:t0 + nk, kv].T) * scale)
-                    mx = torch.maximum(m, sc.amax(-1))
-                    alpha = torch.exp(m - mx)
-                    p = torch.exp(sc - mx[:, None])
-                    lanes = lanes * alpha[:, None] + p
-                    acc = acc * alpha[:, None] + p[:, :nk] @ v[bi, t0:t0 + nk,
-                                                               kv]
-                    m = mx
-                parts.append((m, lanes.sum(-1), acc))
-            mx = torch.full((g,), -inf)
-            for pm, pl, _ in parts:
-                mx = torch.where(pl > 0, torch.maximum(mx, pm), mx)
-            lsum, a = torch.zeros(g), torch.zeros(g, d)
-            for pm, pl, pacc in parts:
-                w = torch.where(pl > 0, torch.exp(pm - mx), torch.zeros(g))
-                lsum = lsum + pl * w
-                a = a + pacc * w[:, None]
+                k0 = sp * chunk
+                k1 = min(k0 + chunk, s, n)
+                state = [[torch.full((g,), -inf), torch.zeros(g),
+                          torch.zeros(g, d)] for _ in range(warps)]
+                for t0 in range(k0, k1, tile):
+                    nk = min(tile, k1 - t0)
+                    for w, (m, lw, acc) in enumerate(state):
+                        w0 = w * kpw
+                        if w0 >= nk:               # no key of this warp
+                            continue
+                        sc = torch.full((g, kpw), -inf)
+                        kn = min(kpw, nk - w0)
+                        rows = slice(t0 + w0, t0 + w0 + kn)
+                        sc[:, :kn] = (torch.full((g, kn), -1e30) if masked
+                                      else (qg @ k[bi, rows, kv].T) * scale)
+                        mx = torch.maximum(m, sc.amax(-1))
+                        alpha = torch.exp(m - mx)
+                        p = torch.exp(sc - mx[:, None])
+                        state[w] = [mx, lw * alpha + p.sum(-1),
+                                    acc * alpha[:, None]
+                                    + p[:, :kn] @ v[bi, rows, kv]]
+                parts.append(merge(state))
+            _, lsum, a = merge(parts)
             out[bi, kv * g:(kv + 1) * g] = a / lsum.clamp_min(1e-30)[:, None]
     return out, splits
 
 
-@pytest.mark.parametrize("b,s,h,kh,d,lengths,want_splits", [
-    (1, 24, 32, 4, 128, [24], 1),              # the launcher's decode
-    (5, 24, 32, 4, 128, [0, 1, 23, 24, 30], 1),
-    (7, 320, 8, 2, 32, [0, 1, 64, 65, 319, 320, 330], 5),   # split edges
-    (2, 200, 4, 1, 64, [33, 200], 3),          # splits of 67: tiles 32+32+3
+@pytest.mark.parametrize("b,s,h,kh,d,lengths,tile,want_splits", [
+    # the first four keep the ids they had before the tile size was a
+    # parameter (32 keys, the CUDA cores')
+    pytest.param(1, 24, 32, 4, 128, [24], 32, 1,      # the launcher's decode
+                 id="1-24-32-4-128-lengths0-1"),
+    pytest.param(5, 24, 32, 4, 128, [0, 1, 23, 24, 30], 32, 1,
+                 id="5-24-32-4-128-lengths1-1"),
+    pytest.param(7, 320, 8, 2, 32, [0, 1, 64, 65, 319, 320, 330], 32, 5,
+                 id="7-320-8-2-32-lengths2-5"),       # split edges
+    pytest.param(2, 200, 4, 1, 64, [33, 200], 32, 3,  # 3 splits of 96 keys
+                 id="2-200-4-1-64-lengths3-3"),
+    # odd G at the CUDA cores' edges: 8-key warp slices, 32-key tiles,
+    # 96-key splits; 0, 1, S and past S
+    (4, 200, 14, 2, 32, [0, 1, 8, 9], 32, 3),
+    (4, 200, 14, 2, 32, [31, 33, 96, 97], 32, 3),
+    (3, 200, 6, 2, 16, [7, 192, 200], 32, 3),
+    (2, 200, 6, 2, 16, [193, 201], 32, 3),
+    # the tensor cores' partition: 16-key warp slices, 64-key tiles,
+    # 192-key splits
+    (4, 300, 14, 2, 32, [0, 1, 15, 16], 64, 2),
+    (4, 300, 14, 2, 32, [17, 63, 65, 192], 64, 2),
+    (3, 300, 6, 2, 16, [191, 193, 300], 64, 2),
+    (2, 304, 6, 2, 16, [303, 305], 64, 2),
 ])
 def test_decode_kernel_tiles_and_splits_match_reference(b, s, h, kh, d,
-                                                        lengths, want_splits):
+                                                        lengths, tile,
+                                                        want_splits):
     """The kernel's partition (the splits its grid rule gives at 132 SMs,
-    32-key tiles) and its per-tile online softmax with the fixed-order
-    log-sum-exp merge hold the oracle and the Pallas kernel at 1e-6
+    tiles of 32 or 64 keys divided among four warps) and its per-warp
+    online softmax with the fixed-order log-sum-exp merges of the warps
+    and of the splits hold the oracle and the Pallas kernel at 1e-6
     (float32, only the order of the sums differs).  Lengths 0, 1, S - 1, S
-    and past S, and at split edges."""
+    and past S, and at warp-slice, tile and split edges, with odd G."""
     q, k, v = _inputs(s * 10 + b, (b, h, d), (b, s, kh, d), (b, s, kh, d))
     lens = np.asarray(lengths, np.int32)
     t = torch.from_numpy
-    got, splits = _decode_kernel_emulation(t(q), t(k), t(v), t(lens))
+    got, splits = _decode_kernel_emulation(t(q), t(k), t(v), t(lens),
+                                           tile=tile)
     assert splits == want_splits
     _close(got, jref.decode_attention(q, k, v, lens))
     block_k = 8 if s % 64 else 64
@@ -484,23 +519,47 @@ def test_decode_kernel_tiles_and_splits_match_reference(b, s, h, kh, d,
 
 
 def test_decode_grid_fills_the_card_from_shapes_alone():
-    """At the launcher's shape the G query heads spread over blocks (more
-    than the 4 SMs one block per kv head would use); at B=8, S=4096 the
-    cache splits into chunks, one tile read once for all 8 heads."""
-    from repro_torch.kernels.decode_attention import decode_grid
+    """The grid rule on 132 SMs: splits of whole tiles that fill two blocks
+    an SM but take at least two tiles each (a short cache takes one split
+    and no merge), then the G query heads spread over blocks while they
+    are fewer than the SMs.  At the launcher's shape the heads spread (32
+    blocks, where one block per kv head would use 4 SMs); at B=8, S=4096
+    one tile is read once for all 8 heads; llava's G=7 and deepseek's G=8
+    split their ~3000-4096 keys into 2-4 tiles a block."""
+    from repro_torch.kernels.decode_attention import (TILE_KEYS,
+                                                      TILE_KEYS_MMA,
+                                                      decode_grid, split_keys,
+                                                      tile_keys)
+    assert tile_keys(torch.bfloat16, torch.bfloat16) == TILE_KEYS_MMA == 64
+    assert tile_keys(torch.float32, torch.bfloat16) == TILE_KEYS == 32
+    assert tile_keys(torch.float32, torch.float32) == TILE_KEYS
 
-    def blocks(b, kh, g, s):
-        splits, groups = decode_grid(b * kh, g, s, 132)
+    def blocks(b, kh, g, s, tile=TILE_KEYS):
+        splits, groups = decode_grid(b * kh, g, s, 132, tile)
+        # the keys a split takes, as the kernel accepts them: whole tiles,
+        # every key covered, no split empty
+        chunk = split_keys(s, splits, tile)
+        assert chunk % tile == 0 and (splits - 1) * chunk < s <= splits * chunk
         return splits, groups, b * kh * splits * groups
 
     assert blocks(1, 4, 8, 24) == (1, 8, 32)
+    assert blocks(1, 4, 8, 24, 64) == (1, 8, 32)
     assert blocks(8, 4, 8, 4096) == (8, 1, 256)
+    assert blocks(8, 4, 8, 4096, 64) == (8, 1, 256)
     assert blocks(1, 4, 8, 4096) == (64, 1, 256)
+    assert blocks(1, 4, 8, 4096, 64) == (32, 1, 128)
+    assert blocks(1, 4, 8, 160) == (2, 8, 64)           # phase 26's cache
+    assert blocks(1, 4, 8, 160, 64) == (1, 8, 32)       # 3 tiles, no merge
     assert blocks(8, 4, 8, 24) == (1, 4, 128)
     assert blocks(8, 8, 1, 4096) == (4, 1, 256)         # G = 1
-    assert blocks(2, 4, 4, 777) == (12, 1, 96)          # splits of 65 keys
-    assert blocks(1, 4, 8, 63) == (1, 8, 32)            # under 64 keys
+    assert blocks(2, 4, 4, 777) == (9, 1, 72)           # 3 tiles a split
+    assert blocks(1, 4, 8, 63) == (1, 8, 32)            # under two tiles
     assert blocks(64, 4, 8, 24) == (1, 1, 256)          # more pairs than SMs
+    assert blocks(1, 8, 7, 3024) == (32, 1, 256)        # llava, G=7
+    assert blocks(1, 8, 7, 3024, 64) == (24, 1, 192)
+    assert blocks(1, 8, 8, 4096) == (32, 1, 256)        # deepseek, G=8
+    assert blocks(1, 8, 8, 4096, 64) == (32, 1, 256)
+    assert blocks(1, 1, 1, 1 << 20) == (128, 1, 128)    # the merge's limit
 
 
 # -- rmsnorm ------------------------------------------------------------------------
