@@ -202,6 +202,23 @@ non-zero before the result line):
     step and granite's prefill in bfloat16 counted on the card equal to
     meta, and phase 25's dry-run cells in bfloat16 beside their float32
     argument bytes.
+27. the DiT in bfloat16 (the reference's ``init_gdm(dtype=)``): (a) both
+    adaLN forms on bfloat16 operands, with float32 and with bfloat16
+    weights, against their plain versions at the DiT's shapes (B in {1,
+    4}), the reference test's and the single-value widths, at the
+    reference's 3e-2 and by row (``ADALN_ROW_TOL`` on the row's mean gap,
+    ``BF16_ROW_TOL`` on its largest), a second call bit for bit, with
+    controls that must fail the row bar (a row normalised with its
+    neighbour's statistics; the epilogue's residual normalised after
+    rounding); the float32 kernel reading bfloat16 weights at 1e-5; (b)
+    full-width gdm-dit built in bfloat16 (seed 17), one ``gdm_denoise``
+    at B=4 on a bfloat16 latent card vs CPU with exactly 12 launches of
+    each bfloat16 adaLN form and of ``flash_attention_bf16``; (c) its
+    device ms from a CUDA graph beside the float32 forward's in the same
+    call, each with its profiled kernels, against the products' floor,
+    and the bfloat16 adaLN kernels timed at B=1 and B=4 beside the
+    float32 kernel; (d) ``quality_per_block`` over the bfloat16 weights
+    with a float32 latent, card vs CPU, with exact float32 launches.
 
 Phase 3 also holds the selective scan (forward and backward kernels)
 against its plain version and autograd (and both against themselves: two
@@ -222,7 +239,8 @@ Then it prints one JSON line describing the kernels (each kernel's
 launches from the path that carries it: the DiT kernels from the fleet of
 phase 15, decode and rmsnorm from phase 8, the scan kernels from phase
 10, the adaLN backward from phase 24's training run, the bfloat16
-variants from phase 26's yi-6b and Jamba runs), and as its last
+variants from phase 26's yi-6b and Jamba runs, the bfloat16 adaLN forms
+from phase 27's bfloat16 DiT forward), and as its last
 line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernel-times TREE`` builds the kernels of another
@@ -394,16 +412,22 @@ def _randn(gen, *shape, scale=1.0):
     return torch.randn(*shape, generator=gen, device="cuda") * scale
 
 
-def adaln_inputs(gen, b, s, d, epilogue, offset=0):
+def adaln_inputs(gen, b, s, d, epilogue, offset=0, dtype=None,
+                 params_dtype=None):
     """Main-path operands: modulation as (B, 1, d) chunks of one (B, 1, 6d)
-    projection, as the DiT layer passes them; ``offset`` floats into a
-    wider projection, so that the chunks are not 16-byte aligned."""
-    x = _randn(gen, b, s, d)
-    mods = _randn(gen, b, 1, 6 * d + offset, scale=0.1)[..., offset:]
+    projection, as the DiT layer passes them; ``offset`` values into a
+    wider projection, so that the chunks are not 16-byte aligned.  The
+    draws are float32, rounded to ``dtype`` (x, the projection, the
+    residual) and ``params_dtype`` (weight, bias) where given."""
+    def cast(t, to):
+        return t if to is None else t.to(to)
+    x = cast(_randn(gen, b, s, d), dtype)
+    mods = cast(_randn(gen, b, 1, 6 * d + offset, scale=0.1),
+                dtype)[..., offset:]
     sh, sc, g = mods.chunk(6, dim=-1)[:3]
-    w = 1.0 + _randn(gen, d, scale=0.1)
-    bias = _randn(gen, d, scale=0.1)
-    extra = (g, _randn(gen, b, s, d)) if epilogue else ()
+    w = cast(1.0 + _randn(gen, d, scale=0.1), params_dtype)
+    bias = cast(_randn(gen, d, scale=0.1), params_dtype)
+    extra = (g, cast(_randn(gen, b, s, d), dtype)) if epilogue else ()
     return (x, sh, sc, w, bias) + extra
 
 
@@ -5254,6 +5278,390 @@ def bf16_phase(gen, yi):
     return errs, times, launches
 
 
+# -- phase 27: the DiT in bfloat16 -------------------------------------------------
+
+# the adaLN kernel in bfloat16, each output row against its own scale: the
+# mean of |kernel - plain| over the row's d values <= ADALN_ROW_TOL times
+# the row's mean |plain|.  Both sides compute in float32 and round once,
+# so an element parts only where the two float32 values straddle a
+# bfloat16 rounding boundary (about 1e-5 of the elements, one ulp each:
+# a row gap of 1e-5 to 5e-5 on the CPU with the statistics summed in
+# float64).  A kernel that normalised the rounded residual moves about 28%
+# of the elements by an ulp (a row gap of 1.6e-3 to 2.2e-3), one that took
+# a neighbour's statistics 0.17 or more: check_bf16_adaln_controls holds
+# both against the bar.  The max-by-row bar of flash and decode
+# (BF16_ROW_TOL) holds too, and the reference's 3e-2.
+ADALN_ROW_TOL = 2.0 ** -11
+BF16_ADALN_TOL = 3e-2
+# the full-width bfloat16 forward card vs CPU, relative to the largest
+# |eps|: cuBLAS and the CPU's BLAS sum K up to 3072 in other orders and
+# round at the same places, through 12 layers (the reduced DiT against the
+# reference parts by 4.1e-3 to 6.7e-3, tests/test_torch_gdm_bf16.py)
+BF16_DIT_TOL = 5e-2
+# (B, S, d, offset of the modulation chunks in values): the DiT at B in
+# {1, 4}; the reference test's shapes (S = 17, d = 96); d = 100 and 99 and
+# the DiT's width with unaligned modulation (single values); rows wider
+# than 1024 values (16-byte loads of 8; single values four a thread)
+BF16_ADALN_CASES = [(1, 256, 768, 0), (4, 256, 768, 0), (1, 16, 64, 0),
+                    (4, 16, 64, 0), (2, 64, 96, 0), (2, 17, 64, 0),
+                    (2, 17, 96, 0), (3, 5, 100, 0), (3, 5, 99, 0),
+                    (4, 256, 768, 1), (2, 8, 3000, 0), (2, 8, 2001, 0)]
+
+
+def _mean_row_gap(got, want):
+    """The largest, over rows, of mean|got - want| / mean|want| in the
+    row (inf where a row of zeros is missed)."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = (g - w).abs().mean(-1)
+    scale = w.abs().mean(-1)
+    ratio = torch.where(scale > 0, diff / scale.clamp_min(1e-30),
+                        torch.where(diff > 0, float("inf"), 0.0))
+    return float(ratio.max())
+
+
+def _flat_mods(args, b, d):
+    return [a.reshape(b, d) if a.dim() == 3 and a.shape[1] == 1 else a
+            for a in args]
+
+
+def check_bf16_adaln(gen):
+    """Phase 27(a): both adaLN forms on bfloat16 x, modulation and
+    residual, with float32 and with bfloat16 weight and bias, against the
+    plain version at the reference's 3e-2, by row (ADALN_ROW_TOL, and
+    BF16_ROW_TOL on the row's largest gap) and a second call bit for bit;
+    the float32 kernel reading bfloat16 weights (the float32 latent over a
+    bfloat16 DiT) at float32's TOL; a bfloat16 x with a float32
+    modulation refused.  Returns each bfloat16 form's largest absolute
+    gap."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.adaln_norm import launch_shape, load_width
+    bf = torch.bfloat16
+    worst = {"adaln_norm_bf16": 0.0, "adaln_norm_epilogue_bf16": 0.0}
+    row_worst = 0.0
+    for (b, s, d, offset) in BF16_ADALN_CASES:
+        for params in (torch.float32, bf):
+            for epilogue in (False, True):
+                args = adaln_inputs(gen, b, s, d, epilogue, offset,
+                                    dtype=bf, params_dtype=params)
+                got = ops.adaln_norm(*args)
+                again = ops.adaln_norm(*args)
+                flat = _flat_mods(args, b, d)
+                want = ref.adaln_norm(*flat)
+                pairs = list(zip(got, want)) if epilogue else [(got, want)]
+                same = all(torch.equal(g_, a) for g_, a in (
+                    zip(got, again) if epilogue else [(got, again)]))
+                assert all(g_.dtype == bf for g_, _ in pairs)
+                gaps = [_allclose_gap(g_, w_, BF16_ADALN_TOL)
+                        for g_, w_ in pairs]
+                err = max(e for e, _ in gaps)
+                row = max(_mean_row_gap(g_, w_) for g_, w_ in pairs)
+                top = max(_row_gap(g_, w_) for g_, w_ in pairs)
+                width = load_width(*flat)
+                threads, vpt = launch_shape(d, width, 2)
+                name = ("adaln_norm_epilogue_bf16" if epilogue
+                        else "adaln_norm_bf16")
+                print(f"{name:24s} B={b} S={s} d={d} offset {offset} "
+                      f"weights {str(params)[6:]}: {2 * width}-byte loads, "
+                      f"{threads} threads x {vpt}; max|kernel - plain| = "
+                      f"{err:.3e}; by row mean {row:.3e}, max {top:.3e}; "
+                      f"a second call bit-identical: {same}")
+                assert all(ok for _, ok in gaps), \
+                    f"{name} disagrees with its plain version"
+                assert row <= ADALN_ROW_TOL and top <= BF16_ROW_TOL, \
+                    f"{name} disagrees with its plain version by row"
+                assert same, f"{name} is not deterministic"
+                worst[name] = max(worst[name], err)
+                row_worst = max(row_worst, row)
+    for (b, s, d, offset) in ((4, 256, 768, 0), (4, 16, 64, 0),
+                              (3, 5, 99, 0)):
+        for epilogue in (False, True):
+            args = adaln_inputs(gen, b, s, d, epilogue, offset,
+                                params_dtype=bf)
+            got = ops.adaln_norm(*args)
+            again = ops.adaln_norm(*args)
+            want = ref.adaln_norm(*_flat_mods(args, b, d))
+            pairs = list(zip(got, want)) if epilogue else [(got, want)]
+            err = max(float((g_ - w_).abs().max()) for g_, w_ in pairs)
+            same = all(torch.equal(g_, a) for g_, a in (
+                zip(got, again) if epilogue else [(got, again)]))
+            print(f"adaln_norm{'_epilogue' if epilogue else ''} float32 x, "
+                  f"bfloat16 weights, B={b} S={s} d={d}: max|kernel - "
+                  f"plain| = {err:.3e}; a second call bit-identical: {same}")
+            assert got[0].dtype == torch.float32 if epilogue \
+                else got.dtype == torch.float32
+            assert err <= TOL and same, \
+                "the float32 adaLN kernel misreads bfloat16 weights"
+    x, sh, sc, w, bias = adaln_inputs(gen, 2, 8, 64, False, dtype=bf)
+    try:
+        ops.adaln_norm(x, sh.float(), sc, w, bias)
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("adaln_norm took a float32 shift beside "
+                             "bfloat16 x")
+    print(f"adaln_norm bf16: the largest mean gap by row over its cases "
+          f"{row_worst:.3e} of the row's mean|plain| (bar "
+          f"{ADALN_ROW_TOL:.3e})")
+    check_bf16_adaln_controls(gen)
+    return worst
+
+
+def check_bf16_adaln_controls(gen):
+    """Phase 27(a): the power of ADALN_ROW_TOL, at the DiT's shape (B=4)
+    and the reference test's (2, 17, 96).  The plain form against rows
+    normalised with the statistics of the row before (a block that read
+    its neighbour's sums); the epilogue against y normalised from the
+    rounded residual (the parity trap: the reference normalises the
+    unrounded float32 r).  Each fault, computed from the plain version on
+    the same inputs, must fail the bar, and the kernel pass it."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    bf = torch.bfloat16
+    smallest = float("inf")
+    for (b, s, d) in ((4, 256, 768), (2, 17, 96)):
+        x, sh, sc, w, bias = _flat_mods(adaln_inputs(
+            gen, b, s, d, False, dtype=bf, params_dtype=bf), b, d)
+        want = ref.adaln_norm(x, sh, sc, w, bias)
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True).roll(1, 1)
+        var = xf.var(-1, keepdim=True, correction=0).roll(1, 1)
+        fault = ((xf - mean) * (var + 1e-5) ** -0.5 * w.float()
+                 + bias.float()) * (1.0 + sc.float()[:, None]) \
+            + sh.float()[:, None]
+        kernel = _mean_row_gap(ops.adaln_norm(x, sh, sc, w, bias), want)
+        gap = _mean_row_gap(fault.to(bf), want)
+        print(f"control adaln_norm bf16 B={b} S={s} d={d}: kernel by row "
+              f"{kernel:.3e}; a row normalised with its neighbour's "
+              f"statistics {gap:.3e}")
+        assert kernel <= ADALN_ROW_TOL < gap, \
+            "ADALN_ROW_TOL does not tell the plain form from a fault"
+        smallest = min(smallest, gap)
+        args = _flat_mods(adaln_inputs(gen, b, s, d, True, dtype=bf,
+                                       params_dtype=bf), b, d)
+        want_y, want_r = ref.adaln_norm(*args)
+        got_y, _ = ops.adaln_norm(*args)
+        fault = ref.adaln_norm(want_r, *args[1:5])
+        kernel = _mean_row_gap(got_y, want_y)
+        gap = _mean_row_gap(fault, want_y)
+        print(f"control adaln_norm_epilogue bf16 B={b} S={s} d={d}: kernel "
+              f"by row {kernel:.3e}; the residual normalised after "
+              f"rounding {gap:.3e}")
+        assert kernel <= ADALN_ROW_TOL < gap, \
+            "ADALN_ROW_TOL does not tell the epilogue from a fault"
+        smallest = min(smallest, gap)
+    print(f"adaLN controls: the smallest gap by row of a fault "
+          f"{smallest:.3e}, the bar {ADALN_ROW_TOL:.3e}")
+
+
+def time_adaln_bf16(gen, b, s, d):
+    """Both adaLN forms on bfloat16 operands and weights beside the
+    float32 kernel on the same values and the float32 kernel reading
+    bfloat16 weights, all in this call, the plain version in bfloat16 and
+    ``F.layer_norm`` in bfloat16 (printed as the nearest PyTorch call; it
+    leaves out the modulation and the residual, so no form has a library
+    time).  The bound counts 2 bytes an element (``work``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.adaln_norm import work
+    bf = torch.bfloat16
+    out = {}
+    for epilogue in (False, True):
+        name = "adaln_norm_epilogue_bf16" if epilogue else "adaln_norm_bf16"
+        args32 = adaln_inputs(gen, b, s, d, epilogue)
+        args = [a.to(bf) for a in args32]
+        mixed = list(args32[:3]) + [a.to(bf) for a in args32[3:5]] \
+            + list(args32[5:])
+        flat = _flat_mods(args, b, d)
+        flops, nbytes = work(b, s, d, epilogue, 2)
+        t_bound, by = bound_ms(nbytes, flops)
+        out[name] = dict(
+            ms=device_ms(lambda: ops.adaln_norm(*args)),
+            f32_ms=device_ms(lambda: ops.adaln_norm(*args32)),
+            mixed_ms=device_ms(lambda: ops.adaln_norm(*mixed)),
+            plain_ms=device_ms(lambda: ref.adaln_norm(*flat)),
+            bound_ms=t_bound, bound_by=by, library_ms=None)
+        if not epilogue:
+            ln_ms = device_ms(lambda: F.layer_norm(args[0], (d,), args[3],
+                                                   args[4]))
+    for name, t in out.items():
+        _print_bf16_times(f"{name:24s} B={b} S={s} d={d}", t)
+        print(f"  the float32 kernel over bfloat16 weights: "
+              f"{t['mixed_ms']:.7f} ms")
+    print(f"F.layer_norm bfloat16 B={b} S={s} d={d} (the nearest PyTorch "
+          f"call, without the modulation): {ln_ms:.7f} ms")
+    return out
+
+
+def dit_bf16_vs_cpu(cfg, batch: int = 4):
+    """Phase 27(b): the full-width DiT built in bfloat16 on the card
+    (``init_gdm(dtype=torch.bfloat16)``, seed 17) and its copy on the CPU;
+    one ``gdm_denoise`` on a bfloat16 latent at B=``batch`` on each, the
+    card's launches exact (one of each bfloat16 adaLN form and of
+    ``flash_attention_bf16`` a layer, nothing else), eps bfloat16, finite
+    and within BF16_DIT_TOL of the CPU's largest |eps|.  Returns the model
+    and the launches."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.gdm import DiT, LATENT_CHANNELS, gdm_denoise, \
+        init_gdm
+    bf = torch.bfloat16
+    model = init_gdm(cfg, seed=17, device="cuda", dtype=bf)
+    cpu_model = DiT(cfg, device="cpu", dtype=bf)
+    cpu_model.load_state_dict(model.state_dict())
+    n = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator().manual_seed(23)
+    lat = torch.randn(batch, cfg.latent_hw ** 2, LATENT_CHANNELS,
+                      generator=gen).to(bf)
+    t = torch.randint(0, 16, (batch,), generator=gen)
+    prompt = torch.randint(2, cfg.vocab_size, (batch, 8), generator=gen)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_launches()
+        got = gdm_denoise(model, lat.cuda(), t.cuda(), prompt.cuda())
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in LAUNCHES.items() if v}
+        want = gdm_denoise(cpu_model, lat, t, prompt)
+    layers = cfg.num_layers
+    expect = {"adaln_norm_bf16": layers, "adaln_norm_epilogue_bf16": layers,
+              "flash_attention_bf16": layers}
+    gap = float((got.cpu().float() - want.float()).abs().max()) / float(
+        want.float().abs().max())
+    print(f"{cfg.name} in bfloat16 ({n / 1e6:.1f} M parameters, "
+          f"{2 * n / 1e9:.3f} GB): gdm_denoise B={batch}, card vs CPU "
+          f"{gap:.3e} of the largest |eps| ({float(want.float().abs().max()):.3f}; "
+          f"bar {BF16_DIT_TOL}); launches {launched}")
+    assert got.dtype == bf and torch.isfinite(got.float()).all(), \
+        "the bfloat16 forward is not finite bfloat16"
+    assert launched == expect, "the bfloat16 forward's launches are not " \
+        f"{expect}"
+    assert gap <= BF16_DIT_TOL, "the bfloat16 forward disagrees with the CPU"
+    del cpu_model
+    return model, launched
+
+
+def forward_graph_ms(model, cfg, dtype, batch: int = 4):
+    """(device ms of one ``gdm_denoise`` at B=``batch`` replayed from a CUDA
+    graph, the profiled kernels' count and summed device ms of one eager
+    forward) for a latent of ``dtype``."""
+    import torch
+    from repro_torch.models.gdm import LATENT_CHANNELS, gdm_denoise
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lat = torch.randn(batch, cfg.latent_hw ** 2, LATENT_CHANNELS,
+                      generator=gen, device="cuda").to(dtype)
+    t = torch.randint(0, 16, (batch,), generator=gen, device="cuda")
+    prompt = torch.randint(2, cfg.vocab_size, (batch, 8), generator=gen,
+                           device="cuda")
+
+    def forward():
+        gdm_denoise(model, lat, t, prompt)
+
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            forward()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            forward()
+        dev = device_ms(graph.replay, runs=10, reps=5,
+                        sleep_cycles=4_000_000)
+        n, kernels = profile_kernels(forward)
+    return dev, n, kernels
+
+
+def dit_bf16_times(gen, cfg, model):
+    """Phase 27(c): the bfloat16 forward's device time (CUDA graph, B=4)
+    beside the float32 forward's from the same weights rounded up, in one
+    call, each with its profiled kernels and idle share, against the
+    products' floor; then the adaLN kernels' times at B=1 and B=4.
+    Returns the B=4 kernel times."""
+    import torch
+    flops = dit_train_flops(cfg, 4) / 3.0      # the forward's products
+    weights = sum(p.numel() for p in model.parameters())
+    bf_floor, bf_by = bound_ms(2 * weights, 0.0, bf16_flops=flops)
+    f32_floor, f32_by = bound_ms(4 * weights, flops)
+    bf_ms, bf_n, bf_k = forward_graph_ms(model, cfg, torch.bfloat16)
+    model32 = model.float()
+    f32_ms, f32_n, f32_k = forward_graph_ms(model32, cfg, torch.float32)
+    model.bfloat16()
+    for what, ms, n, k, floor, by in (
+            ("bfloat16", bf_ms, bf_n, bf_k, bf_floor, bf_by),
+            ("float32", f32_ms, f32_n, f32_k, f32_floor, f32_by)):
+        print(f"DiT forward B=4 in {what}: {ms:.4f} ms of device time (CUDA "
+              f"graph); {n} kernels summing to {k:.4f} ms (idle "
+              f"{max(0.0, 1 - k / ms):.1%} of the graph's time); floor "
+              f"{floor:.4f} ms ({by}: {flops / 1e9:.1f} GFLOP of products, "
+              f"{(2 if what == 'bfloat16' else 4) * weights / 1e9:.3f} GB "
+              f"of weights), the forward at {floor / ms:.3f} of it")
+    print(f"DiT forward B=4: bfloat16 {bf_ms:.4f} ms against float32 "
+          f"{f32_ms:.4f} ms in this call ({f32_ms / bf_ms:.2f}x)")
+    time_adaln_bf16(gen, 1, 256, cfg.d_model)
+    return time_adaln_bf16(gen, 4, 256, cfg.d_model)
+
+
+def omega_bf16_vs_cpu(cfg, model, blocks: int = 4):
+    """Phase 27(d): ``quality_per_block`` over the bfloat16 weights with a
+    float32 latent (4 prompts of 8 tokens, noise from seed 29), card vs
+    CPU: the stream float32, the float32 adaLN kernels reading bfloat16
+    weights (launches exact: per forward one of each form and of
+    ``flash_attention`` a layer, no bfloat16 variant), Omega within
+    STEP_TOL, Omega(B) = 1."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.gdm import DiT, LATENT_CHANNELS, \
+        quality_per_block
+    cpu_model = DiT(cfg, device="cpu", dtype=torch.bfloat16)
+    cpu_model.load_state_dict(model.state_dict())
+    gen = torch.Generator().manual_seed(29)
+    prompts = torch.randint(2, cfg.vocab_size, (4, 8), generator=gen)
+    noise = torch.randn((4, cfg.latent_hw ** 2, LATENT_CHANNELS),
+                        generator=gen)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_launches()
+        card = quality_per_block(model, noise.cuda(), prompts.cuda(),
+                                 num_blocks=blocks, steps_per_block=1).cpu()
+        launched = {k: v for k, v in LAUNCHES.items() if v}
+        cpu = quality_per_block(cpu_model, noise, prompts,
+                                num_blocks=blocks, steps_per_block=1)
+    n = blocks * cfg.num_layers
+    expect = {"adaln_norm": n, "adaln_norm_epilogue": n,
+              "flash_attention": n}
+    err = float((card - cpu).abs().max())
+    print(f"quality_per_block over bfloat16 weights, float32 latent: card "
+          f"{[round(float(v), 6) for v in card]}, CPU "
+          f"{[round(float(v), 6) for v in cpu]}, max gap {err:.3e} "
+          f"(tolerance {STEP_TOL}); launches {launched}")
+    assert card.dtype == torch.float32 and torch.isfinite(card).all()
+    assert launched == expect, f"Omega's launches are not {expect}"
+    assert err <= STEP_TOL, "Omega over bfloat16 weights disagrees with " \
+        "the CPU"
+    assert abs(float(card[-1]) - 1.0) <= 1e-5, "Omega(B) is not 1"
+
+
+def dit_bf16_phase(gen, cfg):
+    """Phase 27, the DiT in bfloat16: (a) both adaLN forms in bfloat16
+    against their plain versions with controls, (b) the full-width
+    bfloat16 forward card vs CPU with exact launches, (c) its device time
+    beside the float32 forward's and the adaLN kernels' times, (d) Omega
+    over the bfloat16 weights card vs CPU.  Returns (errors, times,
+    launches) of the two bfloat16 adaLN forms."""
+    import torch
+    t0 = time.perf_counter()
+    errs = check_bf16_adaln(gen)
+    model, launched = dit_bf16_vs_cpu(cfg)
+    times = dit_bf16_times(gen, cfg, model)
+    omega_bf16_vs_cpu(cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 27 took {time.perf_counter() - t0:.1f} s")
+    return errs, times, {k: launched[k] for k in errs}
+
+
 def print_occupancy(lib):
     """Resident blocks per SM of the kernels redesigned for Hopper
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at the blocks their
@@ -5672,6 +6080,16 @@ def main(argv) -> int:
     times.update(bf_times)
     launches.update(bf_launches)
 
+    phase("27. the DiT in bfloat16: both adaLN forms in bfloat16 vs their "
+          "plain versions with controls; full-width gdm-dit built in "
+          "bfloat16, gdm_denoise at B=4 card vs CPU with exact launches; "
+          "its device time beside float32's; Omega over the bfloat16 "
+          "weights card vs CPU")
+    bf_errs, bf_times, bf_launches = dit_bf16_phase(gen, full)
+    errs.update(bf_errs)
+    times.update(bf_times)
+    launches.update(bf_launches)
+
     replaces = {
         "adaln_norm": "src/repro/kernels/adaln_norm.py:76",
         "adaln_norm_epilogue": "src/repro/kernels/adaln_norm.py:86",
@@ -5691,7 +6109,7 @@ def main(argv) -> int:
                                         "with XLA",
     }
     for name in ("flash_attention", "decode_attention", "rmsnorm",
-                 "ssm_scan"):
+                 "ssm_scan", "adaln_norm", "adaln_norm_epilogue"):
         replaces[name + "_bf16"] = replaces[name] + " (its bfloat16 path)"
     sources = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
                for name in replaces}

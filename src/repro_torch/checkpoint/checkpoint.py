@@ -27,7 +27,9 @@ place.
 ``AsyncCheckpointer`` copies the state to host numpy arrays before its
 thread starts, so training goes on while the copy is written.
 
-A bfloat16 tensor is written widened to float32, which holds its value
+A bfloat16 tensor, or a bfloat16 numpy array (the leaves of
+``dit_to_jax`` / ``lm_to_jax`` of a bfloat16 model), is written widened
+to float32, which holds its value
 exactly and which either package restores into a bfloat16 template
 exactly (the reference writes its own bfloat16 arrays as numpy's 2-byte
 void, which its ``restore`` cannot cast; this module reads them as
@@ -89,13 +91,14 @@ def _rebuild(tree, leaf_fn, prefix: str = ""):
 
 def _host(leaf) -> np.ndarray:
     """A host numpy copy of a tensor (never a view of a parameter that the
-    next step updates in place; bfloat16 widened to float32); other
-    leaves as numpy arrays."""
+    next step updates in place); other leaves as numpy arrays; bfloat16
+    widened to float32 either way."""
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             return leaf.detach().to("cpu", torch.float32).numpy()
         return leaf.detach().to("cpu", copy=True).numpy()
-    return np.asarray(leaf)
+    arr = np.asarray(leaf)
+    return from_numpy(arr).float().numpy() if is_bfloat16(arr) else arr
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
@@ -204,6 +207,8 @@ def restore(ckpt_dir: str, like, *, step: Optional[int] = None
                              f"template {tuple(tmpl.shape)}")
         if isinstance(tmpl, torch.Tensor):
             return _tensor(arr).to(device=tmpl.device, dtype=tmpl.dtype)
+        if is_bfloat16(arr):               # numpy casts no 2-byte void
+            arr = _tensor(arr).float().numpy()
         return arr.astype(tmpl.dtype) if hasattr(tmpl, "dtype") else arr
 
     return _rebuild(like, leaf), step

@@ -30,7 +30,8 @@ LAUNCHES = {"adaln_norm": 0, "adaln_norm_epilogue": 0, "flash_attention": 0,
             "ssm_scan_backward": 0, "adaln_norm_backward": 0,
             "adaln_norm_epilogue_backward": 0,
             "flash_attention_bf16": 0, "decode_attention_bf16": 0,
-            "rmsnorm_bf16": 0, "ssm_scan_bf16": 0}
+            "rmsnorm_bf16": 0, "ssm_scan_bf16": 0, "adaln_norm_bf16": 0,
+            "adaln_norm_epilogue_bf16": 0}
 
 BF16 = torch.bfloat16
 
@@ -38,7 +39,8 @@ BF16 = torch.bfloat16
 def variant(name: str, t: torch.Tensor) -> str:
     """The name a call of kernel ``name`` launches and is charged under:
     ``name + "_bf16"`` where ``t``, the operand whose dtype picks the
-    variant (x, q, the caches, u), is bfloat16."""
+    variant (x, q, the caches, u; adaLN's x, whatever its weight's
+    dtype), is bfloat16."""
     return name + "_bf16" if t.dtype == BF16 else name
 
 

@@ -5,11 +5,16 @@ adaLN modulation, ``y = (LN(x) * w + b) * (1 + scale) + shift``, and the
 gated-residual epilogue that first forms ``r = residual + gate * x`` and
 returns ``(y, r)``.  Its plain version is :func:`repro_torch.kernels.ref.
 adaln_norm`; :func:`repro_torch.kernels.ops.adaln_norm` picks between them
-by the tensor's device.
+by the tensor's device.  As the reference's kernel, it takes float32 or
+bfloat16 activations (x, the residual and the modulation in one dtype,
+launched as ``adaln_norm_bf16`` / ``adaln_norm_epilogue_bf16`` in
+bfloat16: :func:`repro_torch.kernels.variant`) with float32 or bfloat16
+``weight`` / ``bias``, computes in float32 and rounds each output once.
 
 The gradient of both forms is a kernel too (``csrc/adaln_norm_backward.
-cu``, :func:`adaln_norm_backward_cuda`), with no Pallas counterpart: the
-reference differentiates its plain version with XLA.  Its plain version is
+cu``, :func:`adaln_norm_backward_cuda`, float32 only), with no Pallas
+counterpart: the reference differentiates its plain version with XLA.
+Its plain version is
 :func:`repro_torch.kernels.ref.adaln_norm_backward`, and
 :class:`repro_torch.kernels.grad.AdaLNNormFn` joins the two kernels.
 """
@@ -19,7 +24,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, check_launch, check_operand, launched
+from repro_torch.kernels import (BF16, build, check_launch, check_operand,
+                                 launched, variant)
 
 MAX_D = 4096          # a row lives in one block's registers
 MAX_THREADS = 512
@@ -28,15 +34,20 @@ CLUSTER = 8           # the backward's blocks a cluster (csrc kCluster)
 MAX_BATCH = 65535     # the backward's grid: a batch row a grid row
 
 
-def work(b: int, s: int, d: int, epilogue: bool, itemsize: int = 4):
+def work(b: int, s: int, d: int, epilogue: bool, itemsize: int = 4,
+         param_itemsize: int | None = None):
     """(flops, bytes) of one call on (B, S, d): 10 flops an element (12
     with the epilogue), x (and residual) read, y (and r) written, the (B,
-    d) modulation rows (and gate) and weight, bias read once, at
-    ``itemsize`` bytes an element (the kernel takes float32)."""
+    d) modulation rows (and gate) read once at ``itemsize`` bytes an
+    element, weight and bias once at ``param_itemsize`` (by default
+    ``itemsize``)."""
     rows = b * s * d
+    if param_itemsize is None:
+        param_itemsize = itemsize
     return ((12.0 if epilogue else 10.0) * rows,
             float(itemsize * ((4 if epilogue else 2) * rows
-                              + (3 if epilogue else 2) * b * d + 2 * d)))
+                              + (3 if epilogue else 2) * b * d)
+                  + param_itemsize * 2 * d))
 
 
 def backward_work(b: int, s: int, d: int, epilogue: bool, with_dr: bool,
@@ -53,27 +64,32 @@ def backward_work(b: int, s: int, d: int, epilogue: bool, with_dr: bool,
 
 
 def load_width(x, shift, scale, weight, bias, gate=None, residual=None):
-    """Floats per load and store: 4 (16 bytes) where d % 4 == 0, every
-    tensor starts on a 16-byte boundary and every modulation row stride is
-    a multiple of 4 floats, so every row of every operand is aligned (x and
-    the residual are contiguous); else 1."""
-    if x.shape[-1] % 4:
+    """Values per load and store: 16 bytes of x's dtype (4 floats, 8
+    bfloat16) where d is a multiple of that, every tensor starts on a
+    16-byte boundary and every modulation row stride is a multiple of
+    that many values, so every row of every operand is aligned (x and the
+    residual are contiguous; weight and bias move the same number of
+    values, 8 or 32 bytes where their dtype is not x's); else 1."""
+    wide = 16 // x.element_size()
+    if x.shape[-1] % wide:
         return 1
     tensors = [t for t in (x, shift, scale, weight, bias, gate, residual)
                if t is not None]
     if any(t.data_ptr() % 16 for t in tensors):
         return 1
-    if any(t.stride(0) % 4 for t in (shift, scale, gate) if t is not None):
+    if any(t.stride(0) % wide for t in (shift, scale, gate)
+           if t is not None):
         return 1
-    return 4
+    return wide
 
 
-def launch_shape(d: int, width: int):
+def launch_shape(d: int, width: int, itemsize: int = 4):
     """(threads, vectors per thread) of the block that owns one row: two
-    vectors a thread while the row has at most 1024, else four or eight; a
-    whole number of warps."""
+    vectors a thread while the row has at most 1024, else four or eight
+    (one 16-byte vector a thread in bfloat16, ``itemsize`` 2, which takes
+    d <= 4096 in at most 512 threads); a whole number of warps."""
     n = d // width
-    vpt = 2
+    vpt = 1 if itemsize == 2 and width > 1 else 2
     while -(-n // vpt) > MAX_THREADS:
         vpt *= 2
     threads = -(-(-(-n // vpt)) // 32) * 32
@@ -92,8 +108,11 @@ def backward_grid(b: int, s: int, sms: int):
     return rows, CLUSTER, blocks
 
 
-def _check(x, shift, scale, weight, bias, gate, residual):
-    """Validate the forward's operands; returns (b, s, d, device)."""
+def _check(x, shift, scale, weight, bias, gate, residual, *,
+           dtypes=(torch.float32, BF16)):
+    """Validate the operands; returns (b, s, d, device).  x takes one of
+    ``dtypes``, the residual and the modulation x's; weight takes one of
+    ``dtypes``, bias weight's."""
     epilogue = residual is not None
     if epilogue != (gate is not None):
         raise ValueError("adaln_norm: gate and residual go together")
@@ -105,23 +124,27 @@ def _check(x, shift, scale, weight, bias, gate, residual):
         raise ValueError(f"adaln_norm_cuda: x is on {dev}")
     if d > MAX_D:
         raise ValueError(f"adaln_norm: d={d} > {MAX_D} is not supported")
-    check_operand("x", x, dev, (b, s, d))
-    check_operand("weight", weight, dev, (d,))
-    check_operand("bias", bias, dev, (d,))
+    check_operand("x", x, dev, (b, s, d), dtypes=dtypes)
+    check_operand("weight", weight, dev, (d,), dtypes=dtypes)
+    check_operand("bias", bias, dev, (d,), dtypes=(weight.dtype,))
     for name, t in (("shift", shift), ("scale", scale)) + (
             (("gate", gate),) if epilogue else ()):
-        check_operand(name, t, dev, (b, d), contiguous=False)
+        check_operand(name, t, dev, (b, d), contiguous=False,
+                      dtypes=(x.dtype,))
     if epilogue:
-        check_operand("residual", residual, dev, (b, s, d))
+        check_operand("residual", residual, dev, (b, s, d),
+                      dtypes=(x.dtype,))
     return b, s, d, dev
 
 
 def adaln_norm_cuda(x, shift, scale, weight, bias, gate=None, residual=None,
                     *, eps: float = 1e-5):
     """x/residual: (B, S, d); shift/scale/gate: (B, d) with unit stride in
-    d (any row stride); weight/bias: (d,).  All float32 on one CUDA device,
-    d <= 4096.  The output carries no graph: a gradient goes through
-    :class:`repro_torch.kernels.grad.AdaLNNormFn`.
+    d (any row stride); weight/bias: (d,).  On one CUDA device, d <= 4096;
+    x, the residual and the modulation float32 or bfloat16 (one dtype),
+    weight and bias float32 or bfloat16 (one dtype); y and r in x's dtype.
+    The output carries no graph: a gradient goes through
+    :class:`repro_torch.kernels.grad.AdaLNNormFn` (float32 only).
     """
     epilogue = residual is not None
     b, s, d, dev = _check(x, shift, scale, weight, bias, gate, residual)
@@ -130,22 +153,24 @@ def adaln_norm_cuda(x, shift, scale, weight, bias, gate=None, residual=None,
     if x.numel() == 0:
         return (y, r) if epilogue else y
     width = load_width(x, shift, scale, weight, bias, gate, residual)
-    threads, vpt = launch_shape(d, width)
+    threads, vpt = launch_shape(d, width, x.element_size())
     lib = build.library()
+    name = variant("adaln_norm_epilogue" if epilogue else "adaln_norm", x)
     with torch.cuda.device(dev):
-        err = lib.adaln_norm_f32(
+        fn = lib.adaln_norm_bf16 if x.dtype == BF16 else lib.adaln_norm_f32
+        err = fn(
             x.data_ptr(), residual.data_ptr() if epilogue else None,
             gate.data_ptr() if epilogue else None,
             gate.stride(0) if epilogue else 0,
             shift.data_ptr(), shift.stride(0),
             scale.data_ptr(), scale.stride(0),
-            weight.data_ptr(), bias.data_ptr(),
+            weight.data_ptr(), bias.data_ptr(), int(weight.dtype == BF16),
             y.data_ptr(), r.data_ptr() if epilogue else None,
             b * s, s, d, width, threads, vpt, eps,
             torch.cuda.current_stream(dev).cuda_stream)
-    check_launch("adaln_norm", err)
-    launched("adaln_norm_epilogue" if epilogue else "adaln_norm",
-             work(b, s, d, epilogue))
+    check_launch(name, err)
+    launched(name, work(b, s, d, epilogue, x.element_size(),
+                        weight.element_size()))
     return (y, r) if epilogue else y
 
 
@@ -158,7 +183,8 @@ def adaln_norm_backward_cuda(x, shift, scale, weight, bias, dy, gate=None,
     dscale, dweight, dbias), then (dgate, dresidual) in the epilogue form.
     One launch, in clusters (:func:`backward_grid`)."""
     epilogue = residual is not None
-    b, s, d, dev = _check(x, shift, scale, weight, bias, gate, residual)
+    b, s, d, dev = _check(x, shift, scale, weight, bias, gate, residual,
+                          dtypes=(torch.float32,))
     check_operand("dy", dy, dev, (b, s, d))
     if dr is not None:
         if not epilogue:

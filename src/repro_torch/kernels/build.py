@@ -33,8 +33,10 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the entry points (see the sources)
 SIGNATURES = {
-    "adaln_norm_f32": [_P, _P, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P,
-                       _LL, _I, _I, _I, _I, _I, _F, _P],
+    "adaln_norm_f32": [_P, _P, _P, _LL, _P, _LL, _P, _LL, _P, _P, _I, _P,
+                       _P, _LL, _I, _I, _I, _I, _I, _F, _P],
+    "adaln_norm_bf16": [_P, _P, _P, _LL, _P, _LL, _P, _LL, _P, _P, _I, _P,
+                        _P, _LL, _I, _I, _I, _I, _I, _F, _P],
     "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _F, _P],
     "decode_attention_f32": [_P] * 7 + [_I] * 8 + [_F, _P],

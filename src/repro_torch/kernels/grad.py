@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import charge, opaque, variant
+from repro_torch.kernels import BF16, charge, opaque, variant
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rmsnorm as rms
 from repro_torch.kernels.adaln_norm import (adaln_norm_backward_cuda,
@@ -125,15 +125,30 @@ class RmsNormFn(torch.autograd.Function):
         return dx, dscale, None
 
 
+def refuse_bf16_grad(*operands) -> None:
+    """Raise where any of ``operands``, those of an ``adaln_norm`` call
+    that wants a gradient, is bfloat16: the backward kernel takes float32
+    only, and the reference never trains the DiT in bfloat16 (its
+    ``gdm_loss`` over a bfloat16 latent computes in float32)."""
+    if any(t is not None and t.dtype == BF16 for t in operands):
+        raise NotImplementedError(
+            "adaln_norm: the backward kernel takes float32 only; a gradient "
+            "through a bfloat16 operand waits for its bfloat16 variant "
+            "(ROADMAP Queue 1 item 14); call it under torch.no_grad() or "
+            "in float32")
+
+
 class AdaLNNormFn(torch.autograd.Function):
     """``adaln_norm`` on the card, both forms, with a gradient for every
     operand: the forward kernel, then the backward kernel, which
     recomputes the row statistics from the saved operands.  In the
     epilogue form the output is ``(y, r)``; an unused r brings no
-    gradient (grads are not materialised), so the kernel reads no dr."""
+    gradient (grads are not materialised), so the kernel reads no dr.
+    Float32 only: a bfloat16 operand raises (:func:`refuse_bf16_grad`)."""
 
     @staticmethod
     def forward(ctx, x, shift, scale, weight, bias, gate, residual, eps):
+        refuse_bf16_grad(x, shift, scale, weight, bias, gate, residual)
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, shift, scale, weight, bias, gate, residual)
         ctx.eps = eps

@@ -11,7 +11,9 @@ CUDA tensor goes through the kernel's ``torch.autograd.Function``
 (``flash_attention``, ``rmsnorm``: :mod:`repro_torch.kernels.grad`;
 ``adaln_norm``, both forms, and ``ssm_scan``: forward and backward
 kernels), and the CPU's plain versions are differentiated by autograd
-itself.  ``decode_attention`` has no backward and refuses.
+itself.  ``decode_attention`` has no backward and refuses; so does
+``adaln_norm`` with a bfloat16 operand, whose backward kernel is float32
+only (on the card and on meta).
 
 A bfloat16 input takes the kernel's bfloat16 variant on the card (where
 the kernel has one) and, on the CPU, the same plain version, which
@@ -41,7 +43,8 @@ from repro_torch.kernels import ssm_scan as _scan
 from repro_torch.kernels.adaln_norm import adaln_norm_cuda
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.grad import AdaLNNormFn, FlashAttentionFn, RmsNormFn
+from repro_torch.kernels.grad import (AdaLNNormFn, FlashAttentionFn,
+                                     RmsNormFn, refuse_bf16_grad)
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.kernels.ssm_scan import SsmScanFn, ssm_scan_cuda
 
@@ -112,11 +115,16 @@ def adaln_norm(x, shift, scale, weight, bias, gate=None, residual=None, *,
                               residual=residual, eps=eps)
 
     if x.device.type in ("cpu", "meta"):
-        name = "adaln_norm_epilogue" if epilogue else "adaln_norm"
+        name = variant("adaln_norm_epilogue" if epilogue else "adaln_norm",
+                       x)
         s = x.shape[1]
+        operands = (x, shift, scale, weight, bias, gate, residual)
+        if x.device.type == "meta" and wants_grad(*operands):
+            refuse_bf16_grad(*operands)
         return unlaunched(
-            name, _adaln.work(b, s, d, epilogue, x.element_size()),
-            (x, shift, scale, weight, bias, gate, residual), plain,
+            name, _adaln.work(b, s, d, epilogue, x.element_size(),
+                              weight.element_size()),
+            operands, plain,
             lambda x, *_: _empty(*[(x.shape, x.dtype)] * (1 + epilogue)),
             (name + "_backward", lambda grads: _adaln.backward_work(
                 b, s, d, epilogue, epilogue and grads[1] is not None,

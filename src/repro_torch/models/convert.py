@@ -26,13 +26,14 @@ reference's ``(in, out)`` layout.
 :func:`dit_to_jax`, :func:`lm_to_jax` and :func:`qnet_to_jax` are the
 inverses, exact.
 
-A bfloat16 leaf (the reference's ``init_lm(dtype=jnp.bfloat16)``; numpy
-holds it in ``ml_dtypes``' 2-byte type, which ``torch.from_numpy``
-refuses) crosses as its bits, through an int16 view, so a bfloat16
-parameter holds the reference's value bit for bit; ``lm_from_jax`` builds
-the model in bfloat16 where the params hold such leaves (their float32
-leaves, Mamba's ``a_log`` and ``d`` and the MoE router, stay float32, as
-the model keeps them).  Going back, a bfloat16 parameter becomes a numpy
+A bfloat16 leaf (the reference's ``init_lm(dtype=jnp.bfloat16)`` or
+``init_gdm(dtype=jnp.bfloat16)``; numpy holds it in ``ml_dtypes``' 2-byte
+type, which ``torch.from_numpy`` refuses) crosses as its bits, through an
+int16 view, so a bfloat16 parameter holds the reference's value bit for
+bit; ``lm_from_jax`` and ``dit_from_jax`` build the model in bfloat16
+where the params hold such leaves (an LM's float32 leaves, Mamba's
+``a_log`` and ``d`` and the MoE router, stay float32, as the model keeps
+them; every leaf of a bfloat16 DiT is bfloat16).  Going back, a bfloat16 parameter becomes a numpy
 array of that type where numpy knows it (``ml_dtypes`` loaded, as JAX
 does), else float32, which holds its value exactly.  Any other leaf
 crosses as float32.
@@ -176,9 +177,13 @@ def _to_tree(model, slots: bool) -> Dict:
     return tree
 
 
-def dit_from_jax(params: Dict, cfg: ModelConfig, *, device=None) -> DiT:
-    """The port's DiT holding the reference's ``params`` (stacked layout)."""
-    model = DiT(cfg, device=resolve_device(device))
+def dit_from_jax(params: Dict, cfg: ModelConfig, *, device=None,
+                 dtype=None) -> DiT:
+    """The port's DiT holding the reference's ``params`` (stacked layout),
+    built in ``dtype`` (by default the params' own: :func:`_params_dtype`,
+    bfloat16 for the reference's ``init_gdm(dtype=jnp.bfloat16)``)."""
+    model = DiT(cfg, device=resolve_device(device),
+                dtype=dtype or _params_dtype(params))
     _fill(model, params, {("layers",): cfg.num_layers})
     return model
 

@@ -15,6 +15,10 @@ name.  Each layer runs the two hand-written kernels: ``adaln_norm`` twice
 leaves them to XLA.  :func:`gdm_loss` is the training objective: on the
 card its gradient runs the backward kernel of ``adaln_norm`` and the
 autograd function of ``flash_attention`` (:mod:`repro_torch.kernels.grad`).
+The DiT is built in float32 or, as the reference's ``init_gdm(dtype=)``
+allows, bfloat16; a bfloat16 latent then runs the kernels' bfloat16
+variants.  Training stays float32: the adaLN backward kernel refuses a
+bfloat16 operand on the card.
 """
 from __future__ import annotations
 
@@ -43,18 +47,21 @@ TIMESTEP_DIM = 256
 # ---------------------------------------------------------------------------
 
 class DiTLayer(nn.Module):
-    """One DiT block's parameters (the reference's ``layers[i]``)."""
+    """One DiT block's parameters (the reference's ``layers[i]``), every
+    one in ``dtype``."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         d = cfg.d_model
         self.cfg = cfg
-        self.norm1 = LayerNorm(d, device=device)
-        self.attn = Attention(cfg, device=device)
-        self.norm2 = LayerNorm(d, device=device)
+        self.norm1 = LayerNorm(d, device=device, dtype=dtype)
+        self.attn = Attention(cfg, device=device, dtype=dtype)
+        self.norm2 = LayerNorm(d, device=device, dtype=dtype)
         self.mlp = GeluMLP(d, cfg.d_ff, num_layers=cfg.num_layers,
-                           device=device)
-        self.ada = Dense(d, 6 * d, device=device)   # adaLN-zero modulation
+                           device=device, dtype=dtype)
+        # adaLN-zero modulation
+        self.ada = Dense(d, 6 * d, device=device, dtype=dtype)
 
     def forward(self, x, cond):
         return _dit_layer(self, x, cond, self.cfg)
@@ -62,20 +69,23 @@ class DiTLayer(nn.Module):
 
 class DiT(nn.Module):
     """The denoiser: patch embedding, timestep + prompt conditioning,
-    ``cfg.num_layers`` DiT blocks, final norm and patch projection."""
+    ``cfg.num_layers`` DiT blocks, final norm and patch projection; every
+    parameter in ``dtype`` (the reference's ``init_gdm(dtype=)``)."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         d = cfg.d_model
         self.cfg = cfg
-        self.patch_in = Dense(LATENT_CHANNELS, d, device=device)
-        self.pos = _param(1, cfg.latent_hw ** 2, d, device=device)
-        self.t_embed = Dense(TIMESTEP_DIM, d, device=device)
-        self.t_embed2 = Dense(d, d, device=device)
-        self.prompt_embed = Embedding(cfg.vocab_size, d, device=device)
-        self.final_norm = LayerNorm(d, device=device)
-        self.patch_out = Dense(d, LATENT_CHANNELS, device=device)
-        self.layers = nn.ModuleList(DiTLayer(cfg, device=device)
+        kw = dict(device=device, dtype=dtype)
+        self.patch_in = Dense(LATENT_CHANNELS, d, **kw)
+        self.pos = _param(1, cfg.latent_hw ** 2, d, **kw)
+        self.t_embed = Dense(TIMESTEP_DIM, d, **kw)
+        self.t_embed2 = Dense(d, d, **kw)
+        self.prompt_embed = Embedding(cfg.vocab_size, d, **kw)
+        self.final_norm = LayerNorm(d, **kw)
+        self.patch_out = Dense(d, LATENT_CHANNELS, **kw)
+        self.layers = nn.ModuleList(DiTLayer(cfg, **kw)
                                     for _ in range(cfg.num_layers))
 
     @torch.no_grad()
@@ -91,13 +101,15 @@ class DiT(nn.Module):
         return gdm_denoise(self, latent, t, prompt)
 
 
-def init_gdm(cfg: ModelConfig, *, seed: int = 0, device=None) -> DiT:
-    """A DiT with weights drawn from ``torch.Generator(device).manual_seed(
-    seed)``.  The draws follow the reference's distributions, not its
-    numbers: weights that must equal the reference's come through
+def init_gdm(cfg: ModelConfig, *, seed: int = 0, device=None,
+             dtype=torch.float32) -> DiT:
+    """A DiT in ``dtype`` (float32 by default, as the reference's) with
+    weights drawn from ``torch.Generator(device).manual_seed(seed)``.  The
+    draws follow the reference's distributions, not its numbers: weights
+    that must equal the reference's come through
     :func:`repro_torch.models.convert.dit_from_jax`."""
     device = resolve_device(device)
-    model = DiT(cfg, device=device)
+    model = DiT(cfg, device=device, dtype=dtype)
     model.reset_parameters(torch.Generator(device=device).manual_seed(seed))
     return model
 
@@ -139,8 +151,12 @@ def _dit_layer(layer: DiTLayer, x, cond, cfg: ModelConfig):
 def gdm_denoise(model: DiT, latent, t, prompt):
     """Predict noise eps for latent x_t.
 
-    latent: (B, H*W, C) float32; t: (B,) int; prompt: (B, P) int token ids.
-    Returns eps with the latent's shape.
+    latent: (B, H*W, C); t: (B,) int; prompt: (B, P) int token ids.
+    Returns eps with the latent's shape and dtype.  The stream computes in
+    the latent's dtype whatever the weights' (each product reads the
+    weight in it), as the reference's: a bfloat16 latent over a bfloat16
+    DiT runs in bfloat16 (the kernels' bfloat16 variants), a float32 one
+    in float32 over the weights' values.
     """
     x = dense_apply(model.patch_in, latent) + model.pos.to(latent.dtype)
     temb = dense_apply(model.t_embed, _timestep_embedding(t).to(x.dtype))
@@ -184,6 +200,8 @@ def ddim_step(model: DiT, latent, step_idx, prompt, schedule, *,
 
     ``step_idx`` may be a scalar (whole batch at the same step) or a
     per-sample ``(B,)`` int vector (each latent at its own chain position).
+    The update reads the float32 schedule, so it returns float32 for a
+    bfloat16 latent, as the reference's does.
     """
     del total_steps                        # kept for the reference's signature
     t = torch.as_tensor(step_idx, device=latent.device).long().expand(
@@ -202,8 +220,15 @@ def run_block_batched(model: DiT, latent, prompt, schedule, block_idx, *,
     (``steps_per_block`` DDIM steps starting at that block's position in the
     chain).  This is the serving engine's per-(node, quantum) execution
     unit.  Returns (latent after the block, current x0 estimate).  The
-    (steps_per_block, B) schedule slice is gathered once per call.
+    (steps_per_block, B) schedule slice is gathered once per call.  The
+    latent must be float32: the float32 schedule promotes a DDIM update of
+    any other dtype to float32, and the reference's ``fori_loop`` refuses
+    a carry whose dtype changes (a ``TypeError``), as this does.
     """
+    if latent.dtype != torch.float32:
+        raise TypeError(f"run_block_batched: the latent is {latent.dtype}; "
+                        "the DDIM update promotes it to float32, so the "
+                        "chain takes a float32 latent only")
     dev = latent.device
     block_idx = torch.as_tensor(block_idx, device=dev).long()
     start = total_steps - 1 - block_idx * steps_per_block
