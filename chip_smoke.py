@@ -219,6 +219,24 @@ non-zero before the result line):
     and the bfloat16 adaLN kernels timed at B=1 and B=4 beside the
     float32 kernel; (d) ``quality_per_block`` over the bfloat16 weights
     with a float32 latent, card vs CPU, with exact float32 launches.
+28. the reference's ``remat`` lever (``StepOptions().remat``, on by
+    default in the train step; every earlier phase's train steps pass
+    ``remat=False``, as the trainer does) and its bfloat16 train step:
+    (a) ``ssm_scan_backward_bf16`` against autograd of the plain scan at
+    the training shape and two ragged ones, at the reference's 5e-2 and
+    by row (``SCAN_ROW_TOL`` on the row's mean gap), dA and dD at the
+    float32 backward's 1e-5, a second call bit for bit, with controls
+    that must fail the row bar (dB and dC from rounded partials, states
+    recomputed from rounded checkpoints), timed beside the float32
+    kernel; (b) the full-width Jamba period built in bfloat16 trained
+    with remat: two steps card vs CPU in lockstep (B=1, S=16; the leaves
+    that bfloat16 rounding alone moves past 5e-2 held to twice the CPU's
+    distance from float32), then five steps at B=8, S=128 with remat and
+    five without from the same state,
+    each forward kernel launched twice a period with remat, the two runs
+    bit for bit, device ms and peaks both ways; (c) its train step and
+    granite's (bfloat16, B=8, S=512) with remat counted on the card equal
+    to meta, granite's counted peak falling with remat.
 
 Phase 3 also holds the selective scan (forward and backward kernels)
 against its plain version and autograd (and both against themselves: two
@@ -240,7 +258,8 @@ launches from the path that carries it: the DiT kernels from the fleet of
 phase 15, decode and rmsnorm from phase 8, the scan kernels from phase
 10, the adaLN backward from phase 24's training run, the bfloat16
 variants from phase 26's yi-6b and Jamba runs, the bfloat16 adaLN forms
-from phase 27's bfloat16 DiT forward), and as its last
+from phase 27's bfloat16 DiT forward, the bfloat16 scan backward from
+phase 28's remat steps), and as its last
 line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --kernel-times TREE`` builds the kernels of another
@@ -1749,7 +1768,8 @@ def train_lockstep_vs_cpu(cfg, tcfg, model, batch_size: int = 2,
     models = {"card": model, "cpu": cpu}
     data = TokenDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                                    global_batch=batch_size, seed=tcfg.seed))
-    step_fn = make_train_step(cfg, tcfg)
+    step_fn = make_train_step(cfg, tcfg,
+                              opts=steps.StepOptions(remat=False))
     init = adamw(tcfg.learning_rate)[0]
     opt = {side: init(trainable(m)) for side, m in models.items()}
     lr_fn = cosine_decay(tcfg.learning_rate, tcfg.warmup_steps,
@@ -1970,7 +1990,8 @@ def train_run(cfg, tcfg, model, global_batch: int, seq_len: int,
     import torch
     from repro_torch.data import DataConfig, TokenDataset
     from repro_torch.launch import train
-    from repro_torch.launch.steps import make_train_step, trainable
+    from repro_torch.launch.steps import (StepOptions, make_train_step,
+                                          trainable)
     from repro_torch.optim import adamw
     if stubs_fn is None:
         return train.run(cfg, tcfg, global_batch=global_batch,
@@ -1982,7 +2003,7 @@ def train_run(cfg, tcfg, model, global_batch: int, seq_len: int,
                                    seq_len=seq_len, global_batch=global_batch,
                                    seed=tcfg.seed))
     opt_state = adamw(tcfg.learning_rate)[0](trainable(model))
-    step_fn = make_train_step(cfg, tcfg)
+    step_fn = make_train_step(cfg, tcfg, opts=StepOptions(remat=False))
     if cuda:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2096,7 +2117,8 @@ def profile_train_step(cfg, tcfg, model, global_batch, seq_len, stubs_fn):
     each from an idle card)."""
     import torch
     from repro_torch.data import DataConfig, TokenDataset
-    from repro_torch.launch.steps import make_train_step, trainable
+    from repro_torch.launch.steps import (StepOptions, make_train_step,
+                                          trainable)
     from repro_torch.optim import adamw
     batch = {k: torch.from_numpy(v).cuda() for k, v in TokenDataset(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
@@ -2104,7 +2126,7 @@ def profile_train_step(cfg, tcfg, model, global_batch, seq_len, stubs_fn):
         0).items()}
     if stubs_fn is not None:
         batch.update({k: v.cuda() for k, v in stubs_fn(0).items()})
-    step_fn = make_train_step(cfg, tcfg)
+    step_fn = make_train_step(cfg, tcfg, opts=StepOptions(remat=False))
     state = [adamw(tcfg.learning_rate)[0](trainable(model))]
 
     def step():
@@ -3365,7 +3387,8 @@ def a2a_vs_cpu(cfg, tcfg, card: str, dev: str = "cuda",
                 total, met = lm_loss(m, b, moe_sharded_ctx=(mesh, axes))
                 grads = torch.autograd.grad(total, list(params.values()))
                 step = make_train_step(cfg, tcfg, opts=StepOptions(
-                    moe_a2a=True), mesh=mesh, global_batch=batch)
+                    moe_a2a=True, remat=False), mesh=mesh,
+                    global_batch=batch)
                 p0 = {kk: p.detach().clone() for kk, p in params.items()}
                 _, _, smet = step(m, adamw(tcfg.learning_rate)[0](params), b)
             finally:
@@ -3447,10 +3470,11 @@ def a2a_full(cfg, tcfg, card: str, dev: str = "cuda", shape=(2, 4),
     launches exactly the data shards' forwards."""
     from repro_torch.launch.steps import StepOptions
     mesh = _lm_mesh(shape, dev)
-    a2a = StepOptions(moe_a2a=True)
+    a2a = StepOptions(moe_a2a=True, remat=False)
     runs = [_train_steps(cfg, tcfg, dev, mesh, batch, seq, a2a)
             for _ in range(2)]
-    plain = _train_steps(cfg, tcfg, dev, None, batch, seq, StepOptions())
+    plain = _train_steps(cfg, tcfg, dev, None, batch, seq,
+                         StepOptions(remat=False))
     expect = {k: v * shape[0] for k, v in forward_launches(cfg).items()}
     for name, (losses, auxes, _, launches, ms, peak) in (
             (f"{shape} all-to-all", runs[0]),
@@ -3499,7 +3523,7 @@ def dp_steps(cfg, tcfg, card: str, dev: str = "cuda", batch: int = 8,
             model, {"tokens": prompt})
         ms, _, _ = clock.stop()
         train[name] = _train_steps(cfg, tcfg, dev, mesh, batch, seq,
-                                   StepOptions())
+                                   StepOptions(remat=False))
         print(f"{card}: {cfg.name} {cfg.num_layers} layers, data mesh "
               f"{name}: prefill B={batch} S={seq} {ms:.2f} ms; train ms a "
               f"step " + ", ".join(f"{x:.2f}" for x in train[name][4]))
@@ -4315,14 +4339,14 @@ DRYRUN_CELLS = (("yi-6b", "train_4k"), ("yi-6b", "prefill_32k"),
                 ("yi-6b", "decode_32k"), ("xlstm-1.3b", "long_500k"))
 
 
-def _cost_step(cfg, kind, b, s, device, dtype=None):
+def _cost_step(cfg, kind, b, s, device, dtype=None, remat=False):
     """One ``kind`` step (train, prefill or decode) of ``cfg`` at batch
     ``b``, length ``s`` on ``device`` (the card, or meta), as a call: a
-    train step on random tokens, a prefill of them, or a decode step
-    against an ``s``-row cache whose rows are all in use (every length set
-    to s - 1 first, so the decode kernel reads the whole cache its formula
-    counts).  The model and the state in ``dtype`` (float32 unless
-    given)."""
+    train step on random tokens (with ``remat`` or without), a prefill of
+    them, or a decode step against an ``s``-row cache whose rows are all
+    in use (every length set to s - 1 first, so the decode kernel reads
+    the whole cache its formula counts).  The model and the state in
+    ``dtype`` (float32 unless given)."""
     import torch
     from repro_torch.configs import TrainConfig
     from repro_torch.launch import steps
@@ -4341,7 +4365,8 @@ def _cost_step(cfg, kind, b, s, device, dtype=None):
                              device=device, generator=gen)
 
     if kind == "train":
-        step = steps.make_train_step(cfg, TrainConfig())
+        step = steps.make_train_step(
+            cfg, TrainConfig(), opts=steps.StepOptions(remat=remat))
         opt = adamw(1e-3)[0](steps.trainable(model))
         batch = {"tokens": tokens(b, s), "labels": tokens(b, s)}
         return lambda: step(model, opt, batch)
@@ -4361,19 +4386,19 @@ def _cost_step(cfg, kind, b, s, device, dtype=None):
     return call
 
 
-def cost_on_card(cfg, kind, b, s, dtype=None):
+def cost_on_card(cfg, kind, b, s, dtype=None, remat=False):
     """One counted step on the card against the same cell counted on the
     meta device: the Cost equal, each kernel's charges equal to its launch
     count, the step's device time (the profiled kernels' sum) at least the
     roofline's largest term (at ``dtype``'s rate), and the tracker's peak
     beside the allocator's.  The model and state in ``dtype`` (float32
-    unless given)."""
+    unless given); a train step with ``remat`` or without."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import op_cost, roofline
     from repro_torch.kernels import LAUNCHES
     dtype = dtype or torch.float32
-    call = _cost_step(cfg, kind, b, s, "cuda", dtype)
+    call = _cost_step(cfg, kind, b, s, "cuda", dtype, remat)
     call()                                  # warm: cuBLAS, the allocator
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -4391,11 +4416,12 @@ def cost_on_card(cfg, kind, b, s, dtype=None):
     del call
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    meta_call = _cost_step(cfg, kind, b, s, "meta", dtype)
+    meta_call = _cost_step(cfg, kind, b, s, "meta", dtype, remat)
     with op_cost.count() as on_meta:
         meta_call()
     meta_s = time.perf_counter() - t0
-    what = f"{cfg.name} {kind} B={b} S={s} {str(dtype)[6:]}"
+    what = (f"{cfg.name} {kind} B={b} S={s} {str(dtype)[6:]}"
+            + (" remat" if remat else ""))
     if on_meta.cost != card:
         mine, theirs = dict(counted.bytes_by_op(200)), dict(
             on_meta.bytes_by_op(200))
@@ -5662,6 +5688,538 @@ def dit_bf16_phase(gen, cfg):
     return errs, times, {k: launched[k] for k in errs}
 
 
+# -- phase 28: remat and the bfloat16 train step -----------------------------------
+
+# ssm_scan_backward_bf16 against autograd of the plain scan, each output row
+# against its own scale: the mean of |kernel - plain| over the row <=
+# SCAN_ROW_TOL times the row's mean |plain|, rows (b, t) of Din values for
+# du and ddt and (b, n) of L values for dB and dC (a step's N = 16 values
+# are too few to average out one ulp flipped at a rounding boundary: one
+# such flip moves a 16-value row's mean by about 2^-12, where the card
+# gave a correct kernel 4.0e-4 by (b, t) rows).  Both sides sum in float32
+# from the same widened values and round once, so an element parts by one
+# ulp only where the two float32 sums straddle a rounding boundary.
+# check_scan_backward_bf16's controls, computed from a plain backward on
+# the same inputs, must fail it: dB and dC summed from bfloat16-rounded
+# partials of 32 channels (a sum rounded twice), and the states
+# recomputed from bfloat16-rounded checkpoints (which moves ddt and dC).
+SCAN_ROW_TOL = 2.0 ** -11
+# (B, L, Din, N): the training shape (one Jamba Mamba layer at global batch
+# 8, seq 128); 16-byte copies over a block that is not whole (Din = 200)
+# at a ragged L; single values (Din 100, no multiple of 8) with a small N
+SCAN_BWD_BF16_CASES = [(8, 128, 8192, 16), (2, 50, 200, 16),
+                       (3, 37, 100, 5)]
+# phase 28(b): the card-vs-CPU steps' batch and length (the CPU's side of a
+# full-width period), and the card's own at the trainer's shape
+REMAT_CPU_SHAPE = (1, 16)
+# phase 28(b)'s gradient bar: each leaf's ||card - f32|| at most this times
+# the CPU's ||cpu - f32|| (f32: the gradient of the same weights in
+# float32); the control scales the scan's ddt by DT_FAULT on the card
+BF16_GRAD_RATIO = 1.5
+DT_FAULT = 1.1
+REMAT_SHAPE = (8, 128)
+REMAT_STEPS = 5
+
+
+def scan_backward_explicit(u, dt, a, bmat, cmat, d, gy, *,
+                           rounded_checkpoints=False, partials=0):
+    """The scan's six gradients written out step by step in float32 from
+    the widened operands: the forward's states h_t for every step, then
+    the reverse walk carrying g = dL/dh_t, as ``ssm_scan_backward.cu``
+    computes them (in another order).  ``rounded_checkpoints``: each
+    16-step chunk recomputed from its start state rounded to bfloat16 (a
+    backward whose checkpoints were stored rounded).  ``partials`` > 0:
+    dB and dC summed over blocks of that many channels, each block's sum
+    rounded to bfloat16 before the blocks are summed (a sum rounded
+    twice).  Returns (du, ddt, dA, dB, dC, dD) in float32."""
+    import torch
+    u, dt, bm, cm, gy = (t.float() for t in (u, dt, bmat, cmat, gy))
+    b, length, din = u.shape
+    h = torch.zeros(b, din, a.shape[1], device=u.device)
+    hs = []
+    for t in range(length):
+        hs.append(h)                      # h_{t-1}
+        h = (torch.exp(dt[:, t, :, None] * a) * h
+             + (dt[:, t] * u[:, t])[..., None] * bm[:, t, None, :])
+    hs.append(h)
+    if rounded_checkpoints:
+        redo = []
+        for t in range(length):
+            if t % 16 == 0:
+                h = hs[t].to(torch.bfloat16).float()
+            redo.append(h)
+            h = (torch.exp(dt[:, t, :, None] * a) * h
+                 + (dt[:, t] * u[:, t])[..., None] * bm[:, t, None, :])
+        hs = redo + [h]
+
+    def over_channels(c):
+        if not partials:
+            return c.sum(1)
+        return sum(blk.sum(1).to(torch.bfloat16).float()
+                   for blk in c.split(partials, 1))
+
+    du, ddt = torch.empty_like(u), torch.empty_like(u)
+    db, dc = torch.empty_like(bm), torch.empty_like(cm)
+    da_sum = torch.zeros_like(a)
+    g = torch.zeros_like(h)
+    for t in reversed(range(length)):
+        g = g + gy[:, t, :, None] * cm[:, t, None, :]
+        dc[:, t] = over_channels(gy[:, t, :, None] * hs[t + 1])
+        db[:, t] = over_channels(g * (dt[:, t] * u[:, t])[..., None])
+        gb = (g * bm[:, t, None, :]).sum(-1)
+        da = torch.exp(dt[:, t, :, None] * a)
+        q = g * hs[t] * da
+        da_sum += (q * dt[:, t, :, None]).sum(0)
+        ddt[:, t] = u[:, t] * gb + (q * a).sum(-1)
+        du[:, t] = d * gy[:, t] + dt[:, t] * gb
+        g = g * da
+    return du, ddt, da_sum, db, dc, (gy * u).sum((0, 1))
+
+
+def check_scan_backward_bf16(gen):
+    """Phase 28(a): ``ssm_scan_backward_bf16`` at SCAN_BWD_BF16_CASES
+    against autograd of the plain scan on the same bfloat16 inputs (float32
+    A and D): du, ddt, dB and dC bfloat16 within BF16_SCAN_TOL and
+    SCAN_ROW_TOL by row, dA and dD float32 within the float32 backward's
+    SCAN_TOL; a second call bit for bit.  At the training shape and the
+    ragged one the two controls must fail the row bar.  Returns the largest
+    absolute error."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_scan import (ssm_scan_backward_cuda,
+                                              ssm_scan_cuda)
+    worst = 0.0
+    names = ("du", "ddt", "dA", "dB", "dC", "dD")
+    for i, (b, length, din, n) in enumerate(SCAN_BWD_BF16_CASES):
+        ins = [_bf16(t) if j in (0, 1, 3, 4) else t
+               for j, t in enumerate(scan_inputs(gen, b, length, din, n))]
+        _, _, states = ssm_scan_cuda(*ins, save_states=True)
+        gy = _bf16(_randn(gen, b, length, din))
+        got = ssm_scan_backward_cuda(*ins, states, gy)
+        again = ssm_scan_backward_cuda(*ins, states, gy)
+        same = all(torch.equal(x, z) for x, z in zip(got, again))
+        leaves = [t.clone().requires_grad_() for t in ins]
+        want = torch.autograd.grad(ref.ssm_scan(*leaves)[0], leaves, gy)
+        assert [g.dtype for g in got] == [w.dtype for w in want] == [
+            torch.bfloat16, torch.bfloat16, torch.float32, torch.bfloat16,
+            torch.bfloat16, torch.float32], [g.dtype for g in got]
+        what = f"ssm_scan_backward bf16 B={b} L={length} Din={din} N={n}"
+        parts = []
+        def rows(t, k):
+            return t if k < 2 else t.transpose(1, 2)
+
+        for k in (0, 1, 3, 4):
+            err, ok = _allclose_gap(got[k], want[k], BF16_SCAN_TOL)
+            row = _mean_row_gap(rows(got[k], k), rows(want[k], k))
+            parts.append(f"{names[k]} {err:.3e} (by row {row:.3e})")
+            assert ok, f"{what}: {names[k]} outside {BF16_SCAN_TOL}"
+            assert row <= SCAN_ROW_TOL, \
+                f"{what}: {names[k]} by row {row} > {SCAN_ROW_TOL}"
+            worst = max(worst, err)
+        for k in (2, 5):
+            err, rel = _rel(got[k], want[k])
+            parts.append(f"{names[k]} rel {rel:.3e}")
+            assert rel <= SCAN_TOL, f"{what}: {names[k]} rel {rel}"
+            worst = max(worst, err)
+        print(f"{what}: " + ", ".join(parts)
+              + f"; a second call bit-identical: {same}")
+        assert same, "ssm_scan_backward_bf16 is not deterministic"
+        if i == len(SCAN_BWD_BF16_CASES) - 1:
+            continue
+        # the controls: faults the row bar has to see
+        fault = scan_backward_explicit(*ins, gy, partials=32)
+        gaps = [_mean_row_gap(rows(fault[k].to(torch.bfloat16), k),
+                              rows(want[k], k)) for k in (3, 4)]
+        fault = scan_backward_explicit(*ins, gy, rounded_checkpoints=True)
+        gaps_ck = [_mean_row_gap(rows(fault[k].to(torch.bfloat16), k),
+                                 rows(want[k], k)) for k in (1, 4)]
+        print(f"control {what}: dB, dC from rounded 32-channel partials by "
+              f"row {gaps[0]:.3e}, {gaps[1]:.3e}; ddt, dC from rounded "
+              f"checkpoints {gaps_ck[0]:.3e}, {gaps_ck[1]:.3e}; the bar "
+              f"{SCAN_ROW_TOL:.3e}")
+        assert min(max(gaps), max(gaps_ck)) > SCAN_ROW_TOL, \
+            "SCAN_ROW_TOL does not tell the kernel from a fault"
+        del fault, states
+    return worst
+
+
+def time_scan_backward_bf16(gen):
+    """Phase 28(a): the bfloat16 backward at the training shape beside the
+    float32 kernel on the same values, the plain version (autograd through
+    the 128-step loop) and its bound; no single PyTorch call computes a
+    selective scan's gradient."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_scan import (backward_work,
+                                              ssm_scan_backward_cuda,
+                                              ssm_scan_cuda)
+    b, length, din, n = SCAN_BWD_BF16_CASES[0]
+    ins32 = scan_inputs(gen, b, length, din, n)
+    ins = [_bf16(t) if j in (0, 1, 3, 4) else t for j, t in enumerate(ins32)]
+    gy = _bf16(_randn(gen, b, length, din))
+    _, _, st = ssm_scan_cuda(*ins, save_states=True)
+    _, _, st32 = ssm_scan_cuda(*ins32, save_states=True)
+    gy32 = gy.float()
+    rows = b * length * din
+    flops, nbytes = backward_work(ins[0].shape, n, itemsize=2)
+    t_bound, by = bound_ms(nbytes, flops, rows * n)
+    leaves = [t.clone().requires_grad_() for t in ins]
+    y_plain = ref.ssm_scan(*leaves)[0]
+    t = dict(ms=device_ms(lambda: ssm_scan_backward_cuda(*ins, st, gy)),
+             f32_ms=device_ms(lambda: ssm_scan_backward_cuda(*ins32, st32,
+                                                             gy32)),
+             plain_ms=device_ms(lambda: torch.autograd.grad(
+                 y_plain, leaves, gy, retain_graph=True), runs=5, reps=1,
+                 sleep_cycles=2_000_000),
+             bound_ms=t_bound, bound_by=by, library_ms=None)
+    del y_plain, leaves
+    t["ms_again"] = device_ms(lambda: ssm_scan_backward_cuda(*ins, st, gy))
+    # the same values two bytes past a 16-byte boundary: the kernel stages
+    # u, dt and dy and stores du and ddt one value a thread
+    odd = [_off16(x) if j in (0, 1) else x for j, x in enumerate(ins)]
+    odd_gy = _off16(gy)
+    assert all(torch.equal(x, z) for x, z in zip(
+        ssm_scan_backward_cuda(*odd, st, odd_gy),
+        ssm_scan_backward_cuda(*ins, st, gy))), \
+        "the two staging paths of ssm_scan_backward_bf16 differ"
+    t["scalar_ms"] = device_ms(lambda: ssm_scan_backward_cuda(*odd, st,
+                                                              odd_gy))
+    _print_bf16_times(f"ssm_scan_backward bf16 B={b} L={length} Din={din} "
+                      f"N={n} ({nbytes / 1e6:.1f} MB)", t)
+    print(f"ssm_scan_backward bf16 again {t['ms_again']:.7f} ms; float32 "
+          f"{t['f32_ms']:.7f} ms ({t['ms'] / t['f32_ms']:.3f} of it); "
+          f"unaligned operands (one value a thread, bit for bit the same) "
+          f"{t['scalar_ms']:.7f} ms ({t['scalar_ms'] / t['ms']:.3f} of the "
+          f"16-byte path)")
+    return t
+
+
+def _off16(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _grads_kept(steps_mod):
+    """Wrap ``steps_mod.clip_by_global_norm`` so that a copy of each train
+    step's gradients, as autograd gives them (before clipping, which
+    scales them in place), is appended to the list returned; ``undo()``
+    restores it."""
+    clip, kept = steps_mod.clip_by_global_norm, []
+
+    def keep(grads, max_norm):
+        kept.append({k: g.detach().clone() for k, g in grads.items()})
+        return clip(grads, max_norm)
+
+    steps_mod.clip_by_global_norm = keep
+
+    def undo():
+        steps_mod.clip_by_global_norm = clip
+
+    return kept, undo
+
+
+def _frob_gap(got, want):
+    """||got - want|| / ||want|| over the whole tensor, in float64."""
+    want = want.double()
+    return float((got.double() - want).norm()) / max(float(want.norm()),
+                                                     1e-300)
+
+
+def remat_vs_cpu(cfg, tcfg, model, shape=REMAT_CPU_SHAPE):
+    """Phase 28(b): two train steps with remat of the bfloat16 ``model`` on
+    the card at ``shape`` against the same loss and gradients on the CPU,
+    in lockstep: before each step the CPU copy and a float32 copy on the
+    card (whose path phases 9 and 10 hold to the CPU at 1e-4) take the
+    card's parameters; the CPU's gradients (``lm_loss(remat=True)`` under
+    autograd, what the step differentiates) are held to the card's; AdamW
+    runs on the card.  The loss within BF16_LM_TOL.  Each gradient leaf:
+    the card's distance from the float32 gradient of the same weights at
+    most BF16_GRAD_RATIO times the CPU's, both as ||bf16 - f32|| /
+    ||f32||.  Two bfloat16 paths part by as much as each parts from
+    float32 (up to 9% of a leaf's largest on the Mamba leaves fed by the
+    dt path, 5-7% as a norm), so a bar on their gap alone has to be wide
+    enough to hide a fault of that size; a fault on the card moves the
+    card, not the CPU, farther from float32.  The control: the card's
+    gradient again with the scan's ddt scaled by DT_FAULT must fail that
+    bar.  Prints the seconds of the CPU's side.  Restores the model's
+    parameters."""
+    import torch
+    from repro_torch.data import DataConfig, TokenDataset
+    from repro_torch.kernels import ssm_scan as scan_mod
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import LM, lm_loss
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    b, s = shape
+    params = steps.trainable(model)
+    start = {k: p.detach().clone() for k, p in params.items()}
+    cpu = LM(cfg, device="cpu", dtype=torch.bfloat16)
+    wide = LM(cfg, device="cuda")
+    copies = (steps.trainable(cpu), steps.trainable(wide))
+    data = TokenDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                   global_batch=b, seed=tcfg.seed))
+    step_fn = steps.make_train_step(cfg, tcfg)
+    opt = adamw(tcfg.learning_rate)[0](params)
+    kept, undo = _grads_kept(steps)
+    worst_loss, worst_ratio, worst_gap, cpu_s = 0.0, 0.0, 0.0, 0.0
+
+    def grads(m, batch):
+        total, met = lm_loss(m, batch, remat=True)
+        p = steps.trainable(m)
+        return dict(zip(p, torch.autograd.grad(total, list(p.values())))), \
+            float(met["loss"].detach())
+
+    def ratios(card, g_cpu, g_f32):
+        """{leaf: (card's distance from float32 over the CPU's, the CPU's
+        distance, the card's gap from the CPU as a norm)}"""
+        out = {}
+        for k, g in g_cpu.items():
+            truth = g_f32[k]
+            on_cpu = _frob_gap(g.cuda(), truth)
+            out[k] = (_frob_gap(card[k], truth) / max(on_cpu, 1e-300),
+                      on_cpu, _frob_gap(card[k], g.cuda()))
+        return out
+
+    real_backward = scan_mod.ssm_scan_backward_cuda
+
+    def faulty_backward(*args):
+        gu, gdelta, *rest = real_backward(*args)
+        return (gu, (gdelta.float() * DT_FAULT).to(gdelta.dtype), *rest)
+
+    try:
+        for step in range(2):
+            with torch.no_grad():
+                for k, p in params.items():
+                    for c in copies:
+                        c[k].copy_(p)
+            batch = {k: torch.from_numpy(v) for k, v in
+                     data.batch_at(step).items()}
+            t_cpu = time.perf_counter()
+            g_cpu, lc = grads(cpu, batch)
+            cpu_s += time.perf_counter() - t_cpu
+            on_card = {k: v.cuda() for k, v in batch.items()}
+            g_f32, _ = grads(wide, on_card)
+            if step == 0:
+                scan_mod.ssm_scan_backward_cuda = faulty_backward
+                try:
+                    g_fault, _ = grads(model, on_card)
+                finally:
+                    scan_mod.ssm_scan_backward_cuda = real_backward
+                fault = ratios(g_fault, g_cpu, g_f32)
+                del g_fault
+            model, opt, card_met = step_fn(model, opt, on_card)
+            lg = float(card_met["loss"])
+            rel = abs(lc - lg) / abs(lc)
+            worst_loss = max(worst_loss, rel)
+            assert rel <= BF16_LM_TOL, f"step {step}: loss {lg} vs {lc}"
+            got = ratios(kept[-1], g_cpu, g_f32)
+            rows = sorted(((r, k, own, gap) for k, (r, own, gap)
+                           in got.items()), reverse=True)
+            print(f"step {step + 1}: loss card {lg:.6f} cpu {lc:.6f}; "
+                  "gradient leaves whose distance from float32 is largest "
+                  "over the CPU's (the CPU's distance; the card's from the "
+                  "CPU), as norms: " + ", ".join(
+                      f"{k} {r:.3f} ({o:.3e}; {g:.3e})"
+                      for r, k, o, g in rows[:8]))
+            worst_ratio = max(worst_ratio, rows[0][0])
+            worst_gap = max(worst_gap, max(g for *_, g in rows))
+            over = [k for r, k, _, _ in rows if r > BF16_GRAD_RATIO]
+            assert not over, f"step {step + 1}: leaves past the bar: {over}"
+            del g_cpu, g_f32
+    finally:
+        undo()
+    caught = sorted(((r, k) for k, (r, _, _) in fault.items()),
+                    reverse=True)
+    print(f"control: the card's gradient with the scan's ddt scaled by "
+          f"{DT_FAULT}: {sum(r > BF16_GRAD_RATIO for r, _ in caught)} "
+          f"leaves past the bar, the farthest " + ", ".join(
+              f"{k} {r:.3f}" for r, k in caught[:4]))
+    assert caught[0][0] > BF16_GRAD_RATIO, \
+        "BF16_GRAD_RATIO does not see a ddt fault of the scan's backward"
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(start[k])
+    print(f"{cfg.name} period in bfloat16 with remat, B={b} S={s}, two "
+          f"steps card vs CPU in lockstep: loss within {worst_loss:.3e} "
+          f"relative; every leaf's distance from float32 within "
+          f"{worst_ratio:.3f} of the CPU's (bar {BF16_GRAD_RATIO}); the "
+          f"card's gradients {worst_gap:.3e} from the CPU's at most, as a "
+          f"norm; {time.perf_counter() - t0:.1f} s, the CPU's gradients "
+          f"{cpu_s:.1f} s of it")
+    del cpu, wide, copies, start, kept
+
+
+def remat_steps(cfg, tcfg, model):
+    """Phase 28(b): REMAT_STEPS train steps at REMAT_SHAPE with remat and
+    then without, each from the model's parameters and a fresh AdamW
+    state on the same batches: the launches of every step exact, every
+    loss and gradient norm, the first step's gradients and the final
+    parameters bit for bit between the two (where not, the first leaf
+    that differs is named), each step's device ms by phase and the peak
+    allocated above the start.  Returns {remat: (launches a step,
+    median step ms, peak bytes)}."""
+    import torch
+    from repro_torch.data import DataConfig, TokenDataset
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw
+    b, s = REMAT_SHAPE
+    params = steps.trainable(model)
+    start = {k: p.detach().clone() for k, p in params.items()}
+    data = TokenDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                   global_batch=b, seed=tcfg.seed))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                data.batch_at(i).items()} for i in range(REMAT_STEPS)]
+    fwd = forward_launches(cfg)
+    runs = {}
+    for remat in (True, False):
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(start[k])
+        opt = adamw(tcfg.learning_rate)[0](params)
+        step_fn = steps.make_train_step(
+            cfg, tcfg, opts=steps.StepOptions(remat=remat))
+        kept, undo = _grads_kept(steps)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mets, ms, launched = [], [], []
+        try:
+            for batch in batches:
+                reset_launches()
+                marks = train._PhaseEvents()
+                model, opt, met = step_fn(model, opt, batch, mark=marks)
+                torch.cuda.synchronize()
+                launched.append(dict(LAUNCHES))
+                ms.append(marks.ms())
+                mets.append({k: float(v) for k, v in met.items()})
+                if len(kept) > 1:
+                    kept.pop()
+        finally:
+            undo()
+        peak = torch.cuda.max_memory_allocated() - base
+        # the period's forward kernels twice with remat (the final norm,
+        # outside the period, once); the scan's backward once
+        twice = 2 if remat else 1
+        want = {"flash_attention_bf16": twice * fwd["flash_attention"],
+                "rmsnorm_bf16": twice * (fwd["rmsnorm"] - 1) + 1,
+                "ssm_scan_bf16": twice * fwd["ssm_scan"],
+                "ssm_scan_backward_bf16": fwd["ssm_scan"]}
+        for i, got in enumerate(launched):
+            nonzero = {k: v for k, v in got.items() if v}
+            assert nonzero == want, (
+                f"remat={remat} step {i + 1}: launches {nonzero}, expected "
+                f"{want}")
+        runs[remat] = dict(mets=mets, ms=ms, peak=peak, launches=want,
+                           grads=kept[0], params={
+                               k: p.detach().clone()
+                               for k, p in params.items()})
+        del kept
+        step_ms = statistics.median(m["step"] for m in ms[1:])
+        print(f"{cfg.name} period bf16 B={b} S={s} remat={remat}: launches "
+              f"a step {want}; losses "
+              + ", ".join(f"{m['loss']:.6f}" for m in mets)
+              + "; device ms a step " + ", ".join(
+                  f"{m['step']:.3f} (forward {m['forward']:.3f}, backward "
+                  f"{m['backward']:.3f}, optimizer {m['optimizer']:.3f})"
+                  for m in ms)
+              + f"; median of steps 2-{REMAT_STEPS} {step_ms:.3f} ms; peak "
+              f"{peak / 2**30:.3f} GiB above the start")
+    on, off = runs[True], runs[False]
+    differ = [k for k in on["grads"]
+              if not torch.equal(on["grads"][k], off["grads"][k])]
+    differ += [k for k in on["params"]
+               if not torch.equal(on["params"][k], off["params"][k])]
+    same_metrics = on["mets"] == off["mets"]
+    print(f"remat against no remat: losses, gradient norms "
+          f"{'equal' if same_metrics else 'DIFFER'}; first step's gradients "
+          f"and final parameters " + ("bit for bit" if not differ else
+                                      f"differ first at {differ[0]}"))
+    assert same_metrics and not differ, (
+        "remat changed the step: the recompute is not the forward")
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(start[k])
+    out = {}
+    for remat, run in runs.items():
+        out[remat] = (run["launches"],
+                      statistics.median(m["step"] for m in run["ms"][1:]),
+                      run["peak"])
+    ratio = out[True][1] / out[False][1]
+    print(f"remat step {out[True][1]:.3f} ms against {out[False][1]:.3f} ms "
+          f"without ({ratio:.4f}); peak {out[True][2] / 2**30:.3f} against "
+          f"{out[False][2] / 2**30:.3f} GiB")
+    return out
+
+
+def remat_counts():
+    """Phase 28(c): the full-width bfloat16 Jamba period's train step with
+    remat and granite's in bfloat16 at B=8, S=512 with remat, each counted
+    on the card and on meta (``cost_on_card``: equal Costs, charges =
+    launches); granite's counted peak without remat on meta above its peak
+    with remat (there the activations outweigh the gradients; the Jamba
+    period's one period keeps nothing its backward does not rebuild)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import op_cost
+    bf = torch.bfloat16
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"), num_experts=0,
+                                num_layers=8)
+    granite = get_config("granite-moe-1b-a400m")
+    peaks = {}
+    for cfg, b, s in ((jamba, 8, 128), (granite, 8, 512)):
+        with_remat = cost_on_card(cfg, "train", b, s, dtype=bf, remat=True)
+        torch.cuda.empty_cache()
+        call = _cost_step(cfg, "train", b, s, "meta", bf, remat=False)
+        with op_cost.count() as c:
+            call()
+        peaks[cfg.name] = (with_remat["peak"], c.cost.peak_bytes)
+        print(f"{cfg.name} train B={b} S={s} bfloat16: counted peak with "
+              f"remat {with_remat['peak'] / 2**30:.3f} GiB, without "
+              f"{c.cost.peak_bytes / 2**30:.3f} GiB (meta); flops "
+              f"{with_remat['flops'] / 1e12:.3f} TFLOP with remat against "
+              f"{c.cost.flops / 1e12:.3f} without")
+        del call
+    on, off = peaks[granite.name]
+    assert on < off, "remat did not lower granite's counted peak"
+    return peaks
+
+
+def remat_phase(gen, tcfg):
+    """Phase 28, the reference's remat lever and its bfloat16 train step:
+    (a) ``ssm_scan_backward_bf16`` against its plain version with
+    controls, and timed; (b) the full-width Jamba period in bfloat16
+    trained with remat: card vs CPU, exact launches, remat against no
+    remat bit for bit, device ms and peaks both ways; (c) counted with
+    remat on the card and on meta.  Returns (errors, times, launches) of
+    ``ssm_scan_backward_bf16``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_lm
+    t0 = time.perf_counter()
+    err = check_scan_backward_bf16(gen)
+    times = time_scan_backward_bf16(gen)
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_experts=0,
+                              num_layers=8)
+    model = init_lm(cfg, seed=11, device="cuda", dtype=torch.bfloat16)
+    remat_vs_cpu(cfg, tcfg, model)
+    runs = remat_steps(cfg, tcfg, model)
+    del model
+    release()
+    remat_counts()
+    print(f"phase 28 took {time.perf_counter() - t0:.1f} s")
+    return ({"ssm_scan_backward_bf16": err},
+            {"ssm_scan_backward_bf16": times},
+            {"ssm_scan_backward_bf16":
+             runs[True][0]["ssm_scan_backward_bf16"]})
+
+
 def print_occupancy(lib):
     """Resident blocks per SM of the kernels redesigned for Hopper
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at the blocks their
@@ -6090,6 +6648,17 @@ def main(argv) -> int:
     times.update(bf_times)
     launches.update(bf_launches)
 
+    phase("28. the reference's remat lever and its bfloat16 train step: "
+          "ssm_scan_backward_bf16 vs its plain version with controls, timed "
+          "beside float32's; the full-width Jamba period built in bfloat16 "
+          "trained with remat: card vs CPU, exact launches, remat vs no "
+          "remat bit for bit, step times and peaks; counted with remat on "
+          "the card and on meta")
+    bf_errs, bf_times, bf_launches = remat_phase(gen, tcfg)
+    errs.update(bf_errs)
+    times.update(bf_times)
+    launches.update(bf_launches)
+
     replaces = {
         "adaln_norm": "src/repro/kernels/adaln_norm.py:76",
         "adaln_norm_epilogue": "src/repro/kernels/adaln_norm.py:86",
@@ -6109,7 +6678,8 @@ def main(argv) -> int:
                                         "with XLA",
     }
     for name in ("flash_attention", "decode_attention", "rmsnorm",
-                 "ssm_scan", "adaln_norm", "adaln_norm_epilogue"):
+                 "ssm_scan", "adaln_norm", "adaln_norm_epilogue",
+                 "ssm_scan_backward"):
         replaces[name + "_bf16"] = replaces[name] + " (its bfloat16 path)"
     sources = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
                for name in replaces}

@@ -31,7 +31,7 @@ LAUNCHES = {"adaln_norm": 0, "adaln_norm_epilogue": 0, "flash_attention": 0,
             "adaln_norm_epilogue_backward": 0,
             "flash_attention_bf16": 0, "decode_attention_bf16": 0,
             "rmsnorm_bf16": 0, "ssm_scan_bf16": 0, "adaln_norm_bf16": 0,
-            "adaln_norm_epilogue_bf16": 0}
+            "adaln_norm_epilogue_bf16": 0, "ssm_scan_backward_bf16": 0}
 
 BF16 = torch.bfloat16
 
@@ -134,23 +134,21 @@ def _contiguous(t):
 
 class _Unlaunched(torch.autograd.Function):
     """:func:`unlaunched`'s autograd node.  Like the kernels' own
-    functions, it keeps its inputs until its backward has run."""
+    functions, it saves its inputs (``save_for_backward``, so that a
+    checkpoint can drop them and recompute them) until its backward has
+    run; on the CPU that backward differentiates the plain version run
+    again on them."""
 
     @staticmethod
     def forward(ctx, spec, *inputs):
         ctx.set_materialize_grads(False)
         ctx.spec = spec
+        ctx.save_for_backward(*inputs)          # tensors, or None
         _, plain, shapes = spec
         if plain is None:
-            ctx.leaves = inputs
             return shapes(*inputs)
-        with torch.enable_grad():
-            ctx.leaves = [t.detach().requires_grad_(t.requires_grad)
-                          if isinstance(t, torch.Tensor) else t
-                          for t in inputs]
-            out = plain(*ctx.leaves)
-        ctx.outs = _flat(out)
-        detached = tuple(o.detach().contiguous() for o in ctx.outs)
+        out = plain(*inputs)
+        detached = tuple(o.detach().contiguous() for o in _flat(out))
         return detached if isinstance(out, tuple) else detached[0]
 
     @staticmethod
@@ -160,15 +158,18 @@ class _Unlaunched(torch.autograd.Function):
         if backward is not None:
             charge(backward[0], backward[1](grads))
         need = ctx.needs_input_grad[1:]
-        leaves = ctx.leaves
-        del ctx.leaves
+        inputs = ctx.saved_tensors
         if plain is None:
             return (None,) + tuple(
                 torch.empty(t.shape, dtype=t.dtype, device=t.device)
-                if n else None for t, n in zip(leaves, need))
-        pairs = [(o, g) for o, g in zip(ctx.outs, grads)
+                if n else None for t, n in zip(inputs, need))
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n)
+                      if isinstance(t, torch.Tensor) else t
+                      for t, n in zip(inputs, need)]
+            outs = _flat(plain(*leaves))
+        pairs = [(o, g) for o, g in zip(outs, grads)
                  if g is not None and o.requires_grad]
-        del ctx.outs
         wanted = [t for t, n in zip(leaves, need) if n]
         got = iter(torch.autograd.grad(
             [o for o, _ in pairs], wanted, [g for _, g in pairs],

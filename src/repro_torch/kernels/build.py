@@ -48,6 +48,7 @@ SIGNATURES = {
     "rmsnorm_bf16": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _F, _P],
     "ssm_scan_bf16": [_P] * 9 + [_I] * 4 + [_P],
     "ssm_scan_backward_f32": [_P] * 15 + [_I] * 4 + [_P],
+    "ssm_scan_backward_bf16": [_P] * 15 + [_I] * 4 + [_P],
     "adaln_norm_backward_f32": [_P, _P, _P, _LL, _P, _LL] + [_P] * 13
                                + [_I] * 9 + [_F, _P],
 }

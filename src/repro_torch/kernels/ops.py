@@ -215,5 +215,6 @@ def ssm_scan(u, delta, a, bmat, cmat, d, *, return_state: bool = False):
             plain, lambda u, *_: _empty(
                 (u.shape, u.dtype),
                 *[((b, din, n), torch.float32)] * return_state),
-            ("ssm_scan_backward", lambda _: _scan.backward_work(u.shape, n)))
+            (variant("ssm_scan_backward", u),
+             lambda _: _scan.backward_work(u.shape, n, u.element_size())))
     raise _no_path("ssm_scan", u.device)

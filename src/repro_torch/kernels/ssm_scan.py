@@ -10,8 +10,12 @@ bfloat16, with bfloat16 u, delta, B and C and float32 A and D (the
 ``ssm_scan_bf16`` launch: y bfloat16, the state and its checkpoints
 float32).
 The backward has no Pallas counterpart: the reference differentiates its
-plain scan with XLA, which a kernel of the port does instead; it takes
-float32 only.  The plain
+plain scan with XLA, which a kernel of the port does instead.  It runs in
+float32 or, for the bfloat16 forward, with bfloat16 u, delta, B, C and dy
+(the ``ssm_scan_backward_bf16`` launch: du, ddelta, dB and dC bfloat16,
+rounded once, dA and dD float32, as the reference's gradient of its
+float32 upcast gives them; the checkpoints, the workspace and every sum
+float32).  The plain
 version is :func:`repro_torch.kernels.ref.ssm_scan`, differentiated by
 autograd; :func:`repro_torch.kernels.ops.ssm_scan` picks between them by
 the tensor's device.
@@ -40,14 +44,16 @@ def work(u_shape, n: int, return_state: bool = False, itemsize: int = 4):
                          + (b * din * n if return_state else 0))))
 
 
-def backward_work(u_shape, n: int):
+def backward_work(u_shape, n: int, itemsize: int = 4):
     """(flops, bytes) of the backward: 16 flops per (b, t, d, n) and 6
     per (b, t, d) (the forward's recomputation not counted); u, dt, dy,
-    B, C, A, D read and du, ddt, dA, dB, dC, dD written once."""
+    B, C read and du, ddt, dB, dC written once (``itemsize`` bytes an
+    element), A, D read and dA, dD written once (float32)."""
     b, length, din = u_shape
     rows, small = b * length * din, b * length * n
     return (float(rows * (16 * n + 6)),
-            4.0 * (5 * rows + 4 * small + 2 * (din * n + din)))
+            float(itemsize * (5 * rows + 4 * small)
+                  + 4 * 2 * (din * n + din)))
 
 
 def _check(u, delta, a, bmat, cmat, d, dtypes=(torch.float32,)):
@@ -109,10 +115,12 @@ def ssm_scan_cuda(u, delta, a, bmat, cmat, d, *, return_state: bool = False,
 
 def ssm_scan_backward_cuda(u, delta, a, bmat, cmat, d, states, gy):
     """Gradients of y from the forward's inputs and its ``states``
-    (``ssm_scan_cuda(..., save_states=True)``): gy (B, L, Din) is the
-    gradient of y.  Returns (gu, gdelta, ga, gb, gc, gd)."""
-    b, length, din, n, dev = _check(u, delta, a, bmat, cmat, d)
-    check_operand("gy", gy, dev, (b, length, din))
+    (``ssm_scan_cuda(..., save_states=True)``): gy (B, L, Din), in u's
+    dtype, is the gradient of y.  Returns (gu, gdelta, ga, gb, gc, gd),
+    each in its input's dtype."""
+    b, length, din, n, dev = _check(u, delta, a, bmat, cmat, d,
+                                    dtypes=(torch.float32, BF16))
+    check_operand("gy", gy, dev, (b, length, din), dtypes=(u.dtype,))
     gu, gdelta = torch.empty_like(u), torch.empty_like(delta)
     ga, gd = torch.empty_like(a), torch.empty_like(d)
     gb, gc = torch.empty_like(bmat), torch.empty_like(cmat)
@@ -129,22 +137,26 @@ def ssm_scan_backward_cuda(u, delta, a, bmat, cmat, d, states, gy):
                          f"{want} float32 checkpoints on {dev}")
     work = torch.empty(
         lib.ssm_scan_backward_workspace_floats(b, length, din, n), device=dev)
+    name = variant("ssm_scan_backward", u)
+    entry = (lib.ssm_scan_backward_bf16 if u.dtype == BF16
+             else lib.ssm_scan_backward_f32)
     with torch.cuda.device(dev):
-        err = lib.ssm_scan_backward_f32(
+        err = entry(
             u.data_ptr(), delta.data_ptr(), a.data_ptr(), bmat.data_ptr(),
             cmat.data_ptr(), d.data_ptr(), states.data_ptr(), gy.data_ptr(),
             gu.data_ptr(), gdelta.data_ptr(), ga.data_ptr(), gb.data_ptr(),
             gc.data_ptr(), gd.data_ptr(), work.data_ptr(),
             b, length, din, n,
             torch.cuda.current_stream(dev).cuda_stream)
-    check_launch("ssm_scan_backward", err)
-    launched("ssm_scan_backward", backward_work(u.shape, n))
+    check_launch(name, err)
+    launched(name, backward_work(u.shape, n, u.element_size()))
     return gu, gdelta, ga, gb, gc, gd
 
 
 class SsmScanFn(torch.autograd.Function):
     """The scan's y on the card with a gradient: the forward kernel (saving
-    its chunk-start states), the backward kernel for every input."""
+    its chunk-start states), the backward kernel for every input, in
+    float32 or bfloat16 as the forward ran."""
 
     @staticmethod
     def forward(ctx, u, delta, a, bmat, cmat, d):

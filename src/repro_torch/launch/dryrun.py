@@ -67,21 +67,21 @@ from repro_torch.optim import adamw
 META = torch.device("meta")
 
 # Perf-pass option sets, as the reference's, with the levers the port has
-# (``loss_chunk``, ``fused_position``, ``sharded_decode``, ``moe_a2a``):
-# the reference's ``seq_shard_carry`` and ``remat`` have no counterpart
-# (the port keeps no activation sharding between layers and runs
-# eagerly), so its "perf-sp" level is not here.  As there, "baseline"
-# inserts each decode row at its own position.
+# (``loss_chunk``, ``fused_position``, ``sharded_decode``, ``moe_a2a``,
+# ``remat``, on at every level as there, set or by default): the
+# reference's ``seq_shard_carry`` has no counterpart (the port keeps no
+# activation sharding between layers), so its "perf-sp" level is not
+# here.  As there, "baseline" inserts each decode row at its own position.
 OPT_LEVELS = {
-    "baseline": StepOptions(fused_position=False),
-    "perf": StepOptions(loss_chunk=512, fused_position=True,
+    "baseline": StepOptions(fused_position=False, remat=True),
+    "perf": StepOptions(loss_chunk=512, fused_position=True, remat=True,
                         sharded_decode=True),
     "perf-losschunk": StepOptions(loss_chunk=512, fused_position=False),
     "perf-fusedpos": StepOptions(fused_position=True),
     "perf-flashdecode": StepOptions(fused_position=False,
                                     sharded_decode=True),
     "perf-moea2a": StepOptions(fused_position=False, moe_a2a=True),
-    "perf2": StepOptions(loss_chunk=512, fused_position=True,
+    "perf2": StepOptions(loss_chunk=512, fused_position=True, remat=True,
                          sharded_decode=True, moe_a2a=True),
 }
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}

@@ -17,9 +17,11 @@ microbatches, the decode step's cache insert at one position for every
 row (``fused_position``, the reference's default) or at each row's own,
 int8 error-feedback gradient compression (applied when the step is given
 an error-feedback state, as in the reference), the all-to-all MoE
-dispatch and the split-K decode.  ``remat`` and ``impl`` have no
-counterpart (PyTorch runs eagerly and the kernel follows the device), nor
-has ``seq_shard_carry`` (the port keeps no activation sharding between
+dispatch, the split-K decode and ``remat`` (on by default, as in the
+reference: the train step checkpoints every decoder period and runs its
+forward again in the backward, ``models.lm.forward_shards``).  ``impl``
+has no counterpart (the kernel follows the device), nor has
+``seq_shard_carry`` (the port keeps no activation sharding between
 layers).
 
 The dtypes are the reference's: ``input_specs`` gives the stubs and the
@@ -84,6 +86,7 @@ class StepOptions:
     grad_compression: bool = False   # int8 error-feedback DP all-reduce
     sharded_decode: bool = False     # split-K flash-decoding over a mesh
     moe_a2a: bool = False            # all-to-all EP dispatch
+    remat: bool = True               # checkpoint every decoder period
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
@@ -219,7 +222,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
             mark("forward")
             total, metrics = loss_shards(shards.models, shards.split(mb),
                                          loss_chunk=opts.loss_chunk,
-                                         moe_sharded_ctx=moe_ctx)
+                                         moe_sharded_ctx=moe_ctx,
+                                         remat=opts.remat)
             mark("backward")
             flat = [rep[k] for rep in leaves for k in names]
             grads = torch.autograd.grad(total, flat, allow_unused=True,

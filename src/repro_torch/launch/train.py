@@ -26,6 +26,9 @@ format) and resumes from the newest complete step.  ``--grad-compression``
 sets the step option as the reference's CLI does; like the reference's
 loop, the CLI passes the step no error-feedback state, so the option
 changes no number there (``make_train_step`` compresses when given one).
+As the reference's CLI, the trainer steps without remat (``opts``
+defaults to ``StepOptions(remat=False)``); ``TrainConfig.remat`` is read
+by nothing, there as here.
 """
 from __future__ import annotations
 
@@ -70,7 +73,7 @@ class _PhaseEvents:
 
 
 def run(cfg: ModelConfig, tcfg: TrainConfig, *, global_batch: int = 8,
-        seq_len: int = 128, opts: StepOptions = StepOptions(),
+        seq_len: int = 128, opts: StepOptions = StepOptions(remat=False),
         model: Optional[LM] = None, device=None, log_every: int = 20,
         ckpt_dir: str = "", ckpt_every: int = 50,
         on_step: Optional[Callable[[int, Dict], None]] = None,
@@ -181,7 +184,7 @@ def main(argv=None) -> dict:
                        warmup_steps=max(args.steps // 20, 5),
                        microbatch=args.microbatch, seed=args.seed)
     opts = StepOptions(microbatch=args.microbatch,
-                       grad_compression=args.grad_compression)
+                       grad_compression=args.grad_compression, remat=False)
     return run(cfg, tcfg, global_batch=args.global_batch,
                seq_len=args.seq_len, opts=opts, device=args.device,
                log_every=args.log_every, ckpt_dir=args.ckpt_dir,

@@ -46,6 +46,14 @@ through the all-to-all dispatch (:mod:`repro_torch.nn.moe_sharded`), as
 the reference's hook does, and ``sharded_decode`` the attention layers'
 decode through the split-K decode.
 
+``remat`` (``lm_forward``, ``lm_loss`` and their shard forms; off by
+default, as in the reference, whose train step turns it on) runs each
+decoder period under ``torch.utils.checkpoint``, the counterpart of the
+reference's ``jax.checkpoint`` of its period: the period keeps only its
+inputs, and the backward runs its forward again, through the same
+kernels, before differentiating it.  The encoder, the prefill and the
+decode step do not remat, as in the reference.
+
 The decode state keeps the reference's stacked layout, one entry per
 pattern slot, each tensor with a leading period axis: ``{"kv":
 KVCache(k, v, length)}``, ``{"mamba": MambaState(conv, ssm)}``,
@@ -68,6 +76,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -384,40 +393,60 @@ def _blocks(models: List[LM], p: int):
     return list(zip(*(m.layers[p] for m in models)))
 
 
+def _period(models: List[LM], p: int, moe: MoeFn, mems, aux, *xs):
+    """Period p of the decoder on every shard: (aux plus the period's MoE
+    losses, then each shard's output)."""
+    cfg = models[0].cfg
+    xs = list(xs)
+    for spec, blocks in zip(models[0].pattern, _blocks(models, p)):
+        xs = [x + _mixer(spec, b, _norm(cfg, b.norm1, x), cfg)
+              for b, x in zip(blocks, xs)]
+        xs, a = _cross_and_mlp(blocks, spec, xs, cfg, mems, False, moe)
+        if a is not None:
+            aux = aux + a
+    return (aux, *xs)
+
+
 def forward_shards(models: List[LM], batches: List[Dict], *,
-                   moe_sharded_ctx=None):
+                   moe_sharded_ctx=None, remat: bool = False):
     """:func:`lm_forward` over data shards: ``batches[i]`` ("tokens" and
     the family's stubs) on ``models[i]``'s device.  Returns (the shards'
-    logits, aux) with aux on the first shard's device."""
+    logits, aux) with aux on the first shard's device.  With ``remat``
+    each period runs under a checkpoint that takes every shard's
+    activations, so layer by layer every shard still runs before the next
+    layer starts.  The period draws no random numbers, so the checkpoint
+    keeps no RNG state (``preserve_rng_state=False``: nothing to restore,
+    and no device RNG to read on the meta device)."""
     cfg = models[0].cfg
     moe = _moe_einsum if moe_sharded_ctx is None \
         else _moe_a2a(cfg, moe_sharded_ctx)
     xs, mems = _embed_all(models, batches)
     aux = torch.zeros((), device=xs[0].device)
     for p in range(len(models[0].layers)):
-        for spec, blocks in zip(models[0].pattern, _blocks(models, p)):
-            xs = [x + _mixer(spec, b, _norm(cfg, b.norm1, x), cfg)
-                  for b, x in zip(blocks, xs)]
-            xs, a = _cross_and_mlp(blocks, spec, xs, cfg, mems, False, moe)
-            if a is not None:
-                aux = aux + a
+        if remat:
+            aux, *xs = checkpoint(
+                lambda *a, p=p: _period(models, p, moe, mems, *a), aux, *xs,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            aux, *xs = _period(models, p, moe, mems, aux, *xs)
     return [_lm_head(m, _norm(cfg, m.final_norm, x))
             for m, x in zip(models, xs)], aux
 
 
 def lm_forward(model: LM, tokens, *, patch_embeds=None, enc_frames=None,
-               moe_sharded_ctx=None):
+               moe_sharded_ctx=None, remat: bool = False):
     """Full-sequence forward.  tokens: (B, S) int -> (logits (B, S,
     padded_vocab), aux), aux the float32 sum of the MoE layers'
     load-balancing losses (zero without experts).  ``patch_embeds`` (B, P,
     d) fill the first P positions (VLM); ``enc_frames`` (B, L_enc, d) are
     the encoder's input, which an enc-dec model requires.
     ``moe_sharded_ctx`` = (mesh, batch_axes) runs every MoE layer through
-    the all-to-all dispatch (:mod:`repro_torch.nn.moe_sharded`)."""
+    the all-to-all dispatch (:mod:`repro_torch.nn.moe_sharded`); ``remat``
+    checkpoints every decoder period (module docstring)."""
     logits, aux = forward_shards(
         [model], [dict(tokens=tokens, patch_embeds=patch_embeds,
                        enc_frames=enc_frames)],
-        moe_sharded_ctx=moe_sharded_ctx)
+        moe_sharded_ctx=moe_sharded_ctx, remat=remat)
     return logits[0], aux
 
 
@@ -441,12 +470,12 @@ def _nll(logits, labels, loss_chunk: int):
 
 def loss_shards(models: List[LM], batches: List[Dict], *,
                 aux_weight: float = 0.01, loss_chunk: int = 0,
-                moe_sharded_ctx=None):
+                moe_sharded_ctx=None, remat: bool = False):
     """:func:`lm_loss` over data shards: each shard's mean
     log-likelihood, weighted by its share of the rows, summed on the first
     shard's device into the global mean."""
     logits, aux = forward_shards(models, batches,
-                                 moe_sharded_ctx=moe_sharded_ctx)
+                                 moe_sharded_ctx=moe_sharded_ctx, remat=remat)
     losses = [_nll(lg, b["labels"], loss_chunk)
               for lg, b in zip(logits, batches)]
     loss = losses[0]
@@ -461,7 +490,7 @@ def loss_shards(models: List[LM], batches: List[Dict], *,
 
 
 def lm_loss(model: LM, batch, *, aux_weight: float = 0.01,
-            loss_chunk: int = 0, moe_sharded_ctx=None):
+            loss_chunk: int = 0, moe_sharded_ctx=None, remat: bool = False):
     """Causal LM cross-entropy + MoE aux loss, as the reference's
     ``lm_loss``.  batch: {"tokens", "labels"} (B, S) int, with the stubs
     "patch_embeds" and "enc_frames" where the family takes them.
@@ -469,10 +498,11 @@ def lm_loss(model: LM, batch, *, aux_weight: float = 0.01,
 
     ``loss_chunk`` > 0 (and dividing S) sums the log-likelihood chunk by
     chunk along the sequence, never holding the whole (B, S, V)
-    log-softmax.  Returns (total, {"loss", "aux", "perplexity"})."""
+    log-softmax.  ``remat`` checkpoints every decoder period.  Returns
+    (total, {"loss", "aux", "perplexity"})."""
     return loss_shards([model], [batch], aux_weight=aux_weight,
                        loss_chunk=loss_chunk,
-                       moe_sharded_ctx=moe_sharded_ctx)
+                       moe_sharded_ctx=moe_sharded_ctx, remat=remat)
 
 
 def _stacked(per_period: List[Dict]) -> Dict:

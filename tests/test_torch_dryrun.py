@@ -233,13 +233,14 @@ def _inputs(cfg, kind, device, b=2, s=16):
     return out
 
 
-def _count_step(cfg, kind, device, mesh=None, b=2, s=16):
+def _count_step(cfg, kind, device, mesh=None, b=2, s=16,
+                opts=steps.StepOptions(remat=False)):
     model = (LM(cfg, device="meta") if device == "meta"
              else init_lm(cfg, seed=0, device=device))
     inputs = _inputs(cfg, kind, device, b=b, s=s)
     kw = dict(mesh=mesh, global_batch=b if mesh is not None else 0)
     if kind == "train":
-        step = steps.make_train_step(cfg, TrainConfig(), **kw)
+        step = steps.make_train_step(cfg, TrainConfig(), opts=opts, **kw)
         opt = adamw(1e-3)[0](steps.trainable(model))
         call = lambda: step(model, opt, inputs)                  # noqa: E731
     elif kind == "prefill":
@@ -270,7 +271,22 @@ def test_one_step_counts_the_same_on_meta_and_cpu(arch, kind):
         assert meta.kernels
 
 
-@pytest.mark.parametrize("kind", ["prefill", "train"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_remat_train_step_counts_the_same_on_meta_and_cpu(arch):
+    """The train step with remat, as the step without it above: every
+    period's recompute charged by formula on meta and by the plain
+    version on the CPU, the period's activations freed at its end on
+    both; FLOPs, bytes, collectives, kernel charges and peak all equal,
+    and more FLOPs than the step without remat."""
+    cfg = get_config(arch).reduced()
+    remat = steps.StepOptions(remat=True)
+    meta = _count_step(cfg, "train", "meta", opts=remat).cost
+    cpu = _count_step(cfg, "train", "cpu", opts=remat).cost
+    assert meta == cpu
+    assert meta.flops > _count_step(cfg, "train", "meta").cost.flops
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train", "train_remat"])
 def test_slstm_shortcut_equals_the_whole_loop(kind):
     """On meta the sLSTM's loop runs three steps and counts the rest as
     the second; the CPU runs all 8.  Over a data mesh of two every
@@ -282,7 +298,8 @@ def test_slstm_shortcut_equals_the_whole_loop(kind):
     counts = {}
     for dev in ("meta", "cpu"):
         mesh = make_host_mesh((2, 1), ("data", "model"), devices=(dev,) * 2)
-        c = _count_step(cfg, kind, dev, mesh=mesh, b=4, s=8)
+        c = _count_step(cfg, kind.split("_")[0], dev, mesh=mesh, b=4, s=8,
+                        opts=steps.StepOptions(remat=kind == "train_remat"))
         counts[dev] = {p: v.cost for p, v in c.positions.items()}
     assert set(counts["meta"]) == set(counts["cpu"]) >= {(0, 0), (1, 0)}
     for pos, cpu in counts["cpu"].items():
@@ -298,10 +315,11 @@ def _jcfg():
     return jget_config("yi-6b").reduced()
 
 
-def _port_count(kind, s):
+def _port_count(kind, s, remat=False):
     cfg = get_config("yi-6b").reduced()
     mesh = make_host_mesh((1, 1), ("data", "model"), devices=("meta",))
-    return _count_step(cfg, kind, "meta", mesh=mesh, b=B, s=s).cost
+    return _count_step(cfg, kind, "meta", mesh=mesh, b=B, s=s,
+                       opts=steps.StepOptions(remat=remat)).cost
 
 
 def _aten_flops(cost):
@@ -363,9 +381,97 @@ def test_prefill_and_train_products_outside_attention_equal_module_cost():
     want = module_cost(jax.jit(train).lower(
         params, opt, {"tokens": tokens, "labels": tokens}).compile()
         .as_text()).flops
-    got = _port_count("train", S)
+    got = _port_count("train", S, remat=False)
     assert _aten_flops(got) == want - 3 * dense_attn
     assert got.kernels["flash_attention_backward"][0] == layers
+
+
+def test_remat_train_count_equals_module_cost():
+    """The train step with remat on both sides (the reference's default):
+    184 549 376 FLOPs from ``module_cost``, the port's outside its kernels
+    167 772 160 = that less 4·B·H·S²·D a layer four times, its attention
+    forward, the recompute's and the backward's two.  Each side recomputes
+    the period's forward but its last product, the MLP's down
+    projection, whose output the backward does not need: XLA drops it,
+    and the checkpoint's recompute stops at the last tensor the backward
+    saved, before it.  So against the step without remat both sides add
+    the same 29 360 128 FLOPs of products outside attention.  The forward
+    kernels are charged twice a layer, the final norm once."""
+    jcfg = _jcfg()
+    cfg = get_config("yi-6b").reduced()
+    h, d_h, layers = cfg.num_heads, cfg.resolved_head_dim, cfg.num_layers
+    dense_attn = 4 * B * h * S * S * d_h * layers
+    params = jsteps.abstract_params(jcfg, dtype=jnp.float32)
+    tokens = jax.ShapeDtypeStruct((B, S), jnp.int32)
+    opt = jsteps.abstract_opt_state(params)
+    want = {}
+    for remat in (False, True):
+        train = jsteps.make_train_step(
+            jcfg, JTrainConfig(), opts=jsteps.StepOptions(remat=remat,
+                                                          impl="xla"))
+        want[remat] = module_cost(jax.jit(train).lower(
+            params, opt, {"tokens": tokens, "labels": tokens}).compile()
+            .as_text()).flops
+    assert want[True] == 184_549_376
+    got = {r: _port_count("train", S, remat=r) for r in (False, True)}
+    assert _aten_flops(got[True]) == want[True] - 4 * dense_attn
+    assert _aten_flops(got[True]) - _aten_flops(got[False]) \
+        == want[True] - want[False] - dense_attn == 29_360_128
+    kernels = got[True].kernels
+    assert kernels["flash_attention"][0] == 2 * layers
+    assert kernels["rmsnorm"][0] == 2 * 2 * layers + 1
+    assert kernels["flash_attention_backward"][0] == layers
+    assert kernels["rmsnorm_backward"][0] == 2 * layers + 1
+
+
+def test_remat_lowers_the_counted_peak():
+    """Reduced yi-6b's train step at B=8, S=64 on meta: the saved
+    activations of a period outweigh its input, so the counted peak falls
+    from 5 789 716 bytes without remat to 3 793 684 with it; FLOPs rise by
+    the recompute."""
+    cfg = get_config("yi-6b").reduced()
+    got = {r: _count_step(cfg, "train", "meta", b=8, s=64,
+                          opts=steps.StepOptions(remat=r)).cost
+           for r in (False, True)}
+    assert got[False].peak_bytes == 5_789_716
+    assert got[True].peak_bytes == 3_793_684
+    assert got[True].flops > got[False].flops
+
+
+def test_bf16_scan_gradient_is_charged_as_its_own_kernel():
+    """On meta a bfloat16 scan's gradient is charged as
+    ``ssm_scan_backward_bf16`` by the bfloat16 formula (u, dt, dy, B, C
+    and their gradients at 2 bytes, A, D and theirs at 4), a float32 one
+    as ``ssm_scan_backward``; on the CPU the kernel's wrapper refuses."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import (backward_work,
+                                              ssm_scan_backward_cuda)
+    b, length, din, n = 2, 16, 64, 8
+    for dtype, name in ((torch.bfloat16, "ssm_scan_backward_bf16"),
+                        (torch.float32, "ssm_scan_backward")):
+        def make(*shape, dt=dtype):
+            return torch.empty(*shape, dtype=dt, device="meta",
+                               requires_grad=True)
+        args = (make(b, length, din), make(b, length, din),
+                make(din, n, dt=torch.float32), make(b, length, n),
+                make(b, length, n), make(din, dt=torch.float32))
+        with op_cost.count() as c:
+            ops.ssm_scan(*args).sum().backward()
+        work = backward_work((b, length, din), n,
+                             torch.tensor([], dtype=dtype).element_size())
+        assert c.cost.kernels[name] == [1, *work]
+        other = ({"ssm_scan_backward", "ssm_scan_backward_bf16"} - {name})
+        assert not other & set(c.cost.kernels)
+    rows, small = b * length * din, b * length * n
+    assert backward_work((b, length, din), n, 2)[1] == \
+        2 * (5 * rows + 4 * small) + 4 * 2 * (din * n + din)
+    cpu = [torch.zeros(b, length, din, dtype=torch.bfloat16)] * 2
+    with pytest.raises(ValueError, match="ssm_scan_cuda: u is on cpu"):
+        ssm_scan_backward_cuda(
+            cpu[0], cpu[1], torch.zeros(din, n),
+            torch.zeros(b, length, n, dtype=torch.bfloat16),
+            torch.zeros(b, length, n, dtype=torch.bfloat16),
+            torch.zeros(din), None, cpu[0])
 
 
 # -- collectives --------------------------------------------------------------------------
@@ -627,12 +733,14 @@ def test_run_cell_in_bf16_is_ok_where_float32_is(arch, shape, multi,
 
 
 def test_opt_levels_insert_as_the_reference_levels_do():
-    """``fused_position`` per level as the reference's ``OPT_LEVELS``
-    (its ``perf-sp`` has no counterpart)."""
+    """``fused_position`` and ``remat`` (on at every level, set or by
+    default) per level as the reference's ``OPT_LEVELS`` (its ``perf-sp``
+    has no counterpart)."""
     from repro.launch import dryrun as jdryrun
     assert set(dryrun.OPT_LEVELS) == set(jdryrun.OPT_LEVELS) - {"perf-sp"}
     for name, opts in dryrun.OPT_LEVELS.items():
         ref = jdryrun.OPT_LEVELS[name]
+        assert opts.remat is True
         for field in ("fused_position", "loss_chunk", "sharded_decode",
-                      "moe_a2a", "microbatch", "grad_compression"):
+                      "moe_a2a", "microbatch", "grad_compression", "remat"):
             assert getattr(opts, field) == getattr(ref, field), (name, field)

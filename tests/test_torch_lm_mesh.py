@@ -445,8 +445,8 @@ def test_train_step_with_a2a_matches_reference_on_2x2(ref):
     model = lm_from_jax(_np_tree(params), cfg, device="cpu")
     step = tsteps.make_train_step(
         cfg, TrainConfig(total_steps=2, warmup_steps=5),
-        opts=tsteps.StepOptions(moe_a2a=True), mesh=_tmesh((2, 2)),
-        global_batch=4)
+        opts=tsteps.StepOptions(remat=False, moe_a2a=True),
+        mesh=_tmesh((2, 2)), global_batch=4)
     state = topt.adamw(3e-4)[0](tsteps.trainable(model))
     data = TokenDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
                                    global_batch=4))
@@ -603,7 +603,8 @@ def _granite_model(cf=1.25):
     return cfg, lambda: lm_from_jax(_np_tree(params), cfg, device="cpu")
 
 
-def _train(cfg, model, mesh, steps=2, opts=tsteps.StepOptions()):
+def _train(cfg, model, mesh, steps=2,
+           opts=tsteps.StepOptions(remat=False)):
     step = tsteps.make_train_step(
         cfg, TrainConfig(total_steps=steps, warmup_steps=5), opts=opts,
         mesh=mesh, global_batch=4 if mesh else 0)
@@ -624,9 +625,12 @@ def _prefill(cfg, model, mesh):
         _tokens(cfg, 4, 16, seed=3)["tokens"])})
 
 
-@pytest.mark.parametrize("opts", [tsteps.StepOptions(),
-                                  tsteps.StepOptions(moe_a2a=True)],
-                         ids=["einsum", "a2a"])
+@pytest.mark.parametrize("opts", [
+    tsteps.StepOptions(remat=False),
+    tsteps.StepOptions(remat=False, moe_a2a=True),
+    tsteps.StepOptions(remat=True),
+    tsteps.StepOptions(remat=True, moe_a2a=True)],
+    ids=["einsum", "a2a", "einsum_remat", "a2a_remat"])
 def test_mesh_of_one_equals_no_mesh_bit_for_bit(opts):
     cfg, make = _granite_model()
     one = tmesh.make_host_mesh((1, 1), ("data", "model"), devices=("cpu",))

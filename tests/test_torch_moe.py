@@ -364,7 +364,8 @@ def _train_pair(arch, compress):
         jcfg, JTrainConfig(**tc), opts=jsteps.StepOptions(
             remat=False, impl="xla", grad_compression=compress)))
     tstep = tsteps.make_train_step(cfg, TrainConfig(**tc), opts=tsteps.
-                                   StepOptions(grad_compression=compress))
+                                   StepOptions(remat=False,
+                                               grad_compression=compress))
     data = TokenDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
                                    global_batch=4))
     return cfg, params, jstep, tstep, data

@@ -450,7 +450,8 @@ def test_three_train_steps_match_reference(arch, kw, opts):
         jcfg, JTrainConfig(**tc),
         opts=jsteps.StepOptions(remat=False, impl="xla", **opts)))
     tstep = tsteps.make_train_step(cfg, TrainConfig(**tc),
-                                   opts=tsteps.StepOptions(**opts))
+                                   opts=tsteps.StepOptions(remat=False,
+                                                           **opts))
     jstate = jopt.adamw(3e-4)[0](params)
     tstate = topt.adamw(3e-4)[0](tsteps.trainable(model))
     data = TokenDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
@@ -510,7 +511,8 @@ def test_unported_step_levers_raise(arch):
         opts=jsteps.StepOptions(remat=False, impl="xla", moe_a2a=True),
         mesh=jmake_host_mesh((1, 1), ("data", "model")), global_batch=4))
     tstep = tsteps.make_train_step(
-        cfg, TrainConfig(**tc), opts=tsteps.StepOptions(moe_a2a=True),
+        cfg, TrainConfig(**tc),
+        opts=tsteps.StepOptions(remat=False, moe_a2a=True),
         mesh=make_host_mesh((1, 1), ("data", "model"), devices=("cpu",)),
         global_batch=4)
     jstate = jopt.adamw(3e-4)[0](params)

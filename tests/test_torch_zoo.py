@@ -358,7 +358,8 @@ def test_train_step_with_stubs_matches_reference(family):
     jstate = jopt.adamw(3e-4)[0](params)
     new, jstate, jmet = jstep(params, jstate,
                               {k: jnp.asarray(v) for k, v in batch.items()})
-    tstep = tsteps.make_train_step(cfg, TrainConfig(**tc))
+    tstep = tsteps.make_train_step(cfg, TrainConfig(**tc),
+                                   opts=tsteps.StepOptions(remat=False))
     tstate = topt.adamw(3e-4)[0](tsteps.trainable(model))
     model, tstate, tmet = tstep(model, tstate, _torch(batch))
     for key in ("loss", "grad_norm", "perplexity"):
