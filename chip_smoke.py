@@ -10,16 +10,18 @@ non-zero before the result line):
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a) and print the build time, ptxas' register report per kernel
    and the resident blocks per SM of ``adaln_norm``, ``decode_attention``,
-   ``flash_attention`` (each head width), ``rmsnorm``, ``ssm_scan`` and
-   ``ssm_scan_backward``;
+   ``flash_attention`` (each head width), ``rmsnorm``, ``ssm_scan`` (one
+   lane a channel, and the prefill's lanes) and ``ssm_scan_backward``;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (full-width gdm-dit at B in {1, 4, 8}, yi-6b's heads
    and widths, the trainer's rows, the reduced configs), on attention's
    masking cases, on ragged decode lengths at warp-slice, tile and split
    edges (G=7 and G=8 among them), on
    both load widths of adaLN and rmsnorm and on scans whose channels do
-   not fill whole warps; tolerance 1e-5 (float32); adaLN, decode, rmsnorm
-   and both scan kernels also against a second call, bit for bit;
+   not fill whole warps, in both layouts of the forward scan (each case
+   prints its lanes a channel); tolerance 1e-5 (float32); adaLN, decode,
+   rmsnorm and both scan kernels also against a second call, bit for
+   bit;
 4. time each kernel, its plain version and the PyTorch call that computes
    the same function, where there is one, at the main paths' shapes,
    beside the least time the card could take and the launch floor (a
@@ -184,15 +186,18 @@ non-zero before the result line):
 26. the reference's bfloat16 configuration of the LM: (a) the bfloat16
     variants of flash, decode, rmsnorm and the scan against their plain
     versions on bfloat16 inputs at the main paths' shapes (the DiT's,
-    yi-6b's, granite's, llava's G=7, deepseek's G=8, the Jamba scan's; a
-    float32 query over the bfloat16 cache; flash at the edges of the
+    yi-6b's, granite's, llava's G=7, deepseek's G=8, the Jamba scan's in
+    both layouts of the forward scan; a float32 query over the bfloat16
+    cache; flash at the edges of the
     wgmma kernel's 64-row warpgroups and 128-key tiles, decode at those of
     the tensor cores' 16-key warp slices and 64-key tiles), at the
     reference's bfloat16 bars, a second call bit for bit, then timed beside
     the float32 kernel from the same call, their bfloat16 bound and the
-    library call in bfloat16; (b) full yi-6b in bfloat16 (12.1 GB of
-    weights): a 128-token prefill and 32 served decode steps through
-    ``make_prefill_step`` / ``make_serve_step`` with the bfloat16 state,
+    library call in bfloat16 (the scan at Jamba's prefill and at the
+    training shape, returning the state and saving its checkpoints); (b)
+    full yi-6b in bfloat16 (12.1 GB of weights): a 128-token prefill and
+    32 served decode steps through ``make_prefill_step`` /
+    ``make_serve_step`` with the bfloat16 state,
     every launch exact (65 ``rmsnorm_bf16`` and 32
     ``decode_attention_bf16`` a step), the decode step's device ms against
     its bound from its ``Cost``, peak memory; two layers card vs CPU in
@@ -228,7 +233,8 @@ non-zero before the result line):
     float32 backward's 1e-5, a second call bit for bit, with controls
     that must fail the row bar (dB and dC from rounded partials, states
     recomputed from rounded checkpoints), timed beside the float32
-    kernel; (b) the full-width Jamba period built in bfloat16 trained
+    kernel with its profiled split between the reverse scan and the
+    combine; (b) the full-width Jamba period built in bfloat16 trained
     with remat: two steps card vs CPU in lockstep (B=1, S=16; the leaves
     that bfloat16 rounding alone moves past 5e-2 held to twice the CPU's
     distance from float32), then five steps at B=8, S=128 with remat and
@@ -268,12 +274,14 @@ archive``) and times its adaLN, adaLN backward (B=8 and B=4, with its
 profiled split by kernel and its residency), decode, rmsnorm and both
 scan kernels, and the layers they serve (the DiT forward at B=4, the
 device time and host enqueue of a yi-6b decode step, a full-width Jamba
-Mamba block's forward at B=8, L=128), then decode in bfloat16 and float32
-at phase 26's six shapes (each with its profiled split between the split
-kernel and the merge), bfloat16 flash at four shapes (SDPA beside each)
-and yi-6b's bfloat16 decode step at B=1 and at B=8 over 4096 rows, in this
-harness, so that two trees are compared on one card in one run (parent,
-change, change, parent); it ends with a
+Mamba block's forward at B=8, L=128), the bfloat16 scan at Jamba's
+prefill and at the training shape and the bfloat16 backward at the
+training shape (each with its profiled split by kernel), then decode in
+bfloat16 and float32 at phase 26's six shapes (each with its profiled
+split between the split kernel and the merge), bfloat16 flash at four
+shapes (SDPA beside each) and yi-6b's bfloat16 decode step at B=1 and
+at B=8 over 4096 rows, in this harness, so that two trees are compared
+on one card in one run (parent, change, change, parent); it ends with a
 ``{"tree": ..., "kernel_times": ...}`` line.
 """
 from __future__ import annotations
@@ -664,6 +672,18 @@ def scan_inputs(gen, b, length, din, n):
             _randn(gen, b, length, n), _randn(gen, din)]
 
 
+def scan_layout(b, din, n):
+    """Threads a channel the forward scan takes at (B, Din, N) on this card
+    (``kernels.ssm_scan.scan_lanes``; 1 in a tree without that rule)."""
+    import torch
+    from repro_torch.kernels import ssm_scan
+    rule = getattr(ssm_scan, "scan_lanes", None)
+    if rule is None:
+        return 1
+    return rule(b, din, n,
+                torch.cuda.get_device_properties(0).multi_processor_count)
+
+
 # (B, L, Din, N): the training shape (one Jamba Mamba layer at global batch
 # 8, seq 128), B = 1, L = 1, an L no multiple of any tile, a Din no
 # multiple of a block, the reduced Jamba mixer, a tiny ragged N; Dins
@@ -687,7 +707,10 @@ def check_ssm_scan(gen):
     from repro_torch.kernels.ssm_scan import (ssm_scan_backward_cuda,
                                               ssm_scan_cuda)
     worst = {"ssm_scan": 0.0, "ssm_scan_backward": 0.0}
+    layouts = set()
     for (b, length, din, n) in SCAN_CASES:
+        lanes = scan_layout(b, din, n)
+        layouts.add(lanes > 1)
         ins = scan_inputs(gen, b, length, din, n)
         y, hf, states = ssm_scan_cuda(*ins, return_state=True,
                                       save_states=True)
@@ -704,7 +727,8 @@ def check_ssm_scan(gen):
         # no atomics: a second call on the same inputs gives the same bits
         again = ssm_scan_backward_cuda(*ins, states, gy)
         same = all(torch.equal(x, z) for x, z in zip(got, again))
-        print(f"ssm_scan B={b} L={length} Din={din} N={n}: y {ey:.3e} (rel "
+        print(f"ssm_scan B={b} L={length} Din={din} N={n} ({lanes} "
+              f"lane(s) a channel): y {ey:.3e} (rel "
               f"{ry:.3e}), h_final {eh:.3e} (rel {rh:.3e}); backward vs "
               "autograd rel " + ", ".join(
                   f"{name} {r:.2e}" for name, (_, r) in zip(
@@ -720,6 +744,8 @@ def check_ssm_scan(gen):
         worst["ssm_scan"] = max(worst["ssm_scan"], ey, eh)
         worst["ssm_scan_backward"] = max(worst["ssm_scan_backward"],
                                          *(e for e, _ in gerr))
+    assert layouts == {False, True}, \
+        "SCAN_CASES do not reach both layouts of the forward scan"
     return worst
 
 
@@ -943,24 +969,29 @@ def time_adaln_backward(gen, b, s, d):
     return out
 
 
-def kernel_split(fn, calls: int = 5):
+def kernel_split(fn, calls: int = 5, tries: int = 3):
     """Device ms that one ``fn()`` spends in each kernel, by kernel name
     (the part before its template arguments), summed over its launches
-    and averaged over ``calls`` calls under ``torch.profiler``."""
+    and averaged over ``calls`` calls under ``torch.profiler``.  A session
+    that records no device event (seen now and then on the card) is run
+    again, up to ``tries`` sessions."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     times = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.split("<")[0].split("::")[-1].split("(")[0]
-            times[name] = (times.get(name, 0.0)
-                           + e.time_range.elapsed_us() / 1e3 / calls)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.name.split("<")[0].split("::")[-1].split("(")[0]
+                times[name] = (times.get(name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / calls)
+        if times:
+            break
     return times
 
 
@@ -4776,7 +4807,10 @@ def check_bf16_kernels(gen):
         else:
             raise AssertionError("rmsnorm took a float32 scale over "
                                  "bfloat16 rows")
+    layouts = set()
     for (b, length, din, n) in BF16_SCAN_CASES:
+        lanes = scan_layout(b, din, n)
+        layouts.add(lanes > 1)
         ins = scan_inputs(gen, b, length, din, n)
         for i in (0, 1, 3, 4):                     # u, dt, B, C
             ins[i] = _bf16(ins[i])
@@ -4787,13 +4821,16 @@ def check_bf16_kernels(gen):
         assert y.dtype == torch.bfloat16 and hf.dtype == torch.float32
         err, ok = _allclose_gap(y, wy, BF16_SCAN_TOL)
         eh, rh = _rel(hf, wh)
-        print(f"ssm_scan bf16 B={b} L={length} Din={din} N={n}: y "
+        print(f"ssm_scan bf16 B={b} L={length} Din={din} N={n} ({lanes} "
+              f"lane(s) a channel): y "
               f"max|kernel - plain| = {err:.3e}, h_final {eh:.3e} (rel "
               f"{rh:.3e}); a second call bit-identical: {same}")
         assert ok and rh <= SCAN_TOL, \
             "ssm_scan bf16 disagrees with its plain version"
         assert same, "ssm_scan bf16 is not deterministic"
         worst["ssm_scan_bf16"] = max(worst["ssm_scan_bf16"], err)
+    assert layouts == {False, True}, \
+        "BF16_SCAN_CASES do not reach both layouts of the forward scan"
     for name, gap in row_worst.items():
         print(f"{name}: the largest gap by row over its cases {gap:.3e} of "
               f"the row's max|plain| (bar {BF16_ROW_TOL:.3e})")
@@ -5023,8 +5060,9 @@ def time_rmsnorm_bf16(gen, rows, d):
 
 def time_scan_bf16(gen, b, length, din, n):
     """The forward scan in bfloat16 as the prefill calls it (the final
-    state returned) beside the float32 kernel and the plain loop; no
-    single PyTorch call computes a selective scan."""
+    state returned) beside the float32 kernel and the plain loop, and as
+    training calls it (saving its checkpoints) beside the float32 kernel;
+    no single PyTorch call computes a selective scan."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
     ins32 = scan_inputs(gen, b, length, din, n)
@@ -5038,9 +5076,17 @@ def time_scan_bf16(gen, b, length, din, n):
                                                     return_state=True)),
              plain_ms=device_ms(lambda: ref.ssm_scan(*ins), runs=5, reps=1,
                                 sleep_cycles=2_000_000),
-             bound_ms=t_bound, bound_by=by, library_ms=None)
-    _print_bf16_times(f"ssm_scan bf16 B={b} L={length} Din={din} N={n} "
-                      "(returning the state)", t)
+             bound_ms=t_bound, bound_by=by, library_ms=None,
+             saving_ms=device_ms(lambda: ssm_scan_cuda(*ins,
+                                                       save_states=True)),
+             f32_saving_ms=device_ms(lambda: ssm_scan_cuda(
+                 *ins32, save_states=True)))
+    what = (f"ssm_scan bf16 B={b} L={length} Din={din} N={n} "
+            f"({scan_layout(b, din, n)} lane(s) a channel)")
+    _print_bf16_times(what + " (returning the state)", t)
+    print(f"{what} saving its checkpoints (the training call): "
+          f"{t['saving_ms']:.7f} ms; the float32 kernel "
+          f"{t['f32_saving_ms']:.7f} ms")
     return t
 
 
@@ -5884,6 +5930,7 @@ def time_scan_backward_bf16(gen):
         "the two staging paths of ssm_scan_backward_bf16 differ"
     t["scalar_ms"] = device_ms(lambda: ssm_scan_backward_cuda(*odd, st,
                                                               odd_gy))
+    t["split"] = kernel_split(lambda: ssm_scan_backward_cuda(*ins, st, gy))
     _print_bf16_times(f"ssm_scan_backward bf16 B={b} L={length} Din={din} "
                       f"N={n} ({nbytes / 1e6:.1f} MB)", t)
     print(f"ssm_scan_backward bf16 again {t['ms_again']:.7f} ms; float32 "
@@ -5891,6 +5938,9 @@ def time_scan_backward_bf16(gen):
           f"unaligned operands (one value a thread, bit for bit the same) "
           f"{t['scalar_ms']:.7f} ms ({t['scalar_ms'] / t['ms']:.3f} of the "
           f"16-byte path)")
+    print("ssm_scan_backward bf16 profiled device ms by kernel (mean of 5 "
+          "calls): " + ", ".join(f"{k} {v:.7f}"
+                                 for k, v in t["split"].items()))
     return t
 
 
@@ -6265,19 +6315,26 @@ def print_occupancy(lib):
     assert blocks * 2 >= 8, "rmsnorm holds fewer rows an SM than before"
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     b, _, din, n = SCAN_CASES[0]
-    blocks = lib.ssm_scan_occupancy(n)
+    blocks = lib.ssm_scan_occupancy(n, 1)
     print(f"ssm_scan N={n}: {blocks} blocks of 128 threads per SM "
           f"({4 * blocks} warps; a thread a channel, its states in "
           f"registers): the training shape's {b * din // 128} blocks take "
           f"{-(-b * din // 128 // (blocks * sms))} wave(s) on {sms} SMs")
     assert blocks * sms >= b * din // 128, \
         "the scan's training shape takes more than one wave"
+    lanes = scan_layout(1, din, n)
+    blocks = lib.ssm_scan_occupancy(n, lanes)
+    print(f"ssm_scan N={n}, B=1 (Jamba's prefill): {lanes} lanes a channel, "
+          f"{din * lanes // 128} blocks of 128 threads on {sms} SMs, "
+          f"{blocks} resident per SM")
+    assert lanes > 1 and blocks >= 1, \
+        "the prefill's scan does not spread a channel over lanes"
     blocks = lib.ssm_scan_backward_occupancy()
-    print(f"ssm_scan_backward: {blocks} blocks of 512 threads per SM "
-          f"({16 * blocks} warps; a design that keeps each channel's "
-          "history in 64 kB of shared memory holds 3 blocks of 64 "
-          "threads, 6 warps)")
-    assert 16 * blocks > 6, "ssm_scan_backward holds no more warps than before"
+    print(f"ssm_scan_backward: {blocks} blocks of 128 threads per SM "
+          f"({4 * blocks} warps; four lanes a channel, each with 48 "
+          "registers of history for its four states; the first port held "
+          "64-register threads of one state, 32 warps)")
+    assert 4 * blocks >= 16, "ssm_scan_backward holds fewer than 16 warps"
     print_backward_occupancy(lib)
 
 
@@ -6336,7 +6393,8 @@ def kernel_times(tree: str) -> int:
     this script's harness, and the layers they serve: phase 5's DiT
     forward at B=4, phase 8's decode step of full yi-6b (device time and
     host enqueue) and one full-width Jamba Mamba block forward at the
-    trainer's shape; then the attention kernels at phase 26's shapes
+    trainer's shape; the bfloat16 scan kernels (``time_scan_kernels_bf16``);
+    then the attention kernels at phase 26's shapes
     (``time_attention_kernels``) and yi-6b's decode step in bfloat16
     (``bf16_decode_steps``), so that two trees are compared within one run
     on one card."""
@@ -6379,6 +6437,7 @@ def kernel_times(tree: str) -> int:
     out["ssm_scan B=8 L=128 without states"] = \
         scan["ssm_scan"]["no_states_ms"]
     out["ssm_scan_backward B=8 L=128"] = scan["ssm_scan_backward"]["ms"]
+    out.update(time_scan_kernels_bf16(gen))
     phase(f"5, 8, 10. {tree}'s DiT forward at B=4, yi-6b decode step and "
           "Jamba Mamba block forward")
     full = get_config("gdm-dit")
@@ -6403,6 +6462,37 @@ def kernel_times(tree: str) -> int:
         print(f"{name}: {out[name]:.4f} ms")
     print(json.dumps({"tree": tree, "kernel_times": out}))
     return 0
+
+
+def time_scan_kernels_bf16(gen):
+    """``--kernel-times``: the bfloat16 scan at Jamba's prefill (B=1, L=32,
+    returning the state) and at the training shape (saving its
+    checkpoints), and the bfloat16 backward at the training shape, each
+    with its profiled split by kernel."""
+    from repro_torch.kernels.ssm_scan import (ssm_scan_backward_cuda,
+                                              ssm_scan_cuda)
+    out = {}
+    for (b, length, din, n), kw in (((1, 32, 8192, 16), "return_state"),
+                                    ((8, 128, 8192, 16), "save_states")):
+        ins = [_bf16(t) if i in (0, 1, 3, 4) else t
+               for i, t in enumerate(scan_inputs(gen, b, length, din, n))]
+        what = (f"ssm_scan_bf16 B={b} L={length} ({kw}, "
+                f"{scan_layout(b, din, n)} lane(s) a channel)")
+        fn = (lambda ins=ins, kw=kw: ssm_scan_cuda(*ins, **{kw: True}))
+        out[what] = device_ms(fn)
+        out.update({f"{what}, profiled {k}": v
+                    for k, v in kernel_split(fn).items()})
+        if kw == "save_states":
+            _, _, st = ssm_scan_cuda(*ins, save_states=True)
+            gy = _bf16(_randn(gen, b, length, din))
+            what = f"ssm_scan_backward_bf16 B={b} L={length}"
+            fn = (lambda: ssm_scan_backward_cuda(*ins, st, gy))
+            out[what] = device_ms(fn)
+            out.update({f"{what}, profiled {k}": v
+                        for k, v in kernel_split(fn).items()})
+    for k, v in out.items():
+        print(f"{k}: {v:.7f} ms")
+    return out
 
 
 def main(argv) -> int:

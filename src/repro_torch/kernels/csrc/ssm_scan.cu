@@ -25,17 +25,18 @@
 // bytes) must overlap them.
 //
 // Design.  The TPU kernel tiles Din into VPU lanes and streams time in
-// chunks with the (block, N) state in VMEM.  Here a thread owns one (b, d)
-// channel and keeps its N states in registers for the whole sequence, so
-// the state never leaves the SM; a block covers 128 consecutive channels of
-// one b.  The first port had that layout too, but its __expf
-// compiled to a multiply by log2(e), a compare and two subnormal-scaling
-// multiplies around each MUFU.EX2 (in its SASS about 9.6 float, special-
-// function and shared-memory instructions an exponential, against the
-// units' 8 clocks a warp's exponential: issue bound), it loaded each
-// chunk's u and dt only after the last chunk ended (a memory round trip
-// every 16 steps, behind two barriers), and it branched around every step
-// and its y store.  Here (about 6.1 such instructions an exponential):
+// chunks with the (block, N) state in VMEM.  Here LANES threads own one
+// (b, d) channel, each keeping NT / LANES of its states in registers for
+// the whole sequence, so the state never leaves the SM; a block of 128
+// threads covers 128 / LANES consecutive channels of one b.
+// - Lanes a channel, a rule of the shape (kernels/ssm_scan.py
+//   scan_lanes): one where one lane a channel gives the card at least a
+//   block an SM (the training shape: 512 blocks), else NT / 4, four states
+//   a lane (Jamba's prefill, B=1 and Din=8192: 64 blocks of one lane a
+//   channel left half the SMs idle, each thread walking 32 steps of 16
+//   states alone; four lanes make 256 blocks).  A step's y is joined over
+//   the lanes by shuffles in a fixed order ((l0 + l1) + (l2 + l3)); every
+//   lane ends with the same bits, and the first stores them.
 // - A two-stage ring in shared memory: while chunk c runs, chunk c + 1's
 //   u, dt, B and C are in flight (cp.async, coalesced over d, 16 bytes a
 //   copy where every row is 16-byte aligned, 4 bytes otherwise, values out
@@ -46,24 +47,29 @@
 // - A full chunk's 16 steps have no branch between them (the y pointer
 //   moves a row a step), so the compiler interleaves one step's
 //   exponentials with the last one's sums.
-// - a * log2(e) is formed once per state, so each exponential is one
-//   multiply by dt and one ex2.approx.ftz (flushing results under 2^-126
-//   to 0, where the plain version's denormals are smaller than any
-//   tolerance).
-// Tried on the card and not kept (PERF.md): two lanes a channel, eight
-// states each, with y joined by a shuffle (twice the warps an SM, more
-// instructions an exponential: slower), y staged in shared memory and
-// stored a chunk late, and a third ring stage.
-// Every sum has a fixed order (the states in n order), so two calls give
-// the same bits.
+// - The decay and the state update are ssm_scan.cuh's decay() and
+//   update(): a * log2(e) formed once per state, one multiply and one
+//   ex2.approx a decay, one rounding order, which the backward repeats.
+// Tried on the card and not kept (PERF.md): two lanes a channel at the
+// training shape, where one lane a channel fills the card (twice the warps
+// an SM, more instructions an exponential: slower), y staged in shared
+// memory and stored a chunk late, a third ring stage, and eight lanes a
+// channel (two states a lane) at the prefill (slower than four).
+// Every sum has a fixed order (the states in n order, then the lanes), so
+// two calls give the same bits.
 // bfloat16 is the same kernel over the element type of u and dt: the ring
 // holds them as bfloat16 (half the bytes), copied 16 bytes (8 values) at a
 // time where Din % 8 == 0 and the rows align, else by plain loads and
 // stores (cp.async moves no fewer than 4 bytes), and each thread widens
 // its own u and dt as it reads them.  B and C, which every thread of the
-// block reads at every step, are widened once, as they are staged (plain
-// loads; a chunk's B and C are 16 x N values), so that a step's float4
-// broadcasts and its arithmetic are the float32 kernel's.
+// block reads at every step, are copied raw by cp.async with the chunk's
+// u and dt, a chunk ahead (where N % 8 == 0 and they align; plain loads
+// otherwise; the first port loaded them with plain loads after the
+// barrier and waited on them before its steps), by threads spread over the
+// block's warps; when the chunk comes up each copying thread waits on its
+// own copies and widens them into float32 rows of the same stage, before
+// the barrier that publishes the chunk, so a step's float4 broadcasts and
+// arithmetic are the float32 kernel's.
 //
 // With a states buffer it also writes h at the start of every chunk,
 // (batch, nchunks, N, Din): the checkpoints ssm_scan_backward.cu
@@ -76,163 +82,138 @@
 namespace {
 
 using namespace repro_ssm;
-using bf16 = __nv_bfloat16;
 
-constexpr int kFwdThreads = 128;                  // channels a block
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kFwdThreads = 128;
 
-// 4 bytes from global to shared, asynchronously; zero-filled where !in
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool in) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-               :: "r"(s), "l"(src), "r"(in ? 4 : 0));
-}
-
-// 16 bytes from global to shared, asynchronously; zero-filled where !in
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(s), "l"(src), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;");
-}
-
-// 2^x on the special-function unit, subnormal results flushed to 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float narrow(float v, float*) { return v; }
-__device__ __forceinline__ bf16 narrow(float v, bf16*) {
-  return __float2bfloat16_rn(v);
-}
-
-
-// One chunk's operands: u and dt of the block's channels in their type T,
-// B and C in float32, padded to NT states (zeros past N)
+// bfloat16 B and C as copied, before they are widened; none for float32,
+// whose B and C are copied into the float rows directly (an empty base,
+// which takes no bytes: a member would pad the stage by 16 and put the
+// second stage's B and C rows across 128-byte lines, two wavefronts a
+// float4 broadcast)
 template <int NT, typename T>
-struct Stage {
-  T u[kChunk][kFwdThreads];
-  T dt[kChunk][kFwdThreads];
-  alignas(16) float B[kChunk][NT];
-  alignas(16) float C[kChunk][NT];
+struct RawBC {
+  alignas(16) T raw[2][kChunk][NT];
+};
+template <int NT>
+struct RawBC<NT, float> {};
+
+// One chunk's operands: u and dt (ud[0], ud[1]) of the block's CPB
+// channels in their type T, B and C (bc[0], bc[1]) in float32, padded to
+// NT states (zeros past N)
+template <int NT, int CPB, typename T>
+struct Stage : RawBC<NT, T> {
+  alignas(16) T ud[2][kChunk][CPB];
+  alignas(16) float bc[2][kChunk][NT];
 };
 
-// values of T a 16-byte copy moves
-template <typename T>
-constexpr int kVec = 16 / (int)sizeof(T);
+// The copy index of B and C: the block's threads taken lane-major across
+// its 4 warps, so that the few copies of B and C (64 at N = 16), and the
+// widening that follows them, spread over every warp
+__device__ __forceinline__ int bc_index() {
+  return (threadIdx.x % kWarp) * (kFwdThreads / kWarp) + threadIdx.x / kWarp;
+}
 
-// A chunk's u and dt (and float B and C) move 16 bytes a copy where every
-// row starts on a 16-byte boundary (vec_u: Din a multiple of kVec<T> and
-// u, dt aligned; vec_bc: N % 4 == 0 and B, C aligned), one value a copy
-// otherwise: 4 bytes through cp.async for float, a plain load and store
-// for bfloat16; bfloat16 B and C are widened by plain loads and stores.
-template <int NT, typename T>
+// Issues the copies of one chunk (rows row0 .. row0 + kn - 1): u and dt
+// 16 bytes a copy where vec_u (Din a multiple of kVec<T>, u and dt
+// aligned), B and C where vec_bc (N a multiple of kVec<T>, aligned)
+template <int NT, int CPB, typename T>
 __device__ __forceinline__ void copy_chunk(
-    Stage<NT, T>& st, const T* __restrict__ u, const T* __restrict__ dt,
-    const T* __restrict__ Bm, const T* __restrict__ Cm,
-    long long row0, int kn, int d0, int Din, int N, bool vec_u,
-    bool vec_bc) {
-  constexpr int E = kVec<T>;
-  if (vec_u) {
-    constexpr int Q = kFwdThreads / E;
-    for (int i = threadIdx.x; i < kChunk * Q; i += kFwdThreads) {
-      const int k = i / Q, j = E * (i % Q);
-      const bool in = k < kn && d0 + j < Din;
-      const long long off = in ? (row0 + k) * Din + d0 + j : 0;
-      cp_async16(&st.u[k][j], u + off, in);
-      cp_async16(&st.dt[k][j], dt + off, in);
-    }
-  } else if constexpr (sizeof(T) == 2) {
-    for (int i = threadIdx.x; i < kChunk * kFwdThreads; i += kFwdThreads) {
-      const int k = i / kFwdThreads, j = i % kFwdThreads;
-      const bool in = k < kn && d0 + j < Din;
-      const long long off = (row0 + k) * Din + d0 + j;
-      st.u[k][j] = in ? u[off] : T(0.f);
-      st.dt[k][j] = in ? dt[off] : T(0.f);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kChunk * kFwdThreads; i += kFwdThreads) {
-      const int k = i / kFwdThreads, j = i % kFwdThreads;
-      const bool in = k < kn && d0 + j < Din;
-      const long long off = in ? (row0 + k) * Din + d0 + j : 0;
-      cp_async4(&st.u[k][j], u + off, in);
-      cp_async4(&st.dt[k][j], dt + off, in);
-    }
-  }
+    Stage<NT, CPB, T>& st, const T* __restrict__ u, const T* __restrict__ dt,
+    const T* __restrict__ Bm, const T* __restrict__ Cm, long long row0,
+    int kn, int d0, int Din, int N, bool vec_u, bool vec_bc) {
+  const T* const ud[2] = {u, dt};
+  const T* const bc[2] = {Bm, Cm};
+  copy_tiles<kFwdThreads>(st.ud, ud, row0, Din, kn, d0, Din - d0, vec_u);
+  if constexpr (sizeof(T) == 2)
+    copy_tiles<kFwdThreads>(st.raw, bc, row0, N, kn, 0, N, vec_bc,
+                            bc_index());
+  else
+    copy_tiles<kFwdThreads>(st.bc, bc, row0, N, kn, 0, N, vec_bc,
+                            bc_index());
+}
+
+// After this thread's cp_async_wait_all: the bfloat16 B and C entries it
+// copied (copy_tiles' assignment at bc_index()), widened into the stage's
+// float rows, 16 bytes (8 values) read and two float4 written at a time
+// where vec
+template <int NT, int CPB, typename T>
+__device__ __forceinline__ void widen_bc(Stage<NT, CPB, T>& st, bool vec) {
   if constexpr (sizeof(T) == 2) {
-    for (int i = threadIdx.x; i < kChunk * NT; i += kFwdThreads) {
-      const int k = i / NT, n = i % NT;
-      const bool in = k < kn && n < N;
-      const long long off = (row0 + k) * N + n;
-      st.B[k][n] = in ? widen(Bm[off]) : 0.f;
-      st.C[k][n] = in ? widen(Cm[off]) : 0.f;
+    constexpr int E = kVec<T>;
+    if constexpr (NT % E == 0) {
+      if (vec) {
+        for (int i = bc_index(); i < kChunk * (NT / E); i += kFwdThreads) {
+          const int r = i / (NT / E), j = E * (i % (NT / E));
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const uint4 v =
+                *reinterpret_cast<const uint4*>(&st.raw[q][r][j]);
+            const __nv_bfloat162* p =
+                reinterpret_cast<const __nv_bfloat162*>(&v);
+            const float2 f0 = __bfloat1622float2(p[0]);
+            const float2 f1 = __bfloat1622float2(p[1]);
+            const float2 f2 = __bfloat1622float2(p[2]);
+            const float2 f3 = __bfloat1622float2(p[3]);
+            float4* out = reinterpret_cast<float4*>(&st.bc[q][r][j]);
+            out[0] = make_float4(f0.x, f0.y, f1.x, f1.y);
+            out[1] = make_float4(f2.x, f2.y, f3.x, f3.y);
+          }
+        }
+        return;
+      }
     }
-  } else if (vec_bc) {
-    constexpr int Q = NT / 4;
-    for (int i = threadIdx.x; i < kChunk * Q; i += kFwdThreads) {
-      const int k = i / Q, q = i % Q;
-      const bool in = k < kn && 4 * q < N;
-      const long long off = in ? (row0 + k) * N + 4 * q : 0;
-      cp_async16(&st.B[k][4 * q], Bm + off, in);
-      cp_async16(&st.C[k][4 * q], Cm + off, in);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kChunk * NT; i += kFwdThreads) {
-      const int k = i / NT, n = i % NT;
-      const bool in = k < kn && n < N;
-      const long long off = in ? (row0 + k) * N + n : 0;
-      cp_async4(&st.B[k][n], Bm + off, in);
-      cp_async4(&st.C[k][n], Cm + off, in);
-    }
+    for (int i = bc_index(); i < kChunk * NT; i += kFwdThreads)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        st.bc[q][i / NT][i % NT] = widen(st.raw[q][i / NT][i % NT]);
   }
 }
 
-// One step k of the recurrence for channel j's NT states; y_t to *yk.
-template <int NT, typename T>
-__device__ __forceinline__ void step(const Stage<NT, T>& st, int k, int j,
-                                     const float (&a2)[NT], float (&h)[NT],
-                                     float dd, bool live, T* yk) {
-  const float uk = widen(st.u[k][j]);
-  const float dk = widen(st.dt[k][j]);
-  const float du = dk * uk;
+// S floats of a 16-byte aligned shared row as float4 broadcasts
+template <int S>
+__device__ __forceinline__ void load_row(float (&v)[S], const float* p) {
+  static_assert(S % 4 == 0, "float4 broadcasts of a lane's states");
+#pragma unroll
+  for (int q = 0; q < S / 4; ++q) {
+    const float4 f = reinterpret_cast<const float4*>(p)[q];
+    v[4 * q] = f.x;
+    v[4 * q + 1] = f.y;
+    v[4 * q + 2] = f.z;
+    v[4 * q + 3] = f.w;
+  }
+}
+
+// One step k of the recurrence for S = NT / LANES states (n0 .. n0 + S - 1)
+// of channel j; the channel's lanes join y_t, the first stores it to *yk.
+template <int NT, int LANES, typename T>
+__device__ __forceinline__ void step(
+    const Stage<NT, kFwdThreads / LANES, T>& st, int k, int j, int n0,
+    const float (&a2)[NT / LANES], float (&h)[NT / LANES], float dd,
+    bool store, T* yk) {
+  constexpr int S = NT / LANES;
+  const float uk = widen(st.ud[0][k][j]);
+  const float dk = widen(st.ud[1][k][j]);
+  const float du = __fmul_rn(dk, uk);
+  float bv[S], cv[S];
+  load_row(bv, &st.bc[0][k][n0]);
+  load_row(cv, &st.bc[1][k][n0]);
   float acc = 0.f;
 #pragma unroll
-  for (int q = 0; q < NT / 4; ++q) {
-    const float4 bq = *reinterpret_cast<const float4*>(&st.B[k][4 * q]);
-    const float4 cq = *reinterpret_cast<const float4*>(&st.C[k][4 * q]);
-    const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
-    const float cv[4] = {cq.x, cq.y, cq.z, cq.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int n = 4 * q + e;
-      h[n] = ex2(dk * a2[n]) * h[n] + du * bv[e];
-      acc += h[n] * cv[e];
-    }
+  for (int i = 0; i < S; ++i) {
+    h[i] = update(decay(dk, a2[i]), h[i], du, bv[i]);
+    acc = __fmaf_rn(h[i], cv[i], acc);
   }
-  if (live) *yk = narrow(acc + dd * uk, yk);
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+#pragma unroll
+  for (int off = 1; off < LANES; off *= 2)
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+  if (store) *yk = narrow<T>(__fmaf_rn(dd, uk, acc));
 }
 
 // NT: the states kept in registers, 4, 8 or 16 (N padded with zero
-// states); T: the type of u, dt, B, C and y (A, D, h_final and the
-// checkpoints are float32)
-template <int NT, typename T>
+// states); LANES: the threads a channel, each with NT / LANES >= 4 states;
+// T: the type of u, dt, B, C and y (A, D, h_final and the checkpoints are
+// float32)
+template <int NT, int LANES, typename T>
 __global__ void __launch_bounds__(kFwdThreads, 4)
 ssm_scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
                     const float* __restrict__ A, const T* __restrict__ Bm,
@@ -240,85 +221,101 @@ ssm_scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
                     T* __restrict__ y, float* __restrict__ h_final,
                     float* __restrict__ states,
                     int L, int Din, int N) {
-  __shared__ Stage<NT, T> ring[2];
+  constexpr int S = NT / LANES, CPB = kFwdThreads / LANES;
+  __shared__ Stage<NT, CPB, T> ring[2];
   const int b = blockIdx.y;
-  const int j = threadIdx.x;
-  const int d0 = blockIdx.x * kFwdThreads;
+  const int j = threadIdx.x / LANES;
+  const int n0 = S * (threadIdx.x % LANES);
+  const int d0 = blockIdx.x * CPB;
   const int d = d0 + j;
   const bool live = d < Din;
+  const bool store = live && n0 == 0;
   const int nc = num_chunks(L);
   const long long row = (long long)b * L;          // row of (b, t = 0)
   const bool vec_u = Din % kVec<T> == 0 && aligned16(u) && aligned16(dt);
-  const bool vec_bc = N % 4 == 0 && aligned16(Bm) && aligned16(Cm);
+  const bool vec_bc = N % kVec<T> == 0 && aligned16(Bm) && aligned16(Cm);
 
-  copy_chunk<NT, T>(ring[0], u, dt, Bm, Cm, row, min(kChunk, L), d0, Din, N,
-                    vec_u, vec_bc);
+  copy_chunk(ring[0], u, dt, Bm, Cm, row, min(kChunk, L), d0, Din, N, vec_u,
+             vec_bc);
   cp_async_commit();
 
-  float a2[NT], h[NT];
+  float a2[S], h[S];
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    a2[n] = (live && n < N) ? A[(long long)d * N + n] * kLog2e : 0.f;
-    h[n] = 0.f;
+  for (int i = 0; i < S; ++i) {
+    a2[i] = (live && n0 + i < N)
+                ? __fmul_rn(A[(long long)d * N + n0 + i], kLog2e) : 0.f;
+    h[i] = 0.f;
   }
   const float dd = live ? Dv[d] : 0.f;
 
   for (int c = 0; c < nc; ++c) {
     const int t0 = c * kChunk;
     const int kn = min(kChunk, L - t0);
-    // chunk c has landed in every thread, and every thread is done with
-    // chunk c - 1, whose stage the next copies overwrite
+    // chunk c is in every thread's view (its bfloat16 B and C widened by
+    // the threads that copied them), and every thread is done with chunk
+    // c - 1, whose stage the next copies overwrite
     cp_async_wait_all();
+    widen_bc(ring[c & 1], vec_bc);
     __syncthreads();
     if (c + 1 < nc) {
-      copy_chunk<NT, T>(ring[(c + 1) & 1], u, dt, Bm, Cm, row + t0 + kChunk,
-                        min(kChunk, L - t0 - kChunk), d0, Din, N, vec_u,
-                        vec_bc);
+      copy_chunk(ring[(c + 1) & 1], u, dt, Bm, Cm, row + t0 + kChunk,
+                 min(kChunk, L - t0 - kChunk), d0, Din, N, vec_u, vec_bc);
       cp_async_commit();
     }
     if (states && live) {
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
-        if (n < N) states[state_index(b, c, nc, n, N, d, Din)] = h[n];
+      for (int i = 0; i < S; ++i)
+        if (n0 + i < N)
+          states[state_index(b, c, nc, n0 + i, N, d, Din)] = h[i];
     }
-    const Stage<NT, T>& st = ring[c & 1];
+    const Stage<NT, CPB, T>& st = ring[c & 1];
     T* yk = y + (row + t0) * Din + d;               // moved a row a step
     if (kn == kChunk) {                    // no branch between the steps
 #pragma unroll
       for (int k = 0; k < kChunk; ++k, yk += Din)
-        step<NT, T>(st, k, j, a2, h, dd, live, yk);
+        step<NT, LANES>(st, k, j, n0, a2, h, dd, store, yk);
     } else {
       for (int k = 0; k < kn; ++k, yk += Din)
-        step<NT, T>(st, k, j, a2, h, dd, live, yk);
+        step<NT, LANES>(st, k, j, n0, a2, h, dd, store, yk);
     }
   }
   if (h_final && live) {
     const long long chan = (long long)b * Din + d;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      if (n < N) h_final[chan * N + n] = h[n];
+    for (int i = 0; i < S; ++i)
+      if (n0 + i < N) h_final[chan * N + n0 + i] = h[i];
   }
 }
 
+// the kernel for N's state tile and ``lanes`` threads a channel: 1, or
+// state_tile(N) / 4 where that is more (null for any other)
 template <typename T>
-const void* fwd_kernel_for(int N) {
+const void* fwd_kernel_for(int N, int lanes) {
   const int nt = state_tile(N);
-  if (nt == 4) return (const void*)ssm_scan_fwd_kernel<4, T>;
-  if (nt == 8) return (const void*)ssm_scan_fwd_kernel<8, T>;
-  return (const void*)ssm_scan_fwd_kernel<16, T>;
+  if (lanes == 1) {
+    if (nt == 4) return (const void*)ssm_scan_fwd_kernel<4, 1, T>;
+    if (nt == 8) return (const void*)ssm_scan_fwd_kernel<8, 1, T>;
+    return (const void*)ssm_scan_fwd_kernel<16, 1, T>;
+  }
+  if (nt == 8 && lanes == 2) return (const void*)ssm_scan_fwd_kernel<8, 2, T>;
+  if (nt == 16 && lanes == 4)
+    return (const void*)ssm_scan_fwd_kernel<16, 4, T>;
+  return nullptr;
 }
 
 template <typename T>
 int scan(const T* u, const T* dt, const float* A, const T* B, const T* C,
          const float* D, T* y, float* h_final, float* states, int batch,
-         int L, int Din, int N, void* stream) {
+         int L, int Din, int N, int lanes, void* stream) {
   if (bad_shape(batch, L, Din, N)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((Din + kFwdThreads - 1) / kFwdThreads, batch);
+  const void* kernel = fwd_kernel_for<T>(N, lanes);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  const int cpb = kFwdThreads / lanes;
+  const dim3 grid((Din + cpb - 1) / cpb, batch);
   void* args[] = {&u, &dt, &A, &B, &C, &D, &y, &h_final, &states,
                   &L, &Din, &N};
-  cudaError_t err = cudaLaunchKernel(fwd_kernel_for<T>(N), grid,
-                                     dim3(kFwdThreads), args, 0,
-                                     static_cast<cudaStream_t>(stream));
+  cudaError_t err = cudaLaunchKernel(kernel, grid, dim3(kFwdThreads), args,
+                                     0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -330,14 +327,16 @@ extern "C" long long ssm_scan_states_floats(int batch, int L, int Din, int N) {
   return (long long)batch * num_chunks(L) * N * Din;
 }
 
-// h_final and states may be null.  Returns cudaGetLastError() after the
-// launch.
+// h_final and states may be null; lanes: threads a channel, 1 or
+// state_tile(N) / 4 (kernels/ssm_scan.py scan_lanes picks it).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int ssm_scan_f32(const float* u, const float* dt, const float* A,
                             const float* B, const float* C, const float* D,
                             float* y, float* h_final, float* states,
-                            int batch, int L, int Din, int N, void* stream) {
+                            int batch, int L, int Din, int N, int lanes,
+                            void* stream) {
   return scan<float>(u, dt, A, B, C, D, y, h_final, states, batch, L, Din, N,
-                     stream);
+                     lanes, stream);
 }
 
 // u, dt, B, C and y bfloat16; A, D, h_final and states float32; otherwise
@@ -345,19 +344,22 @@ extern "C" int ssm_scan_f32(const float* u, const float* dt, const float* A,
 extern "C" int ssm_scan_bf16(const void* u, const void* dt, const float* A,
                              const void* B, const void* C, const float* D,
                              void* y, float* h_final, float* states,
-                             int batch, int L, int Din, int N, void* stream) {
+                             int batch, int L, int Din, int N, int lanes,
+                             void* stream) {
   return scan<bf16>(static_cast<const bf16*>(u), static_cast<const bf16*>(dt),
                     A, static_cast<const bf16*>(B),
                     static_cast<const bf16*>(C), D, static_cast<bf16*>(y),
-                    h_final, states, batch, L, Din, N, stream);
+                    h_final, states, batch, L, Din, N, lanes, stream);
 }
 
-// Blocks of the forward kernel for N one SM holds at once (-1 on error).
-extern "C" int ssm_scan_occupancy(int N) {
+// Blocks of the float32 forward kernel for N and ``lanes`` one SM holds at
+// once (-1 on error).
+extern "C" int ssm_scan_occupancy(int N, int lanes) {
   int blocks = -1;
-  if (N <= 0 || N > 16 ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, fwd_kernel_for<float>(N), kFwdThreads, 0) != cudaSuccess)
+  const void* kernel =
+      (N > 0 && N <= 16) ? fwd_kernel_for<float>(N, lanes) : nullptr;
+  if (!kernel || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &blocks, kernel, kFwdThreads, 0) != cudaSuccess)
     return -1;
   return blocks;
 }

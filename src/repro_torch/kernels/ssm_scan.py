@@ -27,7 +27,24 @@ import torch
 from repro_torch.kernels import (BF16, build, check_launch, check_operand,
                                  launched, opaque, variant)
 
-MAX_N = 16            # the state a thread keeps in registers
+MAX_N = 16            # the states a channel keeps in registers
+FWD_THREADS = 128     # threads a block of the forward kernel
+
+
+def state_tile(n: int) -> int:
+    """The states the kernels keep a channel: N padded to 4, 8 or 16."""
+    return 4 if n <= 4 else (8 if n <= 8 else 16)
+
+
+def scan_lanes(batch: int, din: int, n: int, sms: int) -> int:
+    """Threads a channel of the forward kernel, a rule of the shape: one
+    where one thread a channel (128 channels a block) gives each of the
+    card's ``sms`` SMs a block, else ``state_tile(n) // 4``, four states a
+    thread (Jamba's prefill, B=1 and Din=8192: 64 blocks of one thread a
+    channel left half an H100 idle, four threads make 256)."""
+    if batch * -(-din // FWD_THREADS) >= sms:
+        return 1
+    return state_tile(n) // 4
 
 
 def work(u_shape, n: int, return_state: bool = False, itemsize: int = 4):
@@ -100,13 +117,15 @@ def ssm_scan_cuda(u, delta, a, bmat, cmat, d, *, return_state: bool = False,
                           device=dev) if save_states else None)
     name = variant("ssm_scan", u)
     entry = lib.ssm_scan_bf16 if u.dtype == BF16 else lib.ssm_scan_f32
+    lanes = scan_lanes(
+        b, din, n, torch.cuda.get_device_properties(dev).multi_processor_count)
     with torch.cuda.device(dev):
         err = entry(
             u.data_ptr(), delta.data_ptr(), a.data_ptr(), bmat.data_ptr(),
             cmat.data_ptr(), d.data_ptr(), y.data_ptr(),
             h_final.data_ptr() if h_final is not None else None,
             states.data_ptr() if states is not None else None,
-            b, length, din, n,
+            b, length, din, n, lanes,
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch(name, err)
     launched(name, work(u.shape, n, return_state, u.element_size()))

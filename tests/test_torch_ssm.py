@@ -26,6 +26,7 @@ from repro.nn import ssm as jssm
 from repro_torch.configs.base import MambaConfig, ModelConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.ssm_scan import state_tile
 from repro_torch.nn import ssm as tssm
 
 TOL = 1e-6
@@ -196,6 +197,244 @@ def test_ops_scan_refuses_unknown_devices():
     assert y.shape == m.shape and h.shape == (1, 4, 2)
     with pytest.raises(NotImplementedError, match="no_grad"):
         tops.ssm_scan(m.requires_grad_(), *args[1:], return_state=True)
+
+
+# -- the kernels' arithmetic as redesigned for Hopper: the forward's lanes a
+#    channel and the backward's recompute and orders of sums, on CPU tensors
+
+LOG2E = torch.tensor(math.log2(math.e), dtype=torch.float32)
+LN2 = torch.tensor(math.log(2.0), dtype=torch.float32)
+NT = 16               # the backward's states a channel, padded
+SMS = 132             # an H100's SMs, for scan_lanes
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to float32, as the card's fma: the product
+    is exact in float64 (two 24-bit significands); the sum's two roundings
+    part from one by an ulp at most, far inside every bar here."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _pad(x, size, dim):
+    """``x`` zero-padded along ``dim`` to ``size``."""
+    shape = list(x.shape)
+    shape[dim] = size - shape[dim]
+    return torch.cat([x, x.new_zeros(shape)], dim)
+
+
+def _join(parts):
+    """Lanes or channels joined as the kernels' xor butterflies join them:
+    (x0 + x1) + (x2 + x3), pairs of neighbours first."""
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
+def _scan_lanes_emulation(u, delta, a, bmat, cmat, d, lanes):
+    """``ssm_scan.cu`` with ``lanes`` threads a channel: the states padded
+    to ``state_tile(N)``, each step h = fma(2^(dt * a2), h, (dt * u) * B_t)
+    with a2 = a * log2(e); each lane's ``state_tile(N) / lanes`` states
+    summed into C_t . h by fma in n order, the lanes joined in the
+    shuffles' order, then y = fma(D, u, that)."""
+    bsz, length, din = u.shape
+    n = a.shape[1]
+    nt = state_tile(n)
+    a2 = _pad(a, nt, 1) * LOG2E
+    bm, cm = _pad(bmat, nt, 2), _pad(cmat, nt, 2)
+    s = nt // lanes
+    h = torch.zeros(bsz, din, nt)
+    ys = []
+    for t in range(length):
+        dt, ut = delta[:, t], u[:, t]
+        h = _fma(torch.exp2(dt[..., None] * a2), h,
+                 (dt * ut)[..., None] * bm[:, t, None])
+        parts = []
+        for q in range(lanes):
+            acc = torch.zeros(bsz, din)
+            for i in range(q * s, (q + 1) * s):
+                acc = _fma(h[..., i], cm[:, t, None, i], acc)
+            parts.append(acc)
+        ys.append(_fma(d, ut, _join(parts)))
+    return torch.stack(ys, 1), h[..., :n]
+
+
+def _lane_sums(x, y):
+    """Over the 16 padded states: fma(x, y) chains over each lane's four
+    states in n order, then the channel's four lanes joined."""
+    parts = []
+    for q in range(NT // 4):
+        acc = torch.zeros(x.shape[:-1])
+        for i in range(4 * q, 4 * q + 4):
+            acc = _fma(x[..., i], y[..., i], acc)
+        parts.append(acc)
+    return _join(parts)
+
+
+def _over_channels(x, nblk, n):
+    """dB or dC from per-channel terms (B, L, 32 * nblk, 16): the 8
+    channels of a warp by the transposing butterfly ((c0 + c4) + (c2 +
+    c6)) + ((c1 + c5) + (c3 + c7)), the block's 4 warps in order, every
+    8th block in block order, then those 8 sums in order."""
+    bsz, length = x.shape[:2]
+    x = x.reshape(bsz, length, nblk, 4, 8, NT)
+    x = x[..., :4, :] + x[..., 4:, :]
+    x = x[..., :2, :] + x[..., 2:, :]
+    x = x[..., 0, :] + x[..., 1, :]
+    blocks = x[..., 0, :]
+    for w in range(1, 4):
+        blocks = blocks + x[..., w, :]
+    parts = []
+    for w in range(8):
+        acc = torch.zeros(bsz, length, NT)
+        for blk in range(w, nblk, 8):
+            acc = acc + blocks[:, :, blk]
+        parts.append(acc)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total[..., :n]
+
+
+def _scan_backward_emulation(u, delta, a, bmat, cmat, d, gy):
+    """``ssm_scan_backward.cu``'s arithmetic in float32 (bfloat16 values
+    widened): channels padded to whole 32-channel blocks and states to 16;
+    the forward's states at every 16th step kept as checkpoints; each
+    chunk, last first, recomputed from its checkpoint with the forward's
+    update and walked backwards carrying g = dL/dh_t with the recompute's
+    decays; du and ddt from the lanes' fma sums over states (the dA term
+    summed over a2 = a * log2(e) and scaled by ln(2)); dB and dC summed
+    over channels in the kernel's order; dA and dD over the batch in
+    order.  Returns (du, ddt, dA, dB, dC, dD) in float32."""
+    bsz, length, din = u.shape
+    n = a.shape[1]
+    nblk = -(-din // 32)
+    u, delta, gy = (_pad(x, 32 * nblk, 2) for x in (u, delta, gy))
+    a = _pad(_pad(a, NT, 1), 32 * nblk, 0)
+    a2 = a * LOG2E
+    bm, cm = _pad(bmat, NT, 2), _pad(cmat, NT, 2)
+    dd = _pad(d, 32 * nblk, 0)
+    du_all = delta * u
+
+    def update(h, t):
+        return _fma(torch.exp2(delta[:, t, :, None] * a2), h,
+                    du_all[:, t, :, None] * bm[:, t, None])
+
+    h = torch.zeros(bsz, 32 * nblk, NT)
+    checkpoints = []
+    for t in range(length):
+        if t % 16 == 0:
+            checkpoints.append(h)
+        h = update(h, t)
+    g = torch.zeros_like(h)
+    ga = torch.zeros_like(h)
+    gd = torch.zeros(bsz, 32 * nblk)
+    gb_sum, gda_sum = torch.empty_like(u), torch.empty_like(u)
+    cb = torch.empty(bsz, length, 32 * nblk, NT)
+    cc = torch.empty_like(cb)
+    for c in reversed(range(len(checkpoints))):
+        t0 = 16 * c
+        h, hist = checkpoints[c], []
+        for t in range(t0, min(t0 + 16, length)):
+            hist.append(h)
+            h = update(h, t)
+        for t in reversed(range(t0, min(t0 + 16, length))):
+            dk, gk = delta[:, t, :, None], gy[:, t, :, None]
+            hp = hist[t - t0]
+            g = _fma(gk, cm[:, t, None], g)
+            cb[:, t] = g * du_all[:, t, :, None]
+            cc[:, t] = gk * h
+            gb_sum[:, t] = _lane_sums(g, bm[:, t, None].expand_as(g))
+            da = torch.exp2(dk * a2)
+            q = (g * hp) * da
+            gda_sum[:, t] = _lane_sums(q, a2.expand_as(q))
+            ga = _fma(q, dk, ga)
+            g = g * da
+            h = hp
+            gd = _fma(gy[:, t], u[:, t], gd)
+    du = _fma(delta, gb_sum, dd * gy)[..., :din]
+    ddt = _fma(u, gb_sum, gda_sum * LN2)[..., :din]
+    da_sum, dd_sum = torch.zeros_like(ga[0]), torch.zeros_like(gd[0])
+    for b in range(bsz):
+        da_sum, dd_sum = da_sum + ga[b], dd_sum + gd[b]
+    return (du, ddt, da_sum[:din, :n], _over_channels(cb, nblk, n),
+            _over_channels(cc, nblk, n), dd_sum[:din])
+
+
+# (B, L, Din, N): a block that is not whole (200 channels) at a ragged L,
+# a ragged N with Din no multiple of a block, and Jamba's prefill
+# narrowed to 512 channels; all leave an H100's SMs idle at one lane a
+# channel
+ARITH_CASES = [(2, 50, 200, 16), (3, 37, 100, 5), (1, 32, 512, 16)]
+
+
+def test_scan_lanes_is_a_rule_of_the_shape():
+    """One lane a channel where 128-channel blocks fill the SMs (the
+    training shape), else four states a lane (Jamba's prefill)."""
+    from repro_torch.kernels.ssm_scan import scan_lanes
+    assert scan_lanes(8, 8192, 16, SMS) == 1
+    assert scan_lanes(3, 8192, 16, SMS) == 1          # 192 blocks
+    assert scan_lanes(2, 8192, 16, SMS) == 4          # 128 blocks
+    assert scan_lanes(1, 8192, 16, SMS) == 4
+    assert scan_lanes(1, 8192, 8, SMS) == 2
+    assert scan_lanes(1, 8192, 4, SMS) == 1
+    assert scan_lanes(1, 8192, 16, 64) == 1
+
+
+@pytest.mark.parametrize("b,length,din,n", ARITH_CASES)
+def test_scan_small_grid_arithmetic_matches_reference(b, length, din, n):
+    """The forward kernel's layout where one lane a channel leaves the SMs
+    idle (its lanes each a share of the states, y joined over them), and
+    the one-lane layout, hold the reference's scan and its Pallas kernel
+    at the card's tolerance, y and the final state alike."""
+    from repro_torch.kernels.ssm_scan import scan_lanes
+    lanes = scan_lanes(b, din, n, SMS)
+    assert lanes == state_tile(n) // 4 > 1
+    ins = _scan_inputs(length + din + n, b, length, din, n)
+    want_y, want_h = jref.ssm_scan(*ins)
+    want_pallas = jops.ssm_scan(*ins, impl="interpret")
+    for k in (lanes, 1):
+        got_y, got_h = _scan_lanes_emulation(
+            *(torch.from_numpy(x) for x in ins), k)
+        for got, want in ((got_y, want_y), (got_y, want_pallas),
+                          (got_h, want_h)):
+            want = np.asarray(want)
+            err = float(np.abs(got.numpy() - want).max())
+            assert err <= SCAN_TOL * float(np.abs(want).max()), (k, err)
+
+
+@pytest.mark.parametrize("b,length,din,n", ARITH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scan_backward_arithmetic_matches_jax_grad(b, length, din, n,
+                                                   dtype):
+    """The backward kernel's recompute from checkpoints and its orders of
+    sums against ``jax.grad`` of the reference's scan: in float32 each
+    gradient within 1e-5 of its largest magnitude; in bfloat16 (u, dt, B,
+    C and dy bfloat16, A and D float32, as the reference's Mamba block
+    trains) du, ddt, dB and dC rounded once and within the bfloat16 bar
+    5e-2 * (1 + |reference|) of the reference's bfloat16 gradient, dA and
+    dD float32 within 1e-5 of their largest."""
+    ins = _scan_inputs(length * 3 + din + n, b, length, din, n)
+    gy = np.random.default_rng(din).standard_normal(
+        (b, length, din)).astype(np.float32)
+    bf16 = dtype == "bfloat16"
+    jt = jnp.bfloat16 if bf16 else jnp.float32
+    jins = [jnp.asarray(x, jt) if i in (0, 1, 3, 4) else jnp.asarray(x)
+            for i, x in enumerate(ins)]
+    jgy = jnp.asarray(gy, jt)
+    _, vjp = jax.vjp(lambda *xs: jref.ssm_scan(*xs)[0], *jins)
+    want = vjp(jgy)
+    # the values the card reads: bfloat16 ones widened exactly
+    got = _scan_backward_emulation(
+        *(torch.from_numpy(np.array(x.astype(jnp.float32)))
+          for x in jins + [jgy]))
+    for i, name in enumerate(("du", "ddt", "dA", "dB", "dC", "dD")):
+        w = np.asarray(want[i].astype(jnp.float32))
+        if bf16 and i not in (2, 5):
+            g = got[i].to(torch.bfloat16).float().numpy()
+            assert (np.abs(g - w) <= 5e-2 * (1 + np.abs(w))).all(), name
+        else:
+            err = float(np.abs(got[i].numpy() - w).max())
+            assert err <= SCAN_TOL * float(np.abs(w).max()), (name, err)
 
 
 def test_scan_cuda_wrappers_reject_cpu_tensors():
