@@ -477,10 +477,24 @@ ADALN_BACKWARD_CASES = [(16, 256, 768, 0), (3, 17, 768, 0), (1, 17, 768, 1),
                         (2, 8, 4096, 0)]
 
 
+def adaln_launch_text(b, s, d, width, itemsize, epilogue):
+    """Which adaLN kernel a call takes (``adaln_norm.launch_plan``) and
+    its shape, as text."""
+    import torch
+    from repro_torch.kernels.adaln_norm import launch_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warp_rows, threads, vpt = launch_plan(b, s, d, width, itemsize,
+                                          epilogue, sms)
+    if warp_rows:
+        return (f"a warp a row, {vpt} vector(s) a lane, {threads // 32} "
+                "warps a block")
+    return f"a block a row of {threads} threads x {vpt}"
+
+
 def check_adaln(gen):
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.adaln_norm import launch_shape, load_width
+    from repro_torch.kernels.adaln_norm import load_width
     worst = {"adaln_norm": 0.0, "adaln_norm_epilogue": 0.0}
     for (b, s, d, offset) in ADALN_CASES:
         for epilogue in (False, True):
@@ -496,11 +510,11 @@ def check_adaln(gen):
             same = all(torch.equal(g, a) for g, a in (
                 zip(got, again) if epilogue else [(got, again)]))
             width = load_width(*flat)
-            threads, vpt = launch_shape(d, width)
             name = "adaln_norm_epilogue" if epilogue else "adaln_norm"
             print(f"{name:20s} B={b} S={s} d={d} modulation offset "
-                  f"{offset}: {4 * width}-byte loads, {threads} threads x "
-                  f"{vpt}; max|kernel - plain| = {err:.3e}; a second call "
+                  f"{offset}: {4 * width}-byte loads, "
+                  f"{adaln_launch_text(b, s, d, width, 4, epilogue)}; "
+                  f"max|kernel - plain| = {err:.3e}; a second call "
                   f"bit-identical: {same}")
             assert err <= TOL, f"{name} disagrees with its plain version"
             assert same, f"{name} is not deterministic"
@@ -5408,7 +5422,7 @@ def check_bf16_adaln(gen):
     gap."""
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.adaln_norm import launch_shape, load_width
+    from repro_torch.kernels.adaln_norm import load_width
     bf = torch.bfloat16
     worst = {"adaln_norm_bf16": 0.0, "adaln_norm_epilogue_bf16": 0.0}
     row_worst = 0.0
@@ -5431,12 +5445,12 @@ def check_bf16_adaln(gen):
                 row = max(_mean_row_gap(g_, w_) for g_, w_ in pairs)
                 top = max(_row_gap(g_, w_) for g_, w_ in pairs)
                 width = load_width(*flat)
-                threads, vpt = launch_shape(d, width, 2)
+                shape = adaln_launch_text(b, s, d, width, 2, epilogue)
                 name = ("adaln_norm_epilogue_bf16" if epilogue
                         else "adaln_norm_bf16")
                 print(f"{name:24s} B={b} S={s} d={d} offset {offset} "
                       f"weights {str(params)[6:]}: {2 * width}-byte loads, "
-                      f"{threads} threads x {vpt}; max|kernel - plain| = "
+                      f"{shape}; max|kernel - plain| = "
                       f"{err:.3e}; by row mean {row:.3e}, max {top:.3e}; "
                       f"a second call bit-identical: {same}")
                 assert all(ok for _, ok in gaps), \
@@ -6280,11 +6294,22 @@ def print_occupancy(lib):
     for epilogue in (0, 1):
         blocks = lib.adaln_norm_occupancy(4, vpt, threads, epilogue)
         warps = blocks * threads // 32
-        print(f"adaln_norm{'_epilogue' if epilogue else ''} d=768: {blocks} "
-              f"blocks of {threads} threads per SM ({warps} warps; a row a "
-              f"block, two float4 a thread; the first port held one block "
-              f"of 8 warps an SM at B=4)")
+        print(f"adaln_norm{'_epilogue' if epilogue else ''} block-a-row "
+              f"kernel d=768: {blocks} blocks of {threads} threads per SM "
+              f"({warps} warps; two float4 a thread; the first port held "
+              f"one block of 8 warps an SM at B=4)")
         assert warps > 8, "adaln_norm holds no more warps than before"
+    from repro_torch.kernels.adaln_norm import ROW_WARPS
+    for f32, vpt, what in ((1, 6, "six float4"), (0, 3, "three 16-byte "
+                                                  "vectors of bfloat16")):
+        for epilogue in (0, 1):
+            blocks = lib.adaln_norm_rows_occupancy(f32, vpt, 32 * ROW_WARPS,
+                                                   epilogue)
+            print(f"adaln_norm{'_epilogue' if epilogue else ''}"
+                  f"{'' if f32 else '_bf16'} rows kernel d=768: {blocks} "
+                  f"blocks of {ROW_WARPS} warps per SM (a warp a row, {what} "
+                  f"a lane; B=4 launches {4 * 256 // ROW_WARPS} blocks)")
+            assert blocks >= 2, "the adaLN rows kernel holds under 2 blocks"
     # eight heads a block, a three-stage ring: the CUDA cores' kernel
     # (float32 q) and the tensor cores' (bfloat16 q and cache)
     for tc, what in ((0, "CUDA cores, float32"),
@@ -6394,7 +6419,10 @@ def kernel_times(tree: str) -> int:
     forward at B=4, phase 8's decode step of full yi-6b (device time and
     host enqueue) and one full-width Jamba Mamba block forward at the
     trainer's shape; the bfloat16 scan kernels (``time_scan_kernels_bf16``);
-    then the attention kernels at phase 26's shapes
+    both bfloat16 adaLN forms at B=1 and B=4 (``time_adaln_bf16``) and the
+    bfloat16 DiT forward with its adaLN launches' profiled time
+    (``time_dit_bf16_forward``); then the attention kernels at phase 26's
+    shapes
     (``time_attention_kernels``) and yi-6b's decode step in bfloat16
     (``bf16_decode_steps``), so that two trees are compared within one run
     on one card."""
@@ -6449,6 +6477,14 @@ def kernel_times(tree: str) -> int:
     out["yi-6b decode step, host enqueue"] = host_ms
     torch.cuda.empty_cache()
     out["Mamba block forward B=8 L=128"] = time_mamba_block()
+    phase(f"27. {tree}'s bfloat16 adaLN kernels at B=1 and B=4 and the "
+          "bfloat16 DiT forward")
+    for b in (1, 4):
+        for name, t in time_adaln_bf16(gen, b, 256, 768).items():
+            out[f"{name} B={b}"] = t["ms"]
+    (out["DiT bf16 forward B=4"],
+     out["DiT bf16 forward B=4, profiled adaLN"]) = time_dit_bf16_forward(
+         full)
     phase(f"26. {tree}'s attention kernels in bfloat16 and float32 at "
           "phase 26's shapes; yi-6b's decode step in bfloat16")
     out.update(time_attention_kernels(gen))
@@ -6456,12 +6492,41 @@ def kernel_times(tree: str) -> int:
      out["yi-6b bf16 decode step B=1, host enqueue"],
      out["yi-6b bf16 decode step B=8 S=4096, kernels"]) = bf16_decode_steps(
          get_config("yi-6b"))
-    for name in ("DiT forward B=4", "yi-6b decode step, device",
+    for name in ("DiT forward B=4", "DiT bf16 forward B=4",
+                 "DiT bf16 forward B=4, profiled adaLN",
+                 "yi-6b decode step, device",
                  "yi-6b decode step, host enqueue",
                  "Mamba block forward B=8 L=128"):
         print(f"{name}: {out[name]:.4f} ms")
     print(json.dumps({"tree": tree, "kernel_times": out}))
     return 0
+
+
+def time_dit_bf16_forward(cfg, batch: int = 4):
+    """``--kernel-times``: phase 27's bfloat16 DiT (seed 17) at
+    B=``batch``: the forward's device time from a CUDA graph
+    (``forward_graph_ms``) and the device ms its adaLN launches take,
+    profiled by kernel over five eager forwards (``kernel_split``)."""
+    import torch
+    from repro_torch.models.gdm import LATENT_CHANNELS, gdm_denoise, init_gdm
+    model = init_gdm(cfg, seed=17, device="cuda", dtype=torch.bfloat16)
+    graph_ms, n, total = forward_graph_ms(model, cfg, torch.bfloat16, batch)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lat = torch.randn(batch, cfg.latent_hw ** 2, LATENT_CHANNELS,
+                      generator=gen, device="cuda").to(torch.bfloat16)
+    t = torch.randint(0, 16, (batch,), generator=gen, device="cuda")
+    prompt = torch.randint(2, cfg.vocab_size, (batch, 8), generator=gen,
+                           device="cuda")
+    with torch.no_grad():
+        split = kernel_split(lambda: gdm_denoise(model, lat, t, prompt))
+    adaln = {k: v for k, v in split.items() if "adaln" in k}
+    print(f"DiT bf16 forward B={batch}: {graph_ms:.4f} ms of device time "
+          f"(CUDA graph; {n} kernels summing to {total:.4f} ms eager); its "
+          f"adaLN launches profiled {sum(adaln.values()):.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in adaln.items()) + ")")
+    del model
+    torch.cuda.empty_cache()
+    return graph_ms, sum(adaln.values())
 
 
 def time_scan_kernels_bf16(gen):

@@ -27,8 +27,12 @@ import torch
 from repro_torch.kernels import (BF16, build, check_launch, check_operand,
                                  launched, variant)
 
-MAX_D = 4096          # a row lives in one block's registers
+MAX_D = 4096          # a row lives in one block's (or warp's) registers
 MAX_THREADS = 512
+ROW_MAX_D = 1024      # the rows kernel's widest row: 32 values a lane
+ROW_VECTORS = (1, 2, 3, 4, 6, 8)   # its vectors a lane (6 and 8: float32)
+ROW_WARPS = 4         # its warps, one row each, a block
+BF16_EPILOGUE_ROWS_PER_SM = 7   # the bfloat16 epilogue's least rows an SM
 BLOCKS_PER_SM = 4     # the backward's row blocks: about four an SM
 CLUSTER = 8           # the backward's blocks a cluster (csrc kCluster)
 MAX_BATCH = 65535     # the backward's grid: a batch row a grid row
@@ -84,16 +88,49 @@ def load_width(x, shift, scale, weight, bias, gate=None, residual=None):
 
 
 def launch_shape(d: int, width: int, itemsize: int = 4):
-    """(threads, vectors per thread) of the block that owns one row: two
-    vectors a thread while the row has at most 1024, else four or eight
-    (one 16-byte vector a thread in bfloat16, ``itemsize`` 2, which takes
-    d <= 4096 in at most 512 threads); a whole number of warps."""
+    """(threads, vectors per thread) of the block that owns one row in the
+    block-a-row kernel: two vectors a thread while the row has at most
+    1024, else four or eight (one 16-byte vector a thread in bfloat16,
+    ``itemsize`` 2, which takes d <= 4096 in at most 512 threads); a
+    whole number of warps."""
     n = d // width
     vpt = 1 if itemsize == 2 and width > 1 else 2
     while -(-n // vpt) > MAX_THREADS:
         vpt *= 2
     threads = -(-(-(-n // vpt)) // 32) * 32
     return threads, vpt
+
+
+def row_vectors(b: int, s: int, d: int, sms: int, *, itemsize: int = 4,
+                epilogue: bool = False):
+    """Vectors a lane of the rows kernel (``csrc/adaln_norm.cu``,
+    ``adaln_rows_kernel``: a warp a row, lane l holding 16-byte vectors
+    l + 32 k of ``itemsize``-byte values, ``ROW_WARPS`` consecutive rows
+    of one batch row a block) for (B, S, d) on a card of ``sms`` SMs: the
+    fewest it is built for (``ROW_VECTORS``) that cover the row.  None
+    where the block-a-row kernel (:func:`launch_shape`) takes the call:
+    rows wider than ``ROW_MAX_D`` (a lane's share of a row and its
+    parameters stay in registers up to 32 values), and the bfloat16
+    epilogue at fewer than ``BF16_EPILOGUE_ROWS_PER_SM`` rows an SM, where
+    its longer chain a lane (every value widened, the residual, the gate,
+    r written) leaves a warp a row slower than a block a row (measured on
+    an H100, ``PERF.md`` §6)."""
+    if d > ROW_MAX_D or (epilogue and itemsize == 2 and
+                         b * s < BF16_EPILOGUE_ROWS_PER_SM * sms):
+        return None
+    return next(v for v in ROW_VECTORS if 32 * v * (16 // itemsize) >= d)
+
+
+def launch_plan(b: int, s: int, d: int, width: int, itemsize: int,
+                epilogue: bool, sms: int):
+    """(warp_rows, threads, vectors per thread) of a forward call: the
+    rows kernel (warp_rows 1, a lane's vectors) where 16-byte loads and
+    :func:`row_vectors` allow it, else the block-a-row kernel (0)."""
+    vectors = (row_vectors(b, s, d, sms, itemsize=itemsize,
+                           epilogue=epilogue) if width > 1 else None)
+    if vectors is None:
+        return (0,) + launch_shape(d, width, itemsize)
+    return 1, 32 * ROW_WARPS, vectors
 
 
 def backward_grid(b: int, s: int, sms: int):
@@ -143,8 +180,10 @@ def adaln_norm_cuda(x, shift, scale, weight, bias, gate=None, residual=None,
     d (any row stride); weight/bias: (d,).  On one CUDA device, d <= 4096;
     x, the residual and the modulation float32 or bfloat16 (one dtype),
     weight and bias float32 or bfloat16 (one dtype); y and r in x's dtype.
-    The output carries no graph: a gradient goes through
-    :class:`repro_torch.kernels.grad.AdaLNNormFn` (float32 only).
+    Operands that allow 16-byte loads take the rows kernel (a warp a row)
+    where it is the faster, everything else the block-a-row kernel
+    (:func:`launch_plan`).  The output carries no graph: a gradient goes
+    through :class:`repro_torch.kernels.grad.AdaLNNormFn` (float32 only).
     """
     epilogue = residual is not None
     b, s, d, dev = _check(x, shift, scale, weight, bias, gate, residual)
@@ -153,7 +192,8 @@ def adaln_norm_cuda(x, shift, scale, weight, bias, gate=None, residual=None,
     if x.numel() == 0:
         return (y, r) if epilogue else y
     width = load_width(x, shift, scale, weight, bias, gate, residual)
-    threads, vpt = launch_shape(d, width, x.element_size())
+    warp_rows, threads, vpt = launch_plan(b, s, d, width, x.element_size(),
+                                          epilogue, _sm_count(dev))
     lib = build.library()
     name = variant("adaln_norm_epilogue" if epilogue else "adaln_norm", x)
     with torch.cuda.device(dev):
@@ -166,7 +206,7 @@ def adaln_norm_cuda(x, shift, scale, weight, bias, gate=None, residual=None,
             scale.data_ptr(), scale.stride(0),
             weight.data_ptr(), bias.data_ptr(), int(weight.dtype == BF16),
             y.data_ptr(), r.data_ptr() if epilogue else None,
-            b * s, s, d, width, threads, vpt, eps,
+            b * s, s, d, width, threads, vpt, warp_rows, eps,
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch(name, err)
     launched(name, work(b, s, d, epilogue, x.element_size(),

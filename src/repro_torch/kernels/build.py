@@ -34,9 +34,9 @@ _F = ctypes.c_float
 # C signatures of the entry points (see the sources)
 SIGNATURES = {
     "adaln_norm_f32": [_P, _P, _P, _LL, _P, _LL, _P, _LL, _P, _P, _I, _P,
-                       _P, _LL, _I, _I, _I, _I, _I, _F, _P],
+                       _P, _LL, _I, _I, _I, _I, _I, _I, _F, _P],
     "adaln_norm_bf16": [_P, _P, _P, _LL, _P, _LL, _P, _LL, _P, _P, _I, _P,
-                        _P, _LL, _I, _I, _I, _I, _I, _F, _P],
+                        _P, _LL, _I, _I, _I, _I, _I, _I, _F, _P],
     "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _F, _P],
     "decode_attention_f32": [_P] * 7 + [_I] * 8 + [_F, _P],
@@ -60,6 +60,7 @@ SIZES = {
 # C functions that report a kernel's resident blocks per SM (-1 on error)
 OCCUPANCY = {
     "adaln_norm_occupancy": [_I] * 4,
+    "adaln_norm_rows_occupancy": [_I] * 4,
     "adaln_norm_backward_occupancy": [_I] * 6,
     "decode_attention_occupancy": [_I] * 2,
     "flash_attention_occupancy": [_I],

@@ -132,10 +132,10 @@ def refuse_bf16_grad(*operands) -> None:
     ``gdm_loss`` over a bfloat16 latent computes in float32)."""
     if any(t is not None and t.dtype == BF16 for t in operands):
         raise NotImplementedError(
-            "adaln_norm: the backward kernel takes float32 only; a gradient "
-            "through a bfloat16 operand waits for its bfloat16 variant "
-            "(ROADMAP Queue 1 item 14); call it under torch.no_grad() or "
-            "in float32")
+            "adaln_norm: the backward kernel takes float32 only, and has "
+            "no bfloat16 variant since the reference never trains the DiT "
+            "in bfloat16 (its gdm_loss computes in float32); call it under "
+            "torch.no_grad() or in float32")
 
 
 class AdaLNNormFn(torch.autograd.Function):

@@ -54,6 +54,7 @@ ADALN_TOL = 3e-2
 BF16_TOL = 2e-2
 F32_TOL = 1e-5
 RNG_SEED = 42
+SMS = 132             # the H100's SMs, for the rows kernel's layout
 
 
 def _np_tree(params):
@@ -153,16 +154,25 @@ def test_adaln_epilogue_normalises_the_unrounded_residual():
 
 
 def _adaln_bf16_emulation(x, shift, scale, weight, bias, gate=None,
-                          residual=None, *, eps=1e-5):
-    """``adaln_norm.cu``'s bfloat16 arithmetic on CPU tensors: every
-    operand widened to float32 as it is read; one block a row of
-    ``launch_shape(d, 8, 2)`` threads, thread t holding vector t of 8
-    values, its values added in element order; a warp's partials meet in
-    a shuffle butterfly (offsets 16 .. 1), the warps' sums in warp order;
-    the epilogue normalises the float32 r and writes it rounded; each
-    output rounded once to bfloat16."""
+                          residual=None, *, eps=1e-5, kernel="block"):
+    """``adaln_norm.cu``'s bfloat16 arithmetic with 16-byte vectors on CPU
+    tensors: every operand widened to float32 as it is read; the row's
+    vectors of 8 values dealt out as ``kernel`` deals them, each holder
+    adding its values vector by vector in element order, the holders'
+    partials meeting in a shuffle butterfly (offsets 16 .. 1): in
+    ``"block"`` (``adaln_kernel``) thread t of ``launch_shape(d, 8, 2)``
+    holds vector t and the warps' sums meet in warp order; in ``"rows"``
+    (``adaln_rows_kernel``) lane l of the row's warp holds vectors l + 32 k
+    (k < ``row_vectors``), and lane 0's sum is the row's (every
+    lane's, by commutativity).  The epilogue normalises the float32 r and writes
+    it rounded; each output rounded once to bfloat16."""
     b, s, d = x.shape
-    threads, vpt = tadaln.launch_shape(d, 8, 2)
+    if kernel == "block":
+        threads, vpt = tadaln.launch_shape(d, 8, 2)
+        lanes_a_row, slots = threads, vpt
+    else:
+        lanes_a_row = 32
+        slots = tadaln.row_vectors(b, s, d, SMS, itemsize=2)
     f = [None if t is None else t.float()
          for t in (x, shift, scale, weight, bias, gate, residual)]
     x, shift, scale, weight, bias, gate, residual = f
@@ -170,25 +180,26 @@ def _adaln_bf16_emulation(x, shift, scale, weight, bias, gate=None,
     rows = r.reshape(b * s, d)
     lanes = torch.arange(32)
 
-    def block_sum(vals):
-        padded = torch.zeros(rows.shape[0], threads * vpt * 8)
+    def row_sum(vals):
+        padded = torch.zeros(rows.shape[0], slots * lanes_a_row * 8)
         padded[:, :d] = vals
-        per = padded.view(-1, vpt, threads, 8)
-        part = torch.zeros(rows.shape[0], threads)
-        for k in range(vpt):
+        per = padded.view(-1, slots, lanes_a_row, 8)   # [row, k, holder, e]
+        part = torch.zeros(rows.shape[0], lanes_a_row)
+        for k in range(slots):
             for e in range(8):
                 part = part + per[:, k, :, e]
-        part = part.view(-1, threads // 32, 32)
+        part = part.view(-1, lanes_a_row // 32, 32)
         for off in (16, 8, 4, 2, 1):
             part = part + part[..., lanes ^ off]
+        assert bool((part == part[..., :1]).all())
         total = torch.zeros(rows.shape[0])
-        for w in range(threads // 32):
+        for w in range(lanes_a_row // 32):
             total = total + part[:, w, 0]
         return total
 
-    mean = block_sum(rows) / d
+    mean = row_sum(rows) / d
     c = rows - mean[:, None]
-    rstd = 1.0 / torch.sqrt(block_sum(c * c) / d + eps)
+    rstd = 1.0 / torch.sqrt(row_sum(c * c) / d + eps)
     y = (c * rstd[:, None]) * weight + bias
     bidx = torch.arange(b * s) // s
     y = (y * (1.0 + scale[bidx]) + shift[bidx]).view(b, s, d).to(BF)
@@ -203,23 +214,26 @@ def _mean_row_gap(got, want):
 
 
 @pytest.mark.parametrize("params_bf16", [False, True])
-@pytest.mark.parametrize("b,s,d", [(2, 16, 768), (4, 16, 64), (2, 17, 96)])
+@pytest.mark.parametrize("b,s,d", [(2, 16, 768), (4, 16, 64), (2, 17, 96),
+                                   (1, 4, 4096)])
 @pytest.mark.parametrize("epilogue", [False, True])
 def test_adaln_bf16_block_arithmetic_matches_pallas(b, s, d, params_bf16,
                                                     epilogue):
-    """The kernel's bfloat16 arithmetic (one 16-byte vector a thread,
-    fixed-order sums) holds the reference's Pallas kernel at its 3e-2, and
-    the port's plain version within the card's row bar."""
+    """The kernels' bfloat16 arithmetic (a block a row, and a warp a row
+    where ``ROW_MAX_D`` admits the row; 16-byte vectors, fixed-order sums)
+    holds the reference's Pallas kernel at its 3e-2, and the port's plain
+    version within the card's row bar."""
     rng = np.random.default_rng(RNG_SEED + d)
     jargs, targs = _adaln_operands(rng, b, s, d, params_bf16, epilogue)
-    got = _adaln_bf16_emulation(*targs)
     want = jops.adaln_norm(*jargs, impl="interpret", block_rows=8)
     plain = ops.adaln_norm(*targs)
     if not epilogue:
-        got, want, plain = (got,), (want,), (plain,)
-    for g, w, p in zip(got, want, plain):
-        _check_adaln(g, w)
-        assert _mean_row_gap(g, p) <= 2.0 ** -11
+        want, plain = (want,), (plain,)
+    for kernel in ("block", "rows") if d <= tadaln.ROW_MAX_D else ("block",):
+        got = _adaln_bf16_emulation(*targs, kernel=kernel)
+        for g, w, p in zip(got if epilogue else (got,), want, plain):
+            _check_adaln(g, w)
+            assert _mean_row_gap(g, p) <= 2.0 ** -11
 
 
 # -- the kernel wrapper's bfloat16 shapes, charges and refusals -------------------
@@ -247,7 +261,53 @@ def test_adaln_load_width_and_work_in_bf16():
         12.0 * rows, 2.0 * (4 * rows + 3 * b * d) + 4.0 * 2 * d)
     assert tadaln.launch_shape(d, 8, 2) == (96, 1)
     assert tadaln.launch_shape(4096, 8, 2) == (512, 1)
+    for batch, epilogue, vectors in ((1, False, 3), (4, True, 3),
+                                     (3, True, None), (1, True, None)):
+        assert tadaln.row_vectors(batch, 256, d, SMS, itemsize=2,
+                                  epilogue=epilogue) == vectors
+    assert tadaln.row_vectors(b, 256, 2048, SMS, itemsize=2) is None
     assert tadaln.launch_shape(d, 4) == (96, 2)
+    assert tadaln.launch_shape(d, 1) == (384, 2)
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("b,s,d", [(1, 256, 768), (4, 256, 768),
+                                   (3, 255, 96), (9, 61, 64), (40, 17, 1024),
+                                   (1, 4, 4096)])
+def test_adaln_bf16_launch_covers_each_batch_row(b, s, d, epilogue):
+    """The bfloat16 launch for 16-byte vectors, walked in Python as the
+    kernels walk it: where ``row_vectors`` gives the rows kernel, every
+    row of every batch row is taken by exactly one warp, a block's rows
+    all lie in one batch row (they share its scale and shift) and a lane's
+    vectors cover the row; elsewhere a block a row of ``launch_shape``
+    threads covers the row.  At the DiT's width B=1 still gives at least
+    128 warps (of the H100's 132 SMs), and d=4096 fits."""
+    vectors = tadaln.row_vectors(b, s, d, SMS, itemsize=2, epilogue=epilogue)
+    if vectors is None:
+        threads, vpt = tadaln.launch_shape(d, 8, 2)
+        assert threads * vpt * 8 >= d and threads <= tadaln.MAX_THREADS
+        assert d > tadaln.ROW_MAX_D or (
+            epilogue and b * s < tadaln.BF16_EPILOGUE_ROWS_PER_SM * SMS)
+        warps = b * s * threads // 32
+    else:
+        assert vectors * 32 * 8 >= d and vectors <= 4
+        per = tadaln.ROW_WARPS                   # warps, one row each
+        blocks = -(-s // per)
+        taken = {}
+        for block in range(b * blocks):
+            batch, j = divmod(block, blocks)
+            rows = {batch * s + j * per + w for w in range(per)
+                    if j * per + w < s}
+            assert {r // s for r in rows} <= {batch}
+            for r in rows:
+                assert r not in taken
+                taken[r] = block
+        assert sorted(taken) == list(range(b * s))
+        warps = b * blocks * per
+    if (b, d) == (1, 768):
+        assert warps >= 128
+    if d == 4096:
+        assert vectors is None and tadaln.launch_shape(d, 8, 2) == (512, 1)
 
 
 @pytest.mark.parametrize("which", ["x", "weight"])

@@ -82,16 +82,23 @@ def test_adaln_norm_cpu_dispatch_takes_strided_modulation():
 
 
 def _adaln_block_emulation(x, shift, scale, weight, bias, gate=None,
-                           residual=None, *, eps=1e-5, width=4):
-    """``adaln_norm.cu``'s arithmetic on CPU tensors: one block a row of
-    ``launch_shape`` threads; thread t holds vectors t + k * threads (k <
-    vpt) of ``width`` floats and adds its values in k, then element order;
-    a warp's 32 partials meet in a shuffle butterfly (offsets 16 .. 1) and
-    the warps' sums are added in warp order.  Mean first, then the mean of
-    squared deviations, as the kernel's two block sums."""
-    from repro_torch.kernels.adaln_norm import launch_shape
+                           residual=None, *, eps=1e-5, width=4,
+                           kernel="block"):
+    """``adaln_norm.cu``'s arithmetic on CPU tensors.  ``"block"``
+    (``adaln_kernel``): one block a row of ``launch_shape`` threads;
+    thread t holds vectors t + k * threads (k < vpt) of ``width`` floats
+    and adds its values in k, then element order; a warp's 32 partials
+    meet in a shuffle butterfly (offsets 16 .. 1) and the warps' sums are
+    added in warp order.  ``"rows"`` (``adaln_rows_kernel``, float4 only):
+    one warp a row, lane l holds vectors l + 32 k (k < ``row_vectors``),
+    the same butterfly, no cross-warp step.  Mean first, then
+    the mean of squared deviations, as the kernel's two sums."""
+    from repro_torch.kernels.adaln_norm import launch_shape, row_vectors
     b, s, d = x.shape
-    threads, vpt = launch_shape(d, width)
+    if kernel == "block":
+        threads, vpt = launch_shape(d, width)
+    else:
+        threads, vpt = 32, row_vectors(b, s, d, 132)
     r = x if residual is None else residual + gate[:, None, :] * x
     rows = r.reshape(b * s, d)
     cap = threads * vpt * width
@@ -124,14 +131,15 @@ def _adaln_block_emulation(x, shift, scale, weight, bias, gate=None,
 
 
 @pytest.mark.parametrize("b,s,d,width,tol", [
-    (2, 16, 768, 4, TOL),   # the DiT's width: 96 threads, two float4 each
+    (2, 16, 768, 4, TOL),   # the DiT's width: a warp a row, six float4 a
+                            # lane (and 96 threads, two float4 each)
     (3, 5, 99, 1, TOL),     # no multiple of 4: single floats
     (1, 4, 2048, 1, 1e-5),  # four values a thread
     (2, 3, 4096, 1, 1e-5),  # the widest row: 512 threads, eight values each
 ])
 @pytest.mark.parametrize("epilogue", [False, True])
 def test_adaln_block_sums_match_reference(b, s, d, width, tol, epilogue):
-    """The kernel's cross-warp, fixed-order sums hold the reference's
+    """The kernels' fixed-order sums hold the reference's
     adaLN at 1e-6 at the DiT's width (float32, only the order of the sums
     differs).  Rows of thousands of values are held at the card's 1e-5:
     there the plain version's own sums sit up to 2.9e-6 from the
@@ -142,14 +150,19 @@ def test_adaln_block_sums_match_reference(b, s, d, width, tol, epilogue):
     extra = (g, res) if epilogue else ()
     want = jref.adaln_norm(x, sh, sc, w, bias, *extra)
     t = torch.from_numpy
-    got = _adaln_block_emulation(t(x), t(sh), t(sc), t(w), t(bias),
-                                 *(t(a) for a in extra), width=width)
-    for got_o, want_o in zip(*((got, want) if epilogue else ((got,),
-                                                            (want,)))):
-        _close(got_o, want_o, tol)
     plain = tref.adaln_norm(t(x), t(sh), t(sc), t(w), t(bias),
                             *(t(a) for a in extra))
-    _close(got[0] if epilogue else got, plain[0] if epilogue else plain, tol)
+    # the rows kernel takes float4 rows up to ROW_MAX_D values
+    for kernel in ("block", "rows") if width == 4 and d <= 1024 else (
+            "block",):
+        got = _adaln_block_emulation(t(x), t(sh), t(sc), t(w), t(bias),
+                                     *(t(a) for a in extra), width=width,
+                                     kernel=kernel)
+        for got_o, want_o in zip(*((got, want) if epilogue else ((got,),
+                                                                (want,)))):
+            _close(got_o, want_o, tol)
+        _close(got[0] if epilogue else got, plain[0] if epilogue else plain,
+               tol)
 
 
 def test_adaln_load_width_follows_shapes_strides_and_offsets():
@@ -188,6 +201,14 @@ def test_adaln_load_width_follows_shapes_strides_and_offsets():
     assert launch_shape(2048, 1) == (512, 4)
     assert launch_shape(4096, 1) == (512, 8)
     assert launch_shape(4096, 4) == (512, 2)
+    from repro_torch.kernels.adaln_norm import launch_plan
+    for (b_, s_, d_, width, epilogue), plan in (
+            ((4, 256, 768, 4, False), (1, 128, 6)),   # the DiT: a warp a row
+            ((1, 256, 768, 4, True), (1, 128, 6)),
+            ((2, 8, 100, 4, False), (1, 128, 1)),
+            ((4, 256, 768, 1, False), (0, 384, 2)),   # single floats
+            ((2, 8, 2048, 4, True), (0, 256, 2))):    # over 1024 values
+        assert launch_plan(b_, s_, d_, width, 4, epilogue, 132) == plan
 
 
 # -- flash_attention ---------------------------------------------------------------
