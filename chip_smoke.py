@@ -10,8 +10,10 @@ non-zero before the result line):
 2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a) and print the build time, ptxas' register report per kernel
    and the resident blocks per SM of ``adaln_norm``, ``decode_attention``,
-   ``flash_attention`` (each head width), ``rmsnorm``, ``ssm_scan`` (one
-   lane a channel, and the prefill's lanes) and ``ssm_scan_backward``;
+   ``flash_attention`` (each head width), ``rmsnorm`` (both of its
+   kernels, in float32 and bfloat16, at the plans its shapes take),
+   ``ssm_scan`` (one lane a channel, and the prefill's lanes) and
+   ``ssm_scan_backward``;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (full-width gdm-dit at B in {1, 4, 8}, yi-6b's heads
    and widths, the trainer's rows, the reduced configs), on attention's
@@ -188,7 +190,8 @@ non-zero before the result line):
     versions on bfloat16 inputs at the main paths' shapes (the DiT's,
     yi-6b's, granite's, llava's G=7, deepseek's G=8, the Jamba scan's in
     both layouts of the forward scan; a float32 query over the bfloat16
-    cache; flash at the edges of the
+    cache; rmsnorm also with a float32 scale, its cases taking both of its
+    kernels; flash at the edges of the
     wgmma kernel's 64-row warpgroups and 128-key tiles, decode at those of
     the tensor cores' 16-key warp slices and 64-key tiles), at the
     reference's bfloat16 bars, a second call bit for bit, then timed beside
@@ -280,9 +283,12 @@ training shape (each with its profiled split by kernel), then decode in
 bfloat16 and float32 at phase 26's six shapes (each with its profiled
 split between the split kernel and the merge), bfloat16 flash at four
 shapes (SDPA beside each) and yi-6b's bfloat16 decode step at B=1 and
-at B=8 over 4096 rows, in this harness, so that two trees are compared
-on one card in one run (parent, change, change, parent); it ends with a
-``{"tree": ..., "kernel_times": ...}`` line.
+at B=8 over 4096 rows, and the bfloat16 rmsnorm at seven shapes beside a
+bfloat16 ``copy_`` of the same rows (``RMS_BF16_SHAPES``; the decode row
+also one call at a time, warm and with L2 flushed), in this harness, so
+that two trees are compared on one card in one run (parent, change,
+change, parent); it ends with a ``{"tree": ..., "kernel_times": ...}``
+line.
 """
 from __future__ import annotations
 
@@ -4732,13 +4738,15 @@ def check_bf16_kernels(gen):
     """Phase 26(a): each bfloat16 kernel against its plain version on the
     card, on bfloat16 inputs (decode also with a float32 query over the
     bfloat16 cache, held at float32's TOL; the scan's final state float32,
-    at SCAN_TOL), a second call bit for bit; rmsnorm refuses a float32
-    scale over bfloat16 rows.  Returns each variant's largest absolute
-    gap."""
+    at SCAN_TOL), a second call bit for bit; rmsnorm also with a float32
+    scale over the bfloat16 rows (the mixed form, as the reference's
+    kernel takes it), its cases taking both of its kernels.  Returns
+    each variant's largest absolute gap."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import bf16_route
-    from repro_torch.kernels.rmsnorm import load_width
+    from repro_torch.kernels.rmsnorm import (BLOCK, ROW, launch_plan,
+                                             load_width)
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
     worst = dict.fromkeys(("flash_attention_bf16", "decode_attention_bf16",
                            "rmsnorm_bf16", "ssm_scan_bf16"), 0.0)
@@ -4800,27 +4808,27 @@ def check_bf16_kernels(gen):
             assert same, "decode_attention bf16 is not deterministic"
             worst["decode_attention_bf16"] = max(
                 worst["decode_attention_bf16"], err)
+    kinds = set()
     for rows, d, offset in BF16_RMS_CASES:
         x = _bf16(_randn(gen, rows * d + offset))[offset:].view(rows, d)
         w32 = 1.0 + _randn(gen, d, scale=0.1)
-        w = _bf16(w32)
-        got = ops.rmsnorm(x, w)
-        same = torch.equal(got, ops.rmsnorm(x, w))
-        assert got.dtype == torch.bfloat16
-        err, ok = _allclose_gap(got, ref.rmsnorm(x, w), BF16_KERNEL_TOL)
-        print(f"rmsnorm bf16 rows={rows} d={d} x offset {offset}: "
-              f"{2 * load_width(x, w)}-byte loads; max|kernel - plain| = "
-              f"{err:.3e}; a second call bit-identical: {same}")
-        assert ok, "rmsnorm bf16 disagrees with its plain version"
-        assert same, "rmsnorm bf16 is not deterministic"
-        worst["rmsnorm_bf16"] = max(worst["rmsnorm_bf16"], err)
-        try:
-            ops.rmsnorm(x, w32)
-        except TypeError:
-            pass
-        else:
-            raise AssertionError("rmsnorm took a float32 scale over "
-                                 "bfloat16 rows")
+        for w in (_bf16(w32), w32):            # the mixed form: float32 scale
+            got = ops.rmsnorm(x, w)
+            same = torch.equal(got, ops.rmsnorm(x, w))
+            assert got.dtype == torch.bfloat16
+            err, ok = _allclose_gap(got, ref.rmsnorm(x, w), BF16_KERNEL_TOL)
+            width = load_width(x, w)
+            plan = launch_plan(rows, d, x.dtype, width)
+            kinds.add(plan.kernel)
+            print(f"rmsnorm bf16 rows={rows} d={d} x offset {offset}, scale "
+                  f"{str(w.dtype)[6:]}: {2 * width}-byte loads, {plan}; "
+                  f"max|kernel - plain| = {err:.3e}; a second call "
+                  f"bit-identical: {same}")
+            assert ok, "rmsnorm bf16 disagrees with its plain version"
+            assert same, "rmsnorm bf16 is not deterministic"
+            worst["rmsnorm_bf16"] = max(worst["rmsnorm_bf16"], err)
+    assert kinds == {BLOCK, ROW}, \
+        f"the rmsnorm cases took the kernels {kinds}, not both"
     layouts = set()
     for (b, length, din, n) in BF16_SCAN_CASES:
         lanes = scan_layout(b, din, n)
@@ -5056,9 +5064,11 @@ def time_decode_bf16(gen, b, s, length, heads=(32, 4, 128), q_bf16=True):
 
 def time_rmsnorm_bf16(gen, rows, d):
     """rmsnorm on bfloat16 rows with a bfloat16 scale beside the float32
-    kernel, the plain version and ``F.rms_norm`` in bfloat16."""
+    kernel, the plain version and ``F.rms_norm`` in bfloat16, and with a
+    float32 scale (the mixed form)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rmsnorm import launch_plan
     x32 = _randn(gen, rows, d)
     w32 = 1.0 + _randn(gen, d, scale=0.1)
     x, w = _bf16(x32), _bf16(w32)
@@ -5067,8 +5077,11 @@ def time_rmsnorm_bf16(gen, rows, d):
              f32_ms=device_ms(lambda: ops.rmsnorm(x32, w32)),
              plain_ms=device_ms(lambda: ref.rmsnorm(x, w)),
              bound_ms=t_bound, bound_by=by,
-             library_ms=device_ms(lambda: F.rms_norm(x, (d,), w, eps=1e-6)))
-    _print_bf16_times(f"rmsnorm bf16 rows={rows} d={d}", t)
+             library_ms=device_ms(lambda: F.rms_norm(x, (d,), w, eps=1e-6)),
+             mixed_ms=device_ms(lambda: ops.rmsnorm(x, w32)))
+    plan = launch_plan(rows, d, x.dtype)
+    _print_bf16_times(f"rmsnorm bf16 rows={rows} d={d} ({plan})", t)
+    print(f"  with a float32 scale: {t['mixed_ms']:.7f} ms")
     return t
 
 
@@ -5122,8 +5135,8 @@ def time_bf16_kernels(gen):
     time_decode_bf16(gen, 1, 3024, 3009, heads=(56, 8, 128))
     time_decode_bf16(gen, 1, 4096, 4096, heads=(64, 8, 128))
     out["decode_attention_bf16"] = time_decode_bf16(gen, 1, 160, 160)
-    for rows, d in ((1024, 4096), (8192, 4096), (1, 1024), (3008, 7168),
-                    (1, 8192)):
+    for rows, d in ((1024, 4096), (8192, 4096), (128, 4096), (1, 1024),
+                    (3008, 7168), (1, 8192)):
         time_rmsnorm_bf16(gen, rows, d)
     out["rmsnorm_bf16"] = time_rmsnorm_bf16(gen, 1, 4096)
     time_scan_bf16(gen, 8, 128, 8192, 16)
@@ -6329,16 +6342,28 @@ def print_occupancy(lib):
               "threads per SM (a producer and two consumer warpgroups)")
         assert blocks >= 1, "flash_attention's wgmma kernel cannot be resident"
     import torch
-    from repro_torch.kernels.rmsnorm import launch_shape as rms_shape
-    threads, vpt = rms_shape(4096, 4)
-    for rpb in (1, 2):
-        blocks = lib.rmsnorm_occupancy(4, vpt, threads, rpb)
-        print(f"rmsnorm d=4096, {rpb} row(s) a block: {blocks} blocks of "
-              f"{threads} threads per SM ({blocks * rpb} rows; x and scale "
-              f"in registers, {vpt} float4 of each a thread; the first port "
-              f"held 8 rows, x alone)")
-    assert blocks * 2 >= 8, "rmsnorm holds fewer rows an SM than before"
+    from repro_torch.kernels import rmsnorm as rms
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kinds = {rms.BLOCK: "block", rms.ROW: "row"}
+    for dtype, rows, d in ((torch.float32, 1, 4096),
+                           (torch.float32, 8192, 4096),
+                           (torch.bfloat16, 1, 1024),
+                           (torch.bfloat16, 8192, 4096),
+                           (torch.bfloat16, 3008, 7168)):
+        plan = rms.launch_plan(rows, d, dtype)
+        size = dtype.itemsize
+        blocks = lib.rmsnorm_occupancy(size, size, plan.kernel, 16 // size,
+                                       plan.vpt, plan.threads,
+                                       plan.rows_per_block)
+        held = blocks * plan.rows_per_block
+        print(f"rmsnorm {str(dtype)[6:]} {rows}x{d}, the "
+              f"{kinds[plan.kernel]} kernel {tuple(plan)}: {blocks} blocks "
+              f"of {plan.threads} threads per SM, {held} rows of x "
+              f"({held * d * size // 1024} KB) in flight an SM")
+        assert blocks >= 1, "an rmsnorm kernel cannot be resident"
+        if dtype == torch.float32 and rows > 1:
+            assert blocks * 2 >= 8, \
+                "rmsnorm holds fewer rows an SM than before"
     b, _, din, n = SCAN_CASES[0]
     blocks = lib.ssm_scan_occupancy(n, 1)
     print(f"ssm_scan N={n}: {blocks} blocks of 128 threads per SM "
@@ -6414,7 +6439,8 @@ def kernel_times(tree: str) -> int:
     package under ``TREE/src`` (another checkout, such as a parent commit
     unpacked with ``git archive``) and time the adaLN, adaLN backward
     (both forms at B=8 and B=4, with its profiled split by kernel and
-    residency), decode, rmsnorm and scan kernels at phase 4's shapes in
+    residency), decode (also float32 at phase 26's 160 rows, with its
+    bound and SDPA), rmsnorm and scan kernels at phase 4's shapes in
     this script's harness, and the layers they serve: phase 5's DiT
     forward at B=4, phase 8's decode step of full yi-6b (device time and
     host enqueue) and one full-width Jamba Mamba block forward at the
@@ -6453,6 +6479,10 @@ def kernel_times(tree: str) -> int:
                 "decode_attention B=1 S=24, one call, warm": t["warm1_ms"],
                 "decode_attention B=1 S=24, one call, L2 flushed":
                     t["cold1_ms"]})
+    t = time_decode(gen, 1, 160, 160)
+    out.update({"decode_attention B=1 S=160": t["ms"],
+                "decode_attention B=1 S=160, bound": t["bound_ms"],
+                "SDPA decode B=1 S=160": t["library_ms"]})
     t = time_rmsnorm(gen, 1, 4096, cold=True, plain=False)
     out.update({"rmsnorm 1x4096": t["ms"],
                 "rmsnorm 1x4096, one call, warm": t["warm1_ms"],
@@ -6460,6 +6490,7 @@ def kernel_times(tree: str) -> int:
     for rows in (1024, 8192):
         out[f"rmsnorm {rows}x4096"] = time_rmsnorm(gen, rows, 4096,
                                                    plain=False)["ms"]
+    out.update(time_rmsnorm_kernels_bf16(gen))
     scan = time_ssm_scan(gen, plain=False)
     out["ssm_scan B=8 L=128 saving states"] = scan["ssm_scan"]["ms"]
     out["ssm_scan B=8 L=128 without states"] = \
@@ -6527,6 +6558,45 @@ def time_dit_bf16_forward(cfg, batch: int = 4):
     del model
     torch.cuda.empty_cache()
     return graph_ms, sum(adaln.values())
+
+
+# the bfloat16 rmsnorm's shapes --kernel-times compares: Jamba's trainer
+# and a yi-6b batch, llava's prefill, the trainer's rows, yi-6b's prefill,
+# granite's, yi-6b's and deepseek's decode rows
+RMS_BF16_SHAPES = ((8192, 4096), (3008, 7168), (1024, 4096), (128, 4096),
+                   (1, 1024), (1, 4096), (1, 8192))
+
+
+def time_rmsnorm_kernels_bf16(gen):
+    """``--kernel-times``: the bfloat16 rmsnorm at ``RMS_BF16_SHAPES``
+    beside a bfloat16 ``copy_`` of the same rows (the practical floor) and
+    its byte bound; the float32 kernel on the 1024-wide row; the 4096-wide
+    row also one call at a time, warm and with L2 flushed."""
+    import torch
+    from repro_torch.kernels import ops
+    out = {}
+    for rows, d in RMS_BF16_SHAPES:
+        x32 = _randn(gen, rows, d)
+        w32 = 1.0 + _randn(gen, d, scale=0.1)
+        x, w = _bf16(x32), _bf16(w32)
+        y = torch.empty_like(x)
+        what = f"rmsnorm_bf16 {rows}x{d}"
+        out[what] = device_ms(lambda: ops.rmsnorm(x, w))
+        out[f"copy_ bf16 {rows}x{d}"] = device_ms(lambda: y.copy_(x))
+        t_bound, by = bound_ms(2 * (2 * rows * d + d), 4 * rows * d)
+        print(f"{what}: kernel {out[what]:.7f} ms, a bfloat16 copy_ of the "
+              f"rows {out[f'copy_ bf16 {rows}x{d}']:.7f} ms, bound "
+              f"{t_bound:.7f} ms ({by})")
+        if d == 1024:
+            out[f"rmsnorm {rows}x{d}"] = device_ms(lambda: ops.rmsnorm(x32,
+                                                                      w32))
+            print(f"  the float32 kernel on the same row: "
+                  f"{out[f'rmsnorm {rows}x{d}']:.7f} ms")
+        if (rows, d) == (1, 4096):
+            (out[f"{what}, one call, warm"],
+             out[f"{what}, one call, L2 flushed"]) = one_call_ms(
+                 lambda: ops.rmsnorm(x, w), what)
+    return out
 
 
 def time_scan_kernels_bf16(gen):

@@ -40,12 +40,12 @@ SIGNATURES = {
     "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _F, _P],
     "decode_attention_f32": [_P] * 7 + [_I] * 8 + [_F, _P],
-    "rmsnorm_f32": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _F, _P],
+    "rmsnorm_f32": [_P, _P, _P, _LL] + [_I] * 6 + [_F, _P],
     "ssm_scan_f32": [_P] * 9 + [_I] * 5 + [_P],
     "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _F, _P],
     "decode_attention_bf16": [_P] * 7 + [_I] * 9 + [_F, _P],
-    "rmsnorm_bf16": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _F, _P],
+    "rmsnorm_bf16": [_P, _P, _P, _LL] + [_I] * 7 + [_F, _P],
     "ssm_scan_bf16": [_P] * 9 + [_I] * 5 + [_P],
     "ssm_scan_backward_f32": [_P] * 15 + [_I] * 4 + [_P],
     "ssm_scan_backward_bf16": [_P] * 15 + [_I] * 4 + [_P],
@@ -65,7 +65,7 @@ OCCUPANCY = {
     "decode_attention_occupancy": [_I] * 2,
     "flash_attention_occupancy": [_I],
     "flash_attention_bf16_occupancy": [_I],
-    "rmsnorm_occupancy": [_I] * 4,
+    "rmsnorm_occupancy": [_I] * 7,
     "ssm_scan_occupancy": [_I] * 2,
     "ssm_scan_backward_occupancy": [],
 }

@@ -159,9 +159,46 @@ def test_ssm_scan_bf16_matches_pallas(b, length, din, n):
                                rtol=1e-4)
 
 
-@pytest.mark.parametrize("shape", [(4, 32), (3, 17, 96), (2, 5, 7, 64)])
+def _rmsnorm_lanes_emulation(x, scale, *, eps=1e-6):
+    """``rmsnorm.cu``'s row kernel on CPU tensors (bfloat16 x,
+    a bfloat16 or float32 scale): a row on ``lane_shape`` threads of
+    16-byte vectors (8 values); thread t widens vectors t + k * threads
+    (k < 2) to float32 and adds their squares in k, then element order; a
+    warp's 32 partials meet in a shuffle butterfly (offsets 16 .. 1), the
+    warps' sums add in warp order; then x times the inverse root, times
+    scale, in float32, rounded once to bfloat16."""
+    from repro_torch.kernels.rmsnorm import lane_shape
+    rows, d = x.shape
+    threads, vpt = lane_shape(d, 8)
+    padded = torch.zeros(rows, threads * vpt * 8)
+    padded[:, :d] = x.float()
+    per = padded.view(rows, vpt, threads, 8)
+    part = torch.zeros(rows, threads)
+    for k in range(vpt):
+        for e in range(8):
+            part = part + per[:, k, :, e] * per[:, k, :, e]
+    part = part.view(rows, threads // 32, 32)
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        part = part + part[..., lanes ^ off]
+    total = torch.zeros(rows)
+    for w in range(threads // 32):
+        total = total + part[:, w, 0]
+    inv = torch.rsqrt(total / d + eps)
+    return (x.float() * inv[:, None] * scale.float()).to(BF)
+
+
+@pytest.mark.parametrize("shape", [
+    (4, 32), (3, 17, 96), (2, 5, 7, 64),     # one warp: no barrier
+    (2, 1024),        # granite's row: two warps of two vectors a lane
+    (2, 4096),        # yi-6b's and Jamba's rows: 256 threads
+    (2, 7168)])       # llava's rows: 448 threads
 @pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
 def test_rmsnorm_bf16_matches_pallas(shape, scale_dtype):
+    """The port's plain version, and the row kernel's order of sums
+    (``_rmsnorm_lanes_emulation``), on bfloat16 rows with either
+    scale dtype, against the reference's Pallas kernel (interpret mode)
+    and its oracle at the reference's bfloat16 bar."""
     rng = np.random.default_rng(RNG_SEED)
     jx, x = _pair(_arr(rng, *shape))
     js, sc = _pair(_arr(rng, shape[-1], bf16=scale_dtype == "bfloat16"),
@@ -169,6 +206,10 @@ def test_rmsnorm_bf16_matches_pallas(shape, scale_dtype):
     want = jops.rmsnorm(jx, js, impl="interpret", block_rows=8)
     got = ops.rmsnorm(x, sc)
     _check_kernel(got, want, 2e-2)
+    lanes = _rmsnorm_lanes_emulation(x.reshape(-1, shape[-1]),
+                                     sc).reshape(shape)
+    _check_kernel(lanes, want, 2e-2)
+    _check_kernel(lanes, jref.rmsnorm(jx, js), 2e-2)
 
 
 # -- check_operand's refusals --------------------------------------------------------

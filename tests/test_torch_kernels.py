@@ -654,12 +654,13 @@ def test_rmsnorm_block_sums_match_reference(rows, d, width, tol):
 
 
 def test_rmsnorm_load_width_and_launch_shape_follow_rows_and_pointers():
-    """The wrapper moves 16 bytes a load only where d % 4 == 0 and x and
-    scale start on 16-byte boundaries, gives a thread four vectors of x
-    and four of scale while a row has at most 4096 vectors, and gives a
-    block two rows from 512 rows up; the choice needs no card."""
-    from repro_torch.kernels.rmsnorm import (launch_shape, load_width,
-                                             rows_per_block)
+    """The wrapper moves 16 bytes a load only where d % 4 == 0 (8 in
+    bfloat16) and x and scale start on 16-byte boundaries, gives a thread
+    of the block kernel four vectors of x and four of scale while a row
+    has at most 4096 vectors, and gives a block two rows from 512 rows up;
+    the row kernel two vectors a lane; the choice needs no card."""
+    from repro_torch.kernels.rmsnorm import (lane_shape, launch_shape,
+                                             load_width, rows_per_block)
     x, w = torch.zeros(3, 4096), torch.zeros(4096)
     assert load_width(x, w) == 4
     assert load_width(torch.zeros(3 * 4096 + 1)[1:].view(3, 4096), w) == 1
@@ -677,6 +678,66 @@ def test_rmsnorm_load_width_and_launch_shape_follow_rows_and_pointers():
     assert launch_shape(1, 1) == (32, 4)
     assert [rows_per_block(r) for r in (1, 65, 511, 512, 1024, 8192)] == [
         1, 1, 1, 2, 2, 2]
+    # bfloat16: 16 bytes are 8 values, whatever the scale's dtype
+    bf = torch.bfloat16
+    xb, wb = torch.zeros(3, 4096, dtype=bf), torch.zeros(4096, dtype=bf)
+    assert load_width(xb, wb) == 8
+    assert load_width(xb, w) == 8                   # a float32 scale
+    assert load_width(torch.zeros(3 * 4096 + 1, dtype=bf)[1:].view(3, 4096),
+                      wb) == 1
+    assert load_width(xb, torch.zeros(4097)[1:]) == 1
+    assert load_width(torch.zeros(2, 100, dtype=bf),
+                      torch.zeros(100, dtype=bf)) == 1
+    assert launch_shape(4096, 8) == (128, 4)        # the block kernel's
+    # the row kernel: two vectors a lane
+    assert lane_shape(1024, 8) == (64, 2)           # two warps
+    assert lane_shape(4096, 8) == (256, 2)
+    assert lane_shape(7168, 8) == (448, 2)
+    assert lane_shape(8192, 8) == (512, 2)
+    assert lane_shape(64, 8) == (32, 2)
+
+
+@pytest.mark.parametrize("rows,d,dtype,width,kernel", [
+    # 16-byte bfloat16: the row kernel, at every row count
+    *[(r, d, "bf16", 8, "row") for d in (1024, 4096)
+      for r in (1, 16, 128, 256, 512, 1024, 8192)],
+    *[(r, 7168, "bf16", 8, "row")
+      for r in (1, 128, 512, 791, 792, 1024, 3008, 8192)],
+    (1, 8192, "bf16", 8, "row"), (8192, 8192, "bf16", 8, "row"),
+    (8192, 2048, "bf16", 8, "row"),
+    # single values a load, and float32: the block kernel
+    (3, 4096, "bf16", 1, "block"), (7, 100, "bf16", 1, "block"),
+    (8192, 7168, "bf16", 1, "block"),
+    *[(r, d, "f32", 4, "block") for r, d in (
+        (1, 4096), (1024, 4096), (8192, 4096), (1, 1024), (3008, 7168))],
+    (5, 99, "f32", 1, "block")])
+def test_rmsnorm_launch_plan_picks_the_kernel(rows, d, dtype, width, kernel):
+    """``launch_plan`` picks each kernel from the dtype and the load
+    width, with the shapes ``launch_shape`` / ``lane_shape`` give and the
+    block kernel's rows a block from the row count; the choice needs no
+    card."""
+    from repro_torch.kernels import rmsnorm as rms
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    plan = rms.launch_plan(rows, d, dt, width)
+    if kernel == "block":
+        assert plan == rms.Plan(rms.BLOCK, *rms.launch_shape(d, width),
+                                rms.rows_per_block(rows))
+    else:
+        assert plan == rms.Plan(rms.ROW, *rms.lane_shape(d, width), 1)
+    assert rms.launch_plan(rows, d, dt) == rms.launch_plan(
+        rows, d, dt, 16 // dt.itemsize)
+
+
+@pytest.mark.parametrize("x_dtype,scale_dtype,takes", [
+    ("bf16", "bf16", True), ("bf16", "f32", True), ("f32", "f32", True),
+    ("f32", "bf16", False)])
+def test_rmsnorm_scale_dtypes(x_dtype, scale_dtype, takes):
+    """The kernels take a float32 or bfloat16 scale over bfloat16 rows, as
+    the reference's kernel does, and only a float32 scale over float32
+    rows: the rule the wrapper checks, on the CPU."""
+    from repro_torch.kernels.rmsnorm import scale_dtypes
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    assert (dt[scale_dtype] in scale_dtypes(dt[x_dtype])) == takes
 
 
 def test_rmsnorm_is_the_reference_layer_function():
