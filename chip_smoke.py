@@ -297,6 +297,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1403,7 +1404,207 @@ def serve(cfg, frames_min: int = 16):
           f"(L={cfg.num_layers} x {forwards} DiT forwards)")
     assert launches == expected, "the main path did not run the kernels " \
         "exactly once per DiT layer"
+    served_graphs(services, cfg)
     return launches
+
+
+def graphs_held(services) -> int:
+    """The block-call graphs ``services`` hold, over their shards."""
+    return sum(len(g) for svc in services.values() for g in svc.graphs)
+
+
+def own_kernel(name: str):
+    """The ``LAUNCHES`` name of a profiled kernel of the DiT's sources
+    (either adaLN form, attention), from its demangled or mangled name
+    (adaLN's last template argument is its epilogue flag); else None."""
+    if "flash_kernel" in name or "flash_wgmma_kernel" in name:
+        return "flash_attention"
+    if "adaln_kernel" not in name and "adaln_rows_kernel" not in name:
+        return None
+    args = re.search(r"adaln(?:_rows)?_kernel<([^>]*)>", name)
+    if args is not None:
+        epilogue = args.group(1).split(",")[-1].strip() in ("true", "1")
+    else:
+        flags = re.findall(r"Lb([01])E", name)
+        if not flags:
+            return "adaln_norm (form unread)"
+        epilogue = flags[-1] == "1"
+    return "adaln_norm_epilogue" if epilogue else "adaln_norm"
+
+
+def kernel_counts(fn, tries: int = 3):
+    """The kernels one ``fn()`` launches on the card, by name with their
+    count, from ``torch.profiler``; a session that records no device
+    event (seen now and then on the card) is run again, up to ``tries``
+    sessions."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    names = collections.Counter()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = collections.Counter(
+            e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        if names:
+            break
+    return names
+
+
+def _short(name: str) -> str:
+    return name.split("<")[0].split("(")[0].split()[-1].split("::")[-1] \
+        if "<" in name or "(" in name else name
+
+
+def served_graphs(services, cfg, host_runs: int = 20):
+    """Phase 6's graphs: for every (service, bucket) the trace served,
+    ``run_batch`` by replay against ``run_block_batched`` called eagerly
+    on the same staged rows (bit for bit; else the kernels of both sides
+    are printed and the gap held to STEP_TOL), the launches the replay
+    added against its capture's record and against the kernels the
+    profiler sees in one replay; then for each bucket the host ms of one
+    block call eagerly and by replay (rows copied in, the call, both
+    outputs copied back, synchronously, as ``run_batch`` does; and the
+    host's enqueue alone) and the device ms of one call both ways."""
+    import collections
+    import numpy as np
+    import torch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models.gdm import run_block_batched
+    rng = np.random.default_rng(11)
+    timed = {}
+    n_graphs = graphs_held(services)
+    for s, svc in services.items():
+        graphs = svc.graphs[0]
+        buckets = sorted(b for b, masked in graphs.keys() if not masked)
+        assert buckets and len(graphs) == len(graphs.keys()), \
+            (s, graphs.keys(), len(graphs))
+        for bucket in buckets:
+            entry = graphs.entry((bucket, False))
+            assert entry is not None, f"no graph at bucket {bucket}"
+            record = collections.Counter(name for name, _ in entry.record)
+            states = [svc.init_state(rng) for _ in range(bucket)]
+            blocks = np.arange(bucket) % svc.num_blocks
+            before = dict(LAUNCHES)
+            got, _ = svc.run_batch(states, blocks)
+            added = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                     if LAUNCHES[k] != before[k]}
+            assert added == dict(record) == {
+                k: cfg.num_layers for k in ("adaln_norm",
+                                            "adaln_norm_epilogue",
+                                            "flash_attention")}, \
+                (bucket, added, record)
+            staged = [t.cuda() for t, _ in svc._staging(bucket)]
+            with torch.no_grad():
+                want = [w.cpu().numpy() for w in run_block_batched(
+                    svc.model, *staged[:2], svc.schedule, staged[2],
+                    steps_per_block=svc.steps_per_block,
+                    total_steps=svc.num_blocks * svc.steps_per_block)]
+            err = max(float(np.abs(g[key] - w[i]).max())
+                      for i, g in enumerate(got)
+                      for key, w in zip(("latent", "x0"), want))
+            # the profiler now and then loses a replay's last kernels
+            # (seen on the card): a session short of the record is run
+            # again, up to three
+            for sessions in range(1, 4):
+                replay = kernel_counts(entry.graph.replay)
+                own = collections.Counter()
+                for name, n in replay.items():
+                    if own_kernel(name) is not None:
+                        own[own_kernel(name)] += n
+                if own == record or any(own[k] > record[k] for k in own):
+                    break
+            if err != 0.0 or own != record:
+                with torch.no_grad():
+                    eager = kernel_counts(lambda: graphs.fn(*staged))
+                for side, names in (("replay", replay), ("eager", eager)):
+                    print(f"  service {s} bucket {bucket}, {side}: "
+                          + ", ".join(f"{_short(k)} x{n}"
+                                      for k, n in sorted(names.items())))
+            print(f"service {s} bucket {bucket}: run_batch by replay vs "
+                  f"run_block_batched eagerly on the staged rows, max|diff| "
+                  f"{err:.3e} ({'bit for bit' if err == 0 else 'NOT bit for bit, tolerance ' + str(STEP_TOL)}); "
+                  f"the replay added {sum(added.values())} launches = its "
+                  f"record; the profiler sees {sum(replay.values())} "
+                  f"kernels in one replay, {dict(own)} of them the port's "
+                  f"(profiler sessions: {sessions})")
+            assert own == record, (s, bucket, dict(own), dict(record))
+            assert err <= STEP_TOL, (s, bucket, err)
+            if bucket not in timed:
+                timed[bucket] = block_call_times(svc, bucket, host_runs)
+    for bucket, t in sorted(timed.items()):
+        print(f"block call at bucket {bucket}, full width: host "
+              f"{t['eager_host_ms']:.4f} ms eagerly, "
+              f"{t['replay_host_ms']:.4f} ms by replay (rows in, call, "
+              f"outputs back; median of {host_runs}); enqueue alone "
+              f"{t['eager_enqueue_ms']:.4f} ms eagerly, "
+              f"{t['replay_enqueue_ms']:.4f} ms by replay; device "
+              f"{t['eager_device_ms']:.4f} ms eagerly, "
+              f"{t['replay_device_ms']:.4f} ms by replay")
+    print(f"graphs captured over phase 6: {n_graphs} (one per service and "
+          f"bucket served); peak device memory after the checks "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return timed
+
+
+def failed_capture_raises() -> None:
+    """A capture that fails (a read back to the host inside it) raises and
+    keeps no graph.  Run last: PyTorch skips the caching allocator's end
+    of the capture when the capture's end fails, so the allocator goes on
+    taking the capture stream's allocations into the graph's pool and no
+    longer empties its cache (seen on the card: run in phase 6, it left
+    phase 19 out of memory with most of the card reserved and free)."""
+    import torch
+    from repro_torch.graphs import Graphs
+    failing = Graphs(lambda x: x * float(x.sum().item()))
+    try:
+        failing("read back", "cuda", torch.ones(4))
+        raised = None
+    except RuntimeError as err:             # torch.AcceleratorError
+        raised = err
+    assert raised is not None and not failing.keys(), \
+        "a capture that reads back did not raise"
+    print(f"a capture that reads back raised {type(raised).__name__} and "
+          f"kept no graph")
+
+
+def block_call_times(svc, bucket: int, host_runs: int):
+    """Host and device ms of ``svc``'s block call at ``bucket`` on its
+    staged rows, eagerly and by replay (see :func:`served_graphs`)."""
+    import torch
+    key, dev = (bucket, False), svc.device
+    graphs = svc.graphs[0]
+    entry = graphs.entry(key)
+    staged = [t for t, _ in svc._staging(bucket)]
+    on_card = [t.to(dev) for t in staged]
+    ways = {"eager": lambda: graphs.fn(*(t.to(dev, non_blocking=True)
+                                         for t in staged)),
+            "replay": lambda: graphs(key, dev, *staged)}
+    out = {}
+    with torch.no_grad():
+        for way, call in ways.items():
+            walls, enqueues = [], []
+            for _ in range(host_runs + 3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = call()
+                t1 = time.perf_counter()
+                for o in outs:
+                    o.cpu()
+                walls.append(time.perf_counter() - t0)
+                enqueues.append(t1 - t0)
+            out[f"{way}_host_ms"] = statistics.median(walls[3:]) * 1e3
+            out[f"{way}_enqueue_ms"] = statistics.median(enqueues[3:]) * 1e3
+        out["eager_device_ms"] = device_ms(lambda: graphs.fn(*on_card),
+                                           runs=5, reps=1,
+                                           sleep_cycles=60_000_000)
+        out["replay_device_ms"] = device_ms(entry.graph.replay, runs=10,
+                                            reps=5)
+    return out
 
 
 # -- phase 7: LM steps, card vs CPU ---------------------------------------------
@@ -2307,11 +2508,13 @@ def agent_vs_cpu(card: str, updates: int = 50, act_envs: int = 8,
                          float(np.abs(q["cpu"]).max()))
 
     q0, err0 = q_err()
+    q_graph_vs_eager(agents["card"], obs, "at start")
     losses = {side: [] for side in agents}
     for _ in range(updates):
         for side, agent in agents.items():
             losses[side].append(agent.train_step())
     q1, err1 = q_err()
+    q_graph_vs_eager(agents["card"], obs, f"after {updates} updates")
     rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"],
                                                 losses["cpu"])]
     final = {side: {k: p.detach().cpu() for k, p in a.params.items()}
@@ -2375,6 +2578,7 @@ def agent_vs_cpu(card: str, updates: int = 50, act_envs: int = 8,
         host_act.append(time.perf_counter() - t0)
     med = {k: statistics.median(v) * 1e3 for k, v in (
         ("update", host_upd), ("step", host_step), ("act", host_act))}
+    acts = act_host_ms(agent, obs)
     # last: the profiler may leave the host slower after it
     kernels, kernel_ms = profile_kernels(lambda: agent.update(batch))
     print(f"{card}: an update takes {upd_ms:.4f} ms of device time (batch "
@@ -2385,8 +2589,64 @@ def agent_vs_cpu(card: str, updates: int = 50, act_envs: int = 8,
           f"takes {med['step']:.4f} ms; a forward at E={act_envs} takes "
           f"{act_ms:.4f} ms of device time, a greedy act_batch "
           f"{med['act']:.4f} ms on the host's clock")
+    for e, (eager, replay) in acts.items():
+        print(f"{card}: a greedy act at E={e} takes {eager:.4f} ms on the "
+              f"host's clock with Q eagerly, {replay:.4f} ms with Q by "
+              f"replay (act_batch; median of {TIMED_RUNS})")
     return {"update_ms": upd_ms, "act_ms": act_ms, **{
         f"host_{k}_ms": v for k, v in med.items()}}
+
+
+def q_graph_vs_eager(agent, obs, when: str, sizes=(1, 8)):
+    """The agent's Q from its graph (``q_values``, a replay from the second
+    call at a batch size on) against ``qnet_apply`` called eagerly on the
+    same observations: bit for bit at each E of ``sizes``."""
+    import numpy as np
+    import torch
+    from repro_torch.rl.networks import qnet_apply
+    for e in sizes:
+        x = obs[:e]
+        agent.q_values(x)
+        got = agent.q_values(x)
+        assert agent.q_graphs.entry(x.shape) is not None, e
+        with torch.no_grad():
+            want = qnet_apply(agent.net, torch.from_numpy(x).cuda()).cpu()
+        err = float(np.abs(got - want.numpy()).max())
+        print(f"Q at E={e} {when}: by replay vs eagerly, max|diff| "
+              f"{err:.3e} (bit for bit)")
+        assert np.array_equal(got, want.numpy()), (e, when, err)
+
+
+def act_host_ms(agent, obs, sizes=(1, 8)):
+    """{E: (host ms of a greedy act with Q computed eagerly, with Q by
+    replay)}, medians of TIMED_RUNS, each ending with the actions on the
+    host."""
+    import torch
+    from repro_torch.rl.d3ql import masked_argmax
+    from repro_torch.rl.networks import qnet_apply
+
+    def eager(x):
+        with torch.no_grad():
+            q = qnet_apply(agent.net, torch.from_numpy(x).to(agent.device))
+        return masked_argmax(q.cpu().numpy(), None)
+
+    out = {}
+    for e in sizes:
+        x = obs[:e]
+        times = {}
+        for way, act in (("eager", eager),
+                         ("replay", lambda x: agent.act_batch(x,
+                                                              greedy=True))):
+            act(x)
+            walls = []
+            for _ in range(TIMED_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                act(x)
+                walls.append(time.perf_counter() - t0)
+            times[way] = statistics.median(walls) * 1e3
+        out[e] = (times["eager"], times["replay"])
+    return out
 
 
 # -- phase 12: Fig. 3 on the card -----------------------------------------------------
@@ -2736,7 +2996,10 @@ def closed_loop(cfg, card: str, train_eps: int = 48, num_envs: int = 8):
     launches = dict(LAUNCHES)
     calls = {s: svc.batch_calls for s, svc in services.items()}
     peak = torch.cuda.max_memory_allocated()
-    print(f"peak device memory {peak / 2**30:.3f} GiB; batch_calls {calls}")
+    print(f"peak device memory {peak / 2**30:.3f} GiB; batch_calls {calls}; "
+          f"{graphs_held(services)} block-call graphs held (per service "
+          f"and bucket), the learned agent's Q graphs "
+          f"{len(ctrl.agent.q_graphs)}")
     for name, (stats, _, engine) in results.items():
         assert stats["completed"] == len(engine.completed) > 0, \
             f"{name} completed nothing"
@@ -2913,7 +3176,9 @@ def fleet(cfg, card: str, cells: int = 4, train_eps: int = 48,
     print(f"SlotBatch on the card: {slot['steps']} steps of the continuous "
           f"full-chain run held against run_batch on the same states, "
           f"{slot['rows']} rows, max |diff| {slot['err']:.3e} (tolerance "
-          f"0: bit for bit); peak device memory {peak / 2**30:.3f} GiB")
+          f"0: bit for bit); peak device memory {peak / 2**30:.3f} GiB with "
+          f"{graphs_held(services)} block-call graphs held (per service, "
+          f"bucket and path: run_batch's or SlotBatch's)")
     for name, (stats, cluster, (ctrl, log), calls, launched, _) in \
             results.items():
         assert stats["completed"] > 0, f"{name} completed nothing"
@@ -6913,6 +7178,7 @@ def main(argv) -> int:
     for name in list(sources):
         if name.endswith("_bf16"):
             sources[name] = sources[name[:-len("_bf16")]]
+    failed_capture_raises()
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the "
           "kernels' build included")
     print(json.dumps({"kernels": [

@@ -19,6 +19,12 @@ kernel's call gives its outputs' shapes and runs nothing, and on the CPU
 under a counter the plain version runs as one autograd node
 (:func:`unlaunched`), so that a step counts the same on the meta device,
 the CPU and the card.
+
+A CUDA graph's capture runs each wrapper's Python once and launches
+nothing; each replay launches every captured kernel and runs no wrapper.
+So a capture runs inside :func:`recorded`, which keeps its launches out
+of ``LAUNCHES`` and out of every counter, and each replay adds them
+through :func:`replayed` (:mod:`repro_torch.graphs`).
 """
 import contextlib
 import functools
@@ -48,6 +54,9 @@ def variant(name: str, t: torch.Tensor) -> str:
 # (repro_torch.distributed.op_cost.count pushes and pops them)
 METERS: list = []
 
+# the launch records being collected, innermost last (recorded)
+RECORDS: list = []
+
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -62,9 +71,33 @@ def charge(name: str, work) -> None:
 
 
 def launched(name: str, work) -> None:
-    """Where a wrapper has launched its kernel: one launch and its charge."""
+    """Where a wrapper has launched its kernel: one launch and its charge,
+    or, inside :func:`recorded`, one entry of the record."""
+    if RECORDS:
+        RECORDS[-1].append((name, work))
+        return
     LAUNCHES[name] += 1
     charge(name, work)
+
+
+@contextlib.contextmanager
+def recorded():
+    """Collect, as a list of ``(name, work)``, the launches that wrappers
+    report inside (a CUDA graph's capture, which launches nothing): they
+    count in no ``LAUNCHES`` entry and charge no counter."""
+    record: list = []
+    RECORDS.append(record)
+    try:
+        yield record
+    finally:
+        RECORDS.pop()
+
+
+def replayed(record) -> None:
+    """One replay of the graph whose capture gave ``record``: each of its
+    launches counted and charged as :func:`launched` does."""
+    for name, work in record:
+        launched(name, work)
 
 
 def opaque(fn):

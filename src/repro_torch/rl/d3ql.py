@@ -11,9 +11,10 @@ Only the Q-nets, the sampled batch and the update live on the device.
 Acting keeps the reference's numpy ``rng`` stream in its order (the explore
 draw per env, then the (E, U, A) uniforms only when some env explores),
 computes Q on the device, copies it back once and applies the numpy
-:func:`masked_argmax` last.  The fused engine acts on the device instead
-(:func:`fused_act`, from injected uniforms) and updates through
-:func:`d3ql_update` on nets it is handed.
+:func:`masked_argmax` last.  The Q call is captured once per batch size as
+a CUDA graph (:mod:`repro_torch.graphs`), as the reference jits it.  The
+fused engine acts on the device instead (:func:`fused_act`, from injected
+uniforms) and updates through :func:`d3ql_update` on nets it is handed.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.graphs import Graphs
 from repro_torch.optim import adamw, apply_updates, clip_by_global_norm
 from repro_torch.rl.networks import QNet, qnet_apply, qnet_init
 from repro_torch.rl.replay import ReplayMemory
@@ -167,6 +169,9 @@ class D3QLAgent:
         self.epsilon = 1.0
         self.steps = 0
         self.rng = np.random.default_rng(cfg.seed)
+        # Q of the online net, one graph per batch size (q_values)
+        self.q_graphs = Graphs(self._online_q)
+        self._q_bound: tuple = ()
 
     # -- acting --------------------------------------------------------------
 
@@ -182,10 +187,21 @@ class D3QLAgent:
 
     def q_values(self, obs_hist: np.ndarray) -> np.ndarray:
         """Q (E, U, A) of the online net, computed on the device and copied
-        back to the host (one synchronisation)."""
+        back to the host (one synchronisation).  On the card the forward
+        replays its graph for E (``q_graphs``).  A graph reads the net's
+        parameters where it captured them: updates write them in place and
+        show in the next replay, but a net or parameter bound anew (the
+        parameters' addresses change) clears the graphs first."""
+        bound = tuple(p.data_ptr() for p in self.net.parameters())
+        if bound != self._q_bound:
+            self.q_graphs.clear()
+            self._q_bound = bound
+        x = torch.from_numpy(np.asarray(obs_hist, np.float32))
         with torch.no_grad():
-            x = torch.from_numpy(np.asarray(obs_hist, np.float32))
-            return qnet_apply(self.net, x.to(self.device)).cpu().numpy()
+            return self.q_graphs(x.shape, self.device, x).cpu().numpy()
+
+    def _online_q(self, x: torch.Tensor) -> torch.Tensor:
+        return qnet_apply(self.net, x)
 
     def act_batch(self, obs_hist: np.ndarray, *, greedy: bool = False,
                   mask: Optional[np.ndarray] = None) -> np.ndarray:

@@ -10,7 +10,9 @@ block across nodes.  Two contracts back the engine:
   :func:`repro_torch.models.gdm.run_block_batched` call over the stacked
   latents (requests may sit at different chain depths).  ``batch_calls``
   counts those device calls.  Batches are padded to the reference's
-  buckets, so the kernels see the same shapes the reference compiled for.
+  buckets, and the call is captured once per bucket as a CUDA graph
+  (``graphs``, :mod:`repro_torch.graphs`) and replayed after, as the
+  reference jits it once per bucket.
 * **quality Ω(k)** — measured from the model itself via
   :func:`repro_torch.models.gdm.quality_per_block`, made monotone by running
   max; or given (the Ω a reference service measured, so both sides of a
@@ -40,7 +42,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (batch_shardings, gather,
-                                              mesh_devices, split)
+                                              mesh_devices)
+from repro_torch.graphs import Graphs
 from repro_torch.models.gdm import (LATENT_CHANNELS, DiT, init_gdm,
                                     make_schedule, quality_per_block,
                                     run_block_batched)
@@ -103,6 +106,10 @@ class GDMService:
                     copy.deepcopy(self.model).to(dev),
                     {k: v.to(dev) for k, v in self.schedule.items()})
         self._shard_models = [replicas[d] for d in self._devices()]
+        # the block call per shard, captured per (bucket, masked or not)
+        # on the shard's device: the reference's jitted runner
+        self.graphs = [Graphs(self._block_call(model, schedule))
+                       for model, schedule in self._shard_models]
         # persistent per-bucket host staging buffers, pinned when the model
         # is on the card so the copies in are asynchronous (see run_batch)
         self._buffers: Dict[int, Tuple[Tuple[torch.Tensor, np.ndarray], ...]] = {}
@@ -142,10 +149,17 @@ class GDMService:
     def instrument(self, metrics, sample_every: int = 16) -> None:
         """Attach a :class:`repro_torch.serving.tracing.MetricsRegistry`:
         device calls are wall-clocked into ``gdm_run_batch_ms`` (steady
-        state) or ``gdm_compile_ms`` (the first call at a new bucket, which
-        pays the kernels' first launch at that shape; also counted in
-        ``gdm_compile_events``), as the reference names them.  Attach
+        state: replays) or ``gdm_compile_ms`` (the first call at a new
+        bucket: the eager call and the capture of its graph; also counted
+        in ``gdm_compile_events``), as the reference names them.  Attach
         BEFORE serving traffic so the first-seen set is honest.
+
+        The first-seen set is keyed by bucket, as the reference's by
+        (impl, bucket), so the counters equal the reference's for any
+        sequence of calls.  Its one executable serves both batch paths;
+        here :class:`SlotBatch`'s masked call is a graph of its own, and
+        its first capture at a bucket that ``run_batch`` has already seen
+        (or the reverse) counts as a steady call.
 
         The call copies its result back to the host before it returns, so
         the wall clock brackets the device work with no extra
@@ -162,20 +176,31 @@ class GDMService:
         return [self.device] if self.mesh is None else \
             mesh_devices(self.mesh)
 
-    def _split(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """``x``'s rows split over the shards, each on its device."""
-        if self.mesh is None:
-            return [x.to(self.device, non_blocking=True)]
-        return split(x, self.mesh, self._data.spec)
+    def _block_call(self, model, schedule):
+        """One shard's block call: (latent, prompt, block indices[, keep])
+        -> (new latent, x0).  With ``keep`` (bool, a row each) the new
+        latents are also written into ``latent`` at the rows it marks
+        (SlotBatch's masked write-back)."""
+        spb, total = self.steps_per_block, self.num_blocks * \
+            self.steps_per_block
+
+        def call(lat, pr, idx, keep=None):
+            latent, x0 = run_block_batched(model, lat, pr, schedule, idx,
+                                           steps_per_block=spb,
+                                           total_steps=total)
+            if keep is not None:
+                lat.copy_(torch.where(keep[:, None, None], latent, lat))
+            return latent, x0
+        return call
 
     def _call(self, lat, pr, idx_t, keep=None):
         """The one device call both batch paths (:meth:`run_batch`,
-        :meth:`SlotBatch.step`) issue, on per-shard latents and prompts and
-        the (bucket,) host block indices, results copied back to numpy in
-        row order; wall-clocked when instrumented.  With ``keep`` (a
-        (bucket,) bool tensor) the new latents are also written into
-        ``lat`` at the rows it marks, on the device (SlotBatch's masked
-        write-back)."""
+        :meth:`SlotBatch.step`) issue, on per-shard latents and prompts (on
+        the host, or resident on the shard's device) and the (bucket,)
+        pinned host block indices, results copied back to numpy in row
+        order; wall-clocked when instrumented.  With ``keep`` (a (bucket,)
+        pinned bool tensor) the new latents are also written into ``lat``
+        at the rows it marks, on the device."""
         if self.metrics is None:
             return self._device_call(lat, pr, idx_t, keep)
         m = self.metrics
@@ -199,22 +224,20 @@ class GDMService:
         return out
 
     def _device_call(self, lat, pr, idx_t, keep=None):
-        keeps = [None] * len(lat) if keep is None else self._split(keep)
+        key = (int(idx_t.shape[0]), keep is not None)
+        extra = [()] * self._ndev if keep is None else \
+            [(k,) for k in keep.chunk(self._ndev)]
         outs = []
         with torch.no_grad():
             # every shard's work is enqueued before anything is read back
-            for (model, schedule), l, p, i, k in zip(
-                    self._shard_models, lat, pr, self._split(idx_t), keeps):
-                latent, x0 = run_block_batched(
-                    model, l, p, schedule, i,
-                    steps_per_block=self.steps_per_block,
-                    total_steps=self.num_blocks * self.steps_per_block)
-                if k is not None:
-                    l.copy_(torch.where(k[:, None, None], latent, l))
-                outs.append((latent, x0))
+            for graphs, dev, l, p, i, k in zip(
+                    self.graphs, self._devices(), lat, pr,
+                    idx_t.chunk(self._ndev), extra):
+                outs.append(graphs(key, dev, l, p, i, *k))
             # fresh host arrays every call: the returned states keep views
-            # of them, and the synchronous copy back also means the staging
-            # buffers are free again when this returns
+            # of them, and a replay overwrites its graph's outputs; the
+            # synchronous copy back also means the staging buffers are
+            # free again when this returns
             return tuple(gather([o[j] for o in outs], self._data.spec,
                                 "cpu").numpy() for j in (0, 1))
 
@@ -284,7 +307,8 @@ class GDMService:
             pr_np[i] = s["prompt"]
         idx_np[:b] = np.asarray(block_idxs, np.int32)
         idx_np[b:] = 0
-        latent, x0 = self._call(self._split(lat_t), self._split(pr_t), idx_t)
+        latent, x0 = self._call(lat_t.chunk(self._ndev),
+                                pr_t.chunk(self._ndev), idx_t)
         self.batch_calls += 1
         out = [dict(s, latent=latent[i], x0=x0[i])
                for i, s in enumerate(states)]

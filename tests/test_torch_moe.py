@@ -401,7 +401,7 @@ def test_six_train_steps_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch", [GRANITE, JAMBA])
-def test_six_compressed_train_steps_match_reference(arch):
+def test_six_compressed_train_steps_match_reference(arch, monkeypatch):
     """Six steps with int8 error-feedback compression (an ``ef_state``
     given, so the step compresses and returns it), each from the
     reference's state of the step before (parameters, moments and
@@ -413,12 +413,24 @@ def test_six_compressed_train_steps_match_reference(arch):
     (the payload itself is bit-exact on equal inputs:
     ``test_compress_grads_is_bit_exact_over_steps``).  Such elements are
     counted, must sit within 1e-3 of the boundary on the port's side, and
-    are left out of the comparison of that step's update."""
+    are left out of the comparison of that step's update.  The ratios
+    ``g / scale`` are read from the gradients the step itself quantizes
+    (its call of ``compress_grads``), not computed a second time."""
     cfg, params, jstep, tstep, data = _train_pair(arch, True)
     jstate = jopt.adamw(3e-4)[0](params)
     jef = jcomp.init_error_feedback(params)
     periods = cfg.num_layers // len(tlm.layer_pattern(cfg))
     flips = 0
+    quantized = {}
+    compress = tsteps.compress_grads
+
+    def seen(grads, ef, groups=None):
+        # the port's quantization inputs, as compress_grads forms them
+        quantized["xs"] = {k: g.detach().float() + ef.residual[k]
+                           for k, g in grads.items()}
+        return compress(grads, ef, groups)
+
+    monkeypatch.setattr(tsteps, "compress_grads", seen)
     for step in range(6):
         model = lm_from_jax(_np_tree(params), cfg, device="cpu")
         named = tsteps.trainable(model)
@@ -427,21 +439,19 @@ def test_six_compressed_train_steps_match_reference(arch):
                                _port_dict(jstate.nu, periods))
         tef = tcomp.EFState(_port_dict(jef.residual, periods))
         batch = data.batch_at(step)
+        params, jstate, jmet, jef = jstep(params, jstate, {
+            k: jnp.asarray(v) for k, v in batch.items()}, jef)
+        model, tstate, tmet, tef = tstep(model, tstate, _torch_batch(batch),
+                                         tef)
         # the port's quantization inputs g / scale, from its own gradients
-        total, _ = tlm.lm_loss(model, _torch_batch(batch))
-        grads = torch.autograd.grad(total, list(named.values()))
-        xs = {name: g.detach() + tef.residual[name]
-              for name, g in zip(named, grads)}
+        xs = quantized.pop("xs")
+        assert list(xs) == list(named)
         ratio, scale = {}, {}
         for names in tsteps._leaf_groups(xs):     # one scale a leaf
             amax = max(float(xs[n].abs().max()) for n in names)
             for n in names:
                 scale[n] = amax / 127
                 ratio[n] = xs[n].numpy() / scale[n]
-        params, jstate, jmet, jef = jstep(params, jstate, {
-            k: jnp.asarray(v) for k, v in batch.items()}, jef)
-        model, tstate, tmet, tef = tstep(model, tstate, _torch_batch(batch),
-                                         tef)
         for key in ("loss", "aux", "grad_norm", "perplexity"):
             _close(tmet[key], jmet[key])
         want_r = _port_dict(jef.residual, periods)
